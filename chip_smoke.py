@@ -5,20 +5,27 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. the card's name and power limit; build both CUDA kernels from
+1. the card's name and power limit; build every CUDA source under
    ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, all
-   at once) and print the build seconds and ptxas reports;
+   at once) and print the build seconds and ptxas reports; count the
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
+   tensor-core flash library's SASS, and fail if either is 0;
 2. relayout: the CUDA kernel against its plain twin, bit for bit, at the
    paged-KV shape of the serve phase and on the paper's layout pairs;
-3. flash attention: the CUDA kernel against its plain twin at the serve
-   phase's prefill shape, plus an f32 windowed case, a D=80 GQA case and
-   a D=256 case, within the stated tolerances;
-4. serve: a ``repro_torch.launch.serve.Server`` at yi-6b's full width
+3. flash attention: each case through the kernel its route names
+   (``wgmma`` for bf16/f16 with D a multiple of 16, ``simt`` otherwise)
+   against the plain twin, within the stated tolerances: the serve
+   phase's prefill shape, a 4096-token prefill, f32 windowed cases,
+   ragged, GQA and head-dim cases; at the two prefill shapes the
+   CUDA-core kernel is timed beside the tensor-core one;
+4. f32 attention: ``flash_attention`` called on f32 inputs at yi-6b's
+   heads, the path that takes the CUDA-core kernel;
+5. serve: a ``repro_torch.launch.serve.Server`` at yi-6b's full width
    (depth cut to 8 layers, ``attn_impl="flash"``, random weights from a
    seed): weight multicast, KV-prefix registration and multicast, then
-   8 requests through ``run()``; both kernels' launch counters must move
-   and the flash prefill logits must agree with the reference
-   attention's.
+   8 requests through ``run()``; both kernels' launch counters must move,
+   every flash launch must take the ``wgmma`` route, and the flash
+   prefill logits must agree with the reference attention's.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -72,10 +80,12 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
+def device_ms(fn, kernel: str | None, iters: int = 20) -> float | None:
     """Device time of ``kernel`` per call of ``fn``, from the profiler's
-    CUDA trace (None when the trace holds no such kernel)."""
+    CUDA trace; ``kernel=None`` sums every CUDA kernel of the call (None
+    when the trace holds no such kernel)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -86,7 +96,9 @@ def device_ms(fn, kernel: str, iters: int = 20) -> float | None:
         torch.cuda.synchronize()
     total_us = sum(
         getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        for e in prof.key_averages() if kernel in e.key
+        for e in prof.key_averages()
+        if (kernel is None and e.device_type == DeviceType.CUDA)
+        or (kernel is not None and kernel in e.key)
     )
     return total_us / iters / 1e3 if total_us else None
 
@@ -137,6 +149,7 @@ def relayout_phase() -> dict:
             "device_ms": device_ms(lambda: R.relayout(x, shape, src, dst), "relayout_kernel"),
             "plain_ms": time_ms(lambda: R.relayout_ref(x, shape, src, dst)),
             "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library, None),
             "bound_ms": 2 * nbytes(x) / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": float((got.double() - want.double()).abs().max()),
         }
@@ -155,20 +168,33 @@ def flash_phase() -> dict:
         # (name, B, H, Hkv, S, D, dtype, causal, window): the serve
         # phase's prefill shape (yi-6b heads, S=512) first
         ("yi6b_prefill", 1, 32, 4, 512, 128, torch.bfloat16, True, None),
+        ("yi6b_prefill_4k", 1, 32, 4, 4096, 128, torch.bfloat16, True, None),
+        ("yi6b_prefill_f32", 1, 32, 4, 512, 128, torch.float32, True, None),
         ("f32_window", 2, 4, 2, 384, 64, torch.float32, True, 48),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, torch.float32, False, 100),
         ("d80_gqa", 1, 8, 2, 256, 80, torch.bfloat16, True, None),
         ("d256", 1, 2, 1, 128, 256, torch.float32, True, None),
+        ("ragged_449_window", 1, 8, 1, 449, 128, torch.bfloat16, True, 48),
+        ("d192_noncausal", 1, 4, 2, 300, 192, torch.bfloat16, False, None),
+        ("f16_d16", 2, 4, 1, 96, 16, torch.float16, True, None),
+        ("bf16_d40", 1, 4, 2, 160, 40, torch.bfloat16, True, None),
     ]
-    main = None
+    # the CUDA-core kernel timed beside the tensor-core one at these shapes
+    timed_simt = {"yi6b_prefill", "yi6b_prefill_4k"}
+    recs = {}
     for name, B, H, Hkv, S, D, dtype, causal, window in cases:
         q = torch.randn((B, H, S, D), device="cuda", generator=gen).to(dtype)
         k = torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(dtype)
         v = torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(dtype)
         kw = dict(causal=causal, window=window)
+        route = FA._route(dtype, D)
+        before = dict(FA.flash_attention.launches_by_route)
         got = FA.flash_attention(q, k, v, **kw)
         want = FA.flash_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in FA.flash_attention.launches_by_route.items()}
+        if moved != {r: int(r == route) for r in moved}:
+            raise AssertionError(f"flash {name}: route {route} but launches moved {moved}")
         if got.dtype != q.dtype or got.shape != q.shape:
             raise AssertionError(f"flash {name}: output {got.dtype} {tuple(got.shape)}")
         if not torch.isfinite(got).all():
@@ -196,25 +222,66 @@ def flash_phase() -> dict:
                     q, k, v, is_causal=causal, enable_gqa=True)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
+        kernel_name = "flash_fwd_sm90_kernel" if route == "wgmma" else "flash_fwd_kernel"
         pairs = int(mask.sum())  # (row, col) pairs this input needs
         flops = 4 * D * B * H * pairs  # QK^T and PV, 2 flops per MAC
         io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         t_ops = flops / PEAK_OPS_PER_S[dt]
         t_bytes = io_bytes / HBM_BYTES_PER_S
         rec = {
-            "name": name, "shape": [B, H, Hkv, S, D], "dtype": dt,
+            "name": name, "route": route, "shape": [B, H, Hkv, S, D], "dtype": dt,
             "causal": causal, "window": window, "atol": atol, "rtol": rtol,
             "ms": time_ms(lambda: FA.flash_attention(q, k, v, **kw)),
-            "device_ms": device_ms(lambda: FA.flash_attention(q, k, v, **kw), "flash_fwd_kernel"),
+            "device_ms": device_ms(lambda: FA.flash_attention(q, k, v, **kw), kernel_name),
             "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw)),
             "library_ms": time_ms(library),
+            "library_device_ms": device_ms(library, None),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": float(err.max()),
         }
+        if name in timed_simt:
+            scale = D ** -0.5
+            simt = FA._launch("simt", q, k, v, causal=causal, window=window, scale=scale)
+            torch.cuda.synchronize()
+            simt_err = float((simt.float() - want.float()).abs().max())
+            if not simt_err <= atol + rtol * float(want.float().abs().max()):
+                raise AssertionError(f"flash {name}: simt kernel max abs err {simt_err}")
+            run_simt = lambda: FA._launch(  # noqa: E731
+                "simt", q, k, v, causal=causal, window=window, scale=scale)
+            rec["simt_ms"] = time_ms(run_simt)
+            rec["simt_device_ms"] = device_ms(run_simt, "flash_fwd_kernel")
         print("flash", json.dumps(rec), flush=True)
-        main = main or rec
-    return main
+        recs[name] = rec
+    return recs
+
+
+def f32_attention_path() -> dict:
+    """``flash_attention`` on f32 inputs at yi-6b's heads (S=512, causal),
+    as a caller of the kernel entry point with f32 activations makes it:
+    the path of the CUDA-core route. Returns the launch counts of the
+    run, counted from 0."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((1, 32, 512, 128), device="cuda", generator=gen)
+    k = torch.randn((1, 4, 512, 128), device="cuda", generator=gen)
+    v = torch.randn((1, 4, 512, 128), device="cuda", generator=gen)
+    want = FA.flash_attention_plain(q, k, v)
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    got = FA.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    by_route = dict(FA.flash_attention.launches_by_route)
+    atol, rtol = TOL["float32"]
+    err = (got - want).abs()
+    bad = int((err > atol + rtol * want.abs()).sum())
+    print(f"f32 path: launches {by_route}, max abs err vs plain {float(err.max()):.3g}",
+          flush=True)
+    if by_route != {"wgmma": 0, "simt": 1} or bad:
+        raise AssertionError(f"f32 path: launches {by_route}, {bad} elements beyond tolerance")
+    return by_route
 
 
 def serve_phase() -> dict:
@@ -251,6 +318,7 @@ def serve_phase() -> dict:
 
     R.relayout.launches = 0
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     torch.cuda.reset_peak_memory_stats()
     spans = {}
     t0 = time.perf_counter()
@@ -270,13 +338,15 @@ def serve_phase() -> dict:
     torch.cuda.synchronize()
     spans["run_s"] = out["wall_s"]
     launches = {"relayout": R.relayout.launches, "flash_attention": FA.flash_attention.launches}
+    by_route = dict(FA.flash_attention.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print("serve: weight multicast", json.dumps(wrec), flush=True)
     print("serve: kv multicast", json.dumps(entry.broadcast), flush=True)
     print("serve: run", json.dumps(out), flush=True)
     print(f"serve: wall_s {out['wall_s']:.3f} tokens/s {out['tokens_per_s']:.2f} "
-          f"peak memory {peak_gb:.1f} GB launches {launches}", flush=True)
+          f"peak memory {peak_gb:.1f} GB launches {launches} flash by route {by_route}",
+          flush=True)
     print("serve: spans", json.dumps(spans), flush=True)
 
     if out["served"] != len(reqs) or not all(len(r.out) == 32 for r in reqs):
@@ -292,6 +362,8 @@ def serve_phase() -> dict:
         raise AssertionError("KV multicast did not reach every replica")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if by_route != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise AssertionError(f"flash launches {launches['flash_attention']} by route {by_route}")
 
     # flash vs reference attention on one prompt, same weights
     toks = torch.as_tensor(prompts[-1], device="cuda")[None]
@@ -310,7 +382,7 @@ def serve_phase() -> dict:
     if d > LOGIT_REL_TOL * scale:
         raise AssertionError(f"flash prefill logits differ by {d} (> {LOGIT_REL_TOL} x {scale})")
     profile_run(server, [prompts[0], prompts[-1]])
-    return launches
+    return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"]}
 
 
 def profile_run(server, prompts) -> None:
@@ -358,12 +430,21 @@ def main() -> int:
         used = sorted({line.split(":", 1)[-1].strip() for line in logtext.splitlines()
                        if "Used" in line or "spill stores" in line})
         print(f"ptxas {name}: {'; '.join(used)}", flush=True)
+        for line in logtext.splitlines():
+            if "Performance Loss" in line or "warning" in line.lower():
+                print(f"ptxas {name}: {line.strip()}", flush=True)
+    sass = _build.sass("flash_attention_sm90")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
+    print(f"sass flash_attention_sm90: {json.dumps(counts)}", flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"flash_attention_sm90 SASS lacks wgmma or TMA: {counts}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     relayout_rec = relayout_phase()
-    flash_rec = flash_phase()
-    launches = serve_phase()
+    flash_recs = flash_phase()
+    launches = {"flash_attention_simt": f32_attention_path()["simt"]}
+    launches.update(serve_phase())
 
     def row(name, source, replaces, rec, bound_by):
         return {
@@ -371,16 +452,19 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": bound_by, "library_ms": rec["library_ms"],
-            "device_ms": rec["device_ms"],
+            "device_ms": rec["device_ms"], "library_device_ms": rec["library_device_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
         }
 
+    flash_replaces = "src/repro/kernels/flash_attention/kernel.py:100"
+    wgmma_rec, simt_rec = flash_recs["yi6b_prefill"], flash_recs["yi6b_prefill_f32"]
     kernels = [
         row("relayout", "src/repro_torch/csrc/relayout.cu",
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes"),
-        row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention/kernel.py:100", flash_rec,
-            flash_rec["bound_by"]),
+        row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
+            flash_replaces, wgmma_rec, wgmma_rec["bound_by"]),
+        row("flash_attention_simt", "src/repro_torch/csrc/flash_attention.cu",
+            flash_replaces, simt_rec, simt_rec["bound_by"]),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

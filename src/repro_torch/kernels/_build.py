@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("relayout", "flash_attention")
+SOURCES = ("relayout", "flash_attention", "flash_attention_sm90")
 
 # Loaded libraries, one per source: a process-wide resource, like an import.
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -95,6 +95,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def sass(name: str) -> str:
+    """The machine code of ``csrc/<name>.cu``'s built library, as
+    ``cuobjdump -sass`` prints it (built first if needed)."""
+    build((name,))
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run(
+        [str(tool), "-sass", str(library_path(name))],
+        capture_output=True, text=True, check=True,
+    ).stdout
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

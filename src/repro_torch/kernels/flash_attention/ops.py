@@ -1,12 +1,22 @@
-"""Public entry point for the flash-attention kernel
-(``csrc/flash_attention.cu``) and its plain PyTorch twin.
+"""Public entry point for the flash-attention kernels and their plain
+PyTorch twin.
 
 ``flash_attention`` runs :func:`flash_attention_plain` for CPU tensors
-and launches the CUDA kernel for CUDA tensors; there is no other path.
-Both keep the JAX entry's contract: ``block_q``/``block_k`` default to
-512, are capped at S, and must divide S (``ValueError`` otherwise), so
-callers behave alike on every backend. The CUDA kernel's own 64-row
-tiles mask the ragged edge and need not divide S.
+and launches a CUDA kernel for CUDA tensors; there is no other path.
+Which kernel is a plain function of dtype and head dim, :func:`_route`:
+
+* ``"wgmma"`` — ``csrc/flash_attention_sm90.cu``: bf16/f16 with D a
+  multiple of 16 in [16, 256], both products on the tensor cores (wgmma,
+  TMA, warp-specialised);
+* ``"simt"`` — ``csrc/flash_attention.cu``: f32 (kept in full f32: the
+  TPU kernel computes f32 inputs in f32, which TF32 tensor cores would
+  not), and 16-bit inputs whose D is a multiple of 8 but not of 16.
+
+A launch error raises; no route gives way to another or to the twin.
+Both routes keep the JAX entry's contract: ``block_q``/``block_k``
+default to 512, are capped at S, and must divide S (``ValueError``
+otherwise), so callers behave alike on every backend. The kernels' own
+64-row tiles mask the ragged edge and need not divide S.
 """
 
 from __future__ import annotations
@@ -21,17 +31,36 @@ from .ref import NEG_INF, attention_ref
 __all__ = ["flash_attention", "flash_attention_plain", "attention_ref"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# route -> (source under csrc/, C entry point)
+_KERNELS = {
+    "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
+    "simt": ("flash_attention", "flash_attention_launch"),
+}
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _route(dtype: torch.dtype, D: int) -> str:
+    """The kernel a CUDA call with this dtype and head dim launches."""
+    if dtype not in _DTYPES:
+        raise TypeError(
+            f"flash_attention: dtype {dtype}; the kernels take float32, bfloat16 "
+            "or float16"
+        )
+    if D % 8 or not 8 <= D <= 256:
+        raise ValueError(f"flash_attention: head dim {D} must be a multiple of 8 in [8, 256]")
+    if dtype != torch.float32 and D % 16 == 0:
+        return "wgmma"
+    return "simt"
+
+
+def _fn(route: str):
+    source, entry = _KERNELS[route]
+    fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def _check(q, k, v, block_q, block_k):
@@ -108,6 +137,28 @@ def flash_attention_plain(
     return out.reshape(B, H, S, D).to(q.dtype)
 
 
+def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
+    """Launch the kernel of ``route`` on checked CUDA tensors; counts the
+    launch in ``flash_attention.launches`` and ``launches_by_route``."""
+    B, H, S, D = q.shape
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the wgmma route needs 16-byte aligned q, k, v")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _fn(route)(
+            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
+            B, H, k.shape[1], S, D, int(causal), int(window is not None),
+            int(window) if window is not None else 0, scale, _DTYPES[q.dtype],
+            _build.stream_ptr(q),
+        )
+    if err:
+        raise RuntimeError(f"flash_attention {route} kernel launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
+    return o
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -121,9 +172,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Blockwise attention, (B, H, S, D) x (B, Hkv, S, D)^2 -> (B, H, S, D).
 
-    CUDA tensors: the hand-written kernel (f32 / bf16 / f16, D a
-    multiple of 8 up to 256, contiguous inputs). CPU tensors: the plain
-    twin :func:`flash_attention_plain`.
+    CUDA tensors: the hand-written kernel that :func:`_route` names
+    (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous inputs).
+    CPU tensors: the plain twin :func:`flash_attention_plain`.
     """
     if q.device.type == "cpu":
         return flash_attention_plain(
@@ -136,31 +187,18 @@ def flash_attention(
             f"flash_attention: q, k, v must share one CUDA device "
             f"(got {q.device}, {k.device}, {v.device})"
         )
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; the kernel "
             "takes one of float32, bfloat16, float16 for all three"
         )
-    B, H, S, D = q.shape
-    if D % 8 or not 8 <= D <= 256:
-        raise ValueError(f"flash_attention: head dim {D} must be a multiple of 8 in [8, 256]")
+    D = q.shape[-1]
+    route = _route(q.dtype, D)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     scale = float(D ** -0.5) if scale is None else float(scale)
-    o = torch.empty_like(q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
-            B, H, k.shape[1], S, D, int(causal), int(window is not None),
-            int(window) if window is not None else 0, scale, _DTYPES[q.dtype],
-            _build.stream_ptr(q),
-        )
-    if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    flash_attention.launches += 1
-    return o
+    return _launch(route, q, k, v, causal=causal, window=window, scale=scale)
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}

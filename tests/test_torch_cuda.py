@@ -8,7 +8,10 @@ PyTorch:
 
 Tolerances for flash attention: bf16/f16 outputs may differ from the
 f32-accumulating twin by one rounding of the output (2e-2 abs + 1e-2
-rel for bf16, 2e-3 for f16); f32 by the reordering of f32 sums (1e-4).
+rel for bf16, 2e-3 for f16) — on the wgmma route P is also rounded to
+16 bits before P V, which stays well inside that; f32 by the reordering
+of f32 sums (1e-4). Each flash case also checks which route's launch
+counter moved.
 The relayout kernel moves bytes only and must match bit for bit.
 """
 
@@ -92,14 +95,84 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hkv, S, D, dtype, causal, window
     v = torch.randn((B, Hkv, S, D), device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, block_q=blocks[0], block_k=blocks[1])
     before = FA.flash_attention.launches
+    by_route = dict(FA.flash_attention.launches_by_route)
     got = FA.flash_attention(q, k, v, **kw)
     want = FA.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert FA.flash_attention.launches == before + 1
+    route = FA._route(dtype, D)
+    by_route[route] += 1
+    assert FA.flash_attention.launches_by_route == by_route
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
     atol, rtol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+_BF16 = torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,dtype,causal,window",
+    [
+        # head dims on the tensor-core route (D is padded to a multiple of 64)
+        (1, 4, 2, 256, 64, _BF16, True, None),
+        (1, 4, 2, 256, 80, _BF16, True, None),
+        (1, 4, 2, 256, 128, _BF16, True, None),
+        (1, 2, 1, 128, 256, _BF16, True, None),
+        # ragged S (not a multiple of the 64-row tiles), causal and window 48
+        *[(1, 4, 1, S, 128, _BF16, True, w) for S in (200, 300, 449) for w in (None, 48)],
+        (1, 4, 2, 300, 64, _BF16, False, 48),
+        # GQA groups 1, 4 and 8
+        (1, 4, 4, 192, 128, _BF16, True, None),
+        (2, 8, 2, 192, 128, _BF16, True, None),
+        (1, 8, 1, 192, 128, _BF16, True, None),
+        # f16, the smallest head dim
+        (2, 4, 1, 96, 16, torch.float16, True, None),
+        # S <= 64: one tile, with and without the causal mask
+        (1, 4, 2, 48, 64, _BF16, True, None),
+        (1, 2, 2, 64, 128, _BF16, False, None),
+    ],
+)
+def test_flash_wgmma_route_matches_plain(cuda, B, H, Hkv, S, D, dtype, causal, window):
+    """The tensor-core kernel against the plain twin; only the wgmma
+    counter moves."""
+    q = torch.randn((B, H, S, D), device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, S, D), device=cuda).to(dtype)
+    v = torch.randn((B, Hkv, S, D), device=cuda).to(dtype)
+    assert FA._route(dtype, D) == "wgmma"
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {
+        "wgmma": by_route["wgmma"] + 1, "simt": by_route["simt"]}
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_16bit_odd_head_dim_takes_simt(cuda):
+    """bf16 with D = 40 (a multiple of 8, not of 16): the CUDA-core kernel."""
+    q = torch.randn((1, 4, 160, 40), device=cuda).to(_BF16)
+    k = torch.randn((1, 2, 160, 40), device=cuda).to(_BF16)
+    v = torch.randn((1, 2, 160, 40), device=cuda).to(_BF16)
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches_by_route == {
+        "wgmma": by_route["wgmma"], "simt": by_route["simt"] + 1}
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+def test_flash_wgmma_route_rejects_misaligned(cuda):
+    """TMA needs 16-byte aligned bases: a view 2 bytes in raises."""
+    base = torch.randn(1 + 2 * 64 * 64, device=cuda).to(_BF16)
+    q = base[1:].reshape(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(q, q, q)
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(cuda):
@@ -122,6 +195,7 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     sc = ServeConfig(batch=2, prompt_len=24, max_seq=48, replicas=3, page_size=8)
     server = Server(sc, device=cuda, model_cfg=cfg)
     R.relayout.launches = FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
     server.register_prefix(prefix)
@@ -130,6 +204,8 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     out = server.run(reqs)
     assert out["served"] == 2 and all(len(r.out) == 4 for r in reqs)
     assert R.relayout.launches == 3 and FA.flash_attention.launches > 0
+    assert FA.flash_attention.launches_by_route == {
+        "wgmma": FA.flash_attention.launches, "simt": 0}
 
     cpu_params = map_tree(lambda t: t.cpu(), server.params)
     toks = torch.as_tensor(reqs[1].prompt)[None]

@@ -142,3 +142,36 @@ def test_ref_bf16_matches_jax():
     got = t_ref(tq, tk, tv, causal=True, window=20)
     assert got.dtype == torch.bfloat16
     _close(got, j_ref(jq, jk, jv, causal=True, window=20), BF16_TOL)
+
+
+@pytest.mark.parametrize("D", [16, 32, 48, 64, 80, 96, 128, 192, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_route_16bit_multiple_of_16_is_wgmma(dtype, D):
+    assert TF._route(getattr(torch, dtype), D) == "wgmma"
+
+
+@pytest.mark.parametrize("D", [8, 16, 24, 40, 64, 128, 256])
+def test_route_f32_is_simt(D):
+    assert TF._route(torch.float32, D) == "simt"
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 200])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_route_16bit_other_head_dims_are_simt(dtype, D):
+    assert TF._route(getattr(torch, dtype), D) == "simt"
+
+
+@pytest.mark.parametrize("D", [0, 4, 12, 20, 264, 272, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_rejects_head_dims_no_kernel_takes(dtype, D):
+    with pytest.raises(ValueError, match="head dim"):
+        TF._route(getattr(torch, dtype), D)
+
+
+def test_route_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        TF._route(torch.float64, 64)
+
+
+def test_launch_counters_per_route():
+    assert set(TF.flash_attention.launches_by_route) == {"wgmma", "simt"}
