@@ -10,8 +10,14 @@ Phases (any failure exits non-zero and prints no result):
    at once) and print the build seconds and ptxas reports; count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
    tensor-core flash library's SASS, and fail if either is 0;
-2. relayout: the CUDA kernel against its plain twin, bit for bit, at the
-   paged-KV shape of the serve phase and on the paper's layout pairs;
+2. relayout: each case through the route the wrapper names (``copy``,
+   ``staged`` or ``direct``) against its plain twin, bit for bit: the
+   paged-KV shape of the serve phase, the paper's layout pairs, two
+   cases beyond the 50 MB L2 and a misaligned one; the SASS of
+   ``relayout`` must hold no call of the 64-bit division subroutine.
+   Each case is timed hot (back-to-back calls, data in L2) and cold
+   (L2 flushed before every call); only the cold reading is held
+   against the HBM bound, and one over 105% of it fails the run;
 3. flash attention: each case through the kernel its route names
    (``wgmma`` for bf16/f16 with D a multiple of 16, ``simt`` otherwise)
    against the plain twin, within the stated tolerances: the serve
@@ -24,11 +30,15 @@ Phases (any failure exits non-zero and prints no result):
    (depth cut to 8 layers, ``attn_impl="flash"``, random weights from a
    seed): weight multicast, KV-prefix registration and multicast, then
    8 requests through ``run()``; both kernels' launch counters must move,
-   every flash launch must take the ``wgmma`` route, and the flash
+   every flash launch must take the ``wgmma`` route, every relayout
+   launch the ``copy`` route, and the flash
    prefill logits must agree with the reference attention's.
 
 Then one JSON line with every kernel's launches, times, bound and error,
-and, as the last line, ``{"ok": true, "device": {...}}``.
+and, as the last line, ``{"ok": true, "device": {...}}``. In every case
+of phases 2 and 3 the event times of the kernel and of its library call
+(``ms``, ``library_ms``) are medians of 9 readings taken in turns
+(``paired_ms``).
 """
 
 from __future__ import annotations
@@ -80,27 +90,79 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None, iters: int = 20) -> float | None:
-    """Device time of ``kernel`` per call of ``fn``, from the profiler's
-    CUDA trace; ``kernel=None`` sums every CUDA kernel of the call (None
-    when the trace holds no such kernel)."""
+def paired_ms(fn_a, fn_b, rounds: int = 9) -> tuple[float, float]:
+    """Event times of two calls compared within one run: ``time_ms`` of
+    each in turns (a b, b a, ...), and the median of each over
+    ``rounds`` turns. One 20-call reading of a host-bound call can vary
+    by 2x from the next on this machine's shared host cores."""
+    import statistics
+
+    a, b = [], []
+    for r in range(rounds):
+        for fn, out in ((fn_a, a), (fn_b, b)) if r % 2 == 0 else ((fn_b, b), (fn_a, a)):
+            out.append(time_ms(fn))
+    return statistics.median(a), statistics.median(b)
+
+
+def _cuda_keys(fn) -> set[str]:
+    """Names of the CUDA kernels (and copies) one call of ``fn`` runs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def device_ms(fn, kernel: str | None, iters: int = 20, flush=None) -> float | None:
+    """Device time of ``kernel`` per call of ``fn``, from the profiler's
+    CUDA trace; ``kernel=None`` sums every CUDA kernel of the call (None
+    when the trace holds no such kernel). With ``flush``, it runs before
+    every call, and its own kernels are left out of the sum by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    skip = _cuda_keys(flush) if flush is not None else set()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     total_us = sum(
         getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
         for e in prof.key_averages()
-        if (kernel is None and e.device_type == DeviceType.CUDA)
+        if (kernel is None and e.device_type == DeviceType.CUDA and e.key not in skip)
         or (kernel is not None and kernel in e.key)
     )
     return total_us / iters / 1e3 if total_us else None
+
+
+FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def l2_flush():
+    """A call that leaves none of a case's bytes in L2: it reads a
+    256 MiB buffer (a read, so the lines it leaves are clean and the
+    next kernel pays no write-back for them)."""
+    import torch
+
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    return lambda: buf.sum()
+
+
+def div64_calls(sass: str) -> int:
+    """Subroutine calls in ``cuobjdump -sass`` output. The relayout
+    kernels call no function of their own, so a call there is one the
+    compiler inserted: the 64-bit integer division/remainder routine,
+    which cuobjdump shows as an unnamed ``CALL.REL.NOINC <address>``."""
+    return sum(1 for line in sass.splitlines() if re.search(r"\bCALL\.", line))
 
 
 def relayout_phase() -> dict:
@@ -112,23 +174,41 @@ def relayout_phase() -> dict:
         return t.numel() * t.element_size()
 
     gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = l2_flush()
     cases = [
-        # (name, shape, src, dst, dtype): the serve phase's paged-KV
-        # relayout first (plen 384, F = 8 layers * 2 * 4 kv heads * 128)
-        ("paged_kv", (384, 8192), (1, 8192), (8, 8192), torch.bfloat16),
-        ("MNM16N8->MNM8N8", (2048, 192), (16, 8), (8, 8), torch.float32),
-        ("MNM16N8->MNM64N16", (2048, 192), (16, 8), (64, 16), torch.float32),
-        ("MNM8N8->MNM16N16", (2048, 192), (8, 8), (16, 16), torch.float32),
-        ("MNM16N8->MNM8N8 int8", (2048, 192), (16, 8), (8, 8), torch.int8),
+        # (name, shape, src, dst, dtype, element offset, route): the serve
+        # phase's paged-KV relayout first (plen 384, F = 8 layers * 2 *
+        # 4 kv heads * 128)
+        ("paged_kv", (384, 8192), (1, 8192), (8, 8192), torch.bfloat16, 0, "copy"),
+        ("MNM16N8->MNM8N8", (2048, 192), (16, 8), (8, 8), torch.float32, 0, "staged"),
+        ("MNM16N8->MNM64N16", (2048, 192), (16, 8), (64, 16), torch.float32, 0, "staged"),
+        ("MNM8N8->MNM16N16", (2048, 192), (8, 8), (16, 16), torch.float32, 0, "staged"),
+        ("MNM16N8->MNM8N8 int8", (2048, 192), (16, 8), (8, 8), torch.int8, 0, "staged"),
+        # beyond L2: 64 MiB a side
+        ("MNM16N8->MNM8N8 int8 large", (8192, 8192), (16, 8), (8, 8), torch.int8, 0, "staged"),
+        ("MNM16N8->MNM64N16 bf16 large", (8192, 4096), (16, 8), (64, 16), torch.bfloat16, 0,
+         "staged"),
+        # the paged-KV shape one element past an aligned address
+        ("paged_kv misaligned", (384, 8192), (1, 8192), (8, 8192), torch.bfloat16, 1, "direct"),
     ]
     main = None
-    for name, shape, src, dst, dtype in cases:
+    for name, shape, src, dst, dtype, offset, route in cases:
         M, N = shape
         dense = (torch.randn(shape, device="cuda", generator=gen) * 8).to(dtype)
-        x = R.dense_to_blocked(dense, src)
+        blocked = R.dense_to_blocked(dense, src)
+        if offset:
+            base = torch.empty(blocked.numel() + offset, dtype=dtype, device="cuda")
+            base[offset:].copy_(blocked.reshape(-1))
+            x = base[offset:].view(blocked.shape)
+        else:
+            x = blocked
+        before = dict(R.relayout.launches_by_route)
         got = R.relayout(x, shape, src, dst)
         want = R.relayout_ref(x, shape, src, dst)
         torch.cuda.synchronize()
+        moved = {r: n - before[r] for r, n in R.relayout.launches_by_route.items()}
+        if moved != {r: int(r == route) for r in moved}:
+            raise AssertionError(f"relayout {name}: route {route} but launches moved {moved}")
         if not torch.equal(got.view(torch.uint8), want.view(torch.uint8)):
             raise AssertionError(f"relayout {name}: kernel differs from relayout_ref")
         if name == "paged_kv":
@@ -143,16 +223,32 @@ def relayout_phase() -> dict:
 
         if not torch.equal(library().view(torch.uint8), want.view(torch.uint8)):
             raise AssertionError(f"relayout {name}: library expression differs")
+        kernel = lambda: R.relayout(x, shape, src, dst)  # noqa: E731
+        kernel_ms, library_ms = paired_ms(kernel, library)
         rec = {
-            "name": name, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
-            "ms": time_ms(lambda: R.relayout(x, shape, src, dst)),
-            "device_ms": device_ms(lambda: R.relayout(x, shape, src, dst), "relayout_kernel"),
+            "name": name, "route": route, "shape": list(shape), "src": list(src),
+            "dst": list(dst), "dtype": str(dtype).split(".")[-1], "offset": offset,
+            "plan": R._plan(shape, src, dst, x.element_size(), x.data_ptr() % 16,
+                            got.data_ptr() % 16, R._SMS[0]).info,
+            "ms": kernel_ms,
+            "device_ms_hot": device_ms(kernel, "relayout_"),
+            "device_ms_cold": device_ms(kernel, "relayout_", flush=flush),
             "plain_ms": time_ms(lambda: R.relayout_ref(x, shape, src, dst)),
-            "library_ms": time_ms(library),
-            "library_device_ms": device_ms(library, None),
+            "library_ms": library_ms,
+            "library_device_ms_hot": device_ms(library, None),
+            "library_device_ms_cold": device_ms(library, None, flush=flush),
             "bound_ms": 2 * nbytes(x) / HBM_BYTES_PER_S * 1e3,
             "max_abs_err": float((got.double() - want.double()).abs().max()),
         }
+        rec["device_ms"] = rec["device_ms_hot"]
+        rec["library_device_ms"] = rec["library_device_ms_hot"]
+        for key in ("device_ms_cold", "library_device_ms_cold"):
+            share = rec["bound_ms"] / rec[key]
+            rec[key.replace("ms_cold", "cold_share_of_bound")] = share
+            if share > 1.05:
+                raise AssertionError(
+                    f"relayout {name}: {key} {rec[key]} ms is {share:.0%} of the HBM "
+                    f"bound {rec['bound_ms']} ms: the L2 flush did not take")
         print("relayout", json.dumps(rec), flush=True)
         main = main or rec
     return main
@@ -223,6 +319,8 @@ def flash_phase() -> dict:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
         kernel_name = "flash_fwd_sm90_kernel" if route == "wgmma" else "flash_fwd_kernel"
+        kernel = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+        kernel_ms, library_ms = paired_ms(kernel, library)
         pairs = int(mask.sum())  # (row, col) pairs this input needs
         flops = 4 * D * B * H * pairs  # QK^T and PV, 2 flops per MAC
         io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -231,10 +329,10 @@ def flash_phase() -> dict:
         rec = {
             "name": name, "route": route, "shape": [B, H, Hkv, S, D], "dtype": dt,
             "causal": causal, "window": window, "atol": atol, "rtol": rtol,
-            "ms": time_ms(lambda: FA.flash_attention(q, k, v, **kw)),
-            "device_ms": device_ms(lambda: FA.flash_attention(q, k, v, **kw), kernel_name),
+            "ms": kernel_ms,
+            "device_ms": device_ms(kernel, kernel_name),
             "plain_ms": time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw)),
-            "library_ms": time_ms(library),
+            "library_ms": library_ms,
             "library_device_ms": device_ms(library, None),
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -317,6 +415,7 @@ def serve_phase() -> dict:
         prompts.append(p)
 
     R.relayout.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     torch.cuda.reset_peak_memory_stats()
@@ -339,14 +438,15 @@ def serve_phase() -> dict:
     spans["run_s"] = out["wall_s"]
     launches = {"relayout": R.relayout.launches, "flash_attention": FA.flash_attention.launches}
     by_route = dict(FA.flash_attention.launches_by_route)
+    relayout_routes = dict(R.relayout.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     print("serve: weight multicast", json.dumps(wrec), flush=True)
     print("serve: kv multicast", json.dumps(entry.broadcast), flush=True)
     print("serve: run", json.dumps(out), flush=True)
     print(f"serve: wall_s {out['wall_s']:.3f} tokens/s {out['tokens_per_s']:.2f} "
-          f"peak memory {peak_gb:.1f} GB launches {launches} flash by route {by_route}",
-          flush=True)
+          f"peak memory {peak_gb:.1f} GB launches {launches} flash by route {by_route} "
+          f"relayout by route {relayout_routes}", flush=True)
     print("serve: spans", json.dumps(spans), flush=True)
 
     if out["served"] != len(reqs) or not all(len(r.out) == 32 for r in reqs):
@@ -364,6 +464,8 @@ def serve_phase() -> dict:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
     if by_route != {"wgmma": launches["flash_attention"], "simt": 0}:
         raise AssertionError(f"flash launches {launches['flash_attention']} by route {by_route}")
+    if relayout_routes != {"copy": 4, "staged": 0, "direct": 0} or launches["relayout"] != 4:
+        raise AssertionError(f"relayout launches {launches['relayout']} by route {relayout_routes}")
 
     # flash vs reference attention on one prompt, same weights
     toks = torch.as_tensor(prompts[-1], device="cuda")[None]
@@ -382,7 +484,8 @@ def serve_phase() -> dict:
     if d > LOGIT_REL_TOL * scale:
         raise AssertionError(f"flash prefill logits differ by {d} (> {LOGIT_REL_TOL} x {scale})")
     profile_run(server, [prompts[0], prompts[-1]])
-    return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"]}
+    return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"],
+            "relayout_by_route": relayout_routes}
 
 
 def profile_run(server, prompts) -> None:
@@ -438,6 +541,11 @@ def main() -> int:
     print(f"sass flash_attention_sm90: {json.dumps(counts)}", flush=True)
     if min(counts.values()) == 0:
         raise AssertionError(f"flash_attention_sm90 SASS lacks wgmma or TMA: {counts}")
+    relayout_sass = _build.sass("relayout")
+    div64 = div64_calls(relayout_sass)
+    print(f"sass relayout: {json.dumps({'div64_calls': div64})}", flush=True)
+    if div64:
+        raise AssertionError(f"relayout SASS calls 64-bit division {div64} times")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -446,21 +554,24 @@ def main() -> int:
     launches = {"flash_attention_simt": f32_attention_path()["simt"]}
     launches.update(serve_phase())
 
-    def row(name, source, replaces, rec, bound_by):
+    def row(name, source, replaces, rec, bound_by, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             "device_ms": rec["device_ms"], "library_device_ms": rec["library_device_ms"],
-            "shape": rec["shape"], "dtype": rec["dtype"],
+            "shape": rec["shape"], "dtype": rec["dtype"], **extra,
         }
 
     flash_replaces = "src/repro/kernels/flash_attention/kernel.py:100"
     wgmma_rec, simt_rec = flash_recs["yi6b_prefill"], flash_recs["yi6b_prefill_f32"]
     kernels = [
         row("relayout", "src/repro_torch/csrc/relayout.cu",
-            "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes"),
+            "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
+            launches_by_route=launches["relayout_by_route"],
+            device_ms_cold=relayout_rec["device_ms_cold"],
+            library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"]),
         row("flash_attention_simt", "src/repro_torch/csrc/flash_attention.cu",

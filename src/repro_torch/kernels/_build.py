@@ -108,8 +108,12 @@ def sass(name: str) -> str:
     ).stdout
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device, for a kernel launch."""
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device ``index``, as an integer
+    pointer, without building a ``torch.cuda.Stream`` object."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream

@@ -150,7 +150,7 @@ def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
             ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
             B, H, k.shape[1], S, D, int(causal), int(window is not None),
             int(window) if window is not None else 0, scale, _DTYPES[q.dtype],
-            _build.stream_ptr(q),
+            ctypes.c_void_p(_build.raw_stream(q.device.index)),
         )
     if err:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: CUDA error {err}")

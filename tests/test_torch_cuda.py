@@ -12,7 +12,9 @@ rel for bf16, 2e-3 for f16) — on the wgmma route P is also rounded to
 16 bits before P V, which stays well inside that; f32 by the reordering
 of f32 sums (1e-4). Each flash case also checks which route's launch
 counter moved.
-The relayout kernel moves bytes only and must match bit for bit.
+The relayout kernel moves bytes only and must match bit for bit; each
+relayout case checks which of its three routes (copy, staged, direct)
+launched.
 """
 
 from __future__ import annotations
@@ -67,14 +69,97 @@ def test_relayout_kernel_matches_plain(cuda, shape, src, dst, dtype):
 
 
 def test_relayout_kernel_unaligned_input(cuda):
-    """A contiguous view 2 bytes past an aligned base: the wrapper picks
-    a narrower unit, and the bytes still match."""
+    """A contiguous view 2 bytes past an aligned base: the wrapper takes
+    the direct route with a narrower unit, and the bytes still match."""
     base = torch.randn(1 + 32 * 64, device=cuda).to(torch.bfloat16)
     x = base[1:].reshape(4, 8, 8, 8)  # (32, 64) blocked (8, 8)
+    before = dict(R.relayout.launches_by_route)
     got = R.relayout(x, (32, 64), (8, 8), (16, 16))
     want = R.relayout_ref(x, (32, 64), (8, 8), (16, 16))
     torch.cuda.synchronize()
+    assert _moved(before) == {"copy": 0, "staged": 0, "direct": 1}
     assert torch.equal(got.view(torch.uint8), want.contiguous().view(torch.uint8))
+
+
+def _moved(before):
+    return {r: n - before[r] for r, n in R.relayout.launches_by_route.items()}
+
+
+RELAYOUT_DTYPES = [torch.int8, torch.bfloat16, torch.float32, torch.float64]
+
+
+@pytest.mark.parametrize("dtype", RELAYOUT_DTYPES)
+@pytest.mark.parametrize(
+    "shape,src,dst,offset,route",
+    [
+        ((384, 256), (1, 256), (8, 256), 0, "copy"),  # paged KV
+        ((96, 40), (16, 8), (16, 8), 0, "copy"),  # equal blockings
+        ((24, 201), (1, 201), (8, 201), 0, "copy"),  # a byte tail at int8
+        ((15, 9), (5, 3), (5, 3), 0, "copy"),  # under one block of units, and a tail
+        ((2048, 192), (16, 8), (8, 8), 0, "staged"),  # the paper's layouts
+        ((2048, 192), (16, 8), (64, 16), 0, "staged"),
+        ((2048, 192), (8, 8), (16, 16), 0, "staged"),
+        ((256, 192), (64, 16), (16, 8), 0, "staged"),
+        ((96, 24), (8, 3), (16, 1), 0, "staged"),  # 4-byte-or-narrower pieces
+        ((96, 48), (8, 6), (16, 2), 0, "staged"),
+        ((64, 48), (8, 8), (16, 16), 1, "direct"),  # misaligned by one element
+        ((16, 8192), (2, 8192), (8, 4096), 0, "direct"),  # super-tile beyond shared memory
+    ],
+)
+def test_relayout_route_matches_plain(cuda, shape, src, dst, offset, route, dtype):
+    """Each route at element sizes 1, 2, 4 and 8, bit for bit, with the
+    route's launch counter moving by one."""
+    M, N = shape
+    n = M * N
+    base = (torch.randn(n + offset, device=cuda) * 8).to(dtype)
+    x = base[offset:].view(M // src[0], N // src[1], *src)
+    before = dict(R.relayout.launches_by_route)
+    got = R.relayout(x, shape, src, dst)
+    want = R.relayout_ref(x, shape, src, dst)
+    torch.cuda.synchronize()
+    assert _moved(before) == {r: int(r == route) for r in before}
+    assert torch.equal(got.view(torch.uint8), want.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize(
+    "shape,src,dst,dtype",
+    [
+        ((9684, 28), (4, 4), (1, 4), torch.float32),
+        ((1296, 208), (2, 1), (1, 16), torch.int8),
+        ((432, 208), (1, 16), (2, 4), torch.bfloat16),
+        ((144, 208), (2, 1), (2, 4), torch.float64),
+    ],
+)
+def test_relayout_staged_partial_line_matches_plain(cuda, shape, src, dst, dtype):
+    """Staged tiles whose last 128-byte line is partial, under a swizzle
+    other than the identity (the plan is pinned in
+    test_torch_relayout.py), bit for bit on the staged route."""
+    M, N = shape
+    x = (torch.randn(M * N, device=cuda) * 8).to(dtype).view(M // src[0], N // src[1], *src)
+    before = dict(R.relayout.launches_by_route)
+    got = R.relayout(x, shape, src, dst)
+    want = R.relayout_ref(x, shape, src, dst)
+    torch.cuda.synchronize()
+    assert _moved(before) == {"copy": 0, "staged": 1, "direct": 0}
+    assert torch.equal(got.view(torch.uint8), want.contiguous().view(torch.uint8))
+
+
+@pytest.mark.parametrize(
+    "shape,src,dst,route",
+    [((65552, 32768), (16, 8), (8, 8), "staged"), ((65552, 32768), (1, 32768), (8, 32768), "copy")],
+)
+def test_relayout_over_2_31_bytes_in_bands(cuda, shape, src, dst, route):
+    """An int8 transform of just over 2^31 bytes a side: two launches,
+    each indexing in 32 bits, and every byte matches."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-128, 128, (shape[0] // src[0], shape[1] // src[1]) + src,
+                      dtype=torch.int8, device=cuda, generator=gen)
+    before = dict(R.relayout.launches_by_route)
+    got = R.relayout(x, shape, src, dst)
+    torch.cuda.synchronize()
+    assert _moved(before) == {r: 2 * int(r == route) for r in before}
+    want = R.relayout_ref(x, shape, src, dst)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize(
@@ -195,6 +280,7 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     sc = ServeConfig(batch=2, prompt_len=24, max_seq=48, replicas=3, page_size=8)
     server = Server(sc, device=cuda, model_cfg=cfg)
     R.relayout.launches = FA.flash_attention.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
     FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
@@ -204,6 +290,7 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     out = server.run(reqs)
     assert out["served"] == 2 and all(len(r.out) == 4 for r in reqs)
     assert R.relayout.launches == 3 and FA.flash_attention.launches > 0
+    assert R.relayout.launches_by_route == {"copy": 3, "staged": 0, "direct": 0}
     assert FA.flash_attention.launches_by_route == {
         "wgmma": FA.flash_attention.launches, "simt": 0}
 
