@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
    ``src/repro_torch/csrc`` with ``nvcc`` (one process per source, all
    at once) and print the build seconds and ptxas reports; count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
-   tensor-core flash library's SASS, and fail if either is 0;
+   SASS of both tensor-core flash libraries (for the f32 one, the
+   ``HGMMA`` with ``TF32`` operands), and fail if any count is 0;
 2. relayout: each case through the route the wrapper names (``copy``,
    ``staged`` or ``direct``) against its plain twin, bit for bit: the
    paged-KV shape of the serve phase, the paper's layout pairs, two
@@ -19,13 +20,17 @@ Phases (any failure exits non-zero and prints no result):
    (L2 flushed before every call); only the cold reading is held
    against the HBM bound, and one over 105% of it fails the run;
 3. flash attention: each case through the kernel its route names
-   (``wgmma`` for bf16/f16 with D a multiple of 16, ``simt`` otherwise)
-   against the plain twin, within the stated tolerances: the serve
-   phase's prefill shape, a 4096-token prefill, f32 windowed cases,
-   ragged, GQA and head-dim cases; at the two prefill shapes the
-   CUDA-core kernel is timed beside the tensor-core one;
+   (``wgmma`` for bf16/f16 with D a multiple of 16, ``tf32x3`` for f32
+   with D <= 128, ``simt`` otherwise) against the plain twin, within the
+   stated tolerances: the serve phase's prefill shape and a 4096-token
+   prefill, each in bf16 and in f32, f32 windowed cases, ragged, GQA and
+   head-dim cases; at the four prefill shapes the CUDA-core kernel is
+   timed beside the tensor-core one. f32 cases print two bounds: the
+   CUDA cores' f32 rate and the 3xTF32 rate (the TF32 tensor-core rate
+   over the three products), held as ``bound_ms`` on the tf32x3 route;
 4. f32 attention: ``flash_attention`` called on f32 inputs at yi-6b's
-   heads, the path that takes the CUDA-core kernel;
+   heads (the 3xTF32 tensor-core kernel) and at D = 192 (beyond its
+   shared memory: the CUDA-core kernel);
 5. serve: a ``repro_torch.launch.serve.Server`` at yi-6b's full width
    (depth cut to 8 layers, ``attn_impl="flash"``, random weights from a
    seed): weight multicast, KV-prefix registration and multicast, then
@@ -55,6 +60,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # dense, SXM
+# f32 on the tf32x3 route: three TF32 products per product, at the
+# 495 TFLOP/s dense TF32 rate
+PEAK_OPS_PER_S["tf32x3"] = 495e12 / 3
+# the profiler's name of each flash route's kernels (tf32x3: the split
+# pre-pass and the attention kernel)
+FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_sm90_kernel", "tf32x3": "tf32x3",
+                      "simt": "flash_fwd_kernel"}
 
 # bf16 kernel vs its f32-accumulating plain twin: both round one f32
 # result to bf16, so they differ by at most one bf16 ulp (2^-8 relative)
@@ -266,17 +278,19 @@ def flash_phase() -> dict:
         ("yi6b_prefill", 1, 32, 4, 512, 128, torch.bfloat16, True, None),
         ("yi6b_prefill_4k", 1, 32, 4, 4096, 128, torch.bfloat16, True, None),
         ("yi6b_prefill_f32", 1, 32, 4, 512, 128, torch.float32, True, None),
+        ("yi6b_prefill_4k_f32", 1, 32, 4, 4096, 128, torch.float32, True, None),
         ("f32_window", 2, 4, 2, 384, 64, torch.float32, True, 48),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, torch.float32, False, 100),
         ("d80_gqa", 1, 8, 2, 256, 80, torch.bfloat16, True, None),
         ("d256", 1, 2, 1, 128, 256, torch.float32, True, None),
+        ("f32_d40_ragged", 2, 4, 1, 333, 40, torch.float32, True, None),
         ("ragged_449_window", 1, 8, 1, 449, 128, torch.bfloat16, True, 48),
         ("d192_noncausal", 1, 4, 2, 300, 192, torch.bfloat16, False, None),
         ("f16_d16", 2, 4, 1, 96, 16, torch.float16, True, None),
         ("bf16_d40", 1, 4, 2, 160, 40, torch.bfloat16, True, None),
     ]
     # the CUDA-core kernel timed beside the tensor-core one at these shapes
-    timed_simt = {"yi6b_prefill", "yi6b_prefill_4k"}
+    timed_simt = {"yi6b_prefill", "yi6b_prefill_4k", "yi6b_prefill_f32", "yi6b_prefill_4k_f32"}
     recs = {}
     for name, B, H, Hkv, S, D, dtype, causal, window in cases:
         q = torch.randn((B, H, S, D), device="cuda", generator=gen).to(dtype)
@@ -318,13 +332,13 @@ def flash_phase() -> dict:
                     q, k, v, is_causal=causal, enable_gqa=True)
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
 
-        kernel_name = "flash_fwd_sm90_kernel" if route == "wgmma" else "flash_fwd_kernel"
+        kernel_name = FLASH_KERNEL_NAMES[route]
         kernel = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
         kernel_ms, library_ms = paired_ms(kernel, library)
         pairs = int(mask.sum())  # (row, col) pairs this input needs
         flops = 4 * D * B * H * pairs  # QK^T and PV, 2 flops per MAC
         io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops = flops / PEAK_OPS_PER_S[dt]
+        t_ops = flops / PEAK_OPS_PER_S["tf32x3" if route == "tf32x3" else dt]
         t_bytes = io_bytes / HBM_BYTES_PER_S
         rec = {
             "name": name, "route": route, "shape": [B, H, Hkv, S, D], "dtype": dt,
@@ -338,6 +352,11 @@ def flash_phase() -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": float(err.max()),
         }
+        if dt == "float32":
+            rec["bound_ms_cuda_cores"] = max(flops / PEAK_OPS_PER_S["float32"], t_bytes) * 1e3
+            rec["bound_ms_tf32x3"] = max(flops / PEAK_OPS_PER_S["tf32x3"], t_bytes) * 1e3
+        if route == "tf32x3":
+            rec["split_device_ms"] = device_ms(kernel, "tf32x3_split_kernel")
         if name in timed_simt:
             scale = D ** -0.5
             simt = FA._launch("simt", q, k, v, causal=causal, window=window, scale=scale)
@@ -355,29 +374,36 @@ def flash_phase() -> dict:
 
 
 def f32_attention_path() -> dict:
-    """``flash_attention`` on f32 inputs at yi-6b's heads (S=512, causal),
-    as a caller of the kernel entry point with f32 activations makes it:
-    the path of the CUDA-core route. Returns the launch counts of the
-    run, counted from 0."""
+    """``flash_attention`` on f32 inputs, as a caller of the kernel entry
+    point with f32 activations makes it: at yi-6b's heads (S=512, causal),
+    the path of the 3xTF32 tensor-core route, and at deepseek-v2-lite's
+    query-key head dim 192 (16 heads, S=256), beyond that kernel's shared
+    memory, the path of the CUDA-core route. Returns the launch counts of
+    the run, counted from 0."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q = torch.randn((1, 32, 512, 128), device="cuda", generator=gen)
-    k = torch.randn((1, 4, 512, 128), device="cuda", generator=gen)
-    v = torch.randn((1, 4, 512, 128), device="cuda", generator=gen)
-    want = FA.flash_attention_plain(q, k, v)
+    calls = []
+    for H, Hkv, S, D in ((32, 4, 512, 128), (16, 16, 256, 192)):
+        q = torch.randn((1, H, S, D), device="cuda", generator=gen)
+        k = torch.randn((1, Hkv, S, D), device="cuda", generator=gen)
+        v = torch.randn((1, Hkv, S, D), device="cuda", generator=gen)
+        calls.append((q, k, v, FA.flash_attention_plain(q, k, v)))
     FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
-    got = FA.flash_attention(q, k, v)
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    outs = [FA.flash_attention(q, k, v) for q, k, v, _ in calls]
     torch.cuda.synchronize()
     by_route = dict(FA.flash_attention.launches_by_route)
     atol, rtol = TOL["float32"]
-    err = (got - want).abs()
-    bad = int((err > atol + rtol * want.abs()).sum())
-    print(f"f32 path: launches {by_route}, max abs err vs plain {float(err.max()):.3g}",
-          flush=True)
-    if by_route != {"wgmma": 0, "simt": 1} or bad:
+    bad = 0
+    for got, (q, _, _, want) in zip(outs, calls):
+        err = (got - want).abs()
+        bad += int((err > atol + rtol * want.abs()).sum())
+        print(f"f32 path: D {q.shape[-1]}, max abs err vs plain {float(err.max()):.3g}",
+              flush=True)
+    print(f"f32 path: launches {by_route}", flush=True)
+    if by_route != {"wgmma": 0, "tf32x3": 1, "simt": 1} or bad:
         raise AssertionError(f"f32 path: launches {by_route}, {bad} elements beyond tolerance")
     return by_route
 
@@ -417,7 +443,7 @@ def serve_phase() -> dict:
     R.relayout.launches = 0
     R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
     FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
     torch.cuda.reset_peak_memory_stats()
     spans = {}
     t0 = time.perf_counter()
@@ -462,7 +488,7 @@ def serve_phase() -> dict:
         raise AssertionError("KV multicast did not reach every replica")
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    if by_route != {"wgmma": launches["flash_attention"], "simt": 0}:
+    if by_route != {**dict.fromkeys(FA.ROUTES, 0), "wgmma": launches["flash_attention"]}:
         raise AssertionError(f"flash launches {launches['flash_attention']} by route {by_route}")
     if relayout_routes != {"copy": 4, "staged": 0, "direct": 0} or launches["relayout"] != 4:
         raise AssertionError(f"relayout launches {launches['relayout']} by route {relayout_routes}")
@@ -536,11 +562,21 @@ def main() -> int:
         for line in logtext.splitlines():
             if "Performance Loss" in line or "warning" in line.lower():
                 print(f"ptxas {name}: {line.strip()}", flush=True)
+                # the f32 kernel's software pipeline relies on wgmma not
+                # being serialized
+                if name == "flash_attention_f32_sm90" and "Performance Loss" in line:
+                    raise AssertionError(f"ptxas serializes wgmma in {name}.cu")
     sass = _build.sass("flash_attention_sm90")
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG")}
     print(f"sass flash_attention_sm90: {json.dumps(counts)}", flush=True)
     if min(counts.values()) == 0:
         raise AssertionError(f"flash_attention_sm90 SASS lacks wgmma or TMA: {counts}")
+    sass = _build.sass("flash_attention_f32_sm90")
+    counts = {"HGMMA_TF32": len(re.findall(r"\bHGMMA\.\S*\bTF32\b", sass)),
+              "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass))}
+    print(f"sass flash_attention_f32_sm90: {json.dumps(counts)}", flush=True)
+    if min(counts.values()) == 0:
+        raise AssertionError(f"flash_attention_f32_sm90 SASS lacks tf32 wgmma or TMA: {counts}")
     relayout_sass = _build.sass("relayout")
     div64 = div64_calls(relayout_sass)
     print(f"sass relayout: {json.dumps({'div64_calls': div64})}", flush=True)
@@ -551,7 +587,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     relayout_rec = relayout_phase()
     flash_recs = flash_phase()
-    launches = {"flash_attention_simt": f32_attention_path()["simt"]}
+    f32_routes = f32_attention_path()
+    launches = {"flash_attention_tf32x3": f32_routes["tf32x3"],
+                "flash_attention_simt": f32_routes["simt"]}
     launches.update(serve_phase())
 
     def row(name, source, replaces, rec, bound_by, **extra):
@@ -565,7 +603,8 @@ def main() -> int:
         }
 
     flash_replaces = "src/repro/kernels/flash_attention/kernel.py:100"
-    wgmma_rec, simt_rec = flash_recs["yi6b_prefill"], flash_recs["yi6b_prefill_f32"]
+    wgmma_rec, tf32x3_rec = flash_recs["yi6b_prefill"], flash_recs["yi6b_prefill_f32"]
+    simt_rec = flash_recs["bf16_d40"]
     kernels = [
         row("relayout", "src/repro_torch/csrc/relayout.cu",
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
@@ -574,6 +613,10 @@ def main() -> int:
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"]),
+        row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",
+            flash_replaces, tf32x3_rec, tf32x3_rec["bound_by"],
+            bound_ms_cuda_cores=tf32x3_rec["bound_ms_cuda_cores"],
+            split_device_ms=tf32x3_rec["split_device_ms"]),
         row("flash_attention_simt", "src/repro_torch/csrc/flash_attention.cu",
             flash_replaces, simt_rec, simt_rec["bound_by"]),
     ]

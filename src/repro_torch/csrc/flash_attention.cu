@@ -8,14 +8,12 @@
 // sum and accumulator; the finite sentinel -1e30 (not -inf) for masked
 // scores; a row whose sum is 0 outputs 0; output in q's dtype.
 //
-// Bound on the H100: at the serving prefill shape (yi-6b heads, S = 512,
-// D = 128, bf16, causal) the two floors are close — (2H + 2Hkv) * S * D
-// * 2 bytes = 9.4 MB over 3.35 TB/s is 2.8 us, 4 * D * H * S(S+1)/2 =
-// 2.15 GFLOP over 989 TFLOP/s is 2.2 us — and the operations floor grows
-// as S^2, so longer prompts are bound by the tensor cores. This first
-// kernel does its products on the CUDA cores in f32 (no wgmma, no TMA),
-// so it sits far above either floor; the Hopper redesign (wgmma tiles
-// fed by TMA, warp-specialised) is later work.
+// Route "simt" of ops._route: what the two tensor-core kernels do not
+// take — f32 with D above 128 (csrc/flash_attention_f32_sm90.cu, 3xTF32,
+// takes f32 up to 128) and bf16/f16 with D not a multiple of 16
+// (csrc/flash_attention_sm90.cu takes the rest). It does its products on
+// the CUDA cores in f32 (no wgmma, no TMA), so its floor is the f32
+// CUDA-core rate: 4 * D * H * S(S+1)/2 flops over 67 TFLOP/s.
 //
 // Design: the TPU kernel walks kv blocks as the innermost *sequential*
 // grid axis and carries acc/m/l in VMEM scratch across grid steps. On

@@ -8,12 +8,18 @@ Which kernel is a plain function of dtype and head dim, :func:`_route`:
 * ``"wgmma"`` — ``csrc/flash_attention_sm90.cu``: bf16/f16 with D a
   multiple of 16 in [16, 256], both products on the tensor cores (wgmma,
   TMA, warp-specialised);
-* ``"simt"`` — ``csrc/flash_attention.cu``: f32 (kept in full f32: the
-  TPU kernel computes f32 inputs in f32, which TF32 tensor cores would
-  not), and 16-bit inputs whose D is a multiple of 8 but not of 16.
+* ``"tf32x3"`` — ``csrc/flash_attention_f32_sm90.cu``: f32 with D up to
+  ``TF32X3_MAX_D`` (128), both products on the tensor cores, each split
+  three ways in TF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi), which keeps f32
+  accuracy where one TF32 product would not: the TPU kernel computes f32
+  inputs in f32, and so does this route, within the f32 tolerance;
+* ``"simt"`` — ``csrc/flash_attention.cu``, on the CUDA cores: f32 with
+  D above 128 (its Q and two kv stages in hi/lo parts do not fit in
+  shared memory), and 16-bit inputs whose D is a multiple of 8 but not
+  of 16.
 
 A launch error raises; no route gives way to another or to the twin.
-Both routes keep the JAX entry's contract: ``block_q``/``block_k``
+Every route keeps the JAX entry's contract: ``block_q``/``block_k``
 default to 512, are capped at S, and must divide S (``ValueError``
 otherwise), so callers behave alike on every backend. The kernels' own
 64-row tiles mask the ragged edge and need not divide S.
@@ -28,14 +34,23 @@ import torch
 from .. import _build
 from .ref import NEG_INF, attention_ref
 
-__all__ = ["flash_attention", "flash_attention_plain", "attention_ref"]
+__all__ = ["flash_attention", "flash_attention_plain", "attention_ref", "ROUTES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ROUTES = ("wgmma", "tf32x3", "simt")
 # route -> (source under csrc/, C entry point)
 _KERNELS = {
     "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
+    "tf32x3": ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch"),
     "simt": ("flash_attention", "flash_attention_launch"),
 }
+# The largest f32 head dim the tf32x3 kernel's shared memory holds.
+TF32X3_MAX_D = 128
+# The tf32x3 kernel's P fragment holds score columns (2c, 2c + 1) of each
+# k8 slice where the TF32 A operand expects (c, c + 4); its pre-pass
+# stores each group of 8 kv rows of V^T in this order instead, so that
+# position j of the group holds kv row TF32X3_KV_ORDER[j].
+TF32X3_KV_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 
 def _route(dtype: torch.dtype, D: int) -> str:
@@ -47,18 +62,23 @@ def _route(dtype: torch.dtype, D: int) -> str:
         )
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"flash_attention: head dim {D} must be a multiple of 8 in [8, 256]")
-    if dtype != torch.float32 and D % 16 == 0:
-        return "wgmma"
-    return "simt"
+    if dtype == torch.float32:
+        return "tf32x3" if D <= TF32X3_MAX_D else "simt"
+    return "wgmma" if D % 16 == 0 else "simt"
 
 
 def _fn(route: str):
     source, entry = _KERNELS[route]
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
+        if route == "tf32x3":  # + the two scratch pointers, no dtype
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+                ctypes.c_float, ctypes.c_void_p,
+            ]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
         fn.restype = ctypes.c_int
     return fn
 
@@ -141,17 +161,24 @@ def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
     """Launch the kernel of ``route`` on checked CUDA tensors; counts the
     launch in ``flash_attention.launches`` and ``launches_by_route``."""
     B, H, S, D = q.shape
-    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the wgmma route needs 16-byte aligned q, k, v")
+    Hkv = k.shape[1]
+    if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"flash_attention: the {route} route needs 16-byte aligned q, k, v")
     o = torch.empty_like(q)
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o)]
+    tail = [B, H, Hkv, S, D, int(causal), int(window is not None),
+            int(window) if window is not None else 0, scale]
+    if route == "tf32x3":
+        # scratch of the split pre-pass: K's TF32 hi/lo parts, and V^T's
+        # with the kv axis padded to a multiple of 32
+        ks = torch.empty((B * Hkv, 2, S, D), dtype=torch.float32, device=q.device)
+        vt = torch.empty((B * Hkv, 2, D, -(-S // 32) * 32), dtype=torch.float32,
+                         device=q.device)
+        ptrs += [ctypes.c_void_p(ks.data_ptr()), ctypes.c_void_p(vt.data_ptr())]
+    else:
+        tail.append(_DTYPES[q.dtype])
     with torch.cuda.device(q.device):
-        err = _fn(route)(
-            ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
-            ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(o.data_ptr()),
-            B, H, k.shape[1], S, D, int(causal), int(window is not None),
-            int(window) if window is not None else 0, scale, _DTYPES[q.dtype],
-            ctypes.c_void_p(_build.raw_stream(q.device.index)),
-        )
+        err = _fn(route)(*ptrs, *tail, ctypes.c_void_p(_build.raw_stream(q.device.index)))
     if err:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
@@ -173,7 +200,8 @@ def flash_attention(
     """Blockwise attention, (B, H, S, D) x (B, Hkv, S, D)^2 -> (B, H, S, D).
 
     CUDA tensors: the hand-written kernel that :func:`_route` names
-    (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous inputs).
+    (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous inputs;
+    16-byte aligned ones on the tensor-core routes).
     CPU tensors: the plain twin :func:`flash_attention_plain`.
     """
     if q.device.type == "cpu":
@@ -201,4 +229,4 @@ def flash_attention(
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -10,7 +10,8 @@ Tolerances for flash attention: bf16/f16 outputs may differ from the
 f32-accumulating twin by one rounding of the output (2e-2 abs + 1e-2
 rel for bf16, 2e-3 for f16) — on the wgmma route P is also rounded to
 16 bits before P V, which stays well inside that; f32 by the reordering
-of f32 sums (1e-4). Each flash case also checks which route's launch
+of f32 sums (1e-4), which also holds the tf32x3 route's three-way TF32
+split products (~21 mantissa bits) and fails one TF32 product. Each flash case also checks which route's launch
 counter moved.
 The relayout kernel moves bytes only and must match bit for bit; each
 relayout case checks which of its three routes (copy, staged, direct)
@@ -230,8 +231,8 @@ def test_flash_wgmma_route_matches_plain(cuda, B, H, Hkv, S, D, dtype, causal, w
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert FA.flash_attention.launches_by_route == {
-        "wgmma": by_route["wgmma"] + 1, "simt": by_route["simt"]}
+    by_route["wgmma"] += 1
+    assert FA.flash_attention.launches_by_route == by_route
     assert got.dtype == dtype and got.shape == q.shape
     assert torch.isfinite(got).all()
     atol, rtol = TOL[dtype]
@@ -247,9 +248,89 @@ def test_flash_16bit_odd_head_dim_takes_simt(cuda):
     got = FA.flash_attention(q, k, v)
     want = FA.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
-    assert FA.flash_attention.launches_by_route == {
-        "wgmma": by_route["wgmma"], "simt": by_route["simt"] + 1}
+    by_route["simt"] += 1
+    assert FA.flash_attention.launches_by_route == by_route
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+
+
+_F32 = torch.float32
+
+
+def _low_mantissa_v(shape, device):
+    """V just below TF32's rounding midpoint above 1 (1 + 2^-11 - k 2^-22,
+    k in 1..128): every hi part is 1 and the lo part carries ~2^-11, so
+    a kernel that drops the lo products is off by ~4.7e-4 everywhere,
+    beyond 1e-4 (tests/test_torch_flash.py shows it on the CPU)."""
+    k = torch.randint(1, 129, shape, device=device).float()
+    return 1 + (2048 - k) * 2.0 ** -22
+
+
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,causal,window,values",
+    [
+        # head dims 8, 40, 64, 128 (D <= 64 pads to 64, the rest to 128)
+        (1, 4, 2, 256, 8, True, None, "normal"),
+        (1, 4, 2, 256, 40, True, None, "normal"),
+        (1, 4, 2, 256, 64, True, None, "normal"),
+        (1, 4, 2, 256, 128, True, None, "normal"),
+        (1, 2, 1, 192, 72, True, None, "normal"),
+        # the serve prefill shape in f32
+        (1, 32, 4, 512, 128, True, None, "normal"),
+        # ragged S (not a multiple of 64 nor of 32), causal, window, none
+        *[(1, 4, 1, S, 128, True, w) + ("normal",) for S in (97, 333, 449) for w in (None, 48)],
+        (1, 4, 2, 333, 64, False, 48, "normal"),
+        (1, 4, 2, 200, 40, False, None, "normal"),
+        (1, 4, 4, 100, 128, False, 100, "normal"),
+        # GQA groups 1, 4, 8 and B > 1
+        (2, 4, 4, 192, 128, True, None, "normal"),
+        (2, 8, 2, 192, 128, True, None, "normal"),
+        (3, 8, 1, 160, 64, True, 7, "normal"),
+        # S <= 32: one kv tile
+        (1, 4, 2, 24, 64, True, None, "normal"),
+        # V below TF32's last bit: only the lo products get it right
+        (1, 4, 2, 256, 64, True, None, "low_mantissa"),
+        (2, 8, 2, 333, 128, True, 48, "low_mantissa"),
+        (1, 4, 1, 200, 40, False, None, "low_mantissa"),
+    ],
+)
+def test_flash_tf32x3_route_matches_plain(cuda, B, H, Hkv, S, D, causal, window, values):
+    """The 3xTF32 tensor-core kernel against the f32 plain twin (TF32
+    off for the twin's products) at the f32 tolerance; only the tf32x3
+    counter moves."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = torch.randn((B, H, S, D), device=cuda)
+    k = torch.randn((B, Hkv, S, D), device=cuda)
+    if values == "low_mantissa":
+        v = _low_mantissa_v((B, Hkv, S, D), cuda)
+    else:
+        v = torch.randn((B, Hkv, S, D), device=cuda)
+    assert FA._route(_F32, D) == "tf32x3"
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    by_route["tf32x3"] += 1
+    assert FA.flash_attention.launches_by_route == by_route
+    assert got.dtype == _F32 and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[_F32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("D", [136, 192, 256])
+def test_flash_f32_beyond_128_takes_simt(cuda, D):
+    """f32 head dims above TF32X3_MAX_D: the CUDA-core kernel."""
+    q = torch.randn((1, 4, 160, D), device=cuda)
+    k = torch.randn((1, 2, 160, D), device=cuda)
+    v = torch.randn((1, 2, 160, D), device=cuda)
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    by_route["simt"] += 1
+    assert FA.flash_attention.launches_by_route == by_route
+    atol, rtol = TOL[_F32]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
 def test_flash_wgmma_route_rejects_misaligned(cuda):
@@ -257,6 +338,14 @@ def test_flash_wgmma_route_rejects_misaligned(cuda):
     base = torch.randn(1 + 2 * 64 * 64, device=cuda).to(_BF16)
     q = base[1:].reshape(1, 2, 64, 64)
     with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(q, q, q)
+
+
+def test_flash_tf32x3_route_rejects_misaligned(cuda):
+    """The f32 tensor-core route loads by TMA too: a view 4 bytes in raises."""
+    base = torch.randn(1 + 2 * 64 * 64, device=cuda)
+    q = base[1:].reshape(1, 2, 64, 64)
+    with pytest.raises(ValueError, match="tf32x3 route needs 16-byte aligned"):
         FA.flash_attention(q, q, q)
 
 
@@ -281,7 +370,7 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     server = Server(sc, device=cuda, model_cfg=cfg)
     R.relayout.launches = FA.flash_attention.launches = 0
     R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
-    FA.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
     server.register_prefix(prefix)
@@ -292,7 +381,7 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     assert R.relayout.launches == 3 and FA.flash_attention.launches > 0
     assert R.relayout.launches_by_route == {"copy": 3, "staged": 0, "direct": 0}
     assert FA.flash_attention.launches_by_route == {
-        "wgmma": FA.flash_attention.launches, "simt": 0}
+        **dict.fromkeys(FA.ROUTES, 0), "wgmma": FA.flash_attention.launches}
 
     cpu_params = map_tree(lambda t: t.cpu(), server.params)
     toks = torch.as_tensor(reqs[1].prompt)[None]

@@ -150,8 +150,17 @@ def test_route_16bit_multiple_of_16_is_wgmma(dtype, D):
     assert TF._route(getattr(torch, dtype), D) == "wgmma"
 
 
-@pytest.mark.parametrize("D", [8, 16, 24, 40, 64, 128, 256])
+@pytest.mark.parametrize("D", [8, 16, 24, 40, 64, 72, 120, 128])
+def test_route_f32_is_tf32x3(D):
+    """f32 up to TF32X3_MAX_D goes to the 3xTF32 tensor-core kernel."""
+    assert TF._route(torch.float32, D) == "tf32x3"
+
+
+@pytest.mark.parametrize("D", [136, 192, 200, 256])
 def test_route_f32_is_simt(D):
+    """f32 head dims whose hi/lo tiles do not fit the tf32x3 kernel's
+    shared memory stay on the CUDA cores."""
+    assert D > TF.TF32X3_MAX_D
     assert TF._route(torch.float32, D) == "simt"
 
 
@@ -174,4 +183,171 @@ def test_route_rejects_other_dtypes():
 
 
 def test_launch_counters_per_route():
-    assert set(TF.flash_attention.launches_by_route) == {"wgmma", "simt"}
+    assert TF.ROUTES == ("wgmma", "tf32x3", "simt")
+    assert TF.flash_attention.launches_by_route.keys() == dict.fromkeys(TF.ROUTES, 0).keys()
+
+
+# ---- the tf32x3 route's arithmetic, emulated on the CPU ----------------------
+#
+# The kernel rounds with cvt.rna.tf32.f32 (10 mantissa bits, to nearest,
+# ties away from zero), multiplies TF32 values exactly and sums in f32.
+# The emulation below does the same with f32 tensors whose values are
+# TF32, on the kernel's 32-row kv tiles and 64-row q tiles.
+
+TF32X3_BN = 32  # kv rows per tile of the kernel
+
+
+def _tf32_rna(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _kv_positions(n):
+    """kv row held by each position of the kernel's V^T (n positions)."""
+    order = torch.tensor(TF.TF32X3_KV_ORDER)
+    pos = torch.arange(n)
+    return pos // 8 * 8 + order[pos % 8]
+
+
+def _flash_tf32_emulated(q, k, v, *, causal=True, window=None, terms=3):
+    """The tf32x3 kernel's schedule: S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi,
+    online softmax over 32-row kv tiles, P split in hi/lo and multiplied
+    with V^T stored in TF32X3_KV_ORDER. ``terms=1`` keeps only the hi
+    products: a single TF32 product, as a kernel that dropped lo would."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    Sp = -(-S // TF32X3_BN) * TF32X3_BN
+    kp = torch.zeros(B, Hkv, Sp, D)
+    vp = torch.zeros(B, Hkv, Sp, D)
+    kp[:, :, :S], vp[:, :, :S] = k, v
+    kv_of = _kv_positions(Sp)
+    qh, ql = _split(q.reshape(B, Hkv, g, S, D))
+    kh, kl = _split(kp)
+    vth, vtl = _split(vp[:, :, kv_of].transpose(-1, -2))  # (B, Hkv, D, Sp)
+    out = torch.empty(B, Hkv, g, S, D)
+    for q0 in range(0, S, 64):
+        rows = torch.arange(q0, min(q0 + 64, S))[:, None]
+        m = torch.full((B, Hkv, g, len(rows), 1), TF.NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(B, Hkv, g, len(rows), D)
+        for k0 in range(0, Sp, TF32X3_BN):
+            tile = slice(k0, k0 + TF32X3_BN)
+
+            def qk(a, b):
+                return torch.einsum("bhgqd,bhkd->bhgqk", a[:, :, :, q0:q0 + 64], b[:, :, tile])
+
+            def pv(a, b):
+                return torch.einsum("bhgqk,bhdk->bhgqd", a, b[..., tile])
+
+            s = qk(qh, kh) if terms == 1 else qk(ql, kh) + qk(qh, kl) + qk(qh, kh)
+            s = s * D ** -0.5
+            cols = torch.arange(k0, k0 + TF32X3_BN)[None, :]
+            keep = (cols < S) & (rows >= 0)
+            if causal:
+                keep = keep & (cols <= rows)
+            if window is not None:
+                keep = keep & (cols > rows - window)
+            s = torch.where(keep, s, torch.full_like(s, TF.NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            m = m_new
+            ph, pl = _split(p[..., kv_of[tile] - k0])  # the fragment's column order
+            o = pv(ph, vth) if terms == 1 else pv(pl, vth) + pv(ph, vtl) + pv(ph, vth)
+            acc = acc * alpha + o
+        l = torch.where(l == 0.0, torch.ones_like(l), l)
+        out[:, :, :, q0:q0 + 64] = acc / l
+    return out.reshape(B, H, S, D)
+
+
+def _low_mantissa_v(rng, shape):
+    """V just below TF32's rounding midpoint above 1 (1 + 2^-11 - k 2^-22,
+    k in 1..128): every hi part is 1 and the lo part carries ~2^-11, so
+    a kernel that drops the lo products is off by ~4.7e-4 everywhere."""
+    return (1 + (2048 - rng.integers(1, 129, shape)) * 2.0 ** -22).astype(np.float32)
+
+
+def test_tf32_rounding_emulates_cvt_rna():
+    x = torch.tensor([1.0, 1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 1 + 3 * 2 ** -11,
+                      1 + 2 ** -10, 3.0e-39])
+    want = torch.tensor([1.0, 1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 * 2 ** -10,
+                         1 + 2 ** -10, 3.0e-39])
+    got = _tf32_rna(x)
+    assert torch.equal(got, _tf32_rna(got))  # TF32 values stay put
+    assert torch.equal(got[:6], want[:6])
+    assert (got.view(torch.int32) & 0x1FFF).eq(0).all()
+    rng = np.random.default_rng(11)
+    y = torch.from_numpy(rng.standard_normal(4096).astype(np.float32))
+    hi, lo = _split(y)
+    assert torch.all((hi + lo - y).abs() <= y.abs() * 2.0 ** -21)
+    assert torch.all((hi - y).abs() <= y.abs() * 2.0 ** -11)
+
+
+def test_tf32x3_kv_order_matches_the_fragment_layouts():
+    """The accumulator gives thread (g, c) of a warp score columns 2c and
+    2c + 1 of each 8-column slice (registers 4i + e: row g + 8 (e // 2),
+    column 8i + 2c + e % 2); the TF32 A fragment wants (g, c), (g + 8, c),
+    (g, c + 4), (g + 8, c + 4) in its four registers. The kernel passes
+    registers (4i, 4i + 2, 4i + 1, 4i + 3), so fragment column j is kv
+    TF32X3_KV_ORDER[j] of the slice; the sum over kv is then P V."""
+    acc = {}  # (lane, register e) -> (row, column) within one 16 x 8 slice
+    frag = {}  # (lane, register r) -> (row, fragment column)
+    for lane in range(32):
+        g, c = lane // 4, lane % 4
+        for e in range(4):
+            acc[lane, e] = (g + 8 * (e // 2), 2 * c + e % 2)
+        for r, (dr, dc) in enumerate([(0, 0), (8, 0), (0, 4), (8, 4)]):
+            frag[lane, r] = (g + dr, c + dc)
+    passed = (0, 2, 1, 3)  # fragment register r <- accumulator register passed[r]
+    order = {}
+    for lane in range(32):
+        for r in range(4):
+            row, col = acc[lane, passed[r]]
+            frow, j = frag[lane, r]
+            assert row == frow
+            assert order.setdefault(j, col) == col
+    assert tuple(order[j] for j in range(8)) == TF.TF32X3_KV_ORDER
+    rng = np.random.default_rng(12)
+    p = torch.from_numpy(rng.standard_normal((16, 64)))
+    v = torch.from_numpy(rng.standard_normal((64, 24)))
+    kv_of = _kv_positions(64)
+    assert torch.allclose(p[:, kv_of] @ v[kv_of], p @ v)
+
+
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,D,causal,window,values",
+    [
+        (1, 4, 2, 200, 64, True, None, "normal"),
+        (2, 4, 1, 96, 40, False, None, "normal"),
+        (1, 4, 2, 160, 128, True, 48, "normal"),
+        (1, 2, 2, 128, 32, True, None, "scaled"),
+        (1, 4, 2, 200, 64, True, 48, "low_mantissa"),
+        (1, 4, 1, 200, 40, False, None, "low_mantissa"),
+    ],
+)
+def test_tf32x3_emulation_within_f32_tolerance(B, H, Hkv, S, D, causal, window, values):
+    """At (1e-4, 1e-4) against the JAX f32 flash kernel the 3xTF32
+    schedule passes and a single TF32 product fails: the card test's
+    tolerance catches a kernel that drops the lo terms."""
+    rng = np.random.default_rng(13)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+    if values == "scaled":  # peaked softmax: larger scores, larger TF32 error
+        arrs[0] *= 3
+        arrs[1] *= 3
+    if values == "low_mantissa":
+        arrs[2] = _low_mantissa_v(rng, arrs[2].shape)
+    want = np.asarray(j_flash(*[jnp.asarray(a) for a in arrs], causal=causal, window=window,
+                              block_q=S, block_k=S), np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in arrs)
+    got = _flash_tf32_emulated(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+    one = _flash_tf32_emulated(tq, tk, tv, causal=causal, window=window, terms=1).numpy()
+    assert (np.abs(one - want) > 1e-4 + 1e-4 * np.abs(want)).any()
