@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving path on one NVIDIA card and check it.
+"""Run the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -37,7 +38,27 @@ Phases (any failure exits non-zero and prints no result):
    8 requests through ``run()``; both kernels' launch counters must move,
    every flash launch must take the ``wgmma`` route, every relayout
    launch the ``copy`` route, and the flash
-   prefill logits must agree with the reference attention's.
+   prefill logits must agree with the reference attention's;
+6. train: yi-6b at full width (depth cut to 4 layers,
+   ``attn_impl="reference"`` as the JAX trainer uses, random weights from
+   a seed) on 4 virtual data-parallel ranks, Markov batches of 8 x 512
+   tokens, Torrent gradient reduction (``rs_ag``, K = 2). One step's
+   grads reduced per leaf and in 25 MiB buckets must be equal bit for
+   bit, and the two smallest leaves' reduced rows equal to the executor
+   on the CPU and to ``chainwrite_ref.multi_all_reduce_ref``; then 8
+   steps of bucketed exact-wire training and 8 of int8 + error-feedback
+   training from the same init, each run a ``Trainer``'s state and step:
+   finite losses, the first in [10.5, 12.5], the last below the first;
+   every step's executor wire bytes equal to ``program_wire_bytes`` of
+   the programs it ran; no retry of the caching allocator; no kernel
+   launch (the path has none). Prints per-step wall, CUDA-event spans
+   (fwd+bwd per rank, reduce, optimizer), tokens/s (of the median step
+   and of the whole window), wire bytes, the modeled CC and peak memory
+   (of the run and of each span). Last, ``python -m
+   repro_torch.launch.train``'s ``main`` at smoke size on the card
+   (int8 + EF, a failure injected at step 13): one restart from a
+   checkpoint written from the card, and every step's loss within
+   ``CLI_LOSS_TOL`` of a CPU Trainer's from the same initial params.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -48,9 +69,13 @@ of phases 2 and 3 the event times of the kernel and of its library call
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
+import logging
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -63,6 +88,10 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # de
 # f32 on the tf32x3 route: three TF32 products per product, at the
 # 495 TFLOP/s dense TF32 rate
 PEAK_OPS_PER_S["tf32x3"] = 495e12 / 3
+# the train phase's smoke-size Trainer run on the card against the same
+# run on the CPU: per-step loss difference (bf16 rounding order;
+# measured 3.6e-4 on an H100)
+CLI_LOSS_TOL = 5e-3
 # the profiler's name of each flash route's kernels (tf32x3: the split
 # pre-pass and the attention kernel)
 FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_sm90_kernel", "tf32x3": "tf32x3",
@@ -517,16 +546,23 @@ def serve_phase() -> dict:
 def profile_run(server, prompts) -> None:
     """Where the time goes: one more ``run()`` (weight refresh included)
     with two requests, a prefix hit and a miss, under the profiler's CUDA
-    trace. Prints the device's busy share of the wall time and the
-    kernels that took most of it."""
+    trace."""
+    reqs = [server.submit(p, 8) for p in prompts]
+    device_breakdown("run()", lambda: server.run(reqs))
+
+
+def device_breakdown(label: str, fn) -> None:
+    """Run ``fn`` once under the profiler's CUDA trace; print the
+    device's busy share of the wall time and the kernels that took most
+    of it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [server.submit(p, 8) for p in prompts]
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server.run(reqs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, float] = {}
@@ -535,10 +571,263 @@ def profile_run(server, prompts) -> None:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile: run() wall {wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
+    print(f"profile: {label} wall {wall_us / 1e6:.3f}s, device busy {busy_us / 1e6:.3f}s "
           f"({busy_us / wall_us:.1%}), idle share {1 - busy_us / wall_us:.1%}", flush=True)
     for name, us in top:
         print(f"profile:   {us / 1e3:10.3f} ms  {us / busy_us:6.1%}  {name[:100]}", flush=True)
+    # The profiler's events are cyclic garbage. Left to the collector,
+    # they are freed by a generation-2 pass at some later allocation,
+    # which may fall inside a timed step: the host enqueues a train step
+    # nearly as slowly as the card runs it, so a host pause there is a
+    # gap in the device's spans. Collect them now, outside any timing.
+    del prof
+    t0 = time.perf_counter()
+    freed = gc.collect()
+    print(f"profile: {label}: gc freed {freed} objects in {time.perf_counter() - t0:.3f}s",
+          flush=True)
+
+
+def train_phase() -> dict:
+    """The training path: yi-6b at full width, depth cut to 4 layers,
+    4 virtual DP ranks on the card, Torrent gradient reduction (rs_ag,
+    K = 2). One step's grads reduced per leaf and bucketed (equal bit
+    for bit, and the two smallest leaves equal to the CPU executor and
+    the numpy oracle), then 8 steps of bucketed exact-wire training and
+    8 of int8 + error-feedback training from the same init. Every
+    step's executor wire bytes must equal the byte model's."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.core import chainwrite_ref as ref
+    from repro_torch.core import simulator as sim
+    from repro_torch.core.topology import MeshTopology
+    from repro_torch.data.pipeline import MarkovSource, make_device_placer
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relayout import ops as R
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.launch.train import parse_args as train_args
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import collectives as col
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves, map_tree
+
+    torch.cuda.empty_cache()
+    # yi-6b at full width (d_model 4096, 32 heads, 4 kv heads, head_dim
+    # 128, d_ff 11008, vocab 64000, untied head); depth cut 32 -> 4 so
+    # f32 params (4.9 GB), AdamW moments (9.7 GB), the 4 ranks' stacked
+    # grads (19.5 GB) and, for int8 + EF, the 4 ranks' residuals
+    # (19.5 GB) fit one 80 GB card beside the reduction's transients.
+    layers = 4
+    cfg = dataclasses.replace(C.get_config("yi-6b"), num_layers=layers, attn_impl="reference")
+    dp, B, S, steps = 4, 8, 512, 8
+    mesh = make_host_mesh(data=dp)
+    K, algo, bucket = 2, "rs_ag", 25 << 20
+    source = MarkovSource(vocab=cfg.vocab_size, seq_len=S, global_batch=B, seed=1)
+    place = make_device_placer("cuda")
+    topo = MeshTopology(dp, 1)
+
+    def init():
+        return T.model_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+
+    def modeled_cc():
+        return sum(n * sim.program_latency(topo, 0, p, size)
+                   for (p, size, _), n in cw.wire_counter.runs.items())
+
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    R.relayout.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. one step's grads, reduced per leaf and bucketed
+    params = init()
+    n_params = sum(p.numel() for p in leaves(params))
+
+    grad_fn = make_grad_fn(cfg, loss_chunks=8)
+
+    batch = place(source.batch(0))
+    stacked, metrics0 = col.stack_rank_grads(grad_fn, params, batch, dp)
+    kw = dict(num_chains=K, algo=algo)
+    cw.wire_counter.reset()
+    per_leaf = col.make_stacked_reduce(mesh, **kw)(stacked)
+    leaf_bytes = (cw.wire_counter.bytes, cw.wire_counter.modeled_bytes())
+    cw.wire_counter.reset()
+    bucketed = col.make_stacked_reduce(mesh, bucket_bytes=bucket, **kw)(stacked)
+    bucket_bytes_ = (cw.wire_counter.bytes, cw.wire_counter.modeled_bytes())
+    torch.cuda.synchronize()
+    unequal = [i for i, (a, b) in enumerate(zip(per_leaf, bucketed)) if not torch.equal(a, b)]
+    if unequal:
+        raise AssertionError(f"train: bucketed != per-leaf reduce at leaves {unequal}")
+    if leaf_bytes[0] != leaf_bytes[1] or bucket_bytes_[0] != bucket_bytes_[1]:
+        raise AssertionError(f"train: wire bytes {leaf_bytes} / {bucket_bytes_} != model")
+    k, rings = col.resolve_ring_chains(dp, 1, num_chains=K, algo=algo)
+    smallest = sorted(range(len(stacked)), key=lambda i: stacked[i][0].numel())[:2]
+    for i in smallest:
+        flat = stacked[i].reshape(dp, -1)
+        card = cw.multi_chain_all_reduce(flat, rings, algo=algo)
+        cpu = cw.multi_chain_all_reduce(flat.cpu(), rings, algo=algo)
+        oracle = ref.multi_all_reduce_ref(flat.cpu().numpy(), rings, algo)
+        div = torch.tensor(float(dp), device="cuda")
+        if not (torch.equal(card.cpu(), cpu) and np.array_equal(cpu.numpy(), oracle)
+                and torch.equal(per_leaf[i].reshape(-1), card[0] / div)):
+            raise AssertionError(f"train: leaf {i} ({flat.shape[1]} elements) differs "
+                                 "between card, CPU executor and numpy oracle")
+    print(f"train: grads of one step, {n_params} params x {dp} ranks: per-leaf == bucketed "
+          f"({len(per_leaf)} leaves); leaves {smallest} == CPU executor == numpy oracle; "
+          f"wire bytes per-leaf {leaf_bytes[0]} bucketed {bucket_bytes_[0]} (model equal); "
+          f"loss {float(metrics0['loss']):.4f}", flush=True)
+    del stacked, per_leaf, bucketed, params, batch
+    torch.cuda.empty_cache()
+
+    # 2. and 3. training from one init through the Trainer: exact wire,
+    # then int8 + EF. Its steps are driven one by one (as
+    # benchmarks/bench_train.py drives the JAX Trainer), so each is timed
+    # and its wire bytes read; Trainer.run() would also write the step-0
+    # checkpoint, 15-34 GB of state at this width (step 4 runs it).
+    class MemSpans(Spans):
+        """Spans that also keep each phase's peak allocated memory (the
+        allocator's peak is reset as a span starts and read as it ends;
+        ``peak`` holds the highest reading per phase name)."""
+
+        def __init__(self):
+            super().__init__()
+            self.peak = {}
+
+        @contextlib.contextmanager
+        def span(self, name, device):
+            torch.cuda.reset_peak_memory_stats()
+            with super().span(name, device):
+                yield
+            self.peak[name] = max(self.peak.get(name, 0), torch.cuda.max_memory_allocated())
+
+    gc_clock = {}  # seconds of Python GC passes since cleared
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_clock["t0"] = time.perf_counter()
+        else:
+            gc_clock["s"] = gc_clock.get("s", 0.0) + time.perf_counter() - gc_clock.pop("t0")
+
+    gc.callbacks.append(gc_timer)
+    runs = {}
+    for name, compress in (("exact", False), ("int8_ef", True)):
+        spans = MemSpans()
+        tr = Trainer(TrainConfig(
+            arch="yi-6b", smoke=False, layers=layers, steps=steps, global_batch=B,
+            seq_len=S, peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=K,
+            compress_grads=compress, bucket_bytes=bucket, loss_chunks=8, dp=dp, seed=0),
+            device="cuda", spans=spans)  # the step's ar_algo defaults to rs_ag
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
+        state_gb = torch.cuda.memory_allocated() / 1e9  # params, AdamW moments, EF residuals
+
+        def step(i, tr=tr):
+            st = tr.state
+            if compress:
+                p_, o_, e_, m = tr.step_fn(st["params"], st["opt"], st["ef"],
+                                           tr._device_batch(i))
+                tr.state = {"params": p_, "opt": o_, "ef": e_}
+            else:
+                p_, o_, m = tr.step_fn(st["params"], st["opt"], tr._device_batch(i))
+                tr.state = {"params": p_, "opt": o_}
+            return m
+
+        losses, walls, span_ms, wire, model, cc, gc_s = [], [], [], [], [], [], []
+        peak = torch.cuda.max_memory_allocated()  # the state
+        for i in range(steps):
+            cw.wire_counter.reset()
+            torch.cuda.synchronize()
+            gc_clock.clear()
+            t0 = time.perf_counter()
+            loss = float(step(i)["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            gc_s.append(gc_clock.get("s", 0.0))
+            peak = max(peak, torch.cuda.max_memory_allocated())  # since the last span began
+            losses.append(loss)
+            span_ms.append({k: [round(v, 3) for v in vs] for k, vs in spans.read().items()})
+            wire.append(cw.wire_counter.bytes)
+            model.append(cw.wire_counter.modeled_bytes())
+            cc.append(modeled_cc())
+            if wire[-1] != model[-1]:
+                raise AssertionError(f"train {name} step {i}: executor wire bytes {wire[-1]} "
+                                     f"!= program_wire_bytes {model[-1]}")
+        peak_gb = max(peak, *spans.peak.values()) / 1e9
+        retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
+        cw.wire_counter.reset()
+        device_breakdown(f"train {name} step", lambda: step(steps))  # not one of the 8
+        spans.read()
+        rec = {
+            "losses": losses, "step_wall_s": walls,
+            "median_step_s": float(np.median(walls)),
+            "tokens_per_s": B * S / float(np.median(walls)),
+            "window_tokens_per_s": steps * B * S / sum(walls),
+            "spans_ms": span_ms[-1], "max_fwd_bwd_ms": max(max(m["fwd_bwd"]) for m in span_ms),
+            "step_gc_s": gc_s,
+            "wire_bytes_per_step": wire[-1],
+            "modeled_wire_bytes_per_step": model[-1], "modeled_cc_per_step": cc[-1],
+            "peak_memory_gb": peak_gb, "alloc_retries": retries,
+            "state_memory_gb": state_gb,
+            "phase_peak_memory_gb": {k: v / 1e9 for k, v in spans.peak.items()},
+        }
+        print(f"train {name}:", json.dumps(rec), flush=True)
+        first, last = losses[0], losses[-1]
+        if not all(np.isfinite(losses)) or not 10.5 <= first <= 12.5 or not last < first:
+            raise AssertionError(f"train {name}: losses {losses}")
+        if retries:
+            raise AssertionError(f"train {name}: the caching allocator freed its cache and "
+                                 f"retried {retries} times (peak {peak_gb:.1f} GB)")
+        runs[name] = rec
+        del tr, step
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    gc.callbacks.remove(gc_timer)
+
+    # 4. the Trainer's own loop, as `python -m repro_torch.launch.train`
+    # runs it, at smoke size: int8 + EF with a failure injected at step
+    # 13, so the state (EF residuals included) is checkpointed from the
+    # card and restored onto it. A CPU Trainer from the card's initial
+    # params is the reference for the losses.
+    ckpt_root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    argv = ["--smoke", "--steps", "20", "--batch", "8", "--seq", "32", "--dp", "4",
+            "--collectives", "torrent", "--num-chains", "2", "--compress-grads",
+            "--bucket-mb", "0.0625", "--lr", "2e-3", "--ckpt-every", "10",
+            "--fail-at", "13", "--ckpt-dir"]
+    tc, _ = train_args(argv + [str(ckpt_root / "cpu")])
+    card_init = T.model_init(torch.Generator(device="cuda").manual_seed(tc.seed),
+                             C.get_smoke_config(tc.arch), "cuda")
+    logging.disable(logging.INFO)
+    try:
+        card = train_main(argv + [str(ckpt_root / "cuda")])
+        cpu = Trainer(tc, device="cpu", params=map_tree(torch.Tensor.cpu, card_init)).run()
+    finally:
+        logging.disable(logging.NOTSET)
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+    diff = max(abs(a - b) for a, b in zip(card["losses"], cpu["losses"]))
+    print(f"train cli: {' '.join(argv)} DIR: final step {card['final_step']}, restarts "
+          f"{card['restarts']}, losses {card['first_loss']:.4f} -> {card['last_loss']:.4f}, "
+          f"max |card - cpu| {diff:.3g} over {len(card['losses'])} steps", flush=True)
+    if (card["final_step"], card["restarts"]) != (20, 1) or not (
+            np.isfinite(card["losses"]).all() and len(card["losses"]) == len(cpu["losses"])
+            and diff < CLI_LOSS_TOL and card["last_loss"] < card["first_loss"]):
+        raise AssertionError(f"train cli: card {card['losses']} cpu {cpu['losses']}")
+    launches = {**{f"flash_attention_{r}": n for r, n in FA.flash_attention.launches_by_route.items()},
+                "relayout": R.relayout.launches}
+    if any(launches.values()):
+        raise AssertionError(f"train: the training path launched kernels {launches}")
+    print(f"train: losses exact {runs['exact']['losses']}", flush=True)
+    print(f"train: losses int8+ef {runs['int8_ef']['losses']}", flush=True)
+    print(f"train: wire bytes per step exact {runs['exact']['wire_bytes_per_step']} "
+          f"int8 {runs['int8_ef']['wire_bytes_per_step']} (ratio "
+          f"{runs['exact']['wire_bytes_per_step'] / runs['int8_ef']['wire_bytes_per_step']:.3f}); "
+          f"kernel launches {launches}", flush=True)
+    return {"train_launches": launches, "runs": runs}
 
 
 def main() -> int:
@@ -591,11 +880,15 @@ def main() -> int:
     launches = {"flash_attention_tf32x3": f32_routes["tf32x3"],
                 "flash_attention_simt": f32_routes["simt"]}
     launches.update(serve_phase())
+    train = train_phase()
 
     def row(name, source, replaces, rec, bound_by, **extra):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["max_abs_err"],
+            "launches": launches[name],
+            "launches_by_path": {"serve_or_f32": launches[name],
+                                 "train": train["train_launches"][name]},
+            "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": bound_by, "library_ms": rec["library_ms"],
             "device_ms": rec["device_ms"], "library_device_ms": rec["library_device_ms"],

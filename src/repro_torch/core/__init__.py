@@ -9,15 +9,38 @@
   planners.
 * :mod:`.simulator`  — cycle-level NoC model, driving the IR via
   ``program_latency``/``program_wire_bytes``.
+* :mod:`.chainwrite` — the ChainProgram executor and every Chainwrite
+  collective, run on the stacked global view (row ``d`` = virtual
+  device ``d``) and bit-exact against :mod:`.chainwrite_ref`.
+* :mod:`.chainwrite_ref` — the numpy oracles and program interpreter.
 * :mod:`.chaintask`  — host-side four-phase orchestration (Fig. 4) with
   the DATA phase as device-to-device copies of ``uint8`` tensors.
 
-The first four use only the standard library and are byte-identical
-copies of ``repro.core``'s (pinned by ``tests/test_torch_core.py``), so
-both packages plan and price every transfer alike. The in-graph program
-executor (``repro.core.chainwrite``) has no counterpart here yet.
+``topology``, ``scheduling``, ``program``, ``simulator`` (stdlib only)
+and ``chainwrite_ref`` (numpy only) are byte-identical copies of
+``repro.core``'s (pinned by ``tests/test_torch_core.py``), so both
+packages plan, price and replay every transfer alike.
 """
 
+from .chainwrite import (
+    ALL_REDUCE_ALGOS,
+    chain_all_gather,
+    chain_all_reduce,
+    chain_all_to_all,
+    chain_broadcast,
+    chain_edges,
+    chain_reduce_scatter,
+    degraded_multi_chain_broadcast,
+    execute_program,
+    multi_chain_all_gather,
+    multi_chain_all_reduce,
+    multi_chain_all_to_all,
+    multi_chain_broadcast,
+    multi_chain_reduce_scatter,
+    validate_ring_partition,
+    wire_counter,
+    xla_broadcast,
+)
 from .chaintask import (
     AffinePattern,
     ChainConfig,
@@ -82,6 +105,7 @@ from .topology import (
 )
 
 __all__ = [
+    "ALL_REDUCE_ALGOS",
     "AffinePattern",
     "ChainConfig",
     "ChainProgram",
@@ -100,6 +124,12 @@ __all__ = [
     "all_reduce_latency",
     "all_reduce_wire_bytes",
     "brute_force_schedule",
+    "chain_all_gather",
+    "chain_all_reduce",
+    "chain_all_to_all",
+    "chain_broadcast",
+    "chain_edges",
+    "chain_reduce_scatter",
     "chain_recovery_latency",
     "chain_slow_links",
     "chain_tier_crossings",
@@ -108,9 +138,16 @@ __all__ = [
     "chainwrite_latency",
     "choose_num_chains",
     "config_overhead_per_destination",
+    "degraded_multi_chain_broadcast",
     "eta_p2mp",
+    "execute_program",
     "greedy_schedule",
+    "multi_chain_all_gather",
+    "multi_chain_all_reduce",
+    "multi_chain_all_to_all",
+    "multi_chain_broadcast",
     "multi_chain_latency",
+    "multi_chain_reduce_scatter",
     "multicast_latency",
     "multicast_total_hops",
     "naive_schedule",
@@ -134,4 +171,7 @@ __all__ = [
     "tsp_schedule",
     "unicast_latency",
     "unicast_total_hops",
+    "validate_ring_partition",
+    "wire_counter",
+    "xla_broadcast",
 ]

@@ -35,6 +35,23 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when autograd would record a call of the kernel wrapper
+    ``name``: grad mode on and an input that requires grad. The kernels
+    (like the Pallas kernels they port) have no backward, and a CUDA
+    launch writes through a raw pointer, so its output would carry no
+    ``grad_fn`` and training would lose those gradients silently. The
+    check is the same on CPU tensors, so the plain twin cannot give
+    CPU-only gradients either."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on inputs "
+            "that do not require grad (train with attn_impl='reference' or 'chunked')"
+        )
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path:

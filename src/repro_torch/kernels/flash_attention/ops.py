@@ -203,7 +203,10 @@ def flash_attention(
     (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous inputs;
     16-byte aligned ones on the tensor-core routes).
     CPU tensors: the plain twin :func:`flash_attention_plain`.
+    Either way it raises under autograd (grad mode on and an input that
+    requires grad): the kernel has no backward.
     """
+    _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale,

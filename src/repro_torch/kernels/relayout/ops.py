@@ -315,8 +315,11 @@ def relayout(
     """Blocked(src_block) -> blocked(dst_block) layout transform.
 
     ``x``: (M//sbm, N//sbn, sbm, sbn). Returns (M//dbm, N//dbn, dbm, dbn)
-    in ``x``'s dtype, bit-identical to :func:`relayout_ref`.
+    in ``x``'s dtype, bit-identical to :func:`relayout_ref`. Raises
+    under autograd (grad mode on and ``x`` requiring grad): the kernel
+    has no backward.
     """
+    _build.refuse_autograd("relayout", x)
     M, N = shape
     sbm, sbn = src_block
     dbm, dbn = dst_block

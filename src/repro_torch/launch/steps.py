@@ -1,4 +1,5 @@
-"""Serving step builders — the serving part of ``repro.launch.steps``.
+"""Step factories: train, serve and slot prefill — the port of
+``repro.launch.steps``.
 
 PyTorch runs eagerly, so a "step" is a plain closure over the config;
 there is no compile cache to key.
@@ -10,7 +11,152 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
-from repro_torch.tree import map_tree
+from repro_torch.optim import adamw
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.parallel.collectives import dp_size_of, split_batch, torrent_grad_reduce
+from repro_torch.runtime.spans import maybe_span
+from repro_torch.tree import leaves, map_tree, unflatten
+
+
+def make_grad_fn(cfg: ModelConfig, *, remat: str = "dots", loss_chunks: int = 8):
+    """``grad_fn(params, batch) -> (grads, metrics)``: the grads of
+    :func:`~repro_torch.models.transformer.loss_fn` on ``batch`` (one
+    rank's rows) with respect to every param leaf, by autograd."""
+
+    def grad_fn(params, batch):
+        ps = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss, metrics = T.loss_fn(ps, cfg, batch, remat=remat, loss_chunks=loss_chunks)
+            grads = torch.autograd.grad(loss, leaves(ps))
+        return unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
+
+    return grad_fn
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: adamw.OptConfig,
+    *,
+    remat: str = "dots",
+    collectives: str = "xla",
+    num_chains: int | str = 1,
+    ar_algo: str = "rs_ag",
+    compress_grads: bool = False,
+    error_feedback: bool = False,
+    bucket_bytes: int | None = None,
+    topology: str | None = None,
+    mesh=None,
+    loss_chunks: int = 8,
+    microbatches: int = 1,
+    spans=None,
+):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.VirtualMesh`; its DP
+    ranks run one after another on the card, each on its rows of the
+    global batch. ``collectives="torrent"`` reduces their grads with
+    :func:`~repro_torch.parallel.collectives.torrent_grad_reduce`
+    (``num_chains``, ``ar_algo``, ``compress_grads`` = int8 wire,
+    ``bucket_bytes``, ``topology``); ``"xla"`` takes the plain mean of
+    the ranks' grads. ``error_feedback`` (needs ``compress_grads``)
+    changes the signature to ``(params, opt_state, ef_state, batch) ->
+    (params, opt_state, ef_state, metrics)``. ``microbatches > 1``
+    accumulates grads over M slices of the batch (a loop where JAX
+    scans; mean of the microbatch means, as JAX computes it). The step
+    updates params and optimizer state in place, as the JAX step donates
+    them, and returns the same tensors. ``spans`` (a
+    :class:`~repro_torch.runtime.spans.Spans`) records ``fwd_bwd`` per
+    rank, ``reduce`` and ``optimizer`` spans of every step.
+    """
+    if compress_grads and collectives != "torrent":
+        raise ValueError(
+            'compress_grads=True requires collectives="torrent" '
+            "(the int8 wire is a property of the Chainwrite schedule; "
+            "the XLA backend has no compressed all-reduce)"
+        )
+    if error_feedback and not compress_grads:
+        raise ValueError(
+            "error_feedback=True requires compress_grads=True: with an "
+            "exact wire there is no quantization residual to feed back"
+        )
+    if error_feedback and microbatches > 1:
+        raise ValueError(
+            "error_feedback with microbatches > 1 is not supported: the "
+            "residual is per wire reduction, not per accumulation step"
+        )
+    if bucket_bytes is not None and collectives != "torrent":
+        raise ValueError(
+            'bucket_bytes requires collectives="torrent" (bucketed '
+            "dispatch is a property of the Chainwrite reduction; the "
+            "XLA backend buckets internally)"
+        )
+    if topology is not None and collectives != "torrent":
+        raise ValueError(
+            'topology requires collectives="torrent" (the link-graph '
+            "spec steers the Chainwrite ring planner; the XLA backend "
+            "has no topology knob)"
+        )
+    if collectives not in ("xla", "torrent"):
+        raise ValueError(f"unknown collectives {collectives!r}")
+    if mesh is None:
+        mesh = make_host_mesh()
+    wire_dtype = "int8" if compress_grads else None
+    dp_size = dp_size_of(mesh)
+
+    grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
+
+    def grad_fn_xla(params, batch):
+        """Plain mean of the ranks' grads (the fabric's all-reduce)."""
+        acc, msum = None, None
+        for r in range(dp_size):
+            with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
+                grads, metrics = grad_fn_local(params, split_batch(batch, dp_size, r))
+            acc = grads if acc is None else map_tree(torch.add, acc, grads)
+            msum = metrics if msum is None else map_tree(torch.add, msum, metrics)
+        return (map_tree(lambda g: g / dp_size, acc),
+                map_tree(lambda m: m / dp_size, msum))
+
+    reduce_kw = dict(num_chains=num_chains, algo=ar_algo, wire_dtype=wire_dtype,
+                     bucket_bytes=bucket_bytes, topology=topology, spans=spans)
+
+    def optimizer(grads, opt_state, params):
+        with maybe_span(spans, "optimizer", leaves(params)[0].device):
+            return adamw.update(opt_cfg, grads, opt_state, params)
+
+    if collectives == "torrent":
+        grad_fn = torrent_grad_reduce(grad_fn_local, mesh, **reduce_kw)
+    else:
+        grad_fn = grad_fn_xla
+
+    if error_feedback:
+        reduce_ef = torrent_grad_reduce(
+            grad_fn_local, mesh, error_feedback=True, **reduce_kw
+        )
+
+        def train_step_ef(params, opt_state, ef_state, batch):
+            grads, metrics, new_ef = reduce_ef(params, batch, ef_state)
+            new_params, new_opt, om = optimizer(grads, opt_state, params)
+            return new_params, new_opt, new_ef, {**metrics, **om}
+
+        return train_step_ef
+
+    def train_step(params, opt_state, batch):
+        if microbatches > 1:
+            M = microbatches
+            acc, ms = None, []
+            for m in range(M):
+                grads, metrics = grad_fn(params, split_batch(batch, M, m))
+                grads = map_tree(lambda g: g.to(torch.float32), grads)
+                acc = grads if acc is None else map_tree(torch.add, acc, grads)
+                ms.append(metrics)
+            grads = map_tree(lambda g: g / M, acc)
+            metrics = map_tree(lambda *xs: torch.stack(xs).mean(0), *ms)
+        else:
+            grads, metrics = grad_fn(params, batch)
+        new_params, new_opt, om = optimizer(grads, opt_state, params)
+        return new_params, new_opt, {**metrics, **om}
+
+    return train_step
 
 
 def make_serve_step(cfg: ModelConfig):

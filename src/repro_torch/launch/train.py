@@ -1,0 +1,266 @@
+"""End-to-end fault-tolerant training entry point — the port of
+``repro.launch.train``.
+
+Composes the port's layers: the Markov data source, the dense model,
+AdamW, a virtual DP mesh run on one card, Torrent or plain-mean
+gradient reduction, async checkpointing with restart-on-failure, and
+straggler monitoring.
+
+    python -m repro_torch.launch.train --smoke --steps 20 --dp 4 \
+        --collectives torrent --device cpu
+
+``--device`` defaults to ``cuda`` and raises without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import tempfile
+import time
+from typing import Any
+
+import torch
+
+from repro_torch import configs as C
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.data.pipeline import MarkovSource, make_device_placer
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.optim import adamw
+from repro_torch.parallel.collectives import dp_size_of, ef_residual_init
+from repro_torch.runtime.failure import FaultInjector, resilient_loop
+from repro_torch.runtime.monitor import StepMonitor
+from repro_torch.tree import leaves, map_tree
+
+log = logging.getLogger("repro_torch.train")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    arch: str = "yi-6b"
+    smoke: bool = True
+    steps: int = 100
+    global_batch: int = 8
+    seq_len: int = 128
+    peak_lr: float = 1e-3
+    warmup_steps: int = 20
+    collectives: str = "xla"  # "xla" | "torrent"
+    num_chains: int | str = 1  # torrent: K sub-rings, or "auto"
+    compress_grads: bool = False
+    bucket_bytes: int | None = None  # bucketed reduce
+    topology: str | None = None  # tiered link-graph spec (torrent auto-K)
+    remat: str = "dots"
+    loss_chunks: int = 4
+    microbatches: int = 1  # gradient accumulation
+    ckpt_dir: str = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+    ckpt_every: int = 50
+    keep_last_k: int = 3
+    tp: int = 1
+    dp: int = 1  # virtual data-parallel ranks on the one card
+    layers: int | None = None  # depth cut: the config's first N layers
+    seed: int = 0
+    log_every: int = 10
+    fail_at: tuple[int, ...] = ()  # fault-injection (tests/demos)
+
+
+class Trainer:
+    """Owns the virtual mesh, the state, the step function and the
+    resilient loop.
+
+    ``params`` starts from carried weights (a tree of numpy arrays, e.g.
+    the JAX package's params, or of tensors, which are copied: the step
+    updates its state in place); by default they are drawn
+    from ``torch.Generator(device).manual_seed(tc.seed)``. ``spans`` (a
+    :class:`~repro_torch.runtime.spans.Spans`) is handed to the step,
+    which then records its phases; the caller reads it."""
+
+    def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None):
+        self.tc = tc
+        self.device = resolve_device(device)
+        self.cfg = C.get_smoke_config(tc.arch) if tc.smoke else C.get_config(tc.arch)
+        if tc.layers is not None:
+            self.cfg = dataclasses.replace(self.cfg, num_layers=tc.layers)
+        self.spans = spans
+        self.mesh = make_host_mesh(data=tc.dp, model=tc.tp)
+        self.opt_cfg = adamw.OptConfig(
+            peak_lr=tc.peak_lr,
+            warmup_steps=tc.warmup_steps,
+            decay_steps=max(tc.steps, tc.warmup_steps + 1),
+        )
+        self.source = MarkovSource(
+            vocab=self.cfg.vocab_size,
+            seq_len=tc.seq_len,
+            global_batch=tc.global_batch,
+            seed=tc.seed + 1,
+        )
+        self.place = make_device_placer(self.device)
+        self.monitor = StepMonitor()
+        self._build(params)
+
+    # -- state / step ----------------------------------------------------
+    def _build(self, params):
+        tc, cfg = self.tc, self.cfg
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(tc.seed)
+            params = T.model_init(gen, cfg, self.device)
+        elif not isinstance(leaves(params)[0], torch.Tensor):
+            params = params_from_numpy(params, self.device)
+        else:
+            params = map_tree(lambda t: t.to(self.device, copy=True), params)
+        self.state = {"params": params, "opt": adamw.init(params)}
+        if tc.compress_grads:
+            # the EF residual rides in the state, so it survives
+            # checkpoint/restart like the optimizer moments do
+            self.state["ef"] = ef_residual_init(params, dp_size_of(self.mesh))
+        self.step_fn = make_train_step(
+            cfg,
+            self.opt_cfg,
+            remat=tc.remat,
+            collectives=tc.collectives,
+            num_chains=tc.num_chains,
+            compress_grads=tc.compress_grads,
+            error_feedback=tc.compress_grads,
+            bucket_bytes=tc.bucket_bytes,
+            topology=tc.topology,
+            mesh=self.mesh,
+            loss_chunks=tc.loss_chunks,
+            microbatches=tc.microbatches,
+            spans=self.spans,
+        )
+
+    def _device_batch(self, step: int) -> dict:
+        return self.place(self.source.batch(step))
+
+    # -- run loop ----------------------------------------------------------
+    def run(self) -> dict[str, Any]:
+        tc = self.tc
+        ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k)
+        injector = FaultInjector(tc.fail_at)
+        losses: list[float] = []
+
+        def one_step(state, i):
+            injector.maybe_fail(i)
+            self.monitor.start_step()
+            batch = self._device_batch(i)
+            if "ef" in state:
+                params, opt, ef, metrics = self.step_fn(
+                    state["params"], state["opt"], state["ef"], batch
+                )
+            else:
+                params, opt, metrics = self.step_fn(state["params"], state["opt"], batch)
+                ef = None
+            loss = float(metrics["loss"])
+            ev = self.monitor.end_step(i)
+            if ev is not None:
+                log.warning(
+                    "straggler step %d: %.3fs (median %.3fs)",
+                    ev.step, ev.duration_s, ev.median_s,
+                )
+            if i % tc.log_every == 0:
+                log.info("step %5d loss %.4f lr %.2e", i, loss, float(metrics["lr"]))
+            losses.append(loss)
+            new_state = {"params": params, "opt": opt}
+            if ef is not None:
+                new_state["ef"] = ef
+            return new_state, {"loss": loss}
+
+        t0 = time.time()
+        state, result = resilient_loop(
+            state=self.state,
+            step_fn=one_step,
+            num_steps=tc.steps,
+            ckpt=ckpt,
+            ckpt_every=tc.ckpt_every,
+        )
+        wall = time.time() - t0
+        ckpt.close()
+        self.state = state
+        return {
+            "final_step": result.final_step,
+            "restarts": result.restarts,
+            "losses": losses,
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "wall_s": wall,
+            "straggler_events": len(self.monitor.events),
+            "tokens_per_s": (
+                tc.steps * tc.global_batch * tc.seq_len / wall if wall else 0
+            ),
+        }
+
+
+def parse_args(argv=None) -> tuple[TrainConfig, str]:
+    """The command line as (TrainConfig, device)."""
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="yi-6b", choices=C.ARCHS)
+    p.add_argument("--smoke", action="store_true", default=False)
+    p.add_argument("--full", dest="smoke", action="store_false")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--seq", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--collectives", choices=("xla", "torrent"), default="xla")
+    p.add_argument("--num-chains", default="1",
+                   help="torrent sub-rings K, or 'auto' (requires "
+                        "--collectives torrent)")
+    p.add_argument("--compress-grads", action="store_true", default=False,
+                   help="int8 wire for the DP gradient all-reduce with "
+                        "error-feedback residuals (requires --collectives "
+                        "torrent)")
+    p.add_argument("--bucket-mb", type=float, default=None,
+                   help="bucket size (MiB) for the bucketed DP grad reduce "
+                        "(requires --collectives torrent)")
+    p.add_argument("--topology", default=None,
+                   help="tiered link-graph spec for auto-K ring planning, "
+                        "e.g. 'pods=2:interpod_bw=0.25' (requires "
+                        "--collectives torrent)")
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="virtual data-parallel ranks, run on the one device")
+    p.add_argument("--layers", type=int, default=None,
+                   help="depth cut: train the config's first N layers")
+    p.add_argument("--remat", default="dots")
+    p.add_argument("--ckpt-dir", default=TrainConfig.ckpt_dir)
+    p.add_argument("--ckpt-every", type=int, default=50)
+    p.add_argument("--fail-at", default="",
+                   help="comma-separated steps for fault injection demo")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; raises without a card)")
+    args = p.parse_args(argv)
+    tc = TrainConfig(
+        arch=args.arch, smoke=args.smoke, steps=args.steps,
+        global_batch=args.batch, seq_len=args.seq, peak_lr=args.lr,
+        collectives=args.collectives,
+        num_chains=args.num_chains if args.num_chains == "auto" else int(args.num_chains),
+        compress_grads=args.compress_grads,
+        bucket_bytes=(
+            int(args.bucket_mb * (1 << 20)) if args.bucket_mb else None
+        ),
+        topology=args.topology,
+        tp=args.tp, dp=args.dp, layers=args.layers, remat=args.remat,
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        fail_at=tuple(int(s) for s in args.fail_at.split(",") if s),
+    )
+    return tc, args.device
+
+
+def main(argv=None) -> dict:
+    tc, device = parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    out = Trainer(tc, device=device).run()
+    log.info(
+        "done: %d steps (%d restarts)  loss %.4f -> %.4f  %.1f tok/s",
+        out["final_step"], out["restarts"], out["first_loss"],
+        out["last_loss"], out["tokens_per_s"],
+    )
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,10 +1,13 @@
-"""Carry weights across from the JAX package.
+"""Carry weights and training state across from the JAX package.
 
 ``params_from_numpy`` takes a param tree of numpy arrays — the JAX
 package's params after ``jax.device_get`` — and returns the port's
 params: the same nesting (dicts, lists) with every array a tensor on
 ``device``. Both packages lay out params identically (stacked layer
 groups, ``(in, out)`` matmul weights), so the conversion is a plain map.
+The same map carries the rest of a training state — the AdamW state
+(``mu``, ``nu`` and the 0-dim int32 ``step``) and the error-feedback
+residuals — so both packages can start from identical state.
 """
 
 from __future__ import annotations
@@ -25,10 +28,12 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree, device="cuda"):
-    """The port's params from a (nested dict/list) tree of numpy arrays."""
+    """The port's params (or any training-state tree) from a nested
+    dict/list tree of numpy arrays; 0-dim arrays become 0-dim tensors."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, dev) for v in tree]
     return _tensor(tree, dev)
+

@@ -1,6 +1,6 @@
 """Model assembly for the dense-GQA decoder: layer blocks, stacked
-layer groups, prefill and decode — the serving half of
-``repro.models.transformer``.
+layer groups, the cache-free training forward and chunked loss, prefill
+and decode — the port of ``repro.models.transformer``.
 
 Layer stacks are compiled into (pattern, repeat) groups
 (``ModelConfig.layer_groups``) and each group's params are stacked along
@@ -9,6 +9,12 @@ weights across is a plain map. Where JAX scans over the stacked dim,
 the port runs a Python loop over ``reps``. KV caches mirror the same
 (group, position, stacked) structure.
 
+The training forward (:func:`forward_hidden`, :func:`loss_fn`) is
+cache-free and autograd-clean; where JAX remats a layer (``remat`` not
+``"none"``), the port wraps it in ``torch.utils.checkpoint``, which
+changes memory, not numbers. The flash kernel has no backward (neither
+has the Pallas kernel): ``attn_impl="flash"`` under autograd raises.
+
 Not ported yet (raise ``NotImplementedError``): MLA and Mamba mixers,
 MoE and GeLU FFNs, cross-attention/encoder stacks, learned positions.
 """
@@ -16,6 +22,7 @@ MoE and GeLU FFNs, cross-attention/encoder stacks, learned positions.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
@@ -24,6 +31,10 @@ from .config import LayerSpec, ModelConfig
 from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
 Params = dict
+
+# JAX's remat policies by name; the port checkpoints whole layers for
+# every policy but "none" (the saved set differs, the numbers do not).
+REMAT_POLICIES = ("none", "dots", "full")
 
 
 def _check_spec(spec: LayerSpec, cfg: ModelConfig) -> None:
@@ -62,6 +73,23 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor) -> 
         return x
     h = rmsnorm(params["norm2"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     return x + swiglu(params["ffn"], h)
+
+
+def layer_apply(
+    params: Params,
+    spec: LayerSpec,
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence layer, no cache. Returns (x, aux_loss) — aux is 0
+    for the dense FFN."""
+    _check_spec(spec, cfg)
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
+    h = attn.gqa_apply(params["mixer"], h, positions, cfg, causal=causal)
+    return _ffn(params, spec, cfg, x + h), x.new_zeros((), dtype=torch.float32)
 
 
 def layer_prefill(
@@ -130,6 +158,42 @@ def groups_init(gen: torch.Generator, cfg: ModelConfig, device, groups=None) -> 
     return out
 
 
+def groups_apply(
+    gparams: list[list[Params]],
+    cfg: ModelConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+    remat: str = "dots",
+    groups=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every layer of every group in order; returns (x, summed aux).
+    ``remat != "none"`` checkpoints each pattern application (JAX's
+    remat'd scan body)."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
+    groups = cfg.layer_groups() if groups is None else groups
+    aux_total = x.new_zeros((), dtype=torch.float32)
+    for (pattern, reps), stacked in zip(groups, gparams):
+        for r in range(reps):
+            layer_params = [_index(p, r) for p in stacked]
+
+            def body(h, layer_params=layer_params, pattern=pattern):
+                aux = h.new_zeros((), dtype=torch.float32)
+                for spec, p in zip(pattern, layer_params):
+                    h, a = layer_apply(p, spec, cfg, h, positions, causal=causal)
+                    aux = aux + a
+                return h, aux
+
+            if remat != "none" and torch.is_grad_enabled():
+                x, aux = checkpoint(body, x, use_reentrant=False)
+            else:
+                x, aux = body(x)
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
 def groups_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device,
                       groups=None) -> list[list[Params]]:
     groups = cfg.layer_groups() if groups is None else groups
@@ -190,6 +254,58 @@ def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return (params["embed"] if cfg.tie_embeddings else params["lm_head"])["table"]
 
 
+def forward_hidden(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    remat: str = "dots",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (hidden (B, S, d) after the final norm, aux_loss), with
+    no cache: the training forward."""
+    _check_model(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    x, aux = groups_apply(params["groups"], cfg, x, positions, remat=remat)
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm), aux
+
+
+def loss_fn(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    remat: str = "dots",
+    loss_chunks: int = 8,
+    z_loss: float = 1e-4,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token CE, in sequence chunks (``loss_chunks``, lowered until
+    it divides S), with f32 logits against the f32 head table, plus the
+    z-loss ``z_loss * lse**2``. Returns (loss, {"loss", "ce", "aux"})."""
+    hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
+    labels = batch["labels"].long()
+    B, S, _ = hidden.shape
+    chunks = loss_chunks
+    while S % chunks:
+        chunks -= 1
+    sc = S // chunks
+    table = _head_table(params, cfg).float()
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for c in range(chunks):
+        h = hidden[:, c * sc : (c + 1) * sc].float()
+        logits = h @ table.T  # (B, sc, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c * sc : (c + 1) * sc, None])[..., 0]
+        ce = (lse - gold).sum()
+        zl = (lse ** 2).sum() * z_loss
+        total = total + ce + zl
+    ntok = B * S
+    loss = total / ntok + aux
+    return loss, {"loss": loss, "ce": total / ntok, "aux": aux}
+
+
 def prefill(
     params: Params,
     cfg: ModelConfig,
@@ -239,14 +355,19 @@ def decode_step(
 
 
 __all__ = [
+    "REMAT_POLICIES",
     "decode_step",
+    "forward_hidden",
+    "groups_apply",
     "groups_decode",
     "groups_init",
     "groups_init_cache",
     "init_cache",
+    "layer_apply",
     "layer_decode",
     "layer_init",
     "layer_prefill",
+    "loss_fn",
     "model_init",
     "prefill",
 ]

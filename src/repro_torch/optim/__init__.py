@@ -1,0 +1,5 @@
+"""Optimizers of the port (AdamW)."""
+
+from .adamw import OptConfig, global_norm, init, schedule, update
+
+__all__ = ["OptConfig", "global_norm", "init", "schedule", "update"]

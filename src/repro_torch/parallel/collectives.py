@@ -1,23 +1,55 @@
-"""Distribution-layer collectives for the port: the host-side
-multi-chain broadcast plan.
+"""Collectives backend seam of the port: "xla" (a plain mean over the
+DP ranks) vs "torrent" (Chainwrite: explicitly scheduled rings) — the
+port of ``repro.parallel.collectives``.
 
-:class:`MultiChainPlan` is ``repro.parallel.collectives.MultiChainPlan``
-minus its ``broadcast`` method, which needs the in-graph chain executor
-(a later slice). The serving runtime holds one plan for its replica
-set: weight refresh and KV multicast stream down its sub-chains, and
-elastic scale-down re-forms it around lost replicas.
+One card runs every DP rank as a row of the stacked view (see
+``core.chainwrite``): :func:`torrent_grad_reduce` wraps a per-rank
+``grad_fn(params, batch_slice) -> (grads, metrics)``, runs it once per
+rank on that rank's rows of the global batch, writes each rank's grads
+into its row of one preallocated ``(dp, *shape)`` buffer per leaf, and
+reduces the rows with the chain all-reduce. The reduction keeps the
+JAX package's order exactly: per-leaf flat payloads (or chunk-aligned
+buckets in reverse leaf order), the EF residual added before the int8
+wire and the new residual ``flat - dequantize(quantize(flat))``, the
+sum divided by the DP size, metrics averaged over ranks. Every knob is
+there: ``num_chains`` (int or ``"auto"``), ``algo``, ``wire_dtype``,
+``error_feedback``, ``bucket_bytes``, ``topology`` and ``hierarchical``
+over two DP axes (``("pod", "data")``, rank ``pod·D + data``).
+
+:class:`MultiChainPlan` is the host-side multi-chain broadcast plan the
+serving runtime holds; its :meth:`~MultiChainPlan.broadcast` runs the
+(possibly degraded) multicast on the stacked view.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
+from typing import Any, Callable, Sequence
+
+import torch
+
+from repro_torch.core import chainwrite as cw
+from repro_torch.core import program as prg
+from repro_torch.core import simulator as sim
 from repro_torch.core.scheduling import (
+    SCHEDULERS,
     FailureSpec,
     normalize_failed,
     partition_schedule,
     reform_chain,
 )
 from repro_torch.core.simulator import SourceFailedError
-from repro_torch.core.topology import MeshTopology
+from repro_torch.core.topology import MeshTopology, parse_topology_spec
+from repro_torch.runtime.compression import dequantize_rows, quantize_rows
+from repro_torch.runtime.spans import maybe_span
+from repro_torch.tree import leaves, map_tree, unflatten
+
+PyTree = Any
+
+# The data-parallel mesh axes, in canonical order (``parallel.hints.BATCH``).
+BATCH: tuple[str, ...] = ("pod", "data")
 
 
 class MultiChainPlan:
@@ -29,7 +61,7 @@ class MultiChainPlan:
     failure, :meth:`reform` splices the dead member(s) — one node or a
     concurrent failure *set* — out of their sub-chains and re-orders
     each orphaned suffix (``core.scheduling.reform_chain``), so the next
-    transfer is the degraded multicast over the survivors.
+    :meth:`broadcast` is the degraded multicast over the survivors.
     """
 
     def __init__(
@@ -93,3 +125,537 @@ class MultiChainPlan:
         self.chains = reformed
         self.failed.extend(sorted(dead))
         return True
+
+    def broadcast(self, x: torch.Tensor, *, num_frames: int = 1) -> torch.Tensor:
+        """The (possibly degraded) multi-chain broadcast of row
+        ``head`` of the stacked view ``x`` (``(L, n, ...)``) over the
+        current survivor schedule."""
+        if not self.chains:
+            # every destination failed: only the head keeps its payload
+            out = torch.zeros_like(x)
+            out[self.head] = x[self.head]
+            return out
+        return cw.multi_chain_broadcast(x, self.head, self.chains, num_frames=num_frames)
+
+
+def ring_order_for_axis(axis_size: int, scheduler: str = "tsp") -> tuple[int, ...]:
+    """Chain order for a DP ring: the axis's devices scheduled as a 1-D
+    NoC (linear neighbours), 1 hop per destination."""
+    if axis_size <= 2 or scheduler == "naive":
+        return tuple(range(axis_size))
+    topo = MeshTopology(axis_size, 1)
+    order = SCHEDULERS[scheduler](topo, list(range(1, axis_size)), source=0)
+    return (0, *order)
+
+
+def sub_ring_orders(
+    axis_size: int, num_chains: int, scheduler: str = "tsp"
+) -> list[tuple[int, ...]]:
+    """Split the scheduled DP ring into ``num_chains`` contiguous
+    sub-rings for ``multi_chain_all_reduce``."""
+    if axis_size % num_chains:
+        raise ValueError(
+            f"num_chains={num_chains} must divide the DP group size {axis_size}"
+        )
+    ring = ring_order_for_axis(axis_size, scheduler)
+    size = axis_size // num_chains
+    return [tuple(ring[i * size : (i + 1) * size]) for i in range(num_chains)]
+
+
+def _dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel subset of ``mesh.axis_names`` in canonical
+    (pod, data) order."""
+    return tuple(a for a in BATCH if a in mesh.axis_names)
+
+
+def _axis_orders(size: int, num_chains: int, scheduler: str) -> list[tuple[int, ...]]:
+    """The K sub-ring partition of an axis of ``size`` (K=1 -> the
+    single snake ring)."""
+    if num_chains <= 1 or size <= num_chains:
+        return [ring_order_for_axis(size, scheduler)]
+    return sub_ring_orders(size, num_chains, scheduler)
+
+
+def torrent_all_to_all(
+    x: torch.Tensor, *, num_chains: int = 1, scheduler: str = "tsp",
+    wire_dtype: str | None = None,
+) -> torch.Tensor:
+    """Scheduled-ring all-to-all over the rows of ``x`` (``(L, L,
+    ...)``: ``x[s, d]`` goes to device ``d``); returns ``out[d, s]``."""
+    orders = _axis_orders(x.shape[0], num_chains, scheduler)
+    if len(orders) == 1:
+        return cw.chain_all_to_all(x, orders[0], wire_dtype=wire_dtype)
+    return cw.multi_chain_all_to_all(x, orders, wire_dtype=wire_dtype)
+
+
+def torrent_reduce_scatter(
+    x: torch.Tensor, *, num_chains: int = 1, scheduler: str = "tsp"
+) -> torch.Tensor:
+    """Scheduled-ring reduce-scatter over the rows of ``x`` (``(L, L,
+    ...)``); row ``d`` of the result is the reduced chunk ``d``."""
+    orders = _axis_orders(x.shape[0], num_chains, scheduler)
+    if len(orders) == 1:
+        return cw.chain_reduce_scatter(x, orders[0])
+    return cw.multi_chain_reduce_scatter(x, orders)
+
+
+def torrent_all_gather(
+    x: torch.Tensor, *, num_chains: int = 1, scheduler: str = "tsp",
+    tiled: bool = False,
+) -> torch.Tensor:
+    """Scheduled-ring all-gather over the rows of ``x`` (device-id
+    indexed stack, or concatenation with ``tiled=True``)."""
+    orders = _axis_orders(x.shape[0], num_chains, scheduler)
+    if len(orders) == 1:
+        return cw.chain_all_gather(x, orders[0], tiled=tiled)
+    return cw.multi_chain_all_gather(x, orders, tiled=tiled)
+
+
+def _ring_topology(axis_size: int, topology) -> MeshTopology:
+    """The advisory topology knob for one DP ring: ``None`` -> the
+    uniform 1-D ring; a spec string -> ``parse_topology_spec``; a
+    topology object passes through; a spec that does not fit the axis
+    degrades to the uniform ring."""
+    if topology is None:
+        return MeshTopology(axis_size, 1)
+    if isinstance(topology, MeshTopology):
+        topo = topology
+    else:
+        try:
+            topo = parse_topology_spec(str(topology), num_nodes=axis_size)
+        except ValueError:
+            return MeshTopology(axis_size, 1)
+    if topo.num_nodes != axis_size:
+        return MeshTopology(axis_size, 1)
+    return topo
+
+
+@functools.lru_cache(maxsize=None)
+def auto_ring_chains(
+    axis_size: int,
+    size_bytes: int,
+    scheduler: str = "tsp",
+    algo: str = "rs_ag",
+    wire_dtype: str | None = None,
+    max_chains: int = 4,
+    topo: MeshTopology | None = None,
+) -> tuple[int, tuple[tuple[int, ...], ...]]:
+    """Model-driven (K, sub_rings) for one DP reduction of
+    ``size_bytes`` over ``axis_size`` devices — the ``num_chains=
+    "auto"`` resolver (``core.simulator.choose_num_chains``)."""
+    if axis_size <= 2:
+        return 1, (tuple(range(axis_size)),)
+    if topo is None:
+        topo = MeshTopology(axis_size, 1)
+    elif topo.num_nodes != axis_size:
+        raise ValueError(
+            f"topology has {topo.num_nodes} nodes for a ring of {axis_size}"
+        )
+    k, rings = sim.choose_num_chains(
+        topo, 0, list(range(1, axis_size)), int(size_bytes),
+        scheduler=scheduler, max_chains=max_chains,
+        collective="all_reduce", algo=algo, wire_dtype=wire_dtype,
+    )
+    return k, tuple(tuple(r) for r in rings)
+
+
+# ---------------------------------------------------------------------------
+# Bucket assembly
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class GradBucket:
+    """One reduction bucket: its leaf indices (descending = reverse-
+    topological dispatch order), their common dtype name, and their
+    total unpadded bytes."""
+
+    indices: tuple[int, ...]
+    dtype: str
+    num_bytes: int
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def assign_buckets(leaves_: Sequence, bucket_bytes: int) -> tuple[GradBucket, ...]:
+    """Partition gradient leaves (anything with ``.shape`` and a torch
+    ``.dtype``) into dtype-grouped, size-targeted buckets in REVERSE
+    leaf order; a bucket exceeds ``bucket_bytes`` only when it holds a
+    single oversized leaf."""
+    target = int(bucket_bytes)
+    if target <= 0:
+        raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
+    buckets: list[GradBucket] = []
+    idxs: list[int] = []
+    cur_dtype = ""
+    cur_bytes = 0
+
+    def close() -> None:
+        nonlocal idxs, cur_dtype, cur_bytes
+        if idxs:
+            buckets.append(GradBucket(tuple(idxs), cur_dtype, cur_bytes))
+        idxs, cur_dtype, cur_bytes = [], "", 0
+
+    for i in reversed(range(len(leaves_))):
+        name = _dtype_name(leaves_[i].dtype)
+        nbytes = math.prod(leaves_[i].shape) * _itemsize(leaves_[i].dtype)
+        if idxs and (name != cur_dtype or cur_bytes + nbytes > target):
+            close()
+        idxs.append(i)
+        cur_dtype = name
+        cur_bytes += nbytes
+    close()
+    return tuple(buckets)
+
+
+def all_reduce_shards(axis_size: int, num_chains: int, algo: str) -> int:
+    """Chunk-address shard count of the planned all-reduce schedule,
+    read off the plan itself (``addr_shards`` depends only on the (L,
+    K, algo) shape)."""
+    L, k = int(axis_size), max(1, int(num_chains))
+    size = L // k
+    orders = tuple(tuple(range(i * size, (i + 1) * size)) for i in range(k))
+    return prg.plan_all_reduce(L, orders, algo=algo).addr_shards
+
+
+def bucket_shard_layout(
+    num_elems: Sequence[int], shards: int
+) -> tuple[tuple[int, ...], int]:
+    """Chunk-aligned bucket layout: leaf i occupies ``shards`` rows of
+    ``ceil(n_i / shards)`` elements (zero-padded), concatenated along
+    the row axis. Returns ``(widths, shards * sum(widths))``."""
+    widths = tuple(-(-int(n) // int(shards)) for n in num_elems)
+    return widths, int(shards) * sum(widths)
+
+
+def resolve_ring_chains(
+    axis_size: int,
+    nbytes: int,
+    *,
+    num_chains: int | str = 1,
+    scheduler: str = "tsp",
+    algo: str = "rs_ag",
+    wire_dtype: str | None = None,
+    max_chains: int = 4,
+    topology=None,
+) -> tuple[int, tuple[tuple[int, ...], ...]]:
+    """(K, sub_rings) for one DP reduction of ``nbytes`` per rank."""
+    if num_chains == "auto":
+        k, rings = auto_ring_chains(
+            axis_size, nbytes, scheduler, algo, wire_dtype, max_chains,
+            _ring_topology(axis_size, topology),
+        )
+        if k > 1:
+            return k, rings
+    elif isinstance(num_chains, int) and num_chains > 1 and axis_size > num_chains:
+        return num_chains, tuple(sub_ring_orders(axis_size, num_chains, scheduler))
+    return 1, (ring_order_for_axis(axis_size, scheduler),)
+
+
+def ef_residual_init(params: PyTree, dp_size: int) -> PyTree:
+    """Zero error-feedback state: one f32 ``(dp_size, *shape)`` residual
+    per leaf, on each leaf's device (row ``r`` is rank ``r``'s)."""
+    return map_tree(
+        lambda p: torch.zeros((int(dp_size),) + tuple(p.shape), dtype=torch.float32,
+                              device=p.device),
+        params,
+    )
+
+
+def _mesh_size(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
+
+
+def split_batch(batch: PyTree, dp: int, r: int) -> PyTree:
+    """Rank ``r``'s rows of every batch leaf (``P(dp_axes, None)``)."""
+    def take(x):
+        if x.shape[0] % dp:
+            raise ValueError(f"batch dim {x.shape[0]} not divisible by {dp} DP ranks")
+        n = x.shape[0] // dp
+        return x[r * n : (r + 1) * n]
+
+    return map_tree(take, batch)
+
+
+def _same_device(tensors) -> torch.device:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devs))}")
+    return devs.pop()
+
+
+def _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes):
+    if algo not in cw.ALL_REDUCE_ALGOS:
+        raise ValueError(f"unknown algo {algo!r}; expected {cw.ALL_REDUCE_ALGOS}")
+    if num_chains != "auto" and not isinstance(num_chains, int):
+        raise ValueError(f'num_chains must be an int or "auto", got {num_chains!r}')
+    wire_dtype = prg.normalize_wire_dtype(wire_dtype)
+    if error_feedback and wire_dtype is None:
+        raise ValueError(
+            "error_feedback=True requires a lossy wire_dtype "
+            '(e.g. wire_dtype="int8"): with an exact wire there is no '
+            "quantization residual to feed back"
+        )
+    if bucket_bytes is not None and int(bucket_bytes) <= 0:
+        raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
+    return wire_dtype
+
+
+def dp_size_of(mesh) -> int:
+    """The number of data-parallel ranks of ``mesh`` (raises for a TP
+    axis > 1 or a mesh without DP axes)."""
+    if mesh.shape.get("model", 1) != 1:
+        raise NotImplementedError("a model (TP) axis > 1 waits for the multi-process backend")
+    dp = _dp_axes(mesh)
+    if not dp:
+        raise ValueError(f"mesh {mesh.axis_names} has no data-parallel axis")
+    return _mesh_size(mesh, dp)
+
+
+def stack_rank_grads(
+    grad_fn: Callable[..., tuple[PyTree, PyTree]],
+    params: PyTree,
+    batch: PyTree,
+    dp_size: int,
+    *,
+    out: list[torch.Tensor] | None = None,
+    spans=None,
+) -> tuple[list[torch.Tensor], PyTree]:
+    """Run ``grad_fn`` once per DP rank on its rows of ``batch`` and
+    write rank ``r``'s grads into row ``r`` of one ``(dp_size, *shape)``
+    buffer per leaf (``out``, reused when its shapes match, else
+    allocated). Returns (stacked leaves in tree order, metrics averaged
+    over ranks)."""
+    metrics_sum = None
+    device = leaves(params)[0].device
+    for r in range(dp_size):
+        with maybe_span(spans, "fwd_bwd", device):
+            grads, metrics = grad_fn(params, split_batch(batch, dp_size, r))
+        g_leaves = leaves(grads)
+        _same_device(g_leaves)
+        if out is None or [(tuple(s.shape), s.dtype, s.device) for s in out] != [
+            ((dp_size,) + tuple(g.shape), g.dtype, g.device) for g in g_leaves
+        ]:
+            out = [g.new_empty((dp_size,) + tuple(g.shape)) for g in g_leaves]
+        for s, g in zip(out, g_leaves):
+            s[r].copy_(g)
+        del grads, g_leaves
+        metrics_sum = metrics if metrics_sum is None else map_tree(
+            lambda a, b: a + b, metrics_sum, metrics)
+    return out, map_tree(lambda m: m / dp_size, metrics_sum)
+
+
+def make_stacked_reduce(
+    mesh,
+    *,
+    scheduler: str = "tsp",
+    hierarchical: bool = True,
+    num_chains: int | str = 1,
+    algo: str = "rs_ag",
+    wire_dtype: str | None = None,
+    error_feedback: bool = False,
+    bucket_bytes: int | None = None,
+    topology=None,
+) -> Callable[..., list[torch.Tensor]]:
+    """``reduce(stacked, residual=None) -> grads``: the DP reduction of
+    :func:`torrent_grad_reduce` over stacked per-rank leaves
+    (``(dp, *shape)`` each, in tree order), returning one reduced leaf
+    per input (rank 0's row divided by the DP size). With
+    ``error_feedback`` pass the residual leaves: the new residual is
+    written into them, and ``stacked`` is used as scratch."""
+    wire_dtype = _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes)
+    dp = _dp_axes(mesh)
+    dp_size = dp_size_of(mesh)
+
+    if hierarchical and len(dp) == 2:
+        # within each pod (rows p·D + d over d), then across pods (over p)
+        P, D = mesh.shape[dp[0]], mesh.shape[dp[1]]
+        stages = [([[p * D + d for d in range(D)] for p in range(P)], D),
+                  ([[p * D + d for p in range(P)] for d in range(D)], P)]
+    else:
+        stages = [([list(range(dp_size))], dp_size)]
+
+    def _rings_for(size: int, nbytes: int):
+        return resolve_ring_chains(
+            size, nbytes, num_chains=num_chains, scheduler=scheduler,
+            algo=algo, wire_dtype=wire_dtype, topology=topology,
+        )
+
+    def _ar(x, k, rings):
+        if k > 1:
+            return cw.multi_chain_all_reduce(x, rings, algo=algo, wire_dtype=wire_dtype)
+        return cw.chain_all_reduce(x, rings[0], wire_dtype=wire_dtype)
+
+    def _ar_stage(x, groups, k, rings):
+        """All-reduce ``x`` (``(dp, n)``) within each row group."""
+        if len(groups) == 1:
+            return _ar(x, k, rings)
+        out = torch.empty_like(x)
+        for g in groups:
+            idx = torch.tensor(g, dtype=torch.int64, device=x.device)
+            out.index_copy_(0, idx, _ar(x.index_select(0, idx), k, rings))
+        return out
+
+    def _divide(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        # a tensor divisor keeps the divide a true division on CUDA too
+        div = torch.tensor(float(dp_size), dtype=flat.dtype, device=flat.device)
+        return (flat[0] / div).reshape(like.shape[1:]).to(like.dtype)
+
+    def _ef(flat: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        """Fold the rank residuals into ``flat`` (in place when f32) and
+        write the new residual into ``r``; returns the f32 payload."""
+        rf = r.reshape(flat.shape)
+        flat = flat.add_(rf) if flat.dtype == torch.float32 else flat.float() + rf
+        q, s = quantize_rows(flat)
+        torch.sub(flat, dequantize_rows(q, s), out=rf)
+        return flat
+
+    def reduce_one(g: torch.Tensor, r: torch.Tensor | None = None) -> torch.Tensor:
+        flat = g.reshape(g.shape[0], -1)
+        if r is not None:
+            flat = _ef(flat, r)
+        for groups, size in stages:
+            k, rings = _rings_for(size, flat[0].numel() * flat.element_size())
+            flat = _ar_stage(flat, groups, k, rings)
+        return _divide(flat, g)
+
+    def _reduce_bucket_flats(flats: list[torch.Tensor]) -> list[torch.Tensor]:
+        """One bucket = ONE chain all-reduce over the chunk-aligned
+        concatenation of its leaves' ``(dp, n_i)`` payloads."""
+        nbytes = sum(f[0].numel() * f.element_size() for f in flats)
+        plans = [(groups,) + _rings_for(size, nbytes) for groups, size in stages]
+        shards = all_reduce_shards(stages[0][1], plans[0][1], algo)
+        widths, _ = bucket_shard_layout([f.shape[1] for f in flats], shards)
+        L = flats[0].shape[0]
+        if len(flats) == 1 and flats[0].shape[1] == shards * widths[0]:
+            payload = flats[0]  # one leaf that needs no padding: no copy
+        else:
+            mat = flats[0].new_zeros((L, shards, sum(widths)))
+            off = 0
+            for f, m in zip(flats, widths):
+                full, rem = divmod(f.shape[1], m)
+                dst = mat[:, :, off : off + m]
+                if full:
+                    dst[:, :full] = f[:, : full * m].reshape(L, full, m)
+                if rem:
+                    dst[:, full, :rem] = f[:, full * m :]
+                off += m
+            payload = mat.reshape(L, -1)
+        for groups, k, rings in plans:
+            payload = _ar_stage(payload, groups, k, rings)
+        mat = payload.reshape(L, shards, -1)
+        outs, off = [], 0
+        for f, m in zip(flats, widths):
+            outs.append(mat[:, :, off : off + m].reshape(L, -1)[:, : f.shape[1]])
+            off += m
+        return outs
+
+    def reduce(stacked: list[torch.Tensor], residual: list[torch.Tensor] | None = None):
+        if error_feedback and residual is None:
+            raise ValueError("error_feedback=True: pass the residual leaves")
+        res = residual if error_feedback else [None] * len(stacked)
+        _same_device(list(stacked) + list(residual or []))
+        if bucket_bytes is None:
+            return [reduce_one(g, r) for g, r in zip(stacked, res)]
+        out = [None] * len(stacked)
+        for b in assign_buckets([s[0] for s in stacked], bucket_bytes):
+            flats = []
+            for i in b.indices:
+                flat = stacked[i].reshape(stacked[i].shape[0], -1)
+                if res[i] is not None:
+                    flat = _ef(flat, res[i])
+                flats.append(flat)
+            for i, rf in zip(b.indices, _reduce_bucket_flats(flats)):
+                out[i] = _divide(rf, stacked[i])
+        return out
+
+    return reduce
+
+
+def torrent_grad_reduce(
+    grad_fn: Callable[..., tuple[PyTree, PyTree]],
+    mesh,
+    *,
+    scheduler: str = "tsp",
+    hierarchical: bool = True,
+    num_chains: int | str = 1,
+    algo: str = "rs_ag",
+    wire_dtype: str | None = None,
+    error_feedback: bool = False,
+    bucket_bytes: int | None = None,
+    topology=None,
+    spans=None,
+) -> Callable[..., tuple[PyTree, PyTree]]:
+    """Wrap ``grad_fn(params, batch) -> (grads, metrics)`` (grads of the
+    rank's local mean loss) so grads come back chain-all-reduced over
+    the DP axes of ``mesh`` and divided by the DP size.
+
+    ``wrapped(params, batch)`` splits every batch leaf along dim 0 into
+    the ranks' rows, runs ``grad_fn`` per rank into one preallocated
+    stacked buffer per leaf (:func:`stack_rank_grads`), reduces it
+    (:func:`make_stacked_reduce`) and returns ``(grads, metrics)``: the
+    reduced grads (rank 0's row, as the JAX package's replicated output)
+    and the metrics averaged over ranks. ``error_feedback=True`` (needs
+    ``wire_dtype="int8"``) changes the signature to ``wrapped(params,
+    batch, residual) -> (grads, metrics, new_residual)`` with residuals
+    from :func:`ef_residual_init`; the new residual is written into
+    ``residual``'s buffers (the step owns its state, as the JAX step
+    donates it) and returned.
+
+    ``bucket_bytes`` reduces each bucket of :func:`assign_buckets` as
+    ONE chunk-aligned chain all-reduce, in reverse leaf order; at the
+    exact wire the result is bit-identical to the per-leaf reduce.
+    ``spans`` (a :class:`~repro_torch.runtime.spans.Spans`) records a
+    ``fwd_bwd`` span per rank and a ``reduce`` span."""
+    reduce = make_stacked_reduce(
+        mesh, scheduler=scheduler, hierarchical=hierarchical, num_chains=num_chains,
+        algo=algo, wire_dtype=wire_dtype, error_feedback=error_feedback,
+        bucket_bytes=bucket_bytes, topology=topology,
+    )
+    dp_size = dp_size_of(mesh)
+    buf: dict[str, list[torch.Tensor] | None] = {"stacked": None}
+
+    def _grads(params, batch, residual=None):
+        stacked, metrics = stack_rank_grads(
+            grad_fn, params, batch, dp_size, out=buf["stacked"], spans=spans)
+        buf["stacked"] = stacked
+        with maybe_span(spans, "reduce", stacked[0].device):
+            out = reduce(stacked, None if residual is None else leaves(residual))
+        return unflatten(params, out), metrics
+
+    def wrapped(params, batch):
+        return _grads(params, batch)
+
+    def wrapped_ef(params, batch, residual):
+        grads, metrics = _grads(params, batch, residual)
+        return grads, metrics, residual
+
+    return wrapped_ef if error_feedback else wrapped
+
+
+__all__ = [
+    "GradBucket",
+    "MultiChainPlan",
+    "all_reduce_shards",
+    "assign_buckets",
+    "auto_ring_chains",
+    "bucket_shard_layout",
+    "dp_size_of",
+    "ef_residual_init",
+    "make_stacked_reduce",
+    "resolve_ring_chains",
+    "ring_order_for_axis",
+    "split_batch",
+    "stack_rank_grads",
+    "sub_ring_orders",
+    "torrent_all_gather",
+    "torrent_all_to_all",
+    "torrent_grad_reduce",
+    "torrent_reduce_scatter",
+]

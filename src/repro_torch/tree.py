@@ -26,3 +26,32 @@ def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
             map_tree(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)
         )
     return fn(tree, *rest)
+
+
+def unflatten(like: Any, flat: list) -> Any:
+    """``jax.tree.unflatten``: ``flat`` (in :func:`leaves` order) put
+    back into the nesting of ``like``."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("unflatten: more leaves than the tree holds")
+    return out
+
+
+def paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs in :func:`leaves` order; a path holds the
+    dict keys and list indices from the root (``jax.tree_util``'s
+    ``tree_flatten_with_path``)."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, t in enumerate(tree) for p in paths(t, prefix + (i,))]
+    return [(prefix, tree)]

@@ -389,3 +389,191 @@ def test_server_on_cuda_goes_through_both_kernels(cuda):
     lc, _ = T.prefill(cpu_params, cfg, {"tokens": toks}, sc.max_seq)
     err = float((lg.cpu() - lc).abs().max())
     assert err <= 5e-2 * float(lc.abs().max())
+
+
+# -- the training path on the card: wire numerics, executor, reduction --
+
+
+def _rings(L, K, seed):
+    perm = np.random.default_rng(seed).permutation(L)
+    S = L // K
+    return tuple(tuple(int(d) for d in perm[i * S:(i + 1) * S]) for i in range(K))
+
+
+@pytest.mark.parametrize("scale_pow", [-30, -6, 0, 6, 30])
+def test_quantize_on_cuda_is_bitexact_to_numpy(cuda, scale_pow):
+    """The int8 wire format on the card equals the numpy twin of
+    ``chainwrite_ref._quantize_ref`` bit for bit, whole-tensor and per
+    row, including half-way values and subnormal scales."""
+    from repro_torch.core.chainwrite_ref import _quantize_ref
+    from repro_torch.runtime.compression import quantize, quantize_rows
+
+    rng = np.random.default_rng(scale_pow + 100)
+    x = (rng.standard_normal((6, 257)) * 10.0 ** scale_pow).astype(np.float32)
+    x[0, :8] = [0.0, -0.0, 1.5, -2.5, 0.5, 127.5, -126.5, 3.0]
+    x[1] = 0.0
+    q, s = quantize(torch.from_numpy(x).to(cuda))
+    qr, sr = _quantize_ref(x)
+    assert np.array_equal(q.cpu().numpy(), qr) and np.float32(s.item()) == sr
+    qs, ss = quantize_rows(torch.from_numpy(x).to(cuda))
+    for d in range(x.shape[0]):
+        qd, sd = _quantize_ref(x[d])
+        assert np.array_equal(qs[d].cpu().numpy(), qd)
+        assert ss[d].cpu().numpy().view(np.uint32) == np.float32(sd).view(np.uint32)
+
+
+_WIRED = ("all_reduce_rs_ag", "all_reduce_rotation", "all_to_all")
+_EXECUTOR_CASES = [
+    (c, k, w)
+    for c in _WIRED + ("reduce_scatter", "all_gather", "broadcast")
+    for k in (1, 2, 4)
+    for w in ((None, "int8") if c in _WIRED else (None,))
+]
+
+
+@pytest.mark.parametrize("collective,K,wire", _EXECUTOR_CASES)
+def test_executor_on_cuda_equals_cpu(cuda, collective, K, wire):
+    """Every collective on the card is ``torch.equal`` to the same call
+    on the CPU (and so to the numpy oracle the CPU tests pin), for both
+    wires; the byte counter matches the model on the card too."""
+    from repro_torch.core import chainwrite as cw
+
+    L = 8
+    rings = _rings(L, K, K)
+    rng = np.random.default_rng(7)
+
+    def run(dev):
+        if collective.startswith("all_reduce"):
+            x = torch.from_numpy(rng.standard_normal((L, 37, 3)).astype(np.float32))
+            return cw.multi_chain_all_reduce(x.to(dev), rings, algo=collective[11:],
+                                             wire_dtype=wire)
+        if collective == "all_to_all":
+            x = torch.from_numpy(rng.standard_normal((L, L, 5)).astype(np.float32))
+            return cw.multi_chain_all_to_all(x.to(dev), rings, wire_dtype=wire)
+        if collective == "reduce_scatter":
+            x = torch.from_numpy(rng.standard_normal((L, L, 5)).astype(np.float32))
+            return cw.multi_chain_reduce_scatter(x.to(dev), rings)
+        if collective == "all_gather":
+            x = torch.from_numpy(rng.standard_normal((L, 6, 2)).astype(np.float32))
+            return cw.multi_chain_all_gather(x.to(dev), rings, tiled=True)
+        x = torch.from_numpy(rng.standard_normal((L, 12)).astype(np.float32))
+        chains = [c for c in rings if 0 not in c] or [tuple(d for d in rings[0] if d)]
+        return cw.multi_chain_broadcast(x.to(dev), 0, chains, num_frames=3)
+
+    cw.wire_counter.reset()
+    rng = np.random.default_rng(7)
+    got = run(cuda)
+    assert cw.wire_counter.bytes == cw.wire_counter.modeled_bytes()
+    rng = np.random.default_rng(7)
+    want = run(torch.device("cpu"))
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("wire,ef", [(None, False), ("int8", True)])
+def test_bucketed_reduce_on_cuda(cuda, wire, ef):
+    """Bucketed == per-leaf bit for bit on the card at the exact wire,
+    and the card's reduction (EF residuals included) equals the CPU's."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives as col
+
+    mesh = make_host_mesh(data=4)
+    rng = np.random.default_rng(3)
+    shapes = [(33, 7), (5,), (128, 64), (1000,), (3, 3, 3)]
+    stacked = [torch.from_numpy(rng.standard_normal((4,) + s).astype(np.float32))
+               for s in shapes]
+    res = [torch.from_numpy(rng.standard_normal((4,) + s).astype(np.float32) * 1e-3)
+           for s in shapes]
+    outs = {}
+    for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        for bucket in (None, 4096):
+            red = col.make_stacked_reduce(mesh, num_chains=2, wire_dtype=wire,
+                                          error_feedback=ef, bucket_bytes=bucket)
+            st = [s.clone().to(dev) for s in stacked]
+            rs = [r.clone().to(dev) for r in res] if ef else None
+            outs[label, bucket] = ([g.cpu() for g in red(st, rs)],
+                                      [r.cpu() for r in rs] if ef else None)
+    for bucket in (None, 4096):
+        g_card, r_card = outs["card", bucket]
+        g_cpu, r_cpu = outs["cpu", bucket]
+        assert all(torch.equal(a, b) for a, b in zip(g_card, g_cpu))
+        if ef:
+            assert all(torch.equal(a, b) for a, b in zip(r_card, r_cpu))
+    if wire is None:
+        assert all(torch.equal(a, b) for a, b in zip(outs["card", None][0],
+                                                     outs["card", 4096][0]))
+
+
+def test_kernels_refuse_autograd_on_cuda(cuda):
+    """Neither kernel has a backward: under autograd the wrappers raise
+    on the card, as they do on the CPU, instead of returning an output
+    without a grad_fn; under no_grad they launch."""
+    q = torch.randn((1, 2, 64, 16), device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        FA.flash_attention(q, q, q)
+    with torch.no_grad():
+        assert FA.flash_attention(q, q, q).shape == q.shape
+    x = R.dense_to_blocked(torch.randn((16, 16), device=cuda), (8, 8)).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        R.relayout(x, (16, 16), (8, 8), (16, 16))
+    with torch.no_grad():
+        R.relayout(x, (16, 16), (8, 8), (16, 16))
+
+
+def test_train_step_on_cuda_matches_cpu(cuda):
+    """A smoke-size Torrent train step on the card (4 virtual ranks,
+    int8 wire with EF, buckets) gives the CPU step's loss within bf16
+    noise, and its executor bytes equal the byte model's."""
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.data.pipeline import MarkovSource
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.collectives import ef_residual_init
+
+    cfg = C.get_smoke_config("yi-6b")
+    batch_np = MarkovSource(cfg.vocab_size, 32, 8, seed=1).batch(0)
+    losses = {}
+    for label, dev in (("card", cuda), ("cpu", torch.device("cpu"))):
+        params = map_tree(lambda t: t.to(dev), T.model_init(
+            torch.Generator().manual_seed(0), cfg, "cpu"))
+        step = make_train_step(cfg, adamw.OptConfig(), collectives="torrent",
+                               num_chains=2, compress_grads=True, error_feedback=True,
+                               bucket_bytes=1 << 14, mesh=make_host_mesh(data=4),
+                               loss_chunks=2)
+        batch = {k: torch.from_numpy(v.copy()).to(dev) for k, v in batch_np.items()}
+        cw.wire_counter.reset()
+        _, _, _, m = step(params, adamw.init(params), ef_residual_init(params, 4), batch)
+        assert cw.wire_counter.bytes == cw.wire_counter.modeled_bytes()
+        losses[label] = float(m["loss"])
+    assert abs(losses["card"] - losses["cpu"]) < 2e-3, losses
+
+
+def test_trainer_on_cuda_restarts_and_tracks_cpu(cuda, tmp_path):
+    """The Trainer's own loop on the card (4 virtual ranks, Torrent K = 2,
+    int8 wire with EF, buckets) with a failure injected at step 13: one
+    restart, the state (EF residuals included) checkpointed from the
+    card and restored onto it, and every step's loss within 5e-3 of the
+    same run on the CPU from the same params (bf16 rounding order;
+    measured 1.2e-3 on an H100)."""
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+
+    base = dict(arch="yi-6b", smoke=True, steps=20, global_batch=8, seq_len=32,
+                peak_lr=2e-3, warmup_steps=5, ckpt_every=10, loss_chunks=2, log_every=100,
+                collectives="torrent", num_chains=2, compress_grads=True,
+                bucket_bytes=1 << 16, dp=4, fail_at=(13,))
+    init = T.model_init(torch.Generator().manual_seed(0), C.get_smoke_config("yi-6b"), "cpu")
+    out, trainers = {}, {}
+    for dev in ("cuda", "cpu"):
+        trainers[dev] = Trainer(TrainConfig(ckpt_dir=str(tmp_path / dev), **base),
+                                device=dev, params=init)
+        out[dev] = trainers[dev].run()
+    card = out["cuda"]
+    assert (card["final_step"], card["restarts"]) == (20, 1)
+    assert len(card["losses"]) == len(out["cpu"]["losses"]) == 23  # steps 10-12 replayed
+    assert np.isfinite(card["losses"]).all() and card["last_loss"] < card["first_loss"]
+    diff = max(abs(a - b) for a, b in zip(card["losses"], out["cpu"]["losses"]))
+    assert diff < 5e-3, (card["losses"], out["cpu"]["losses"])
+    state = trainers["cuda"].state
+    assert all(t.device.type == "cuda" for t in leaves(state))
+    assert any(float(r.abs().max()) > 0 for r in leaves(state["ef"]))
