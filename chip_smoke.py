@@ -32,14 +32,33 @@ Phases (any failure exits non-zero and prints no result):
 4. f32 attention: ``flash_attention`` called on f32 inputs at yi-6b's
    heads (the 3xTF32 tensor-core kernel) and at D = 192 (beyond its
    shared memory: the CUDA-core kernel);
-5. serve: a ``repro_torch.launch.serve.Server`` at yi-6b's full width
+5. moe layer: one deepseek-moe-16b MoE layer at full width (64 routed
+   experts top-6, d_ff 1408, 2 shared; random f32 params from a seed)
+   on 8 virtual ranks of 512 bf16 tokens each: the flat and rowwise
+   dispatch at ``capacity_factor=8`` against ``moe_ref`` (2e-2), the
+   expert-parallel ``moe_apply_ep`` on the stacked view with K = 1 and
+   K = 2 chain all-to-alls against the flat output (2e-2) and each
+   other (bit for bit), on the int8 wire within 0.1 of ``moe_ref``'s
+   scale; every call's executor wire bytes equal to
+   ``program_wire_bytes`` of its three all-to-alls, the int8 token
+   payload a quarter of its f32 size plus the scales; the flat and
+   rowwise paths must make the host wait for the card no time (CUDA's
+   sync debug mode, which must catch ``bincount``'s wait; EP's count is
+   printed). Prints CUDA-event times of
+   each path at capacity 8 and at the config's 1.25;
+6. serve: a ``repro_torch.launch.serve.Server`` at yi-6b's full width
    (depth cut to 8 layers, ``attn_impl="flash"``, random weights from a
    seed): weight multicast, KV-prefix registration and multicast, then
    8 requests through ``run()``; both kernels' launch counters must move,
    every flash launch must take the ``wgmma`` route, every relayout
-   launch the ``copy`` route, and the flash
-   prefill logits must agree with the reference attention's;
-6. train: yi-6b at full width (depth cut to 4 layers,
+   launch the ``copy`` route, the caching allocator must not retry, and
+   the flash prefill logits must agree with the reference attention's;
+7. moe serve: the same traffic through a ``Server`` for deepseek-moe-16b
+   at full width (MHA with 16 heads of 128, 64 routed experts top-6 and
+   2 shared, vocab 102400; depth cut 28 -> 4 layers, 1 dense + 3 MoE),
+   with the same checks; the reference prefill is routed as the flash
+   one was, so the two differ only by their attention;
+8. train: yi-6b at full width (depth cut to 4 layers,
    ``attn_impl="reference"`` as the JAX trainer uses, random weights from
    a seed) on 4 virtual data-parallel ranks, Markov batches of 8 x 512
    tokens, Torrent gradient reduction (``rs_ag``, K = 2). One step's
@@ -82,6 +101,7 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))  # _moe_routing
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # dense, SXM
@@ -308,6 +328,8 @@ def flash_phase() -> dict:
         ("yi6b_prefill_4k", 1, 32, 4, 4096, 128, torch.bfloat16, True, None),
         ("yi6b_prefill_f32", 1, 32, 4, 512, 128, torch.float32, True, None),
         ("yi6b_prefill_4k_f32", 1, 32, 4, 4096, 128, torch.float32, True, None),
+        # the moe serve phase's prefill shape (deepseek-moe-16b: MHA, 16 heads)
+        ("dsmoe_prefill", 1, 16, 16, 512, 128, torch.bfloat16, True, None),
         ("f32_window", 2, 4, 2, 384, 64, torch.float32, True, 48),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, torch.float32, False, 100),
         ("d80_gqa", 1, 8, 2, 256, 80, torch.bfloat16, True, None),
@@ -437,28 +459,174 @@ def f32_attention_path() -> dict:
     return by_route
 
 
-def serve_phase() -> dict:
-    import numpy as np
+def host_syncs(fn) -> int:
+    """How many times ``fn`` makes the host wait for the card: the
+    warnings of CUDA's sync debug mode while it runs (the mode's own
+    notice that it is a prototype, which may miss some syncs, is not
+    counted)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def moe_layer_phase() -> dict:
+    """One deepseek-moe-16b MoE layer at full width on 8 virtual ranks of
+    512 tokens: flat, rowwise and expert-parallel dispatch against
+    ``moe_ref`` and each other, the EP wire bytes against the byte
+    model, and the CUDA-event time of each path."""
     import torch
     from repro_torch import configs as C
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.relayout import ops as R
-    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.core import program as prg
+    from repro_torch.models import moe as M
+    from repro_torch.parallel.collectives import sub_ring_orders
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, T = 8, 512
+    base = C.get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(base, capacity_factor=8.0)  # no drops: paths comparable
+    d = cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.moe_init(gen, cfg, "cuda")
+    x = torch.randn((n, 1, T, d), device="cuda", generator=gen).to(torch.bfloat16)
+    xb = x.reshape(n, T, d)  # the same tokens as (B, S, d) for the single-device paths
+
+    def close(name, got, want):
+        err = (got.float() - want.float()).abs()
+        bad = int((err > 2e-2 + 2e-2 * want.float().abs()).sum())
+        if bad:
+            raise AssertionError(f"moe layer {name}: {bad} elements beyond 2e-2; "
+                                 f"max abs err {float(err.max())}")
+        return float(err.max())
+
+    errs, wire, outs = {}, {}, {}
+    with torch.no_grad():
+        ref = M.moe_ref(params, xb, cfg)
+        scale = float(ref.float().abs().max())
+        flat, flat_aux = M.moe_apply(params, xb, cfg)
+        errs["flat_vs_ref"] = close("flat", flat, ref)
+        row, row_aux = M.moe_apply_rowwise(params, xb, cfg)
+        errs["rowwise_vs_ref"] = close("rowwise", row, ref)
+        for K in (1, 2):
+            for w in (None, "int8"):
+                cw.wire_counter.reset()
+                o, a = M.moe_apply_ep(params, x, cfg, num_chains=K, wire_dtype=w)
+                torch.cuda.synchronize()
+                wire[K, w] = (cw.wire_counter.bytes, cw.wire_counter.modeled_bytes())
+                outs[K, w] = (o.reshape(xb.shape), a)
+        ep, ep_aux = outs[1, None]
+        errs["ep_vs_flat"] = close("ep", ep, flat)
+        if not (torch.equal(ep, outs[2, None][0]) and torch.equal(ep_aux, outs[2, None][1])):
+            raise AssertionError("moe layer: EP with K = 1 and K = 2 differ")
+        for K in (1, 2):
+            e8 = float((outs[K, "int8"][0].float() - ref.float()).abs().max()) / scale
+            errs[f"ep_int8_k{K}_vs_ref_over_scale"] = e8
+            if not e8 < 0.1:
+                raise AssertionError(f"moe layer: int8 EP (K = {K}) is {e8:.3g} of the scale off")
+        # the single-device paths (serving's) never wait for the card;
+        # bincount (it reads its input's range back) shows the check sees
+        syncs = {name: host_syncs(fn) for name, fn in (
+            ("flat", lambda: M.moe_apply(params, xb, cfg)),
+            ("rowwise", lambda: M.moe_apply_rowwise(params, xb, cfg)),
+            ("ep_exact", lambda: M.moe_apply_ep(params, x, cfg)),
+            ("bincount", lambda: torch.bincount(torch.arange(64, device="cuda"))))}
+        if syncs["flat"] or syncs["rowwise"] or not syncs["bincount"]:
+            raise AssertionError(f"moe layer: host syncs {syncs}")
+        aux = {"flat": float(flat_aux), "rowwise": float(row_aux), "ep": float(ep_aux),
+               "ep_int8": float(outs[1, "int8"][1])}
+        if max(abs(v - aux["flat"]) for v in aux.values()) > 1e-5 * aux["flat"]:
+            raise AssertionError(f"moe layer: aux losses {aux}")
+
+        C_pair = M._bucket_capacity(T * cfg.moe_top_k, n, cfg.capacity_factor)
+        books = {}
+        for K in (1, 2):
+            orders = tuple(sub_ring_orders(n, K))
+            exact = prg.plan_all_to_all(n, orders)
+            q8 = prg.plan_all_to_all(n, orders, wire_dtype="int8")
+            tok = n * C_pair * d  # elements each device sends
+            ids = prg.program_wire_bytes(exact, n * C_pair * 4)
+            books[K] = {
+                "exact": 2 * prg.program_wire_bytes(exact, tok * 2) + ids,
+                "int8": 2 * prg.program_wire_bytes(q8, tok * 4) + ids,
+                "token_f32": 2 * prg.program_wire_bytes(exact, tok * 4),
+                "scale_bytes": 2 * 4 * sum(st.num_permutes() for st in q8.steps),
+                "ids": ids,
+            }
+            for w in (None, "int8"):
+                got, model = wire[K, w]
+                if not got == model == books[K]["int8" if w else "exact"]:
+                    raise AssertionError(f"moe layer K = {K} {w}: wire bytes {got}, model "
+                                         f"{model}, programs {books[K]}")
+            b = books[K]
+            if b["int8"] - b["ids"] != b["token_f32"] // 4 + b["scale_bytes"]:
+                raise AssertionError(f"moe layer: int8 token bytes {b}")
+
+        def timed(c):
+            fns = {
+                "flat": lambda: M.moe_apply(params, xb, c),
+                "rowwise": lambda: M.moe_apply_rowwise(params, xb, c),
+                "ep_exact": lambda: M.moe_apply_ep(params, x, c),
+                "ep_int8": lambda: M.moe_apply_ep(params, x, c, wire_dtype="int8"),
+            }
+            return {k: time_ms(f, iters=5, warmup=1) for k, f in fns.items()}
+
+        times = {"capacity_8": timed(cfg), f"capacity_{base.capacity_factor}": timed(base)}
+    rec = {"tokens_per_rank": T, "ranks": n, "C_pair": C_pair, "errors": errs, "aux": aux,
+           "host_syncs": syncs,
+           "int8_k1_equals_k2": bool(torch.equal(outs[1, "int8"][0], outs[2, "int8"][0])),
+           "wire_bytes": {f"k{K}_{w or 'exact'}": wire[K, w][0] for K, w in wire},
+           "byte_books": {f"k{K}": b for K, b in books.items()},
+           "times_ms": times, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("moe layer", json.dumps(rec), flush=True)
+    del params, x, xb, ref, flat, row, outs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def same_routing_prefill(params, cfg, toks, max_seq):
+    """Prefill logits through the flash kernel and through the reference
+    attention. The MoE layers of the second are routed as those of the
+    first chose (``tests/_moe_routing.py``: the reference's own
+    probabilities, gathered at the flash run's experts): the top-k
+    choice is discontinuous, and the two attentions' roundings can flip
+    a near tie, which moves a token's output by O(1); the count of such
+    flips is returned."""
+    import torch
+    from _moe_routing import recorded_routing, routing_as
     from repro_torch.models import transformer as T
 
-    # yi-6b at full width (d_model 4096, 32 heads, 4 kv heads, head_dim
-    # 128, d_ff 11008, vocab 64000); depth cut 32 -> 8 so params, the
-    # weight payload and 3 delivered copies fit one 80 GB card.
-    cfg = dataclasses.replace(C.get_config("yi-6b"), num_layers=8, attn_impl="flash")
-    sc = ServeConfig(arch="yi-6b", smoke=False, batch=4, replicas=4, page_size=8,
-                     prompt_len=512, max_seq=546, seed=0)
-    t0 = time.perf_counter()
-    server = Server(sc, device="cuda", model_cfg=cfg)
+    def prefill(impl):
+        c = dataclasses.replace(cfg, attn_impl=impl)
+        return T.prefill(params, c, {"tokens": toks}, max_seq)[0]
+
+    with torch.no_grad():
+        with recorded_routing() as seen:
+            lf = prefill("flash")
+        with routing_as(seen) as flips:
+            lr = prefill("reference")
     torch.cuda.synchronize()
-    print(f"serve: model init {time.perf_counter() - t0:.2f}s", flush=True)
+    return lf, lr, sum(int(f.sum()) for f in flips)
+
+
+def serve_prompts(V: int):
+    """The serve phases' traffic, from seed 0: a 384-token shared prefix,
+    then 6 prompts that extend it by 16..128 tokens and 2 of 256..512
+    fresh tokens that miss it."""
+    import numpy as np
 
     rng = np.random.default_rng(0)
-    V = cfg.vocab_size
     prefix = rng.integers(0, V, size=384).astype(np.int32)
     prompts = []
     for _ in range(6):  # prefix hits: prefix + 16..128 suffix tokens
@@ -468,12 +636,45 @@ def serve_phase() -> dict:
         p = rng.integers(0, V, size=int(rng.integers(256, 513))).astype(np.int32)
         p[0] = (prefix[0] + 1) % V
         prompts.append(p)
+    return prefix, prompts
+
+
+SERVE_CONFIG = dict(smoke=False, batch=4, replicas=4, page_size=8, prompt_len=512,
+                    max_seq=546, seed=0)
+
+
+def serve_phase(arch: str, layers: int, label: str) -> dict:
+    """``Server.run()`` for ``arch`` at full width, depth cut to
+    ``layers``, with ``attn_impl="flash"`` and random weights: weight
+    multicast, a 384-token shared prefix registered and multicast, then
+    6 prefix hits and 2 misses of 32 new tokens each."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relayout import ops as R
+    from repro_torch.launch.serve import ServeConfig, Server
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(C.get_config(arch), num_layers=layers, attn_impl="flash")
+    sc = ServeConfig(arch=arch, **SERVE_CONFIG)
+    t0 = time.perf_counter()
+    server = Server(sc, device="cuda", model_cfg=cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(server.params))
+    print(f"{label}: model init {time.perf_counter() - t0:.2f}s, {n_params} params "
+          f"({4 * n_params / 1e9:.2f} GB f32)", flush=True)
+
+    V = cfg.vocab_size
+    prefix, prompts = serve_prompts(V)
 
     R.relayout.launches = 0
     R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
     torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
     spans = {}
     t0 = time.perf_counter()
     wrec = server.broadcast_weights(chunk_bytes=64 << 20)
@@ -495,49 +696,51 @@ def serve_phase() -> dict:
     by_route = dict(FA.flash_attention.launches_by_route)
     relayout_routes = dict(R.relayout.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
 
-    print("serve: weight multicast", json.dumps(wrec), flush=True)
-    print("serve: kv multicast", json.dumps(entry.broadcast), flush=True)
-    print("serve: run", json.dumps(out), flush=True)
-    print(f"serve: wall_s {out['wall_s']:.3f} tokens/s {out['tokens_per_s']:.2f} "
-          f"peak memory {peak_gb:.1f} GB launches {launches} flash by route {by_route} "
-          f"relayout by route {relayout_routes}", flush=True)
-    print("serve: spans", json.dumps(spans), flush=True)
+    print(f"{label}: weight multicast", json.dumps(wrec), flush=True)
+    print(f"{label}: kv multicast", json.dumps(entry.broadcast), flush=True)
+    print(f"{label}: run", json.dumps(out), flush=True)
+    print(f"{label}: wall_s {out['wall_s']:.3f} tokens/s {out['tokens_per_s']:.2f} "
+          f"peak memory {peak_gb:.1f} GB alloc retries {retries} launches {launches} "
+          f"flash by route {by_route} relayout by route {relayout_routes}", flush=True)
+    print(f"{label}: spans", json.dumps(spans), flush=True)
 
     if out["served"] != len(reqs) or not all(len(r.out) == 32 for r in reqs):
-        raise AssertionError(f"served {out['served']} of {len(reqs)} requests")
+        raise AssertionError(f"{label}: served {out['served']} of {len(reqs)} requests")
     if [r.prefix_hit for r in reqs] != [True] * 6 + [False] * 2:
-        raise AssertionError(f"prefix hits {[r.prefix_hit for r in reqs]}")
+        raise AssertionError(f"{label}: prefix hits {[r.prefix_hit for r in reqs]}")
     if any(not 0 <= t < V for r in reqs for t in r.out):
-        raise AssertionError("a generated token is outside the vocabulary")
-    n_params = sum(x.numel() * x.element_size() for x in server.last_delivery.values())
-    if wrec["delivered_bytes"] != 3 * wrec["bytes"] or n_params != wrec["delivered_bytes"]:
-        raise AssertionError(f"weight multicast delivered {wrec['delivered_bytes']} B")
+        raise AssertionError(f"{label}: a generated token is outside the vocabulary")
+    delivered = sum(x.numel() * x.element_size() for x in server.last_delivery.values())
+    if wrec["delivered_bytes"] != 3 * wrec["bytes"] or delivered != wrec["delivered_bytes"]:
+        raise AssertionError(f"{label}: weight multicast delivered {wrec['delivered_bytes']} B")
     if entry.broadcast["delivered_bytes"] != 3 * entry.broadcast["bytes"]:
-        raise AssertionError("KV multicast did not reach every replica")
+        raise AssertionError(f"{label}: KV multicast did not reach every replica")
+    if retries:
+        raise AssertionError(f"{label}: the caching allocator retried {retries} times")
     if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
     if by_route != {**dict.fromkeys(FA.ROUTES, 0), "wgmma": launches["flash_attention"]}:
-        raise AssertionError(f"flash launches {launches['flash_attention']} by route {by_route}")
+        raise AssertionError(f"{label}: flash launches {launches['flash_attention']} "
+                             f"by route {by_route}")
     if relayout_routes != {"copy": 4, "staged": 0, "direct": 0} or launches["relayout"] != 4:
-        raise AssertionError(f"relayout launches {launches['relayout']} by route {relayout_routes}")
+        raise AssertionError(f"{label}: relayout launches {launches['relayout']} "
+                             f"by route {relayout_routes}")
 
     # flash vs reference attention on one prompt, same weights
     toks = torch.as_tensor(prompts[-1], device="cuda")[None]
-    with torch.no_grad():
-        lf, _ = T.prefill(server.params, cfg, {"tokens": toks}, sc.max_seq)
-        lr, _ = T.prefill(server.params, dataclasses.replace(cfg, attn_impl="reference"),
-                          {"tokens": toks}, sc.max_seq)
-    torch.cuda.synchronize()
+    lf, lr, flips = same_routing_prefill(server.params, cfg, toks, sc.max_seq)
     if lf.shape != (1, V) or not torch.isfinite(lf).all():
-        raise AssertionError(f"flash prefill logits {tuple(lf.shape)} not finite")
+        raise AssertionError(f"{label}: flash prefill logits {tuple(lf.shape)} not finite")
     d = float((lf - lr).abs().max())
     scale = float(lr.abs().max())
-    print(f"serve: prefill logits flash vs reference: max |d| {d:.5f}, "
-          f"max |ref| {scale:.3f}, argmax {int(lf.argmax())} vs {int(lr.argmax())}",
-          flush=True)
+    print(f"{label}: prefill logits flash vs reference: max |d| {d:.5f}, "
+          f"max |ref| {scale:.3f}, argmax {int(lf.argmax())} vs {int(lr.argmax())}, "
+          f"routing flips the reference would make {flips}", flush=True)
     if d > LOGIT_REL_TOL * scale:
-        raise AssertionError(f"flash prefill logits differ by {d} (> {LOGIT_REL_TOL} x {scale})")
+        raise AssertionError(f"{label}: flash prefill logits differ by {d} "
+                             f"(> {LOGIT_REL_TOL} x {scale})")
     profile_run(server, [prompts[0], prompts[-1]])
     return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"],
             "relayout_by_route": relayout_routes}
@@ -879,15 +1082,20 @@ def main() -> int:
     f32_routes = f32_attention_path()
     launches = {"flash_attention_tf32x3": f32_routes["tf32x3"],
                 "flash_attention_simt": f32_routes["simt"]}
-    launches.update(serve_phase())
+    moe_layer_phase()
+    launches.update(serve_phase("yi-6b", 8, "serve"))
+    moe = serve_phase("deepseek-moe-16b", 4, "moe serve")
+    moe_launches = {k: moe.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
+                                               "flash_attention_tf32x3", "flash_attention_simt")}
     train = train_phase()
 
     def row(name, source, replaces, rec, bound_by, **extra):
+        by_path = {"serve_or_f32": launches[name], "moe_serve": moe_launches[name],
+                   "train": train["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "launches_by_path": {"serve_or_f32": launches[name],
-                                 "train": train["train_launches"][name]},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": bound_by, "library_ms": rec["library_ms"],
@@ -902,10 +1110,14 @@ def main() -> int:
         row("relayout", "src/repro_torch/csrc/relayout.cu",
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
             launches_by_route=launches["relayout_by_route"],
+            launches_by_route_moe_serve=moe["relayout_by_route"],
             device_ms_cold=relayout_rec["device_ms_cold"],
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
-            flash_replaces, wgmma_rec, wgmma_rec["bound_by"]),
+            flash_replaces, wgmma_rec, wgmma_rec["bound_by"],
+            dsmoe_prefill={k: flash_recs["dsmoe_prefill"][k] for k in (
+                "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                "bound_ms", "bound_by", "max_abs_err")}),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",
             flash_replaces, tf32x3_rec, tf32x3_rec["bound_by"],
             bound_ms_cuda_cores=tf32x3_rec["bound_ms_cuda_cores"],

@@ -35,7 +35,9 @@ per step, the executor's permute count (``Step.num_permutes``) times the
 bytes of one edge's frame (an int8 frame plus its 4-byte scale on a
 compressed wire). Over the programs it ran, the count equals
 ``program_wire_bytes`` (``pipelined_wire_bytes`` for frame-pipelined
-broadcasts) of each at its per-device payload size.
+broadcasts) of each at its per-device payload size, taken at f32 for a
+program with an int8 wire (a bf16 payload is widened before it is
+quantized).
 """
 
 from __future__ import annotations
@@ -386,7 +388,11 @@ def execute_program(
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"execute_program: unsupported device {x.device}")
     c = prog.collective
-    size = x[0].numel() * x.element_size()  # per-device payload bytes
+    # per-device payload bytes; an int8 wire computes in f32, as the
+    # byte model assumes, whatever the payload's own dtype
+    compressed = any(prog.step_wire_dtype(s) is not None for s in prog.steps)
+    elem = 4 if compressed else x.element_size()
+    size = x[0].numel() * elem
     if c == "broadcast":
         wire_counter.record(prog, size, max(1, num_frames))
         return _execute_pipeline(x, prog, num_frames)
@@ -411,7 +417,7 @@ def execute_program(
             xp[:, :lead] = x
         else:
             xp = x
-        wire_counter.record(prog, xp[0].numel() * x.element_size(), 1)
+        wire_counter.record(prog, xp[0].numel() * elem, 1)
         shards = xp.reshape((L, S, xp.shape[1] // S) + x.shape[2:])
         out = interpret_program(shards, prog)
         if prog.out_slots == 1:  # rotation: whole payload in one slot

@@ -64,7 +64,9 @@ def make_train_step(
     accumulates grads over M slices of the batch (a loop where JAX
     scans; mean of the microbatch means, as JAX computes it). The step
     updates params and optimizer state in place, as the JAX step donates
-    them, and returns the same tensors. ``spans`` (a
+    them, and returns the same tensors. ``cfg.moe_ep_dispatch`` with DP
+    > 1 raises ``NotImplementedError`` (with one rank there is no
+    exchange, and MoE layers take the flat path). ``spans`` (a
     :class:`~repro_torch.runtime.spans.Spans`) records ``fwd_bwd`` per
     rank, ``reduce`` and ``optimizer`` spans of every step.
     """
@@ -102,6 +104,12 @@ def make_train_step(
         mesh = make_host_mesh()
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
+    if cfg.moe_ep_dispatch and dp_size > 1:
+        raise NotImplementedError(
+            "moe_ep_dispatch with DP > 1 is not ported: JAX runs the expert-"
+            "parallel exchange inside the DP shard_map, across ranks that run "
+            "together, and the port runs its ranks one after another"
+        )
 
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
 

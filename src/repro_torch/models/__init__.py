@@ -1,6 +1,8 @@
-"""Model zoo of the port: the dense-GQA decoder (params as nested dicts
-of f32 tensors, stacked per layer group as in the JAX package)."""
+"""Model zoo of the port: the GQA decoder with dense or fine-grained MoE
+FFNs (params as nested dicts of f32 tensors, stacked per layer group as
+in the JAX package)."""
 
+from . import moe
 from .config import LayerSpec, ModelConfig
 from .transformer import decode_step, init_cache, model_init, prefill
 
@@ -10,5 +12,6 @@ __all__ = [
     "decode_step",
     "init_cache",
     "model_init",
+    "moe",
     "prefill",
 ]

@@ -36,13 +36,65 @@ def rmsnorm_init(d: int, device) -> dict:
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5,
             bf16: bool = False) -> torch.Tensor:
-    """RMSNorm with f32 variance and output in ``x``'s dtype."""
+    """RMSNorm with f32 variance and output in ``x``'s dtype;
+    ``bf16=True`` is :class:`RMSNormBF16`."""
     if bf16:
-        raise NotImplementedError("bf16_norm is not ported yet")
+        return RMSNormBF16.apply(params["scale"], x, eps)
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(x.dtype)
+
+
+# Elements of one f32 temporary of the bf16 norm (16 MiB): its rowwise
+# sums run over blocks of rows, so no f32 (B,S,d) tensor is made.
+_F32_BLOCK = 1 << 22
+
+
+def _row_blocks(rows: int, d: int):
+    step = max(1, _F32_BLOCK // d)
+    return (slice(i, i + step) for i in range(0, rows, step))
+
+
+def _rowdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """JAX's ``einsum("...d,...d->...", a, b, preferred_element_type=
+    f32)[..., None]``: an f32 sum of the exact products of 16-bit
+    values, one block of rows at a time."""
+    d = a.shape[-1]
+    a2, b2 = a.reshape(-1, d), b.reshape(-1, d)
+    out = torch.empty((a2.shape[0], 1), dtype=torch.float32, device=a.device)
+    for r in _row_blocks(a2.shape[0], d):
+        out[r] = (a2[r].float() * b2[r].float()).sum(-1, keepdim=True)
+    return out.reshape(a.shape[:-1] + (1,))
+
+
+class RMSNormBF16(torch.autograd.Function):
+    """RMSNorm whose forward and backward keep every (B,S,d) tensor in
+    the input dtype; f32 appears only in rowwise scalars (the variance
+    and the g·s·x reduction) and in temporaries of at most
+    ``_F32_BLOCK`` elements — the port of ``repro.models.layers.
+    _rmsnorm_bf16`` and its custom VJP, op for op."""
+
+    @staticmethod
+    def forward(ctx, scale: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
+        inv = torch.rsqrt(_rowdot(x, x) / x.shape[-1] + eps)  # (..., 1) f32
+        ctx.save_for_backward(scale, x, inv)
+        return x * (inv.to(x.dtype) * scale.to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        scale, x, inv = ctx.saved_tensors
+        d = x.shape[-1]
+        sb = scale.to(x.dtype)
+        t = _rowdot(g * sb, x)  # rowwise sum_i g_i s_i x_i
+        coeff = inv ** 3 * (t / d)
+        dx = inv.to(x.dtype) * sb * g - x * coeff.to(x.dtype)
+        # dscale: sum over rows of (g·x)·inv in f32
+        gx, inv2 = (g * x).reshape(-1, d), inv.reshape(-1, 1)
+        dscale = torch.zeros(d, dtype=torch.float32, device=x.device)
+        for r in _row_blocks(gx.shape[0], d):
+            dscale += (gx[r].float() * inv2[r]).sum(0)
+        return dscale.to(scale.dtype), dx, None
 
 
 # ---------------------------------------------------------------------------
@@ -74,9 +126,19 @@ def swiglu_init(gen: torch.Generator, d: int, ff: int, device) -> dict:
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ cast(w)`` with JAX's type promotion: f32 activations keep
+    f32 (the bf16 weight is widened), bf16 ones compute in bf16."""
+    w = cast(w)
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt) @ w.to(dt)
+    return x @ w
+
+
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ cast(params["gate"])) * (x @ cast(params["up"]))
-    return h @ cast(params["down"])
+    h = F.silu(matmul(x, params["gate"])) * matmul(x, params["up"])
+    return matmul(h, params["down"])
 
 
 # ---------------------------------------------------------------------------

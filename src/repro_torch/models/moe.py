@@ -1,0 +1,368 @@
+"""Fine-grained MoE (DeepSeek-MoE style: shared + routed experts, top-k)
+— the port of ``repro.models.moe``.
+
+Dispatch is sort-based with a static capacity, as in the JAX package:
+
+1. router top-k (f32) → flat assignment list (T·k,),
+2. position-in-expert via a stable argsort + searchsorted,
+3. scatter into the (E, C, d) expert buffer; assignments past the
+   capacity are dropped,
+4. batched expert SwiGLU over the expert dim,
+5. gather-combine weighted by the router probs (dropped → 0).
+
+JAX writes step 3 as ``.at[e, pos].set(v, mode="drop")`` and reads
+step 5 as ``.at[e, pos].get(mode="fill")``. Here the write is an
+``index_put`` into the flat buffer plus one spare row that takes every
+out-of-bounds assignment and is cut off (:func:`_put`), and the read a
+clamped gather zeroed where out of bounds (:func:`_take`).
+The drop set is JAX's, and no ``index_add_`` appears (the buffers are
+written, never accumulated). The flat and rowwise paths read nothing
+back to the host, so a call never waits for the card (``chip_smoke.py``
+runs them under CUDA's sync debug mode); the expert counts of the aux
+loss are an integer ``scatter_add_`` on the card, exact in any order.
+
+:func:`moe_apply_ep` is the Torrent expert-parallel formulation on the
+stacked view (row ``r`` of ``x`` is virtual device ``r``'s token
+shard): the dispatch and the return are scheduled chain all-to-alls
+(``parallel.collectives.torrent_all_to_all``). ``cfg.moe_ep_dispatch``
+routes to it when a virtual DP group is named with
+``parallel.hints.set_mesh`` and divides the experts and the batch.
+
+The aux load-balancing loss (switch-style E·Σ f_i·P_i) is returned to
+the caller and folded into the training loss.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.parallel import hints
+
+from .config import ModelConfig
+from .layers import matmul, normal, swiglu, swiglu_init
+
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, E, f = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    p = {
+        "router": normal(gen, (d, E), d ** -0.5, device),
+        "wg": normal(gen, (E, d, f), d ** -0.5, device),
+        "wu": normal(gen, (E, d, f), d ** -0.5, device),
+        "wd": normal(gen, (E, f, d), f ** -0.5, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = swiglu_init(gen, d, cfg.num_shared_experts * f, device)
+    return p
+
+
+def capacity(cfg: ModelConfig, tokens: int) -> int:
+    c = int(math.ceil(tokens * cfg.moe_top_k / cfg.num_experts * cfg.capacity_factor))
+    return max(8, -(-c // 8) * 8)  # round up to a multiple of 8
+
+
+def _bucket_capacity(assignments: int, buckets: int, factor: float) -> int:
+    """Static per-bucket capacity for ``assignments`` spread over
+    ``buckets`` (same rounding policy as :func:`capacity`)."""
+    c = int(math.ceil(assignments / buckets * factor))
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss)."""
+    if cfg.moe_ep_dispatch:
+        return _moe_apply_ep_auto(params, x, cfg)
+    if cfg.moe_row_dispatch:
+        return moe_apply_rowwise(params, x, cfg)
+    return _moe_apply_flat(params, x, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Routing, positions, drop-writes and fill-reads
+# ---------------------------------------------------------------------------
+
+
+def _route(xf: torch.Tensor, router: torch.Tensor, k: int):
+    """(probs, renormalised top-k probs, top-k experts), in f32; top-k
+    in descending order, as ``jax.lax.top_k``."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    top_p, top_e = torch.topk(probs, k, dim=-1)
+    return probs, top_p / top_p.sum(-1, keepdim=True), top_e  # deepseek renormalizes
+
+
+def _counts(keys: torch.Tensor, groups: int) -> torch.Tensor:
+    """How many of ``keys`` fall in each of ``groups`` (exact, f32).
+    An integer ``scatter_add_``: ``bincount`` reads its input's range
+    back to the host on CUDA."""
+    keys = keys.reshape(-1)
+    counts = torch.zeros(groups, dtype=torch.int64, device=keys.device)
+    return counts.scatter_add_(0, keys, torch.ones_like(keys)).float()
+
+
+def _aux(cfg: ModelConfig, P_i: torch.Tensor, f_i: torch.Tensor) -> torch.Tensor:
+    return cfg.router_aux_loss_coef * cfg.num_experts * torch.sum(f_i * P_i)
+
+
+def _positions(key: torch.Tensor, groups: int) -> torch.Tensor:
+    """Each entry's position among the entries with its key, in order
+    (keys in ``[0, groups)``): JAX's stable argsort + searchsorted."""
+    n = key.numel()
+    sort_idx = torch.argsort(key, stable=True)
+    sorted_k = key[sort_idx]
+    starts = torch.searchsorted(
+        sorted_k, torch.arange(groups, dtype=key.dtype, device=key.device), side="left")
+    pos_sorted = torch.arange(n, device=key.device) - starts[sorted_k]
+    return torch.empty_like(pos_sorted).scatter_(0, sort_idx, pos_sorted)
+
+
+def _linear(dims, index: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    """Row-major linear index of ``index`` into ``dims`` (each index
+    clamped into its dim), and where any index is at or past its dim's
+    size (never negative here)."""
+    lin, out = None, None
+    for i, n in zip(index, dims):
+        c = i.clamp(max=n - 1)
+        lin = c if lin is None else lin * n + c
+        out = i >= n if out is None else out | (i >= n)
+    return lin, out
+
+
+def _put(dims: tuple[int, ...], index: tuple, vals: torch.Tensor, fill=0) -> torch.Tensor:
+    """``full(dims + trailing, fill).at[index].set(vals, mode="drop")``:
+    an assignment with an index out of bounds is dropped. The buffer is
+    written flat with one spare row after its ``prod(dims)`` rows; every
+    dropped assignment lands there, and it is cut off. The assignments
+    in bounds are distinct, so the write is deterministic."""
+    lin, out = _linear(dims, index)
+    total = math.prod(dims)
+    trailing = tuple(vals.shape[index[0].dim():])
+    buf = vals.new_full((total + 1,) + trailing, fill)
+    buf = buf.index_put((torch.where(out, total, lin),), vals)
+    return buf[:total].view(tuple(dims) + trailing)
+
+
+def _take(buf: torch.Tensor, index: tuple) -> torch.Tensor:
+    """``buf.at[index].get(mode="fill", fill_value=0)``: an index out of
+    bounds reads zeros."""
+    dims = buf.shape[: len(index)]
+    lin, out = _linear(dims, index)
+    got = buf.reshape((-1,) + buf.shape[len(index):])[lin]
+    return torch.where(out.reshape(out.shape + (1,) * (got.dim() - out.dim())),
+                       got.new_zeros(()), got)
+
+
+def _experts(buf: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor):
+    """SwiGLU of every expert on its slots: ``buf`` (E, C, d) and
+    weights (E, d, f) / (E, f, d), batched over the expert dim."""
+    h = F.silu(matmul(buf, wg)) * matmul(buf, wu)
+    return matmul(h, wd)
+
+
+def _combine(gathered: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Σ_k w·gathered in f32 over the top-k dim (-2): products of the
+    operands as they are (exact for 16-bit ones), summed in f32."""
+    return (gathered.float() * w.float()[..., None]).sum(-2)
+
+
+def _with_shared(params: dict, cfg: ModelConfig, xf: torch.Tensor, out: torch.Tensor):
+    if cfg.num_shared_experts:
+        out = out + swiglu(params["shared"], xf).float()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Single-device paths
+# ---------------------------------------------------------------------------
+
+
+def _moe_apply_flat(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    T = B * S
+    C = capacity(cfg, T)
+    xf = x.reshape(T, d)
+
+    probs, top_p, top_e = _route(xf, params["router"], k)
+    aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (T * k))
+
+    flat_e = top_e.reshape(-1)  # (T*k,), token-major
+    pos = _positions(flat_e, E)
+    sel = xf[:, None].expand(T, k, d).reshape(T * k, d)  # the dispatch traffic
+    buf = _put((E, C), (flat_e, pos), sel)
+    out_buf = _experts(buf, params["wg"], params["wu"], params["wd"])
+    gathered = _take(out_buf, (flat_e, pos)).reshape(T, k, d)  # dropped -> 0
+    # the bf16 wire keeps the combine operands in the activation dtype;
+    # f32 only in the top-k accumulation
+    w = top_p.to(gathered.dtype) if cfg.moe_bf16_wire else top_p
+    out = _with_shared(params, cfg, xf, _combine(gathered, w))
+    return out.to(x.dtype).reshape(B, S, d), aux
+
+
+def moe_apply_rowwise(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Row-wise (per-batch-row) dispatch: every position and capacity is
+    row-local (C_row from S tokens), the combine runs on a bf16 wire.
+    Same routing and aux loss as the flat path."""
+    B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    C = capacity(cfg, S)
+
+    probs, top_p, top_e = _route(x.reshape(B * S, d), params["router"], k)
+    aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (B * S * k))
+
+    flat_e = top_e.reshape(B, S * k)
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
+    pos = _positions((rows * E + flat_e).reshape(-1), B * E).reshape(B, S * k)
+    xk = x[:, :, None].expand(B, S, k, d).reshape(B, S * k, d)
+    # laid out (E, B, C, d), so the expert products batch over E alone
+    # and no weight is broadcast over the rows
+    buf = _put((E, B, C), (flat_e, rows, pos), xk)
+    out_buf = _experts(buf.reshape(E, B * C, d), params["wg"], params["wu"], params["wd"])
+    gathered = _take(out_buf.reshape(E, B, C, d), (flat_e, rows, pos)).reshape(B, S, k, d)
+    out = _combine(gathered, top_p.reshape(B, S, k).to(x.dtype))
+    xf = x.reshape(B * S, d)
+    out = _with_shared(params, cfg, xf, out.reshape(B * S, d))
+    return out.to(x.dtype).reshape(B, S, d), aux
+
+
+# ---------------------------------------------------------------------------
+# Torrent expert-parallel dispatch (chain all-to-all over the stacked view)
+# ---------------------------------------------------------------------------
+
+
+def moe_apply_ep(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    num_chains: int = 1,
+    scheduler: str = "tsp",
+    wire_dtype: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on the stacked view: ``x`` is ``(n, B_loc,
+    S, d)``, row ``r`` virtual device ``r``'s local tokens, and the
+    routed experts are partitioned contiguously over the ``n`` devices
+    (device ``r`` owns experts ``[r·E/n, (r+1)·E/n)``) — JAX's
+    ``moe_apply_ep`` under ``shard_map``, every device at once.
+
+    Each row routes its own tokens into an ``(n, C_pair, d)`` send
+    buffer (and the expert ids into ``send_e``); two chain all-to-alls
+    (``num_chains > 1``: the K-ring schedule) take them to the experts'
+    owners, which dispatch into their ``(E_loc, C_loc, d)`` buffers,
+    run their expert block, and send the results back; the combine runs
+    at the source with the router weights that never left. Capacity is
+    enforced per (source, destination) pair and per local expert, both
+    with ``cfg.capacity_factor`` headroom. ``wire_dtype="int8"`` ships
+    the token payloads of both exchanges quantized per hop; ``send_e``
+    always travels exact. The aux loss is the global one: the per-row
+    ``f_i``/``P_i`` are averaged over the rows (JAX's ``pmean``)."""
+    from repro_torch.parallel.collectives import torrent_all_to_all
+
+    n, B, S, d = x.shape
+    E, k = cfg.num_experts, cfg.moe_top_k
+    if E % n:
+        raise ValueError(f"num_experts={E} not divisible by EP group size {n}")
+    E_loc = E // n
+    T = B * S
+    dev = x.device
+    xf = x.reshape(n, T, d)
+    a2a = dict(num_chains=num_chains, scheduler=scheduler)
+
+    # -- routing (f32, local tokens; global aux via row-averaged stats) -
+    probs, top_p, top_e = _route(xf, params["router"], k)  # (n, T, ...)
+    P_i = probs.mean(1).mean(0)
+    rows = torch.arange(n, device=dev)[:, None].expand(n, T * k)
+    flat_e = top_e.reshape(n, T * k)
+    f_i = (_counts(rows * E + flat_e, n * E).reshape(n, E) / (T * k)).mean(0)
+    aux = _aux(cfg, P_i, f_i)
+
+    # -- dispatch: (n, C_pair, d) send buffers per row ------------------
+    dest = flat_e // E_loc  # owner device per assignment
+    pos = _positions((rows * n + dest).reshape(-1), n * n).reshape(n, T * k)
+    C_pair = _bucket_capacity(T * k, n, cfg.capacity_factor)
+    xk = xf[:, :, None].expand(n, T, k, d).reshape(n, T * k, d)
+    send = _put((n, n, C_pair), (rows, dest, pos), xk)
+    send_e = _put((n, n, C_pair), (rows, dest, pos), flat_e.to(torch.int32), fill=-1)
+
+    # -- the wire: tokens (and their expert ids) to the expert owners --
+    recv = torrent_all_to_all(send, wire_dtype=wire_dtype, **a2a)
+    recv_e = torrent_all_to_all(send_e, **a2a)
+
+    # -- receiver-side dispatch into (E_loc, C_loc, d) per row ----------
+    re = recv_e.reshape(n, n * C_pair).long()
+    le = re - torch.arange(n, device=dev)[:, None] * E_loc  # local expert index
+    valid = (re >= 0) & (le >= 0) & (le < E_loc)
+    C_loc = _bucket_capacity(n * C_pair, E_loc, cfg.capacity_factor)
+    le_s = torch.where(valid, le, E_loc)  # E_loc: dropped
+    rows2 = torch.arange(n, device=dev)[:, None].expand(n, n * C_pair)
+    pos2 = _positions((rows2 * (E_loc + 1) + le_s).reshape(-1), n * (E_loc + 1))
+    pos2 = torch.where(valid, pos2.reshape(n, n * C_pair), C_loc)
+    buf = _put((n, E_loc, C_loc), (rows2, le_s, pos2), recv.reshape(n, n * C_pair, d))
+
+    # -- each row's expert block (row r's local expert j is r·E_loc + j)
+    out_buf = _experts(buf.reshape(E, C_loc, d), params["wg"], params["wu"], params["wd"])
+    out_buf = out_buf.reshape(n, E_loc, C_loc, d)
+
+    # -- results back to the token owners, combine at the source --------
+    back = _take(out_buf, (rows2, le_s, pos2)).reshape(n, n, C_pair, d)
+    ret = torrent_all_to_all(back, wire_dtype=wire_dtype, **a2a)
+    gathered = _take(ret, (rows, dest, pos)).reshape(n, T, k, d)
+    out = _with_shared(params, cfg, xf, _combine(gathered, top_p))
+    return out.to(x.dtype).reshape(n, B, S, d), aux
+
+
+def _moe_apply_ep_auto(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """Route ``cfg.moe_ep_dispatch``: with a virtual mesh named by
+    ``parallel.hints.set_mesh`` whose DP group divides the experts and
+    the batch, split the batch into that many rows, run
+    :func:`moe_apply_ep` on them and merge; anything else (no mesh, no
+    DP axis, indivisible experts or batch) takes the single-device
+    path."""
+
+    def fallback():
+        if cfg.moe_row_dispatch:
+            return moe_apply_rowwise(params, x, cfg)
+        return _moe_apply_flat(params, x, cfg)
+
+    mesh = hints.concrete_mesh()
+    if mesh is None:
+        return fallback()
+    dp = hints.dp_axes(mesh.axis_names)
+    if not dp:
+        return fallback()
+    n = math.prod(mesh.shape[a] for a in dp)
+    if cfg.num_experts % n or x.shape[0] % n:
+        return fallback()
+    # moe_ep_chains must divide the EP group; degrade to the single ring
+    K = cfg.moe_ep_chains if cfg.moe_ep_chains > 1 and n % cfg.moe_ep_chains == 0 else 1
+    B, S, d = x.shape
+    out, aux = moe_apply_ep(
+        params, x.reshape(n, B // n, S, d), cfg, num_chains=K,
+        wire_dtype="int8" if cfg.moe_ep_int8_wire else None)
+    return out.reshape(B, S, d), aux
+
+
+def moe_ref(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Oracle: dense per-token loop over top-k experts (no capacity)."""
+    B, S, d = x.shape
+    xf = x.reshape(-1, d)
+    _, top_p, top_e = _route(xf, params["router"], cfg.moe_top_k)
+    out = torch.zeros(xf.shape, dtype=torch.float32, device=x.device)
+    for e in range(cfg.num_experts):
+        he = F.silu(matmul(xf, params["wg"][e])) * matmul(xf, params["wu"][e])
+        ye = matmul(he, params["wd"][e]).float()
+        w = torch.where(top_e == e, top_p, 0.0).sum(-1)
+        out = out + ye * w[:, None]
+    out = _with_shared(params, cfg, xf, out)
+    return out.to(x.dtype).reshape(B, S, d)
+
+
+__all__ = [
+    "capacity",
+    "moe_apply",
+    "moe_apply_ep",
+    "moe_apply_rowwise",
+    "moe_init",
+    "moe_ref",
+]

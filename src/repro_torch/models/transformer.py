@@ -1,6 +1,7 @@
-"""Model assembly for the dense-GQA decoder: layer blocks, stacked
-layer groups, the cache-free training forward and chunked loss, prefill
-and decode — the port of ``repro.models.transformer``.
+"""Model assembly for the GQA decoder with dense or MoE FFNs: layer
+blocks, stacked layer groups, the cache-free training forward and
+chunked loss, prefill and decode — the port of
+``repro.models.transformer``.
 
 Layer stacks are compiled into (pattern, repeat) groups
 (``ModelConfig.layer_groups``) and each group's params are stacked along
@@ -15,8 +16,12 @@ cache-free and autograd-clean; where JAX remats a layer (``remat`` not
 changes memory, not numbers. The flash kernel has no backward (neither
 has the Pallas kernel): ``attn_impl="flash"`` under autograd raises.
 
+A MoE layer (``models.moe``) returns its load-balance aux loss, which
+:func:`groups_apply` sums and :func:`loss_fn` adds to the loss.
+
 Not ported yet (raise ``NotImplementedError``): MLA and Mamba mixers,
-MoE and GeLU FFNs, cross-attention/encoder stacks, learned positions.
+GeLU FFNs, cross-attention/encoder stacks, learned and M-RoPE
+positions.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
 from .config import LayerSpec, ModelConfig
 from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
 
@@ -40,8 +46,6 @@ REMAT_POLICIES = ("none", "dots", "full")
 def _check_spec(spec: LayerSpec, cfg: ModelConfig) -> None:
     if spec.mixer != "gqa":
         raise NotImplementedError(f"{spec.mixer} mixer is not ported yet")
-    if spec.ffn == "moe":
-        raise NotImplementedError("MoE FFN is not ported yet")
     if spec.ffn == "dense" and cfg.ffn_activation != "swiglu":
         raise NotImplementedError(f"{cfg.ffn_activation} FFN is not ported yet")
     if spec.cross_attention:
@@ -64,15 +68,24 @@ def layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device) 
     p["mixer"] = attn.gqa_init(gen, cfg, device)
     if spec.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
-        p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, device)
+        p["ffn"] = (
+            moe_mod.moe_init(gen, cfg, device) if spec.ffn == "moe"
+            else swiglu_init(gen, cfg.d_model, cfg.d_ff, device)
+        )
     return p
 
 
-def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
+         x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The FFN sub-block: (x + ffn(norm(x)), aux); aux is the MoE
+    load-balance loss, None for a dense FFN."""
     if spec.ffn == "none":
-        return x
+        return x, None
     h = rmsnorm(params["norm2"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    return x + swiglu(params["ffn"], h)
+    if spec.ffn == "moe":
+        h, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
+        return x + h, aux
+    return x + swiglu(params["ffn"], h), None
 
 
 def layer_apply(
@@ -89,7 +102,8 @@ def layer_apply(
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     h = attn.gqa_apply(params["mixer"], h, positions, cfg, causal=causal)
-    return _ffn(params, spec, cfg, x + h), x.new_zeros((), dtype=torch.float32)
+    x, aux = _ffn(params, spec, cfg, x + h)
+    return x, x.new_zeros((), dtype=torch.float32) if aux is None else aux
 
 
 def layer_prefill(
@@ -104,7 +118,7 @@ def layer_prefill(
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     h, cache = attn.gqa_prefill(params["mixer"], h, positions, cfg, max_seq)
-    return _ffn(params, spec, cfg, x + h), cache
+    return _ffn(params, spec, cfg, x + h)[0], cache
 
 
 def layer_decode(
@@ -119,7 +133,7 @@ def layer_decode(
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     h, cache = attn.gqa_decode(params["mixer"], h, pos, cache, cfg)
-    return _ffn(params, spec, cfg, x + h), cache
+    return _ffn(params, spec, cfg, x + h)[0], cache
 
 
 def layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, max_seq: int,

@@ -42,15 +42,12 @@ from repro_torch.core.scheduling import (
 )
 from repro_torch.core.simulator import SourceFailedError
 from repro_torch.core.topology import MeshTopology, parse_topology_spec
+from repro_torch.parallel.hints import dp_axes
 from repro_torch.runtime.compression import dequantize_rows, quantize_rows
 from repro_torch.runtime.spans import maybe_span
 from repro_torch.tree import leaves, map_tree, unflatten
 
 PyTree = Any
-
-# The data-parallel mesh axes, in canonical order (``parallel.hints.BATCH``).
-BATCH: tuple[str, ...] = ("pod", "data")
-
 
 class MultiChainPlan:
     """Host-side multi-chain broadcast plan with endpoint-only
@@ -160,12 +157,6 @@ def sub_ring_orders(
     ring = ring_order_for_axis(axis_size, scheduler)
     size = axis_size // num_chains
     return [tuple(ring[i * size : (i + 1) * size]) for i in range(num_chains)]
-
-
-def _dp_axes(mesh) -> tuple[str, ...]:
-    """The data-parallel subset of ``mesh.axis_names`` in canonical
-    (pod, data) order."""
-    return tuple(a for a in BATCH if a in mesh.axis_names)
 
 
 def _axis_orders(size: int, num_chains: int, scheduler: str) -> list[tuple[int, ...]]:
@@ -412,7 +403,7 @@ def dp_size_of(mesh) -> int:
     axis > 1 or a mesh without DP axes)."""
     if mesh.shape.get("model", 1) != 1:
         raise NotImplementedError("a model (TP) axis > 1 waits for the multi-process backend")
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh.axis_names)
     if not dp:
         raise ValueError(f"mesh {mesh.axis_names} has no data-parallel axis")
     return _mesh_size(mesh, dp)
@@ -470,7 +461,7 @@ def make_stacked_reduce(
     ``error_feedback`` pass the residual leaves: the new residual is
     written into them, and ``stacked`` is used as scratch."""
     wire_dtype = _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes)
-    dp = _dp_axes(mesh)
+    dp = dp_axes(mesh.axis_names)
     dp_size = dp_size_of(mesh)
 
     if hierarchical and len(dp) == 2:

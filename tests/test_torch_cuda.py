@@ -577,3 +577,68 @@ def test_trainer_on_cuda_restarts_and_tracks_cpu(cuda, tmp_path):
     state = trainers["cuda"].state
     assert all(t.device.type == "cuda" for t in leaves(state))
     assert any(float(r.abs().max()) > 0 for r in leaves(state["ef"]))
+
+
+# -- MoE serving on the card ------------------------------------------------
+
+
+@pytest.mark.parametrize("path,K,wire", [("flat", 1, None), ("rowwise", 1, None),
+                                         ("ep", 1, None), ("ep", 2, None),
+                                         ("ep", 1, "int8"), ("ep", 2, "int8")])
+def test_moe_on_cuda_matches_cpu(cuda, path, K, wire):
+    """The MoE paths at smoke size on the card against the same calls on
+    the CPU: the routing (f32, TF32 off) picks the same experts, so the
+    outputs differ only by bf16 rounding of the expert products (2e-2,
+    the JAX tests' bound) — on the int8 wire plus one int8 step of the
+    largest expert output, where the two devices' results round to
+    neighbouring steps of the return's quantization — and the aux by f32
+    sums in another order; the executor's bytes equal the byte model's."""
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"), capacity_factor=8.0,
+                              moe_row_dispatch=path == "rowwise")
+    params = M.moe_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((8, 4, 64))
+                         .astype(np.float32)).to(torch.bfloat16)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p, xd = map_tree(lambda t: t.to(dev), params), x.to(dev)
+        cw.wire_counter.reset()
+        if path == "ep":
+            o, a = M.moe_apply_ep(p, xd.reshape(8, 1, 4, 64), cfg, num_chains=K,
+                                  wire_dtype=wire)
+        else:
+            o, a = M.moe_apply(p, xd, cfg)
+        assert cw.wire_counter.bytes == cw.wire_counter.modeled_bytes()
+        outs[dev.type] = (o.reshape(x.shape).cpu().float(), float(a))
+    (og, ag), (oc, ac) = outs["cuda"], outs["cpu"]
+    atol = 2e-2
+    if wire:
+        xe = x.reshape(1, 32, 64).expand(cfg.num_experts, 32, 64)
+        atol += float(M._experts(xe, params["wg"], params["wu"], params["wd"]).abs().max()) / 127
+    assert torch.allclose(og, oc, atol=atol, rtol=2e-2), float((og - oc).abs().max())
+    assert abs(ag - ac) <= 1e-5 * abs(ac)
+
+
+def test_moe_server_on_cuda_goes_through_both_kernels(cuda):
+    """A deepseek-moe-16b smoke server on the card (MHA, layer 0 dense,
+    then MoE): prefill takes the wgmma flash route, the prefix pages the
+    relayout's copy route, and every request is served."""
+    cfg = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"), attn_impl="flash")
+    sc = ServeConfig(arch="deepseek-moe-16b", batch=2, prompt_len=24, max_seq=48,
+                     replicas=3, page_size=8)
+    server = Server(sc, device=cuda, model_cfg=cfg)
+    R.relayout.launches = FA.flash_attention.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    server.register_prefix(prefix)
+    reqs = [server.submit(np.concatenate([prefix, rng.integers(0, 256, 4)]), 4),
+            server.submit(rng.integers(0, 256, 20), 4)]
+    out = server.run(reqs)
+    assert out["served"] == 2 and all(len(r.out) == 4 for r in reqs)
+    assert R.relayout.launches_by_route == {"copy": 3, "staged": 0, "direct": 0}
+    assert FA.flash_attention.launches > 0 and FA.flash_attention.launches_by_route == {
+        **dict.fromkeys(FA.ROUTES, 0), "wgmma": FA.flash_attention.launches}

@@ -1,6 +1,7 @@
-"""The port's dense-GQA decoder against ``repro.models`` with the same
-weights (carried across by ``params_from_numpy``), on the yi-6b and
-llama3-8b smoke configs.
+"""The port's GQA decoder against ``repro.models`` with the same weights
+(carried across by ``params_from_numpy``), on the yi-6b, llama3-8b,
+h2o-danube-1.8b (sliding window, ring-buffer cache), starcoder2-3b and
+deepseek-moe-16b (dense layer 0, then MoE) smoke configs.
 
 Tolerances (bf16 compute at every matmul boundary, as in the JAX
 package): the two frameworks round the same bf16 graph at different
@@ -35,7 +36,7 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
-ARCHS = ["yi-6b", "llama3-8b"]
+ARCHS = ["yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deepseek-moe-16b"]
 LOGIT_REL = 5e-2
 CACHE_TOL = 5e-2
 MAX_SEQ = 24
@@ -68,7 +69,8 @@ def _caches_close(tcache, jcache, exact_layer0=False):
     for j, t in zip(jl, tl):
         assert tuple(t.shape) == j.shape and t.dtype == torch.bfloat16
         np.testing.assert_allclose(_np(t), _np(j), atol=CACHE_TOL, rtol=CACHE_TOL)
-        if exact_layer0:
+    if exact_layer0:  # layer 0 is row 0 of the first group's leaves
+        for j, t in zip(jax.tree.leaves(jcache["layers"][0]), leaves(tcache["layers"][0])):
             np.testing.assert_array_equal(_np(t)[0], _np(j)[0])
 
 
@@ -183,8 +185,8 @@ def test_params_from_numpy_keeps_bf16_bits_and_nesting():
 
 
 @pytest.mark.parametrize(
-    "arch", ["deepseek-v2-lite-16b", "deepseek-moe-16b", "mamba2-2.7b", "whisper-tiny",
-             "qwen2-vl-7b", "jamba-v0.1-52b"]
+    "arch", ["deepseek-v2-lite-16b", "mamba2-2.7b", "whisper-tiny", "qwen2-vl-7b",
+             "jamba-v0.1-52b"]
 )
 def test_unported_branches_raise(arch):
     with pytest.raises(NotImplementedError):

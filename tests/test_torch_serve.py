@@ -115,7 +115,7 @@ def _check_tokens(jserver, jreqs, treqs):
         assert top[0] - top[1] <= 2 * LOGIT_REL * np.abs(top).max(), (jr.rid, k, top[:2])
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "llama3-8b", "deepseek-moe-16b"])
 def test_server_matches_jax_server(arch):
     sc = dict(arch=arch, smoke=True, batch=2, prompt_len=24, max_seq=MAX_SEQ,
               replicas=4, page_size=8)
