@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result):
    at once) and print the build seconds and ptxas reports; count the
    ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA load) instructions in the
    SASS of both tensor-core flash libraries (for the f32 one, the
-   ``HGMMA`` with ``TF32`` operands), and fail if any count is 0;
+   ``HGMMA`` with ``TF32`` operands and the cluster barrier
+   ``UCGABAR_WAIT`` of its two-block instances), and fail if any count
+   is 0;
 2. relayout: each case through the route the wrapper names (``copy``,
    ``staged`` or ``direct``) against its plain twin, bit for bit: the
    paged-KV shape of the serve phase, the paper's layout pairs, two
@@ -21,17 +23,17 @@ Phases (any failure exits non-zero and prints no result):
    (L2 flushed before every call); only the cold reading is held
    against the HBM bound, and one over 105% of it fails the run;
 3. flash attention: each case through the kernel its route names
-   (``wgmma`` for bf16/f16 with D a multiple of 16, ``tf32x3`` for f32
-   with D <= 128, ``simt`` otherwise) against the plain twin, within the
-   stated tolerances: the serve phase's prefill shape and a 4096-token
-   prefill, each in bf16 and in f32, f32 windowed cases, ragged, GQA and
-   head-dim cases; at the four prefill shapes the CUDA-core kernel is
-   timed beside the tensor-core one. f32 cases print two bounds: the
-   CUDA cores' f32 rate and the 3xTF32 rate (the TF32 tensor-core rate
-   over the three products), held as ``bound_ms`` on the tf32x3 route;
+   (``wgmma`` for bf16/f16, ``tf32x3`` for f32, asserted per case)
+   against the plain twin, within the stated tolerances: the serve
+   phase's prefill shape and a 4096-token prefill, each in bf16 and in
+   f32, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
+   prefills at head dims 40 (bf16, padded to 64), 192 and 256 (f32, on a
+   cluster of two blocks). f32 cases print two bounds: the CUDA cores'
+   f32 rate and the 3xTF32 rate (the TF32 tensor-core rate over the
+   three products), held as ``bound_ms`` on the tf32x3 route;
 4. f32 attention: ``flash_attention`` called on f32 inputs at yi-6b's
-   heads (the 3xTF32 tensor-core kernel) and at D = 192 (beyond its
-   shared memory: the CUDA-core kernel);
+   heads (one block per q tile) and at D = 192 (a pair of blocks
+   splitting the head dim), both on the 3xTF32 tensor-core kernel;
 5. moe layer: one deepseek-moe-16b MoE layer at full width (64 routed
    experts top-6, d_ff 1408, 2 shared; random f32 params from a seed)
    on 8 virtual ranks of 512 bf16 tokens each: the flat and rowwise
@@ -114,8 +116,7 @@ PEAK_OPS_PER_S["tf32x3"] = 495e12 / 3
 CLI_LOSS_TOL = 5e-3
 # the profiler's name of each flash route's kernels (tf32x3: the split
 # pre-pass and the attention kernel)
-FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_sm90_kernel", "tf32x3": "tf32x3",
-                      "simt": "flash_fwd_kernel"}
+FLASH_KERNEL_NAMES = {"wgmma": "flash_fwd_sm90_kernel", "tf32x3": "tf32x3"}
 
 # bf16 kernel vs its f32-accumulating plain twin: both round one f32
 # result to bf16, so they differ by at most one bf16 ulp (2^-8 relative)
@@ -178,11 +179,13 @@ def _cuda_keys(fn) -> set[str]:
     return {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
-def device_ms(fn, kernel: str | None, iters: int = 20, flush=None) -> float | None:
+def device_ms(fn, kernel: str | None, iters: int = 20, flush=None) -> float:
     """Device time of ``kernel`` per call of ``fn``, from the profiler's
-    CUDA trace; ``kernel=None`` sums every CUDA kernel of the call (None
-    when the trace holds no such kernel). With ``flush``, it runs before
-    every call, and its own kernels are left out of the sum by name."""
+    CUDA trace; ``kernel=None`` sums every CUDA kernel of the call. With
+    ``flush``, it runs before every call, and its own kernels are left
+    out of the sum by name. A session whose trace holds no such kernel
+    (the profiler can lose a session's kernel records) is taken again,
+    up to three sessions, and then raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -190,19 +193,22 @@ def device_ms(fn, kernel: str | None, iters: int = 20, flush=None) -> float | No
     skip = _cuda_keys(flush) if flush is not None else set()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
-        for e in prof.key_averages()
-        if (kernel is None and e.device_type == DeviceType.CUDA and e.key not in skip)
-        or (kernel is not None and kernel in e.key)
-    )
-    return total_us / iters / 1e3 if total_us else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if flush is not None:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(
+            getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+            for e in prof.key_averages()
+            if (kernel is None and e.device_type == DeviceType.CUDA and e.key not in skip)
+            or (kernel is not None and kernel in e.key)
+        )
+        if total_us:
+            return total_us / iters / 1e3
+    raise RuntimeError(f"device_ms: three profiler sessions hold no kernel {kernel or ''}")
 
 
 FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
@@ -321,34 +327,40 @@ def flash_phase() -> dict:
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(2)
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
-        # (name, B, H, Hkv, S, D, dtype, causal, window): the serve
+        # (name, B, H, Hkv, S, D, dtype, causal, window, route): the serve
         # phase's prefill shape (yi-6b heads, S=512) first
-        ("yi6b_prefill", 1, 32, 4, 512, 128, torch.bfloat16, True, None),
-        ("yi6b_prefill_4k", 1, 32, 4, 4096, 128, torch.bfloat16, True, None),
-        ("yi6b_prefill_f32", 1, 32, 4, 512, 128, torch.float32, True, None),
-        ("yi6b_prefill_4k_f32", 1, 32, 4, 4096, 128, torch.float32, True, None),
+        ("yi6b_prefill", 1, 32, 4, 512, 128, bf16, True, None, "wgmma"),
+        ("yi6b_prefill_4k", 1, 32, 4, 4096, 128, bf16, True, None, "wgmma"),
+        ("yi6b_prefill_f32", 1, 32, 4, 512, 128, f32, True, None, "tf32x3"),
+        ("yi6b_prefill_4k_f32", 1, 32, 4, 4096, 128, f32, True, None, "tf32x3"),
         # the moe serve phase's prefill shape (deepseek-moe-16b: MHA, 16 heads)
-        ("dsmoe_prefill", 1, 16, 16, 512, 128, torch.bfloat16, True, None),
-        ("f32_window", 2, 4, 2, 384, 64, torch.float32, True, 48),
-        ("f32_window_noncausal", 1, 4, 4, 200, 64, torch.float32, False, 100),
-        ("d80_gqa", 1, 8, 2, 256, 80, torch.bfloat16, True, None),
-        ("d256", 1, 2, 1, 128, 256, torch.float32, True, None),
-        ("f32_d40_ragged", 2, 4, 1, 333, 40, torch.float32, True, None),
-        ("ragged_449_window", 1, 8, 1, 449, 128, torch.bfloat16, True, 48),
-        ("d192_noncausal", 1, 4, 2, 300, 192, torch.bfloat16, False, None),
-        ("f16_d16", 2, 4, 1, 96, 16, torch.float16, True, None),
-        ("bf16_d40", 1, 4, 2, 160, 40, torch.bfloat16, True, None),
+        ("dsmoe_prefill", 1, 16, 16, 512, 128, bf16, True, None, "wgmma"),
+        ("f32_window", 2, 4, 2, 384, 64, f32, True, 48, "tf32x3"),
+        ("f32_window_noncausal", 1, 4, 4, 200, 64, f32, False, 100, "tf32x3"),
+        # h2o-danube-1.8b's head dim, padded 80 -> 128
+        ("d80_gqa", 1, 8, 2, 256, 80, bf16, True, None, "wgmma"),
+        ("d256", 1, 2, 1, 128, 256, f32, True, None, "tf32x3"),
+        ("f32_d40_ragged", 2, 4, 1, 333, 40, f32, True, None, "tf32x3"),
+        ("ragged_449_window", 1, 8, 1, 449, 128, bf16, True, 48, "wgmma"),
+        ("d192_noncausal", 1, 4, 2, 300, 192, bf16, False, None, "wgmma"),
+        ("f16_d16", 2, 4, 1, 96, 16, f16, True, None, "wgmma"),
+        ("bf16_d40", 1, 4, 2, 160, 40, bf16, True, None, "wgmma"),
+        # 4096-token prefills at the entry's other head dims: 16-bit
+        # D % 16 == 8 (padded to 64), f32 D > 128 (a pair of blocks)
+        ("bf16_d40_4k", 1, 32, 4, 4096, 40, bf16, True, None, "wgmma"),
+        ("f32_d192_4k", 1, 16, 16, 4096, 192, f32, True, None, "tf32x3"),
+        ("f32_d256_4k", 1, 8, 2, 4096, 256, f32, True, None, "tf32x3"),
     ]
-    # the CUDA-core kernel timed beside the tensor-core one at these shapes
-    timed_simt = {"yi6b_prefill", "yi6b_prefill_4k", "yi6b_prefill_f32", "yi6b_prefill_4k_f32"}
     recs = {}
-    for name, B, H, Hkv, S, D, dtype, causal, window in cases:
+    for name, B, H, Hkv, S, D, dtype, causal, window, route in cases:
         q = torch.randn((B, H, S, D), device="cuda", generator=gen).to(dtype)
         k = torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(dtype)
         v = torch.randn((B, Hkv, S, D), device="cuda", generator=gen).to(dtype)
         kw = dict(causal=causal, window=window)
-        route = FA._route(dtype, D)
+        if FA._route(dtype, D) != route:
+            raise AssertionError(f"flash {name}: routed to {FA._route(dtype, D)}, not {route}")
         before = dict(FA.flash_attention.launches_by_route)
         got = FA.flash_attention(q, k, v, **kw)
         want = FA.flash_attention_plain(q, k, v, **kw)
@@ -408,17 +420,7 @@ def flash_phase() -> dict:
             rec["bound_ms_tf32x3"] = max(flops / PEAK_OPS_PER_S["tf32x3"], t_bytes) * 1e3
         if route == "tf32x3":
             rec["split_device_ms"] = device_ms(kernel, "tf32x3_split_kernel")
-        if name in timed_simt:
-            scale = D ** -0.5
-            simt = FA._launch("simt", q, k, v, causal=causal, window=window, scale=scale)
-            torch.cuda.synchronize()
-            simt_err = float((simt.float() - want.float()).abs().max())
-            if not simt_err <= atol + rtol * float(want.float().abs().max()):
-                raise AssertionError(f"flash {name}: simt kernel max abs err {simt_err}")
-            run_simt = lambda: FA._launch(  # noqa: E731
-                "simt", q, k, v, causal=causal, window=window, scale=scale)
-            rec["simt_ms"] = time_ms(run_simt)
-            rec["simt_device_ms"] = device_ms(run_simt, "flash_fwd_kernel")
+        rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
         print("flash", json.dumps(rec), flush=True)
         recs[name] = rec
     return recs
@@ -426,11 +428,11 @@ def flash_phase() -> dict:
 
 def f32_attention_path() -> dict:
     """``flash_attention`` on f32 inputs, as a caller of the kernel entry
-    point with f32 activations makes it: at yi-6b's heads (S=512, causal),
-    the path of the 3xTF32 tensor-core route, and at deepseek-v2-lite's
-    query-key head dim 192 (16 heads, S=256), beyond that kernel's shared
-    memory, the path of the CUDA-core route. Returns the launch counts of
-    the run, counted from 0."""
+    point with f32 activations makes it: at yi-6b's heads (S=512, causal)
+    and at deepseek-v2-lite's query-key head dim 192 (16 heads, S=256),
+    both on the 3xTF32 tensor-core route (the second as a pair of blocks
+    that split the head dim). Returns the launch counts of the run,
+    counted from 0."""
     import torch
     from repro_torch.kernels.flash_attention import ops as FA
 
@@ -454,7 +456,7 @@ def f32_attention_path() -> dict:
         print(f"f32 path: D {q.shape[-1]}, max abs err vs plain {float(err.max()):.3g}",
               flush=True)
     print(f"f32 path: launches {by_route}", flush=True)
-    if by_route != {"wgmma": 0, "tf32x3": 1, "simt": 1} or bad:
+    if by_route != {"wgmma": 0, "tf32x3": 2} or bad:
         raise AssertionError(f"f32 path: launches {by_route}, {bad} elements beyond tolerance")
     return by_route
 
@@ -1065,10 +1067,13 @@ def main() -> int:
         raise AssertionError(f"flash_attention_sm90 SASS lacks wgmma or TMA: {counts}")
     sass = _build.sass("flash_attention_f32_sm90")
     counts = {"HGMMA_TF32": len(re.findall(r"\bHGMMA\.\S*\bTF32\b", sass)),
-              "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass))}
+              "UTMALDG": len(re.findall(r"\bUTMALDG\b", sass)),
+              # the cluster barrier of the two-block instances (D > 128)
+              "UCGABAR_WAIT": len(re.findall(r"\bUCGABAR_WAIT\b", sass))}
     print(f"sass flash_attention_f32_sm90: {json.dumps(counts)}", flush=True)
     if min(counts.values()) == 0:
-        raise AssertionError(f"flash_attention_f32_sm90 SASS lacks tf32 wgmma or TMA: {counts}")
+        raise AssertionError(
+            f"flash_attention_f32_sm90 SASS lacks tf32 wgmma, TMA or a cluster barrier: {counts}")
     relayout_sass = _build.sass("relayout")
     div64 = div64_calls(relayout_sass)
     print(f"sass relayout: {json.dumps({'div64_calls': div64})}", flush=True)
@@ -1080,13 +1085,12 @@ def main() -> int:
     relayout_rec = relayout_phase()
     flash_recs = flash_phase()
     f32_routes = f32_attention_path()
-    launches = {"flash_attention_tf32x3": f32_routes["tf32x3"],
-                "flash_attention_simt": f32_routes["simt"]}
+    launches = {"flash_attention_tf32x3": f32_routes["tf32x3"]}
     moe_layer_phase()
     launches.update(serve_phase("yi-6b", 8, "serve"))
     moe = serve_phase("deepseek-moe-16b", 4, "moe serve")
     moe_launches = {k: moe.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
-                                               "flash_attention_tf32x3", "flash_attention_simt")}
+                                               "flash_attention_tf32x3")}
     train = train_phase()
 
     def row(name, source, replaces, rec, bound_by, **extra):
@@ -1105,7 +1109,12 @@ def main() -> int:
 
     flash_replaces = "src/repro/kernels/flash_attention/kernel.py:100"
     wgmma_rec, tf32x3_rec = flash_recs["yi6b_prefill"], flash_recs["yi6b_prefill_f32"]
-    simt_rec = flash_recs["bf16_d40"]
+
+    def sub(name):
+        return {k: flash_recs[name][k] for k in (
+            "shape", "dtype", "ms", "device_ms", "plain_ms", "library_ms",
+            "library_device_ms", "bound_ms", "bound_by", "max_abs_err")}
+
     kernels = [
         row("relayout", "src/repro_torch/csrc/relayout.cu",
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
@@ -1115,15 +1124,13 @@ def main() -> int:
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"],
-            dsmoe_prefill={k: flash_recs["dsmoe_prefill"][k] for k in (
-                "shape", "ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
-                "bound_ms", "bound_by", "max_abs_err")}),
+            dsmoe_prefill=sub("dsmoe_prefill"), bf16_d40=sub("bf16_d40"),
+            d80_gqa=sub("d80_gqa")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",
             flash_replaces, tf32x3_rec, tf32x3_rec["bound_by"],
             bound_ms_cuda_cores=tf32x3_rec["bound_ms_cuda_cores"],
-            split_device_ms=tf32x3_rec["split_device_ms"]),
-        row("flash_attention_simt", "src/repro_torch/csrc/flash_attention.cu",
-            flash_replaces, simt_rec, simt_rec["bound_by"]),
+            split_device_ms=tf32x3_rec["split_device_ms"],
+            f32_d192_4k=sub("f32_d192_4k")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,7 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel) for float32 inputs whose head dim D is a multiple
-// of 8 in [8, 128]; f32 with D > 128 takes csrc/flash_attention.cu.
+// of 8 in [8, 256].
 // Same semantics as the Pallas kernel: q (B, H, S, D), k and v
 // (B, Hkv, S, D); query head h reads kv head h / (H / Hkv); masks
 // col <= row (causal) and col > row - window; f32 running max, running
@@ -19,7 +19,9 @@
 // CUDA cores (67 TFLOP/s f32) that is 0.0321 ms at yi-6b's heads and
 // S = 512, 2.05 ms at S = 4096. Three TF32 products run at 495 / 3 =
 // 165 TFLOP/s, so this design's floor is 0.0130 ms and 0.833 ms; the
-// bytes, (2H + 2Hkv) S D 4 = 18.9 MB at S = 512, take 0.0056 ms.
+// bytes, (2H + 2Hkv) S D 4 = 18.9 MB at S = 512, take 0.0056 ms. At
+// D = 192 (16 heads, S = 4096) the floor is 0.625 ms, at D = 256 (8
+// heads) 0.417 ms.
 //
 // Design:
 //
@@ -45,7 +47,27 @@
 // * Shared memory at D = 128: Q hi + lo 64 KB; a ring stage of 32 kv
 //   rows holds K hi/lo (2 x 16 KB) and V^T hi/lo (2 x 16 KB); two stages
 //   make 192 KB, one block per SM. At D <= 64 it is half, two blocks per
-//   SM. D > 128 does not fit two stages and stays on the CUDA cores.
+//   SM. Shared memory grows as 1536 D bytes, so D > 128 (288 KB at 192,
+//   384 KB at 256) does not fit one block's 227 KB.
+// * D in (128, 256] runs on a cluster of two blocks that split the head
+//   dim: the pair shares one (head, 64-row q tile), and block r holds
+//   columns [r DPH, (r + 1) DPH) of Q and K and those rows of V^T, with
+//   DPH = DP / 2 (96 or 128; DP is D rounded up to 64). Each block is the
+//   single-block kernel at DPH columns (144 or 192 KB, plus 16 KB for
+//   two exchange buffers). Per kv tile each block computes the partial
+//   scores of its half and stores them into its peer's exchange buffer
+//   (distributed shared memory: mapa, then st.async, which completes
+//   transaction bytes on the peer's mbarrier as a TMA load does, with no
+//   fence), and adds the peer's partial to its own once its own mbarrier
+//   has all the bytes. Thread t of both blocks holds the same score
+//   elements, so each thread sends 16 floats to its counterpart only, and
+//   f32 addition commutes: both blocks hold the same scores bit for bit
+//   and run the same softmax. Each block then computes P V for its own
+//   DPH output columns and stores them. The exchange waits while the
+//   previous tile's P V runs. Two buffers alternate by tile; a block
+//   sends into a buffer again only after the peer's bytes for the tile in
+//   between have landed, and the peer sends those after reading the
+//   buffer, so no other barrier guards them.
 // * The rest is the bf16 kernel's skeleton (flash_attention_sm90.cu): a
 //   producer warpgroup of which one thread issues TMA loads (3-D tensor
 //   maps, 128-byte swizzle, rows past S and columns past D read as
@@ -81,27 +103,31 @@ constexpr int BN = 32;  // kv rows per ring stage: one 128-byte row of V^T
 constexpr int STAGES = 2;
 constexpr int CONSUMER_THREADS = 128;
 constexpr int THREADS = CONSUMER_THREADS + 128;  // + the producer warpgroup
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
+constexpr int EXCHANGE = CONSUMER_THREADS * 16 * 4;  // one tile's partial scores
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ROW = 128;  // bytes of one swizzled row: 32 f32 values
 
 // Shared memory of one block, as byte offsets from a 1024-aligned base.
-// DP is D rounded up to 64 (the N width of one P V^T instruction).
-template <int DP>
+// DPH is the head-dim columns the block holds: D rounded up to 64 (the N
+// width of one P V^T instruction) for a lone block, half of that for
+// each block of a pair, which adds two exchange buffers.
+template <int DPH, bool PAIR>
 struct Smem {
-  static constexpr int ATOMS = DP / 32;         // 32-column blocks of the head dim
+  static constexpr int ATOMS = DPH / 32;        // 32-column blocks of the head dim
   static constexpr int Q_ATOM = BM * ROW;       // 64 rows x 128 bytes
   static constexpr int K_ATOM = BN * ROW;       // 32 rows x 128 bytes
   static constexpr int QH = 0;
   static constexpr int QL = QH + ATOMS * Q_ATOM;
   static constexpr int KTILE = ATOMS * K_ATOM;  // K hi or K lo of one stage
-  static constexpr int VTILE = DP * ROW;        // V^T hi or lo: DP rows of 32 kv
+  static constexpr int VTILE = DPH * ROW;       // V^T hi or lo: DPH rows of 32 kv
   static constexpr int STAGE = 2 * KTILE + 2 * VTILE;
   static constexpr int RING = QL + ATOMS * Q_ATOM;
-  // full_k[], full_v[], empty_k[], empty_v[], q_full
-  static constexpr int BAR = RING + STAGES * STAGE;
-  static constexpr int BYTES = BAR + (4 * STAGES + 1) * 8;
+  static constexpr int XCHG = RING + STAGES * STAGE;  // the peer's partial scores, x2
+  // full_k[], full_v[], empty_k[], empty_v[], q_full, xchg_full[2]
+  static constexpr int BAR = XCHG + (PAIR ? 2 * EXCHANGE : 0);
+  static constexpr int BYTES = BAR + (4 * STAGES + 3) * 8;
   static constexpr int ALLOC = BYTES + 1024;    // slack to align the base
 };
 
@@ -141,6 +167,45 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > (1ll << 33)) __trap();
   }
+}
+
+// ---- the cluster (a pair of blocks) -------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// The address of the same shared-memory byte in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into a peer's shared memory, asynchronously: the peer's
+// mbarrier `bar` counts them as completed transaction bytes, as it
+// counts a TMA load's, so no fence orders them.
+__device__ __forceinline__ void st_async(uint32_t addr, float a, float b, float c, float d,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
+// Every thread of both blocks: no block reads or writes its peer's
+// shared memory before the peer has started, or after it has exited.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // ---- TMA ---------------------------------------------------------------------
@@ -222,6 +287,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
                : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x 32, f32) += A (64 x 8 tf32, registers) . B (8 x 32 tf32, shared,
+// K-major): the last 32 columns of a DPH = 96 block.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " REGS16
+               ", {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+               : ACC16(d)
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---- numerics ----------------------------------------------------------------
 
 // Round to TF32 (10 mantissa bits), to nearest, ties away from zero.
@@ -300,14 +376,16 @@ tf32x3_split_kernel(const float* __restrict__ k, const float* __restrict__ v,
 // {(g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4)}, so registers
 // {4 i, 4 i + 2, 4 i + 1, 4 i + 3} of the scores are the fragment of
 // slice i when V^T's kv rows are stored in the order 0 2 4 6 1 3 5 7.
-template <int DP>
-__global__ void __launch_bounds__(THREADS, DP <= 64 ? 2 : 1)
+template <int DPH, bool PAIR>
+__global__ void __launch_bounds__(THREADS, DPH <= 64 ? 2 : 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
                         int H, int Hkv, int S, int D, int causal, int has_window,
                         int window, float scale_log2) {
-  using L = Smem<DP>;
+  using L = Smem<DPH, PAIR>;
+  constexpr int NB = DPH / 64;          // 64-column blocks of P V
+  constexpr bool TAIL = DPH % 64 != 0;  // and a last 32-column one (DPH = 96)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -318,14 +396,22 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   auto empty_k = [&](int s) { return bar + 8u * (2 * STAGES + s); };
   auto empty_v = [&](int s) { return bar + 8u * (3 * STAGES + s); };
   const uint32_t q_full = bar + 8u * (4 * STAGES);
+  auto xchg_full = [&](int b) { return bar + 8u * (4 * STAGES + 1 + b); };
 
-  const int bh = blockIdx.x;
+  // A pair's two blocks are neighbours along x and share (b h, q tile);
+  // block `rank` holds head-dim columns [col0, col0 + DPH). Launched
+  // without a cluster of two, the pair kernel fails instead of reading
+  // a peer that is not there.
+  if (PAIR && cluster_size() != 2) __trap();
+  const uint32_t rank = PAIR ? cluster_rank() : 0;
+  const int bh = PAIR ? blockIdx.x >> 1 : blockIdx.x;
+  const int col0 = rank * DPH;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // longest causal tiles first
   const int b = bh / H;
   const int kvh = b * Hkv + (bh - b * H) / (H / Hkv);
 
   // The kv tiles this q tile needs, [t0, t1): the same walk for the
-  // producer and the consumers.
+  // producer and the consumers (and for both blocks of a pair).
   const int q_last = min(q0 + BM, S) - 1;
   int t1 = (S + BN - 1) / BN;
   if (causal) t1 = min(t1, q_last / BN + 1);
@@ -342,16 +428,23 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(empty_v(s), CONSUMER_THREADS);
     }
     mbar_init(q_full, 1);
+    if (PAIR) {
+      mbar_init(xchg_full(0), 1);  // + the peer's EXCHANGE bytes
+      mbar_init(xchg_full(1), 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  if constexpr (PAIR)
+    cluster_sync();
+  else
+    __syncthreads();
 
   if (threadIdx.x >= CONSUMER_THREADS) {
     // ===== producer warpgroup: every load of the block, from one thread =====
     if (threadIdx.x == CONSUMER_THREADS) {
       mbar_expect_tx(q_full, L::ATOMS * L::Q_ATOM);
       for (int j = 0; j < L::ATOMS; ++j)
-        tma_load_3d(base + L::QH + j * L::Q_ATOM, &tq, 32 * j, q0, bh, q_full);
+        tma_load_3d(base + L::QH + j * L::Q_ATOM, &tq, col0 + 32 * j, q0, bh, q_full);
       for (int t = t0, n = 0; t < t1; ++t, ++n) {
         const int s = n % STAGES;
         const uint32_t st = base + L::RING + s * L::STAGE;
@@ -360,12 +453,12 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect_tx(full_k(s), 2 * L::KTILE);
         for (int part = 0; part < 2; ++part)
           for (int j = 0; j < L::ATOMS; ++j)
-            tma_load_3d(st + part * L::KTILE + j * L::K_ATOM, &tk, 32 * j, t * BN,
+            tma_load_3d(st + part * L::KTILE + j * L::K_ATOM, &tk, col0 + 32 * j, t * BN,
                         2 * kvh + part, full_k(s));
         mbar_wait(empty_v(s), vacant);
         mbar_expect_tx(full_v(s), 2 * L::VTILE);
         for (int part = 0; part < 2; ++part)
-          tma_load_3d(st + 2 * L::KTILE + part * L::VTILE, &tv, t * BN, 0, 2 * kvh + part,
+          tma_load_3d(st + 2 * L::KTILE + part * L::VTILE, &tv, t * BN, col0, 2 * kvh + part,
                       full_v(s));
       }
     }
@@ -397,18 +490,27 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMER_THREADS) : "memory");
     }
 
-    float acc[DP / 64][32];
+    float acc[NB][32];
+    float acc_t[16];  // the 32-column tail block (TAIL only)
 #pragma unroll
-    for (int j = 0; j < DP / 64; ++j)
+    for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[j][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc_t[i] = 0.f;
     float m[2] = {NEG_INF, NEG_INF};  // running max, log2 domain
     float l[2] = {0.f, 0.f};          // this thread's share of the running sum
     float sc[16];                     // one tile's scores, then its P
     uint32_t ph[4][4], pl[4][4];      // P as tf32 A fragments, hi and lo
     float alpha[2];
 
-    // S = Q K^T of the tile in stage s: three products over DP / 8 k8
+    auto fence_acc = [&]() {
+#pragma unroll
+      for (int j = 0; j < NB; ++j) fence_regs(acc[j]);
+      if constexpr (TAIL) fence_regs(acc_t);
+    };
+
+    // S = Q K^T of the tile in stage s: three products over DPH / 8 k8
     // steps (the columns past D are TMA's zeros), small terms first.
     auto issue_qk = [&](int s) {
       const uint32_t st = base + L::RING + s * L::STAGE;
@@ -432,20 +534,51 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
     // bytes.
     auto issue_pv = [&](int s) {
       const uint32_t st = base + L::RING + s * L::STAGE;
-#pragma unroll
-      for (int j = 0; j < DP / 64; ++j) fence_regs(acc[j]);
+      fence_acc();
       wgmma_fence();
 #pragma unroll
       for (int term = 0; term < 3; ++term) {
         const uint32_t vb = st + 2 * L::KTILE + (term == 1 ? L::VTILE : 0);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-          for (int j = 0; j < DP / 64; ++j)
+          for (int j = 0; j < NB; ++j)
             wgmma_rs_n64(acc[j], term == 0 ? pl[i] : ph[i],
                          desc_sw128(vb + j * 64 * ROW + i * 32));
+          if constexpr (TAIL)
+            wgmma_rs_n32(acc_t, term == 0 ? pl[i] : ph[i],
+                         desc_sw128(vb + NB * 64 * ROW + i * 32));
+        }
       }
       wgmma_commit();
+    };
+
+    // A pair's scores: this block's partial (its DPH columns of the head
+    // dim) goes to the peer's exchange buffer b, slot threadIdx.x, and the
+    // peer's partial for the same elements is added from this block's
+    // once its EXCHANGE bytes have landed. Thread 0 expects them (the
+    // barrier's one arrival); bytes that land first leave the
+    // transaction count below 0 until it does.
+    auto exchange = [&](int n) {
+      const int bsel = n & 1;
+      const uint32_t mine = base + L::XCHG + bsel * EXCHANGE + threadIdx.x * 16;
+      const uint32_t theirs = peer_addr(mine, rank ^ 1);
+      const uint32_t their_bar = peer_addr(xchg_full(bsel), rank ^ 1);
+      if (threadIdx.x == 0) mbar_expect_tx(xchg_full(bsel), EXCHANGE);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        st_async(theirs + j * CONSUMER_THREADS * 16, sc[4 * j], sc[4 * j + 1], sc[4 * j + 2],
+                 sc[4 * j + 3], their_bar);
+      mbar_wait(xchg_full(bsel), (n >> 1) & 1);
+      const float4* in = reinterpret_cast<const float4*>(gbase + (mine - base));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 x = in[j * CONSUMER_THREADS];
+        sc[4 * j] += x.x;
+        sc[4 * j + 1] += x.y;
+        sc[4 * j + 2] += x.z;
+        sc[4 * j + 3] += x.w;
+      }
     };
 
     // Scores of the tile at kv row k0 -> P in place, alpha, m and l: scale
@@ -520,6 +653,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_regs(sc);
       mbar_arrive(empty_k(0));
+      if constexpr (PAIR) exchange(0);
       softmax(t0 * BN);  // alpha scales an acc of zeros: not applied
       split_p();
       for (int n = 1; n < tiles; ++n) {
@@ -532,10 +666,10 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_wait<1>();  // Q K^T of tile n is done; P V of n - 1 may run on
         fence_regs(sc);
         mbar_arrive(empty_k(s));
+        if constexpr (PAIR) exchange(n);
         softmax((t0 + n) * BN);
         wgmma_wait<0>();
-#pragma unroll
-        for (int j = 0; j < DP / 64; ++j) fence_regs(acc[j]);
+        fence_acc();
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           fence_regs(ph[i]);
@@ -543,22 +677,26 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
         }
         mbar_arrive(empty_v(sp));
 #pragma unroll
-        for (int j = 0; j < DP / 64; ++j)
+        for (int j = 0; j < NB; ++j)
 #pragma unroll
           for (int i = 0; i < 32; ++i) acc[j][i] *= alpha[(i >> 1) & 1];
+        if constexpr (TAIL) {
+#pragma unroll
+          for (int i = 0; i < 16; ++i) acc_t[i] *= alpha[(i >> 1) & 1];
+        }
         split_p();
       }
       const int sl = (tiles - 1) % STAGES;
       mbar_wait(full_v(sl), ((tiles - 1) / STAGES) & 1);
       issue_pv(sl);
       wgmma_wait<0>();
-#pragma unroll
-      for (int j = 0; j < DP / 64; ++j) fence_regs(acc[j]);
+      fence_acc();
       mbar_arrive(empty_v(sl));
     }
 
     // O / l, with a zero row where the sum is 0; rows past S and the
-    // padded columns past D are not stored.
+    // padded columns past D are not stored; a pair's block stores its
+    // own DPH columns.
     float den[2];
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -573,17 +711,27 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = row0 + 8 * hh;
       if (row >= S) continue;
 #pragma unroll
-      for (int j = 0; j < DP / 64; ++j)
+      for (int j = 0; j < NB; ++j)
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const int col = 64 * j + 8 * i + c2;
+          const int col = col0 + 64 * j + 8 * i + c2;
           if (col < D)
             *reinterpret_cast<float2*>(op + (size_t)row * D + col) =
                 make_float2(acc[j][4 * i + 2 * hh] / den[hh],
                             acc[j][4 * i + 2 * hh + 1] / den[hh]);
         }
+      if constexpr (TAIL) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = col0 + 64 * NB + 8 * i + c2;
+          if (col < D)
+            *reinterpret_cast<float2*>(op + (size_t)row * D + col) =
+                make_float2(acc_t[4 * i + 2 * hh] / den[hh], acc_t[4 * i + 2 * hh + 1] / den[hh]);
+        }
+      }
     }
   }
+  if constexpr (PAIR) cluster_sync();
 }
 
 // ---- host side ------------------------------------------------------------------
@@ -629,22 +777,45 @@ bool make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int planes
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+// One block per (b h, q tile), or with PAIR a cluster of two blocks
+// along x, each holding DPH head-dim columns. A pair that cannot be
+// scheduled (or too much shared memory) fails the launch with its error.
+template <int DPH, bool PAIR>
 cudaError_t launch(const void* q, const void* ks, const void* vt, float* o, int B, int H,
                    int Hkv, int S, int D, int Sp, int causal, int has_window, int window,
                    float scale_log2, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, D, S, B * H, BM) || !make_map(&tk, ks, D, S, 2 * B * Hkv, BN) ||
-      !make_map(&tv, vt, Sp, D, 2 * B * Hkv, DP))
+      !make_map(&tv, vt, Sp, D, 2 * B * Hkv, DPH))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_tf32x3_kernel<DP>;
-  const int smem = Smem<DP>::ALLOC;
+  auto kern = flash_fwd_tf32x3_kernel<DPH, PAIR>;
+  const int smem = Smem<DPH, PAIR>::ALLOC;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + BM - 1) / BM));
-  kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, o, H, Hkv, S, D, causal, has_window, window,
-                                    scale_log2);
-  return cudaGetLastError();
+  const dim3 grid((unsigned)(B * H * (PAIR ? 2 : 1)), (unsigned)((S + BM - 1) / BM));
+  if constexpr (!PAIR) {
+    kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, o, H, Hkv, S, D, causal, has_window, window,
+                                      scale_log2);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void* args[] = {&tq, &tk, &tv, &o, &H, &Hkv, &S, &D, &causal, &has_window, &window,
+                    &scale_log2};
+    e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace
@@ -652,7 +823,7 @@ cudaError_t launch(const void* q, const void* ks, const void* vt, float* o, int 
 // q, k, v and o are contiguous f32 and 16-byte aligned; o has q's shape;
 // ks is scratch of (B * Hkv, 2, S, D) f32 and vt of (B * Hkv, 2, D, Sp)
 // f32 with Sp = S rounded up to a multiple of 32; D is a multiple of 8 in
-// [8, 128]. Launches the split pre-pass, then the attention kernel, on
+// [8, 256]. Launches the split pre-pass, then the attention kernel, on
 // `stream`. Returns the CUDA error of the launches (0 on success).
 extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k, const void* v,
                                                void* o, void* ks, void* vt, int B, int H,
@@ -664,7 +835,8 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k, con
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)ks |
        (uintptr_t)vt) & 15)
     return (int)cudaErrorMisalignedAddress;
-  if ((S + BM - 1) / BM > 65535 || B * Hkv > 65535) return (int)cudaErrorInvalidValue;
+  if ((S + BM - 1) / BM > 65535 || B * Hkv > 65535 || (long long)B * H * 2 > 0x7fffffff)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int Sp = (S + 31) / 32 * 32;
@@ -676,9 +848,12 @@ extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k, con
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = scale * LOG2E;
   float* out = static_cast<float*>(o);
-  if (D <= 64)
-    return (int)launch<64>(q, ks, vt, out, B, H, Hkv, S, D, Sp, causal, has_window, window,
-                           scale_log2, st);
-  return (int)launch<128>(q, ks, vt, out, B, H, Hkv, S, D, Sp, causal, has_window, window,
-                          scale_log2, st);
+#define LAUNCH(DPH, PAIR)                                                                  \
+  return (int)launch<DPH, PAIR>(q, ks, vt, out, B, H, Hkv, S, D, Sp, causal, has_window, \
+                                window, scale_log2, st)
+  if (D <= 64) LAUNCH(64, false);
+  if (D <= 128) LAUNCH(128, false);
+  if (D <= 192) LAUNCH(96, true);
+  LAUNCH(128, true);
+#undef LAUNCH
 }

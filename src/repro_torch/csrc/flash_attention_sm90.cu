@@ -3,7 +3,7 @@
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel) for bf16/f16 inputs whose head dim D is a multiple
-// of 16 in [16, 256]; f32 and other head dims take csrc/flash_attention.cu.
+// of 8 in [8, 256]; f32 takes csrc/flash_attention_f32_sm90.cu.
 // Same semantics as the Pallas kernel: q (B, H, S, D), k and v
 // (B, Hkv, S, D); query head h reads kv head h / (H / Hkv); masks
 // col <= row (causal) and col > row - window; f32 running max, running
@@ -26,7 +26,10 @@
 //   from shared memory as an MN-major (transposed) B operand. A 64-wide
 //   column block of the head dim is one 128-byte swizzle atom, so every
 //   descriptor spans exactly one atom across N; D is padded to DP, a
-//   multiple of 64, with zeros that TMA fills in.
+//   multiple of 64, with zeros that TMA fills in. A head dim of 8 mod 16
+//   (row stride D * 2 bytes, a multiple of TMA's 16) pads the same way:
+//   D = 40 computes 64 columns, 1.6x its work, and stores the 40 (pairs
+//   of columns (2c, 2c + 1) never straddle D when D % 8 == 0).
 // * Q arrives once by TMA; K and V tiles (64 rows) arrive through a
 //   2-stage ring by TMA with full/empty mbarriers, straight from kv head
 //   h / group, 16-bit and 128-byte swizzled in shared memory. K and V
@@ -559,13 +562,13 @@ cudaError_t launch_t(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
 }  // namespace
 
 // dtype: 1 = bfloat16, 2 = float16. q, k, v and o are contiguous and
-// 16-byte aligned; o has q's shape and dtype; D is a multiple of 16 in
-// [16, 256]. Returns the CUDA error of the launch (0 on success).
+// 16-byte aligned; o has q's shape and dtype; D is a multiple of 8 in
+// [8, 256]. Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
                                            void* o, int B, int H, int Hkv, int S, int D,
                                            int causal, int has_window, int window,
                                            float scale, int dtype, void* stream) {
-  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 || D < 16 || D > 256 || D % 16)
+  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 || D < 8 || D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
   if (dtype != 1 && dtype != 2) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)

@@ -27,7 +27,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("relayout", "flash_attention", "flash_attention_sm90", "flash_attention_f32_sm90")
+SOURCES = ("relayout", "flash_attention_sm90", "flash_attention_f32_sm90")
 
 # Loaded libraries, one per source: a process-wide resource, like an import.
 _LIBS: dict[str, ctypes.CDLL] = {}

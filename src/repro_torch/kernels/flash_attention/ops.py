@@ -5,20 +5,20 @@ PyTorch twin.
 and launches a CUDA kernel for CUDA tensors; there is no other path.
 Which kernel is a plain function of dtype and head dim, :func:`_route`:
 
-* ``"wgmma"`` — ``csrc/flash_attention_sm90.cu``: bf16/f16 with D a
-  multiple of 16 in [16, 256], both products on the tensor cores (wgmma,
-  TMA, warp-specialised);
-* ``"tf32x3"`` — ``csrc/flash_attention_f32_sm90.cu``: f32 with D up to
-  ``TF32X3_MAX_D`` (128), both products on the tensor cores, each split
-  three ways in TF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi), which keeps f32
-  accuracy where one TF32 product would not: the TPU kernel computes f32
-  inputs in f32, and so does this route, within the f32 tolerance;
-* ``"simt"`` — ``csrc/flash_attention.cu``, on the CUDA cores: f32 with
-  D above 128 (its Q and two kv stages in hi/lo parts do not fit in
-  shared memory), and 16-bit inputs whose D is a multiple of 8 but not
-  of 16.
+* ``"wgmma"`` — ``csrc/flash_attention_sm90.cu``: bf16/f16, both
+  products on the tensor cores (wgmma, TMA, warp-specialised); D is
+  padded with zeros to a multiple of 64;
+* ``"tf32x3"`` — ``csrc/flash_attention_f32_sm90.cu``: f32, both
+  products on the tensor cores, each split three ways in TF32 (a_lo b_hi
+  + a_hi b_lo + a_hi b_hi), which keeps f32 accuracy where one TF32
+  product would not: the TPU kernel computes f32 inputs in f32, and so
+  does this route, within the f32 tolerance. D above 128 runs on a
+  cluster of two blocks that split the head dim and exchange partial
+  scores through distributed shared memory.
 
-A launch error raises; no route gives way to another or to the twin.
+Every head dim the JAX entry takes (a multiple of 8 in [8, 256]) has a
+route, and both load by TMA, so q, k and v must be 16-byte aligned. A
+launch error raises; no route gives way to another or to the twin.
 Every route keeps the JAX entry's contract: ``block_q``/``block_k``
 default to 512, are capped at S, and must divide S (``ValueError``
 otherwise), so callers behave alike on every backend. The kernels' own
@@ -37,15 +37,16 @@ from .ref import NEG_INF, attention_ref
 __all__ = ["flash_attention", "flash_attention_plain", "attention_ref", "ROUTES"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-ROUTES = ("wgmma", "tf32x3", "simt")
+ROUTES = ("wgmma", "tf32x3")
 # route -> (source under csrc/, C entry point)
 _KERNELS = {
     "wgmma": ("flash_attention_sm90", "flash_attention_sm90_launch"),
     "tf32x3": ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch"),
-    "simt": ("flash_attention", "flash_attention_launch"),
 }
-# The largest f32 head dim the tf32x3 kernel's shared memory holds.
-TF32X3_MAX_D = 128
+# The largest f32 head dim the tf32x3 kernel takes; above 128 it runs as
+# a pair of blocks, each holding half the head dim.
+TF32X3_MAX_D = 256
+
 # The tf32x3 kernel's P fragment holds score columns (2c, 2c + 1) of each
 # k8 slice where the TF32 A operand expects (c, c + 4); its pre-pass
 # stores each group of 8 kv rows of V^T in this order instead, so that
@@ -62,9 +63,7 @@ def _route(dtype: torch.dtype, D: int) -> str:
         )
     if D % 8 or not 8 <= D <= 256:
         raise ValueError(f"flash_attention: head dim {D} must be a multiple of 8 in [8, 256]")
-    if dtype == torch.float32:
-        return "tf32x3" if D <= TF32X3_MAX_D else "simt"
-    return "wgmma" if D % 16 == 0 else "simt"
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
 def _fn(route: str):
@@ -162,7 +161,7 @@ def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
     launch in ``flash_attention.launches`` and ``launches_by_route``."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
-    if route != "simt" and any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"flash_attention: the {route} route needs 16-byte aligned q, k, v")
     o = torch.empty_like(q)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o)]
@@ -200,8 +199,8 @@ def flash_attention(
     """Blockwise attention, (B, H, S, D) x (B, Hkv, S, D)^2 -> (B, H, S, D).
 
     CUDA tensors: the hand-written kernel that :func:`_route` names
-    (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous inputs;
-    16-byte aligned ones on the tensor-core routes).
+    (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous and
+    16-byte aligned inputs).
     CPU tensors: the plain twin :func:`flash_attention_plain`.
     Either way it raises under autograd (grad mode on and an input that
     requires grad): the kernel has no backward.

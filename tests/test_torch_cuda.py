@@ -239,18 +239,27 @@ def test_flash_wgmma_route_matches_plain(cuda, B, H, Hkv, S, D, dtype, causal, w
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-def test_flash_16bit_odd_head_dim_takes_simt(cuda):
-    """bf16 with D = 40 (a multiple of 8, not of 16): the CUDA-core kernel."""
-    q = torch.randn((1, 4, 160, 40), device=cuda).to(_BF16)
-    k = torch.randn((1, 2, 160, 40), device=cuda).to(_BF16)
-    v = torch.randn((1, 2, 160, 40), device=cuda).to(_BF16)
+@pytest.mark.parametrize("S,causal,window", [(160, True, None), (333, True, 48),
+                                             (449, False, None)])
+@pytest.mark.parametrize("dtype", [_BF16, torch.float16])
+@pytest.mark.parametrize("D", [8, 24, 40, 200, 248])
+def test_flash_16bit_odd_head_dim_takes_wgmma(cuda, D, dtype, S, causal, window):
+    """16-bit head dims of 8 mod 16: the tensor-core kernel, D padded
+    with TMA's zeros to a multiple of 64 and only D columns stored."""
+    q = torch.randn((1, 4, S, D), device=cuda).to(dtype)
+    k = torch.randn((1, 2, S, D), device=cuda).to(dtype)
+    v = torch.randn((1, 2, S, D), device=cuda).to(dtype)
+    assert FA._route(dtype, D) == "wgmma"
     by_route = dict(FA.flash_attention.launches_by_route)
-    got = FA.flash_attention(q, k, v)
-    want = FA.flash_attention_plain(q, k, v)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    by_route["simt"] += 1
+    by_route["wgmma"] += 1
     assert FA.flash_attention.launches_by_route == by_route
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=1e-2)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert torch.isfinite(got).all()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 _F32 = torch.float32
@@ -317,18 +326,36 @@ def test_flash_tf32x3_route_matches_plain(cuda, B, H, Hkv, S, D, causal, window,
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
 
-@pytest.mark.parametrize("D", [136, 192, 256])
-def test_flash_f32_beyond_128_takes_simt(cuda, D):
-    """f32 head dims above TF32X3_MAX_D: the CUDA-core kernel."""
-    q = torch.randn((1, 4, 160, D), device=cuda)
-    k = torch.randn((1, 2, 160, D), device=cuda)
-    v = torch.randn((1, 2, 160, D), device=cuda)
+@pytest.mark.parametrize(
+    "B,H,Hkv,S,causal,window,values",
+    [
+        (1, 4, 2, 160, True, None, "normal"),
+        (2, 8, 2, 333, True, 48, "normal"),  # GQA 4, B > 1, ragged S, window
+        (1, 4, 1, 449, False, None, "normal"),
+        (2, 4, 4, 333, False, 48, "low_mantissa"),
+        (1, 2, 1, 24, True, None, "normal"),  # one kv tile
+    ],
+)
+@pytest.mark.parametrize("D", [136, 192, 200, 256])
+def test_flash_f32_beyond_128_takes_tf32x3(cuda, D, B, H, Hkv, S, causal, window, values):
+    """f32 head dims above 128: the tf32x3 kernel as a cluster of two
+    blocks splitting the head dim, at the f32 tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q = torch.randn((B, H, S, D), device=cuda)
+    k = torch.randn((B, Hkv, S, D), device=cuda)
+    if values == "low_mantissa":
+        v = _low_mantissa_v((B, Hkv, S, D), cuda)
+    else:
+        v = torch.randn((B, Hkv, S, D), device=cuda)
+    assert FA._route(_F32, D) == "tf32x3"
     by_route = dict(FA.flash_attention.launches_by_route)
-    got = FA.flash_attention(q, k, v)
-    want = FA.flash_attention_plain(q, k, v)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    by_route["simt"] += 1
+    by_route["tf32x3"] += 1
     assert FA.flash_attention.launches_by_route == by_route
+    assert got.dtype == _F32 and got.shape == q.shape
+    assert torch.isfinite(got).all()
     atol, rtol = TOL[_F32]
     torch.testing.assert_close(got, want, atol=atol, rtol=rtol)
 
@@ -338,6 +365,14 @@ def test_flash_wgmma_route_rejects_misaligned(cuda):
     base = torch.randn(1 + 2 * 64 * 64, device=cuda).to(_BF16)
     q = base[1:].reshape(1, 2, 64, 64)
     with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(q, q, q)
+
+
+def test_flash_wgmma_route_rejects_misaligned_odd_head_dim(cuda):
+    """D = 40 takes the TMA route too, so a view 2 bytes in raises."""
+    base = torch.randn(1 + 2 * 64 * 40, device=cuda).to(_BF16)
+    q = base[1:].reshape(1, 2, 64, 40)
+    with pytest.raises(ValueError, match="wgmma route needs 16-byte aligned"):
         FA.flash_attention(q, q, q)
 
 

@@ -157,17 +157,22 @@ def test_route_f32_is_tf32x3(D):
 
 
 @pytest.mark.parametrize("D", [136, 192, 200, 256])
-def test_route_f32_is_simt(D):
-    """f32 head dims whose hi/lo tiles do not fit the tf32x3 kernel's
-    shared memory stay on the CUDA cores."""
-    assert D > TF.TF32X3_MAX_D
-    assert TF._route(torch.float32, D) == "simt"
+def test_route_f32_beyond_128_is_tf32x3(D):
+    """f32 head dims whose hi/lo tiles do not fit one block's shared
+    memory run on the tf32x3 kernel as a pair of blocks, each holding
+    half of D rounded up to 64."""
+    assert D <= TF.TF32X3_MAX_D
+    assert TF._route(torch.float32, D) == "tf32x3"
+    half = _halves(D)[1].start
+    assert half in (96, 128) and D <= 2 * half < D + 64
 
 
 @pytest.mark.parametrize("D", [8, 24, 40, 200])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
-def test_route_16bit_other_head_dims_are_simt(dtype, D):
-    assert TF._route(getattr(torch, dtype), D) == "simt"
+def test_route_16bit_multiple_of_8_is_wgmma(dtype, D):
+    """16-bit head dims of 8 mod 16 take the tensor-core kernel too (its
+    TMA rows of D * 2 bytes are a multiple of 16 bytes)."""
+    assert TF._route(getattr(torch, dtype), D) == "wgmma"
 
 
 @pytest.mark.parametrize("D", [0, 4, 12, 20, 264, 272, 512])
@@ -183,7 +188,7 @@ def test_route_rejects_other_dtypes():
 
 
 def test_launch_counters_per_route():
-    assert TF.ROUTES == ("wgmma", "tf32x3", "simt")
+    assert TF.ROUTES == ("wgmma", "tf32x3")
     assert TF.flash_attention.launches_by_route.keys() == dict.fromkeys(TF.ROUTES, 0).keys()
 
 
@@ -214,11 +219,24 @@ def _kv_positions(n):
     return pos // 8 * 8 + order[pos % 8]
 
 
+def _halves(D):
+    """The head-dim columns each block of the tf32x3 kernel holds: all of
+    them for a lone block (D <= 128); above, block r of the pair holds
+    [r DPH, (r + 1) DPH) with DPH half of D rounded up to 64 (96 or 128)."""
+    if D <= 128:
+        return [slice(0, D)]
+    half = -(-D // 64) * 32
+    return [slice(0, half), slice(half, D)]
+
+
 def _flash_tf32_emulated(q, k, v, *, causal=True, window=None, terms=3):
     """The tf32x3 kernel's schedule: S = Q_lo K_hi + Q_hi K_lo + Q_hi K_hi,
     online softmax over 32-row kv tiles, P split in hi/lo and multiplied
-    with V^T stored in TF32X3_KV_ORDER. ``terms=1`` keeps only the hi
-    products: a single TF32 product, as a kernel that dropped lo would."""
+    with V^T stored in TF32X3_KV_ORDER. Above D = 128 each block of the
+    pair computes the partial scores of its half of the head dim, the
+    two partials are summed, and each block's P V fills its half of the
+    output. ``terms=1`` keeps only the hi products: a single TF32
+    product, as a kernel that dropped lo would."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     g = H // Hkv
@@ -239,13 +257,16 @@ def _flash_tf32_emulated(q, k, v, *, causal=True, window=None, terms=3):
         for k0 in range(0, Sp, TF32X3_BN):
             tile = slice(k0, k0 + TF32X3_BN)
 
-            def qk(a, b):
-                return torch.einsum("bhgqd,bhkd->bhgqk", a[:, :, :, q0:q0 + 64], b[:, :, tile])
+            def qk(a, b, cols):
+                return torch.einsum("bhgqd,bhkd->bhgqk", a[:, :, :, q0:q0 + 64, cols],
+                                    b[:, :, tile, cols])
 
-            def pv(a, b):
-                return torch.einsum("bhgqk,bhdk->bhgqd", a, b[..., tile])
+            def pv(a, b, cols):
+                return torch.einsum("bhgqk,bhdk->bhgqd", a, b[:, :, cols, tile])
 
-            s = qk(qh, kh) if terms == 1 else qk(ql, kh) + qk(qh, kl) + qk(qh, kh)
+            partials = [qk(qh, kh, c) if terms == 1 else
+                        qk(ql, kh, c) + qk(qh, kl, c) + qk(qh, kh, c) for c in _halves(D)]
+            s = partials[0] if len(partials) == 1 else partials[0] + partials[1]
             s = s * D ** -0.5
             cols = torch.arange(k0, k0 + TF32X3_BN)[None, :]
             keep = (cols < S) & (rows >= 0)
@@ -260,7 +281,9 @@ def _flash_tf32_emulated(q, k, v, *, causal=True, window=None, terms=3):
             l = alpha * l + p.sum(-1, keepdim=True)
             m = m_new
             ph, pl = _split(p[..., kv_of[tile] - k0])  # the fragment's column order
-            o = pv(ph, vth) if terms == 1 else pv(pl, vth) + pv(ph, vtl) + pv(ph, vth)
+            o = torch.cat([pv(ph, vth, c) if terms == 1 else
+                           pv(pl, vth, c) + pv(ph, vtl, c) + pv(ph, vth, c)
+                           for c in _halves(D)], dim=-1)
             acc = acc * alpha + o
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         out[:, :, :, q0:q0 + 64] = acc / l
@@ -330,6 +353,11 @@ def test_tf32x3_kv_order_matches_the_fragment_layouts():
         (1, 2, 2, 128, 32, True, None, "scaled"),
         (1, 4, 2, 200, 64, True, 48, "low_mantissa"),
         (1, 4, 1, 200, 40, False, None, "low_mantissa"),
+        # above D = 128: a pair of blocks, each with half the head dim
+        (1, 4, 2, 200, 136, True, None, "normal"),
+        (2, 4, 1, 96, 192, False, None, "scaled"),
+        (1, 4, 2, 160, 200, True, 48, "normal"),
+        (1, 4, 2, 200, 256, True, None, "low_mantissa"),
     ],
 )
 def test_tf32x3_emulation_within_f32_tolerance(B, H, Hkv, S, D, causal, window, values):
@@ -351,3 +379,20 @@ def test_tf32x3_emulation_within_f32_tolerance(B, H, Hkv, S, D, causal, window, 
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
     one = _flash_tf32_emulated(tq, tk, tv, causal=causal, window=window, terms=1).numpy()
     assert (np.abs(one - want) > 1e-4 + 1e-4 * np.abs(want)).any()
+
+
+@pytest.mark.parametrize("D", [136, 192, 256])
+def test_tf32x3_pair_scores_are_bit_identical(D):
+    """Each block of a pair adds its peer's partial scores to its own, so
+    block 0 computes s0 + s1 and block 1 s1 + s0: f32 addition commutes,
+    so both hold the same scores bit for bit and run the same softmax,
+    on partials that differ and round (peaked scores, TF32 splits)."""
+    rng = np.random.default_rng(14)
+    q = torch.from_numpy(rng.standard_normal((64, D)).astype(np.float32)) * 3
+    k = torch.from_numpy(rng.standard_normal((32, D)).astype(np.float32)) * 3
+    qh, ql = _split(q)
+    kh, kl = _split(k)
+    s0, s1 = (ql[:, c] @ kh[:, c].T + qh[:, c] @ kl[:, c].T + qh[:, c] @ kh[:, c].T
+              for c in _halves(D))
+    assert s0.dtype == torch.float32 and not torch.equal(s0, s1)
+    assert torch.equal((s0 + s1).view(torch.int32), (s1 + s0).view(torch.int32))
