@@ -60,7 +60,18 @@ Phases (any failure exits non-zero and prints no result):
    2 shared, vocab 102400; depth cut 28 -> 4 layers, 1 dense + 3 MoE),
    with the same checks; the reference prefill is routed as the flash
    one was, so the two differ only by their attention;
-8. train: yi-6b at full width (depth cut to 4 layers,
+8. mla serve: the same traffic through a ``Server`` for
+   deepseek-v2-lite-16b at full width (MLA: 16 heads, kv_lora_rank 512,
+   qk_nope 128, qk_rope 64, v_head 128; the MoE of deepseek-moe-16b;
+   depth cut 27 -> 4 layers, 1 dense + 3 MoE), with the same checks. Each
+   serve path's kernel launches must be its entry of ``SERVE_PATHS``:
+   MLA attends by einsums, so this one launches the relayout (4, copy)
+   and no flash. Prints F per position of each KV multicast (MLA's
+   compressed latent, ``4 x (512 + 64)``, against the MHA cache's
+   ``4 x 2 x 16 x 128``), and the CUDA-event time of one decode step of
+   the serve batch against a full cache (T = max_seq) with K/V recovered
+   and with ``mla_absorb``, their logits within ``LOGIT_REL_TOL``;
+9. train: yi-6b at full width (depth cut to 4 layers,
    ``attn_impl="reference"`` as the JAX trainer uses, random weights from
    a seed) on 4 virtual data-parallel ranks, Markov batches of 8 x 512
    tokens, Torrent gradient reduction (``rs_ag``, K = 2). One step's
@@ -79,7 +90,18 @@ Phases (any failure exits non-zero and prints no result):
    repro_torch.launch.train``'s ``main`` at smoke size on the card
    (int8 + EF, a failure injected at step 13): one restart from a
    checkpoint written from the card, and every step's loss within
-   ``CLI_LOSS_TOL`` of a CPU Trainer's from the same initial params.
+   ``CLI_LOSS_TOL`` of a CPU Trainer's from the same initial params;
+10. ep train: expert parallelism inside the Torrent train step:
+   deepseek-moe-16b at full width (depth cut 28 -> 2 layers, 1 dense + 1
+   MoE) on 4 virtual DP ranks of 2 x 512 tokens, through a ``Trainer``
+   with ``moe_ep_dispatch``: one forward over the ranks whose MoE layer
+   exchanges tokens by chain all-to-alls, one backward for every rank's
+   grads, Torrent reduction (rs_ag, K = 2). 6 steps on the exact wires,
+   6 on the int8 EP wire with int8 + EF reduction: finite losses, the
+   first near ln(vocab); every step's EP all-to-all bytes (the
+   executor's, counted over the joint fwd+bwd span) nonzero and equal to
+   ``program_wire_bytes`` of those programs; no allocator retry; no
+   kernel launch. Prints the train phase's record for each run.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -644,19 +666,33 @@ def serve_prompts(V: int):
 SERVE_CONFIG = dict(smoke=False, batch=4, replicas=4, page_size=8, prompt_len=512,
                     max_seq=546, seed=0)
 
+# Each serve path: (arch, depth cut, the kernel launches its run makes).
+# Flash: one launch per layer of each of the 3 prefills (the registered
+# prefix and the 2 misses), all on the wgmma route; MLA attends by
+# einsums, as the JAX package's does, so its path launches none.
+# Relayout: one launch (copy route) per replica that pages the KV prefix.
+SERVE_PATHS = {
+    "serve": ("yi-6b", 8, {"relayout": 4, "flash_attention": 3 * 8}),
+    "moe serve": ("deepseek-moe-16b", 4, {"relayout": 4, "flash_attention": 3 * 4}),
+    "mla serve": ("deepseek-v2-lite-16b", 4, {"relayout": 4, "flash_attention": 0}),
+}
 
-def serve_phase(arch: str, layers: int, label: str) -> dict:
-    """``Server.run()`` for ``arch`` at full width, depth cut to
-    ``layers``, with ``attn_impl="flash"`` and random weights: weight
-    multicast, a 384-token shared prefix registered and multicast, then
-    6 prefix hits and 2 misses of 32 new tokens each."""
+
+def serve_phase(label: str) -> dict:
+    """``Server.run()`` for the arch of ``SERVE_PATHS[label]`` at full
+    width, depth cut as that entry says, with ``attn_impl="flash"`` and
+    random weights: weight multicast, a 384-token shared prefix
+    registered and multicast, then 6 prefix hits and 2 misses of 32 new
+    tokens each. The kernel launches must be the entry's."""
     import torch
     from repro_torch import configs as C
     from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.kernels.relayout import ops as R
+    from repro_torch.launch.paged_kv import kv_feature_width
     from repro_torch.launch.serve import ServeConfig, Server
     from repro_torch.tree import leaves
 
+    arch, layers, want_launches = SERVE_PATHS[label]
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(C.get_config(arch), num_layers=layers, attn_impl="flash")
@@ -721,14 +757,23 @@ def serve_phase(arch: str, layers: int, label: str) -> dict:
         raise AssertionError(f"{label}: KV multicast did not reach every replica")
     if retries:
         raise AssertionError(f"{label}: the caching allocator retried {retries} times")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: kernel launches {launches}, the path makes "
+                             f"{want_launches}")
     if by_route != {**dict.fromkeys(FA.ROUTES, 0), "wgmma": launches["flash_attention"]}:
         raise AssertionError(f"{label}: flash launches {launches['flash_attention']} "
                              f"by route {by_route}")
-    if relayout_routes != {"copy": 4, "staged": 0, "direct": 0} or launches["relayout"] != 4:
+    if relayout_routes != {"copy": 4, "staged": 0, "direct": 0}:
         raise AssertionError(f"{label}: relayout launches {launches['relayout']} "
                              f"by route {relayout_routes}")
+    F = kv_feature_width(server.cache, sc.max_seq)
+    kv = {"F": F, "F_per_layer": F // layers, "prefix_tokens": len(prefix),
+          "payload_bytes": entry.broadcast["bytes"],
+          "delivered_bytes": entry.broadcast["delivered_bytes"]}
+    if entry.broadcast["bytes"] != len(prefix) * F * 2:
+        raise AssertionError(f"{label}: KV payload {entry.broadcast['bytes']} B != "
+                             f"{len(prefix)} positions x F {F} x 2 B")
+    print(f"{label}: kv multicast per position", json.dumps(kv), flush=True)
 
     # flash vs reference attention on one prompt, same weights
     toks = torch.as_tensor(prompts[-1], device="cuda")[None]
@@ -743,9 +788,53 @@ def serve_phase(arch: str, layers: int, label: str) -> dict:
     if d > LOGIT_REL_TOL * scale:
         raise AssertionError(f"{label}: flash prefill logits differ by {d} "
                              f"(> {LOGIT_REL_TOL} x {scale})")
+    absorb = mla_absorb_decode(server.params, cfg, sc) if cfg.attention == "mla" else None
     profile_run(server, [prompts[0], prompts[-1]])
     return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"],
-            "relayout_by_route": relayout_routes}
+            "relayout_by_route": relayout_routes, "kv": kv, "mla_absorb": absorb}
+
+
+def mla_absorb_decode(params, cfg, sc) -> dict:
+    """One decode step of the serve batch at full width against a full
+    compressed cache (T = max_seq, every slot at position max_seq - 1,
+    cache values from a seed), with K/V recovered from the cache per
+    step and with the up-projections absorbed (``cfg.mla_absorb``): the
+    CUDA-event time of each and the difference of their logits. The
+    absorbed run's MoE layers are routed as the recovering run's chose
+    (``tests/_moe_routing.py``), so the two differ only by their
+    attention's rounding."""
+    import torch
+    from _moe_routing import recorded_routing, routing_as
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
+
+    B, S = sc.batch, sc.max_seq
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cache = T.init_cache(cfg, B, S, device="cuda")
+    for leaf in leaves(cache["layers"]):
+        leaf.copy_(torch.randn(leaf.shape, device="cuda", generator=gen))
+    toks = torch.randint(0, cfg.vocab_size, (B,), device="cuda", generator=gen)
+    pos = torch.full((B,), S - 1, dtype=torch.int32, device="cuda")
+    fns = {name: (lambda c=dataclasses.replace(cfg, mla_absorb=absorb):
+                  T.decode_step(params, c, toks, pos, cache)[0])
+           for name, absorb in (("recovered", False), ("absorbed", True))}
+    with torch.no_grad():
+        with recorded_routing() as seen:
+            recovered = fns["recovered"]()
+        with routing_as(seen) as flips:
+            absorbed = fns["absorbed"]()
+        torch.cuda.synchronize()
+        rec, absorbed_ms = paired_ms(fns["recovered"], fns["absorbed"], rounds=5)
+    d = float((absorbed - recovered).abs().max())
+    scale = float(recovered.abs().max())
+    out = {"batch": B, "T": S, "recovered_ms": rec, "absorbed_ms": absorbed_ms,
+           "recovered_over_absorbed": rec / absorbed_ms, "max_abs_diff": d, "logit_scale": scale,
+           "routing_flips": sum(int(f.sum()) for f in flips)}
+    print("mla decode, absorbed vs recovered", json.dumps(out), flush=True)
+    if not (torch.isfinite(absorbed).all() and d <= LOGIT_REL_TOL * scale):
+        raise AssertionError(f"mla decode: absorbed logits differ by {d} (> {LOGIT_REL_TOL} "
+                             f"x {scale})")
+    return out
 
 
 def profile_run(server, prompts) -> None:
@@ -792,6 +881,125 @@ def device_breakdown(label: str, fn) -> None:
           flush=True)
 
 
+def mem_spans():
+    """A :class:`~repro_torch.runtime.spans.Spans` that also keeps each
+    phase's peak allocated memory (the allocator's peak is reset as a
+    span starts and read as it ends; ``peak`` holds the highest reading
+    per phase name) and the executor's wire bytes when each phase last
+    ended (``wire_at_end``)."""
+    import torch
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.runtime.spans import Spans
+
+    class MemSpans(Spans):
+        def __init__(self):
+            super().__init__()
+            self.peak, self.wire_at_end = {}, {}
+
+        @contextlib.contextmanager
+        def span(self, name, device):
+            torch.cuda.reset_peak_memory_stats()
+            with super().span(name, device):
+                yield
+            self.peak[name] = max(self.peak.get(name, 0), torch.cuda.max_memory_allocated())
+            self.wire_at_end[name] = cw.wire_counter.bytes
+
+    return MemSpans()
+
+
+def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo) -> dict:
+    """Drive a ``Trainer``'s state and step function ``steps`` steps (and
+    one more under the profiler) and return the run's record: losses,
+    per-step wall, CUDA-event spans, tokens/s, the executor's wire bytes
+    per step against the byte model's (they must be equal), the bytes of
+    the expert-parallel all-to-alls (the programs the ``fwd_bwd`` span
+    ran: the executor's count when that span ends, and the byte model of
+    the ``all_to_all`` programs), the modeled CC, peak memory, allocator
+    retries (must be 0) and each step's Python GC seconds."""
+    import numpy as np
+    import torch
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.core import program as prg
+    from repro_torch.core import simulator as sim
+
+    gc_clock = {}  # seconds of Python GC passes since cleared
+
+    def gc_timer(phase, info):
+        if phase == "start":
+            gc_clock["t0"] = time.perf_counter()
+        else:
+            gc_clock["s"] = gc_clock.get("s", 0.0) + time.perf_counter() - gc_clock.pop("t0")
+
+    def step(i):
+        st = tr.state
+        if "ef" in st:
+            p_, o_, e_, m = tr.step_fn(st["params"], st["opt"], st["ef"], tr._device_batch(i))
+            tr.state = {"params": p_, "opt": o_, "ef": e_}
+        else:
+            p_, o_, m = tr.step_fn(st["params"], st["opt"], tr._device_batch(i))
+            tr.state = {"params": p_, "opt": o_}
+        return m
+
+    def modeled(collective=None):
+        return sum(n * prg.pipelined_wire_bytes(p, size, frames)
+                   for (p, size, frames), n in cw.wire_counter.runs.items()
+                   if collective in (None, p.collective))
+
+    gc.callbacks.append(gc_timer)
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
+    state_gb = torch.cuda.memory_allocated() / 1e9  # params, AdamW moments, EF residuals
+    losses, walls, span_ms, wire, model, ep, ep_model, cc, gc_s = ([] for _ in range(9))
+    peak = torch.cuda.max_memory_allocated()  # the state
+    for i in range(steps):
+        cw.wire_counter.reset()
+        torch.cuda.synchronize()
+        gc_clock.clear()
+        t0 = time.perf_counter()
+        loss = float(step(i)["loss"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        gc_s.append(gc_clock.get("s", 0.0))
+        peak = max(peak, torch.cuda.max_memory_allocated())  # since the last span began
+        losses.append(loss)
+        span_ms.append({k: [round(v, 3) for v in vs] for k, vs in spans.read().items()})
+        wire.append(cw.wire_counter.bytes)
+        model.append(modeled())
+        ep.append(spans.wire_at_end["fwd_bwd"])
+        ep_model.append(modeled("all_to_all"))
+        cc.append(sum(n * sim.program_latency(topo, 0, p, size)
+                      for (p, size, _), n in cw.wire_counter.runs.items()))
+        if wire[-1] != model[-1] or ep[-1] != ep_model[-1]:
+            raise AssertionError(f"{label} step {i}: executor wire bytes {wire[-1]} (EP "
+                                 f"{ep[-1]}) != program_wire_bytes {model[-1]} (EP "
+                                 f"{ep_model[-1]})")
+    gc.callbacks.remove(gc_timer)
+    peak_gb = max(peak, *spans.peak.values()) / 1e9
+    retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
+    cw.wire_counter.reset()
+    device_breakdown(f"{label} step", lambda: step(steps))  # not one of the timed steps
+    spans.read()
+    rec = {
+        "losses": losses, "step_wall_s": walls,
+        "median_step_s": float(np.median(walls)),
+        "tokens_per_s": tokens_per_step / float(np.median(walls)),
+        "window_tokens_per_s": steps * tokens_per_step / sum(walls),
+        "spans_ms": span_ms[-1], "max_fwd_bwd_ms": max(max(m["fwd_bwd"]) for m in span_ms),
+        "step_gc_s": gc_s,
+        "wire_bytes_per_step": wire[-1],
+        "modeled_wire_bytes_per_step": model[-1], "modeled_cc_per_step": cc[-1],
+        "ep_wire_bytes_per_step": ep[-1], "ep_modeled_wire_bytes_per_step": ep_model[-1],
+        "peak_memory_gb": peak_gb, "alloc_retries": retries,
+        "state_memory_gb": state_gb,
+        "phase_peak_memory_gb": {k: v / 1e9 for k, v in spans.peak.items()},
+    }
+    print(f"{label}:", json.dumps(rec), flush=True)
+    if retries:
+        raise AssertionError(f"{label}: the caching allocator freed its cache and "
+                             f"retried {retries} times (peak {peak_gb:.1f} GB)")
+    return rec
+
+
 def train_phase() -> dict:
     """The training path: yi-6b at full width, depth cut to 4 layers,
     4 virtual DP ranks on the card, Torrent gradient reduction (rs_ag,
@@ -805,7 +1013,6 @@ def train_phase() -> dict:
     from repro_torch import configs as C
     from repro_torch.core import chainwrite as cw
     from repro_torch.core import chainwrite_ref as ref
-    from repro_torch.core import simulator as sim
     from repro_torch.core.topology import MeshTopology
     from repro_torch.data.pipeline import MarkovSource, make_device_placer
     from repro_torch.kernels.flash_attention import ops as FA
@@ -817,7 +1024,6 @@ def train_phase() -> dict:
     from repro_torch.launch.train import parse_args as train_args
     from repro_torch.models import transformer as T
     from repro_torch.parallel import collectives as col
-    from repro_torch.runtime.spans import Spans
     from repro_torch.tree import leaves, map_tree
 
     torch.cuda.empty_cache()
@@ -837,10 +1043,6 @@ def train_phase() -> dict:
 
     def init():
         return T.model_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
-
-    def modeled_cc():
-        return sum(n * sim.program_latency(topo, 0, p, size)
-                   for (p, size, _), n in cw.wire_counter.runs.items())
 
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
@@ -893,105 +1095,22 @@ def train_phase() -> dict:
     # benchmarks/bench_train.py drives the JAX Trainer), so each is timed
     # and its wire bytes read; Trainer.run() would also write the step-0
     # checkpoint, 15-34 GB of state at this width (step 4 runs it).
-    class MemSpans(Spans):
-        """Spans that also keep each phase's peak allocated memory (the
-        allocator's peak is reset as a span starts and read as it ends;
-        ``peak`` holds the highest reading per phase name)."""
-
-        def __init__(self):
-            super().__init__()
-            self.peak = {}
-
-        @contextlib.contextmanager
-        def span(self, name, device):
-            torch.cuda.reset_peak_memory_stats()
-            with super().span(name, device):
-                yield
-            self.peak[name] = max(self.peak.get(name, 0), torch.cuda.max_memory_allocated())
-
-    gc_clock = {}  # seconds of Python GC passes since cleared
-
-    def gc_timer(phase, info):
-        if phase == "start":
-            gc_clock["t0"] = time.perf_counter()
-        else:
-            gc_clock["s"] = gc_clock.get("s", 0.0) + time.perf_counter() - gc_clock.pop("t0")
-
-    gc.callbacks.append(gc_timer)
     runs = {}
     for name, compress in (("exact", False), ("int8_ef", True)):
-        spans = MemSpans()
+        spans = mem_spans()
         tr = Trainer(TrainConfig(
             arch="yi-6b", smoke=False, layers=layers, steps=steps, global_batch=B,
             seq_len=S, peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=K,
             compress_grads=compress, bucket_bytes=bucket, loss_chunks=8, dp=dp, seed=0),
             device="cuda", spans=spans)  # the step's ar_algo defaults to rs_ag
-        torch.cuda.reset_peak_memory_stats()
-        retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
-        state_gb = torch.cuda.memory_allocated() / 1e9  # params, AdamW moments, EF residuals
-
-        def step(i, tr=tr):
-            st = tr.state
-            if compress:
-                p_, o_, e_, m = tr.step_fn(st["params"], st["opt"], st["ef"],
-                                           tr._device_batch(i))
-                tr.state = {"params": p_, "opt": o_, "ef": e_}
-            else:
-                p_, o_, m = tr.step_fn(st["params"], st["opt"], tr._device_batch(i))
-                tr.state = {"params": p_, "opt": o_}
-            return m
-
-        losses, walls, span_ms, wire, model, cc, gc_s = [], [], [], [], [], [], []
-        peak = torch.cuda.max_memory_allocated()  # the state
-        for i in range(steps):
-            cw.wire_counter.reset()
-            torch.cuda.synchronize()
-            gc_clock.clear()
-            t0 = time.perf_counter()
-            loss = float(step(i)["loss"])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            gc_s.append(gc_clock.get("s", 0.0))
-            peak = max(peak, torch.cuda.max_memory_allocated())  # since the last span began
-            losses.append(loss)
-            span_ms.append({k: [round(v, 3) for v in vs] for k, vs in spans.read().items()})
-            wire.append(cw.wire_counter.bytes)
-            model.append(cw.wire_counter.modeled_bytes())
-            cc.append(modeled_cc())
-            if wire[-1] != model[-1]:
-                raise AssertionError(f"train {name} step {i}: executor wire bytes {wire[-1]} "
-                                     f"!= program_wire_bytes {model[-1]}")
-        peak_gb = max(peak, *spans.peak.values()) / 1e9
-        retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
-        cw.wire_counter.reset()
-        device_breakdown(f"train {name} step", lambda: step(steps))  # not one of the 8
-        spans.read()
-        rec = {
-            "losses": losses, "step_wall_s": walls,
-            "median_step_s": float(np.median(walls)),
-            "tokens_per_s": B * S / float(np.median(walls)),
-            "window_tokens_per_s": steps * B * S / sum(walls),
-            "spans_ms": span_ms[-1], "max_fwd_bwd_ms": max(max(m["fwd_bwd"]) for m in span_ms),
-            "step_gc_s": gc_s,
-            "wire_bytes_per_step": wire[-1],
-            "modeled_wire_bytes_per_step": model[-1], "modeled_cc_per_step": cc[-1],
-            "peak_memory_gb": peak_gb, "alloc_retries": retries,
-            "state_memory_gb": state_gb,
-            "phase_peak_memory_gb": {k: v / 1e9 for k, v in spans.peak.items()},
-        }
-        print(f"train {name}:", json.dumps(rec), flush=True)
-        first, last = losses[0], losses[-1]
-        if not all(np.isfinite(losses)) or not 10.5 <= first <= 12.5 or not last < first:
-            raise AssertionError(f"train {name}: losses {losses}")
-        if retries:
-            raise AssertionError(f"train {name}: the caching allocator freed its cache and "
-                                 f"retried {retries} times (peak {peak_gb:.1f} GB)")
+        rec = drive_trainer(f"train {name}", tr, spans, steps, B * S, topo)
+        first, last = rec["losses"][0], rec["losses"][-1]
+        if not all(np.isfinite(rec["losses"])) or not 10.5 <= first <= 12.5 or not last < first:
+            raise AssertionError(f"train {name}: losses {rec['losses']}")
         runs[name] = rec
-        del tr, step
+        del tr
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-
-    gc.callbacks.remove(gc_timer)
 
     # 4. the Trainer's own loop, as `python -m repro_torch.launch.train`
     # runs it, at smoke size: int8 + EF with a failure injected at step
@@ -1032,6 +1151,73 @@ def train_phase() -> dict:
           f"int8 {runs['int8_ef']['wire_bytes_per_step']} (ratio "
           f"{runs['exact']['wire_bytes_per_step'] / runs['int8_ef']['wire_bytes_per_step']:.3f}); "
           f"kernel launches {launches}", flush=True)
+    return {"train_launches": launches, "runs": runs}
+
+
+def ep_train_phase() -> dict:
+    """Expert parallelism inside the Torrent train step: deepseek-moe-16b
+    at full width, depth cut 28 -> 2 layers (1 dense + 1 MoE), 4 virtual
+    DP ranks of 2 x 512 tokens each, Torrent gradient reduction (rs_ag,
+    K = 2, 25 MiB buckets), through a ``Trainer`` built with
+    ``moe_ep_dispatch``: one forward over the 4 ranks whose MoE layer
+    exchanges tokens with chain all-to-alls, one backward for every
+    rank's grads. 6 steps on the exact wires, then 6 with the int8 EP
+    token wire and int8 + error-feedback gradient reduction, from one
+    init. Finite losses; every step's EP all-to-all bytes (the executor's
+    count over the joint fwd+bwd span) equal to ``program_wire_bytes`` of
+    the all-to-all programs that ran, and nonzero; no allocator retry; no
+    kernel launch (the path has none)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core.topology import MeshTopology
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relayout import ops as R
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, dp, B, S, steps, K = 2, 4, 8, 512, 6, 2
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    R.relayout.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    runs = {}
+    for name, int8 in (("exact", False), ("int8_ef", True)):
+        spans = mem_spans()
+        cfg = dataclasses.replace(C.get_config("deepseek-moe-16b"), moe_ep_dispatch=True,
+                                  moe_ep_int8_wire=int8)
+        tr = Trainer(TrainConfig(
+            arch="deepseek-moe-16b", smoke=False, layers=layers, steps=steps, global_batch=B,
+            seq_len=S, peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=K,
+            compress_grads=int8, bucket_bytes=25 << 20, loss_chunks=8, dp=dp, seed=0),
+            device="cuda", spans=spans, model_cfg=cfg)
+        if name == "exact":
+            n_params = sum(p.numel() for p in leaves(tr.state["params"]))
+            print(f"ep train: deepseek-moe-16b, {layers} layers, {n_params} params "
+                  f"({4 * n_params / 1e9:.2f} GB f32) x {dp} ranks", flush=True)
+        rec = drive_trainer(f"ep train {name}", tr, spans, steps, B * S, MeshTopology(dp, 1))
+        # random init: the first loss is near ln(vocab)
+        if (not np.isfinite(rec["losses"]).all()
+                or abs(rec["losses"][0] - np.log(tr.cfg.vocab_size)) > 1.0):
+            raise AssertionError(f"ep train {name}: losses {rec['losses']}")
+        if rec["ep_wire_bytes_per_step"] <= 0:
+            raise AssertionError(f"ep train {name}: no expert-parallel exchange ran")
+        if len(rec["spans_ms"]["fwd_bwd"]) != 1:
+            raise AssertionError(f"ep train {name}: fwd_bwd spans {rec['spans_ms']} (one joint "
+                                 "forward and backward a step)")
+        runs[name] = rec
+        del tr
+        torch.cuda.empty_cache()
+    launches = {**{f"flash_attention_{r}": n for r, n in FA.flash_attention.launches_by_route.items()},
+                "relayout": R.relayout.launches}
+    if any(launches.values()):
+        raise AssertionError(f"ep train: the training path launched kernels {launches}")
+    ex, q8 = runs["exact"], runs["int8_ef"]
+    print(f"ep train: EP wire bytes per step exact {ex['ep_wire_bytes_per_step']} int8 "
+          f"{q8['ep_wire_bytes_per_step']}; tokens/s exact {ex['tokens_per_s']:.1f} int8+ef "
+          f"{q8['tokens_per_s']:.1f}; kernel launches {launches}", flush=True)
     return {"train_launches": launches, "runs": runs}
 
 
@@ -1087,15 +1273,26 @@ def main() -> int:
     f32_routes = f32_attention_path()
     launches = {"flash_attention_tf32x3": f32_routes["tf32x3"]}
     moe_layer_phase()
-    launches.update(serve_phase("yi-6b", 8, "serve"))
-    moe = serve_phase("deepseek-moe-16b", 4, "moe serve")
-    moe_launches = {k: moe.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
-                                               "flash_attention_tf32x3")}
+    launches.update(serve_phase("serve"))
+    moe = serve_phase("moe serve")
+    mla = serve_phase("mla serve")
+    print(f"kv multicast per position: mla serve F {mla['kv']['F']} ({mla['kv']['F_per_layer']} "
+          f"a layer), {mla['kv']['payload_bytes']} B; moe serve F {moe['kv']['F']} "
+          f"({moe['kv']['F_per_layer']} a layer), {moe['kv']['payload_bytes']} B; ratio "
+          f"{moe['kv']['F'] / mla['kv']['F']:.3f}", flush=True)
     train = train_phase()
+    ep_train = ep_train_phase()
+
+    def path_launches(rec):
+        return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
+                                           "flash_attention_tf32x3")}
+
+    moe_launches, mla_launches = path_launches(moe), path_launches(mla)
 
     def row(name, source, replaces, rec, bound_by, **extra):
         by_path = {"serve_or_f32": launches[name], "moe_serve": moe_launches[name],
-                   "train": train["train_launches"][name]}
+                   "mla_serve": mla_launches[name], "train": train["train_launches"][name],
+                   "ep_train": ep_train["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -1120,6 +1317,7 @@ def main() -> int:
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
             launches_by_route=launches["relayout_by_route"],
             launches_by_route_moe_serve=moe["relayout_by_route"],
+            launches_by_route_mla_serve=mla["relayout_by_route"],
             device_ms_cold=relayout_rec["device_ms_cold"],
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",

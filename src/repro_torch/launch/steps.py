@@ -7,13 +7,21 @@ there is no compile cache to key.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.parallel.collectives import dp_size_of, split_batch, torrent_grad_reduce
+from repro_torch.parallel import hints
+from repro_torch.parallel.collectives import (
+    dp_size_of,
+    split_batch,
+    torrent_grad_reduce,
+    torrent_joint_grad_reduce,
+)
 from repro_torch.runtime.spans import maybe_span
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -31,6 +39,76 @@ def make_grad_fn(cfg: ModelConfig, *, remat: str = "dots", loss_chunks: int = 8)
         return unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
 
     return grad_fn
+
+
+def make_joint_grad_fn(cfg: ModelConfig, mesh, *, remat: str = "dots", loss_chunks: int = 8):
+    """``grad_fn(params, batch, out=None) -> (stacked, metrics)``: the
+    grads of every DP rank of ``mesh`` from ONE forward and backward
+    (:func:`~repro_torch.models.transformer.loss_fn_ranks`, under
+    ``parallel.hints.set_mesh(mesh)``, so each MoE layer exchanges tokens
+    across the ranks by ``moe_apply_ep``), for expert parallelism inside
+    the train step.
+
+    Each param gets one leaf per rank (``detach().requires_grad_()``:
+    they share the param's storage, so they cost no memory); rank ``r``'s
+    rows read leaf ``r``, and so do the experts rank ``r`` owns. The
+    backward of the sum of the ranks' losses accumulates into the leaves'
+    ``.grad``, which are the rows of one preallocated ``(dp, *shape)``
+    buffer per param (``out``, reused when its shapes match): rank ``r``'s
+    grads are what JAX's ``shard_map`` rank ``r`` computes — its own loss
+    through its own rows, plus the terms that reach it back through the
+    all-to-alls and the averaged aux statistics. Metrics are averaged
+    over the ranks."""
+    n = dp_size_of(mesh)
+
+    def grad_fn(params, batch, out=None):
+        p_leaves = leaves(params)
+        if out is None or [(tuple(o.shape), o.dtype, o.device) for o in out] != [
+            ((n,) + tuple(p.shape), p.dtype, p.device) for p in p_leaves
+        ]:
+            out = [p.new_zeros((n,) + tuple(p.shape)) for p in p_leaves]
+        else:
+            for o in out:
+                o.zero_()
+        ranks = [map_tree(lambda p: p.detach().requires_grad_(True), params) for _ in range(n)]
+        for r, rp in enumerate(ranks):
+            for leaf, o in zip(leaves(rp), out):
+                leaf.grad = o[r]  # backward accumulates into the row in place
+        with torch.enable_grad(), hints.set_mesh(mesh):
+            losses, metrics = T.loss_fn_ranks(ranks, cfg, batch, remat=remat,
+                                              loss_chunks=loss_chunks)
+            torch.autograd.backward(losses.sum(), inputs=[x for rp in ranks for x in leaves(rp)])
+        return out, {k: v.detach() for k, v in metrics.items()}
+
+    return grad_fn
+
+
+def make_mean_grad_fn(cfg: ModelConfig, mesh, *, remat: str = "dots", loss_chunks: int = 8):
+    """``grad_fn(params, batch) -> (grads, metrics)``: the grads of the
+    mean of the DP ranks' losses (``loss_fn_ranks``, every rank reading
+    the same leaves, under ``set_mesh(mesh)``) — the global-batch loss
+    and its grads that JAX's ``collectives="xla"`` step takes with
+    expert parallelism."""
+    n = dp_size_of(mesh)
+
+    def grad_fn(params, batch):
+        ps = map_tree(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad(), hints.set_mesh(mesh):
+            losses, metrics = T.loss_fn_ranks([ps] * n, cfg, batch, remat=remat,
+                                              loss_chunks=loss_chunks)
+            grads = torch.autograd.grad(losses.mean(), leaves(ps))
+        return unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
+
+    return grad_fn
+
+
+def _ep_joint(cfg: ModelConfig, dp_size: int) -> bool:
+    """Whether the step runs its ranks in one forward: expert
+    parallelism over more than one rank, on a model whose experts the
+    ranks divide. (Otherwise each rank's MoE layers take the flat path
+    on its own tokens, as JAX's manual-axis route falls back.)"""
+    return bool(cfg.moe_ep_dispatch and dp_size > 1 and cfg.num_experts
+                and cfg.num_experts % dp_size == 0)
 
 
 def make_train_step(
@@ -54,7 +132,11 @@ def make_train_step(
 
     ``mesh`` is a :class:`~repro_torch.launch.mesh.VirtualMesh`; its DP
     ranks run one after another on the card, each on its rows of the
-    global batch. ``collectives="torrent"`` reduces their grads with
+    global batch — or, with ``cfg.moe_ep_dispatch`` over more than one
+    rank and experts the ranks divide, all at once in one forward whose
+    MoE layers exchange tokens across the ranks with chain all-to-alls
+    (:func:`make_joint_grad_fn`; ``"xla"``: :func:`make_mean_grad_fn`).
+    ``collectives="torrent"`` reduces their grads with
     :func:`~repro_torch.parallel.collectives.torrent_grad_reduce`
     (``num_chains``, ``ar_algo``, ``compress_grads`` = int8 wire,
     ``bucket_bytes``, ``topology``); ``"xla"`` takes the plain mean of
@@ -64,11 +146,11 @@ def make_train_step(
     accumulates grads over M slices of the batch (a loop where JAX
     scans; mean of the microbatch means, as JAX computes it). The step
     updates params and optimizer state in place, as the JAX step donates
-    them, and returns the same tensors. ``cfg.moe_ep_dispatch`` with DP
-    > 1 raises ``NotImplementedError`` (with one rank there is no
-    exchange, and MoE layers take the flat path). ``spans`` (a
+    them, and returns the same tensors. With one rank there is no
+    exchange, and MoE layers take the flat path. ``spans`` (a
     :class:`~repro_torch.runtime.spans.Spans`) records ``fwd_bwd`` per
-    rank, ``reduce`` and ``optimizer`` spans of every step.
+    rank (one for the joint forward), ``reduce`` and ``optimizer`` spans
+    of every step.
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(
@@ -104,17 +186,17 @@ def make_train_step(
         mesh = make_host_mesh()
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
-    if cfg.moe_ep_dispatch and dp_size > 1:
-        raise NotImplementedError(
-            "moe_ep_dispatch with DP > 1 is not ported: JAX runs the expert-"
-            "parallel exchange inside the DP shard_map, across ranks that run "
-            "together, and the port runs its ranks one after another"
-        )
+    joint = _ep_joint(cfg, dp_size)
 
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
+    grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
+                    if joint else None)
 
     def grad_fn_xla(params, batch):
         """Plain mean of the ranks' grads (the fabric's all-reduce)."""
+        if joint:
+            with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
+                return grad_fn_mean(params, batch)
         acc, msum = None, None
         for r in range(dp_size):
             with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
@@ -131,15 +213,20 @@ def make_train_step(
         with maybe_span(spans, "optimizer", leaves(params)[0].device):
             return adamw.update(opt_cfg, grads, opt_state, params)
 
+    if joint:
+        reducer = functools.partial(
+            torrent_joint_grad_reduce,
+            make_joint_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks))
+    else:
+        reducer = functools.partial(torrent_grad_reduce, grad_fn_local)
+
     if collectives == "torrent":
-        grad_fn = torrent_grad_reduce(grad_fn_local, mesh, **reduce_kw)
+        grad_fn = reducer(mesh, **reduce_kw)
     else:
         grad_fn = grad_fn_xla
 
     if error_feedback:
-        reduce_ef = torrent_grad_reduce(
-            grad_fn_local, mesh, error_feedback=True, **reduce_kw
-        )
+        reduce_ef = reducer(mesh, error_feedback=True, **reduce_kw)
 
         def train_step_ef(params, opt_state, ef_state, batch):
             grads, metrics, new_ef = reduce_ef(params, batch, ef_state)

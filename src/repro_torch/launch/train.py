@@ -1,10 +1,10 @@
 """End-to-end fault-tolerant training entry point — the port of
 ``repro.launch.train``.
 
-Composes the port's layers: the Markov data source, the dense model,
-AdamW, a virtual DP mesh run on one card, Torrent or plain-mean
-gradient reduction, async checkpointing with restart-on-failure, and
-straggler monitoring.
+Composes the port's layers: the Markov data source, the model, AdamW,
+a virtual DP mesh run on one card, Torrent or plain-mean gradient
+reduction, async checkpointing with restart-on-failure, and straggler
+monitoring.
 
     python -m repro_torch.launch.train --smoke --steps 20 --dp 4 \
         --collectives torrent --device cpu
@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import dp_size_of, ef_residual_init
@@ -78,12 +79,19 @@ class Trainer:
     updates its state in place); by default they are drawn
     from ``torch.Generator(device).manual_seed(tc.seed)``. ``spans`` (a
     :class:`~repro_torch.runtime.spans.Spans`) is handed to the step,
-    which then records its phases; the caller reads it."""
+    which then records its phases; the caller reads it. ``model_cfg``
+    replaces the ``tc.arch`` / ``tc.smoke`` config lookup (as
+    ``Server``'s does), e.g. a MoE config with ``moe_ep_dispatch``, whose
+    step then runs the DP ranks in one forward that exchanges tokens
+    between them; ``tc.layers`` still cuts its depth."""
 
-    def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None):
+    def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None,
+                 model_cfg: ModelConfig | None = None):
         self.tc = tc
         self.device = resolve_device(device)
-        self.cfg = C.get_smoke_config(tc.arch) if tc.smoke else C.get_config(tc.arch)
+        if model_cfg is None:
+            model_cfg = C.get_smoke_config(tc.arch) if tc.smoke else C.get_config(tc.arch)
+        self.cfg = model_cfg
         if tc.layers is not None:
             self.cfg = dataclasses.replace(self.cfg, num_layers=tc.layers)
         self.spans = spans

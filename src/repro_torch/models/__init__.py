@@ -1,6 +1,6 @@
-"""Model zoo of the port: the GQA decoder with dense or fine-grained MoE
-FFNs (params as nested dicts of f32 tensors, stacked per layer group as
-in the JAX package)."""
+"""Model zoo of the port: the decoder with GQA or MLA attention and
+dense or fine-grained MoE FFNs (params as nested dicts of f32 tensors,
+stacked per layer group as in the JAX package)."""
 
 from . import moe
 from .config import LayerSpec, ModelConfig

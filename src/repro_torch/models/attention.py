@@ -1,15 +1,25 @@
-"""GQA attention mixer (+RoPE, SWA ring-buffer caches) — the GQA part
-of ``repro.models.attention``.
+"""Attention mixers: GQA (+RoPE, SWA ring-buffer caches) and MLA
+(DeepSeek-V2) — the port of ``repro.models.attention`` without M-RoPE
+and cross-attention.
 
 ``gqa_apply``/``gqa_prefill`` handle the full-sequence path (through the
 flash kernel when ``cfg.attn_impl == "flash"``) and ``gqa_decode`` the
 single-token path with a KV cache. KV caches for SWA archs are ring
-buffers of ``window`` slots. The MLA mixer is not ported yet.
+buffers of ``window`` slots.
+
+MLA caches only the compressed KV (``kv_lora_rank`` latent values plus
+the shared ``qk_rope_head_dim`` rope key per position, in bf16: the
+``ckv``/``krope`` leaves) and recovers per-head K/V by up-projection at
+use — the paper's P3/D3 multicast workload, whose KV-prefix payload is
+``r + dr`` values a position and layer. It attends by einsums in f32, as
+JAX does, so no MLA call reaches the flash kernel; ``cfg.mla_absorb``
+absorbs the up-projections into the query and output at decode.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.chunked import attention_chunked
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -182,3 +192,203 @@ def gqa_decode(
     out = torch.einsum("bhgs,bshd->bhgd", p.to(cv.dtype).float(), cv.float())
     out = out.reshape(B, 1, H * Dh).to(x.dtype)
     return out @ cast(params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, H = cfg.d_model, cfg.num_heads
+    r = cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wq": normal(gen, (d, H * (dn + dr)), d ** -0.5, device),
+        "w_dkv": normal(gen, (d, r + dr), d ** -0.5, device),  # compress (+ shared rope key)
+        "w_uk": normal(gen, (r, H * dn), r ** -0.5, device),  # K recovery
+        "w_uv": normal(gen, (r, H * dv), r ** -0.5, device),  # V recovery
+        "wo": normal(gen, (H * dv, d), (H * dv) ** -0.5, device),
+    }
+
+
+def _mla_qkv(params, x, positions, cfg: ModelConfig):
+    B, S, _ = x.shape
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (x @ cast(params["wq"])).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ckv = x @ cast(params["w_dkv"])  # (B, S, r + dr)
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, c, k_rope
+
+
+def _mla_out(params, out: torch.Tensor, like: torch.Tensor, cfg: ModelConfig):
+    """(B, S, H, dv) f32 heads -> the output projection, in ``like``'s dtype."""
+    B, S = out.shape[:2]
+    return out.reshape(B, S, cfg.num_heads * cfg.v_head_dim).to(like.dtype) @ cast(params["wo"])
+
+
+def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask):
+    """Attention over recovered K/V. c: (B,T,r); k_rope: (B,T,dr);
+    q_*: (B,S,H,*). mask: (S,T) or per-row (B,S,T) boolean, or None (full)."""
+    if cfg.attn_impl == "chunked" and mask is not None and mask.dim() == 2:
+        return _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg)
+    B, T = c.shape[:2]
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    # KV recovery (the paper's P3/D3 multicast workload under TP)
+    k_nope = (c @ cast(params["w_uk"])).reshape(B, T, H, dn)
+    v = (c @ cast(params["w_uv"])).reshape(B, T, H, dv)
+    s = (
+        torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
+        + torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
+    ) * (dn + dr) ** -0.5
+    if mask is not None:
+        m = mask[:, None] if mask.dim() == 3 else mask[None, None]
+        s = torch.where(m, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return _mla_out(params, out, q_nope, cfg)
+
+
+def _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig):
+    """Causal MLA attention, online softmax over T chunks: recovery
+    happens per KV chunk inside the loop (JAX's ``lax.scan``), so nothing
+    quadratic or proportional to T·H·dn is made. Assumes S == T with a
+    causal mask (training / prefill)."""
+    B, T = c.shape[:2]
+    S = q_nope.shape[1]
+    assert S == T, (S, T)
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = (dn + dr) ** -0.5
+    C = min(cfg.attn_chunk, T)
+    pad = (-T) % C
+    if pad:
+        c = F.pad(c, (0, 0, 0, pad))
+        k_rope = F.pad(k_rope, (0, 0, 0, pad))
+    rows = torch.arange(S, device=c.device)[:, None]
+    qn = q_nope.float() * scale  # (B,S,H,dn)
+    qr = q_rope.float() * scale  # (B,S,H,dr)
+    m = torch.full((B, H, S, 1), NEG_INF, dtype=torch.float32, device=c.device)
+    l = torch.zeros((B, H, S, 1), dtype=torch.float32, device=c.device)
+    acc = torch.zeros((B, H, S, dv), dtype=torch.float32, device=c.device)
+    for start in range(0, T + pad, C):
+        cb, krb = c[:, start : start + C], k_rope[:, start : start + C]
+        k_nope = (cb @ cast(params["w_uk"])).reshape(B, C, H, dn)
+        vb = (cb @ cast(params["w_uv"])).reshape(B, C, H, dv)
+        s = (torch.einsum("bshd,bthd->bhst", qn, k_nope.float())
+             + torch.einsum("bshd,btd->bhst", qr, krb.float()))  # (B,H,S,C)
+        cols = start + torch.arange(C, device=c.device)[None, :]
+        s = torch.where(((cols < T) & (cols <= rows))[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhst,bthd->bhsd", p, vb.float())
+        m = m_new
+    l = torch.where(l == 0.0, torch.ones_like(l), l)
+    return _mla_out(params, (acc / l).transpose(1, 2), q_nope, cfg)
+
+
+def mla_apply(
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+) -> torch.Tensor:
+    """Full-sequence MLA (training / prefill), no cache."""
+    S = x.shape[1]
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
+    mask = _causal_mask(S, x.device) if causal else None
+    return _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, mask)
+
+
+def _causal_mask(S: int, device) -> torch.Tensor:
+    return torch.ones((S, S), dtype=torch.bool, device=device).tril()
+
+
+def mla_prefill(
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    max_seq: int,
+) -> tuple[torch.Tensor, dict]:
+    """Full-sequence MLA that also emits the compressed decode cache."""
+    B, S, _ = x.shape
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
+    out = _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, _causal_mask(S, x.device))
+    cache = mla_init_cache(cfg, B, max_seq, device=x.device)
+    cache["ckv"][:, :S] = c.to(torch.bfloat16)
+    cache["krope"][:, :S] = k_rope.to(torch.bfloat16)
+    return out, cache
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    return {
+        "ckv": torch.zeros((batch, max_seq, r), dtype=torch.bfloat16, device=device),
+        "krope": torch.zeros((batch, max_seq, dr), dtype=torch.bfloat16, device=device),
+    }
+
+
+def mla_decode(
+    params: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    pos: torch.Tensor,  # scalar int32 — or (B,) per-slot absolute positions
+    cache: dict,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, dict]:
+    """Single-token MLA decode against the compressed cache, written in
+    place and returned (as :func:`gqa_decode`); ``cfg.mla_absorb``
+    takes :func:`_mla_decode_absorbed`."""
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    per_slot = pos.dim() == 1
+    pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, pos_b, cfg)
+    ckv, krope = cache["ckv"], cache["krope"]
+    rows, at = torch.arange(B, device=x.device), pos_b[:, 0].long()
+    ckv[rows, at] = c[:, 0].to(ckv.dtype)
+    krope[rows, at] = k_rope[:, 0].to(krope.dtype)
+    if cfg.mla_absorb:
+        return _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg), cache
+    T = ckv.shape[1]
+    cols = torch.arange(T, device=x.device)
+    if per_slot:
+        mask = cols[None, None, :] <= pos[:, None, None]  # (B, 1, T)
+    else:
+        mask = (cols <= pos)[None, :]  # (1, T)
+    return _mla_attend(params, q_nope, q_rope, ckv, krope, cfg, mask), cache
+
+
+def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConfig):
+    """Weight-absorbed MLA decode (the same math): W_uk is absorbed into
+    the query and W_uv into the output, so attention runs against the
+    compressed ``(r + dr)``-wide cache instead of recovering
+    ``2·T·H·(dn + dv)`` K/V values. bf16 operands with f32 products and
+    sums (JAX's ``preferred_element_type=f32``)."""
+    B = q_nope.shape[0]
+    H, r = cfg.num_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    T = ckv.shape[1]
+    w_uk = cast(params["w_uk"]).reshape(r, H, dn)
+    w_uv = cast(params["w_uv"]).reshape(r, H, dv)
+    q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk.float())  # (B,H,r)
+    s = (
+        torch.einsum("bhr,btr->bht", q_c.to(ckv.dtype).float(), ckv.float())
+        + torch.einsum("bhd,btd->bht", q_rope[:, 0].to(krope.dtype).float(), krope.float())
+    ) * (dn + dr) ** -0.5
+    pos_b = pos.reshape(-1, 1)  # (B,1) or (1,1)
+    mask = (torch.arange(T, device=ckv.device)[None, :] <= pos_b)[:, None, :]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o_c = torch.einsum("bht,btr->bhr", p.to(ckv.dtype).float(), ckv.float())  # (B,H,r)
+    out = torch.einsum("bhr,rhd->bhd", o_c, w_uv.float())
+    return out.reshape(B, 1, H * dv).to(q_nope.dtype) @ cast(params["wo"])

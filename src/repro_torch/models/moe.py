@@ -27,6 +27,11 @@ shard): the dispatch and the return are scheduled chain all-to-alls
 (``parallel.collectives.torrent_all_to_all``). ``cfg.moe_ep_dispatch``
 routes to it when a virtual DP group is named with
 ``parallel.hints.set_mesh`` and divides the experts and the batch.
+Its params are one tree that every row reads, or a list of one tree
+per row: then row ``r`` routes with and runs the shared experts of its
+own tree, and the experts it owns are read from its own tree — the
+train step's per-rank params, so one backward gives each rank the
+grads JAX's ``shard_map`` ranks get.
 
 The aux load-balancing loss (switch-style E·Σ f_i·P_i) is returned to
 the caller and folded into the training loss.
@@ -42,7 +47,7 @@ import torch.nn.functional as F
 from repro_torch.parallel import hints
 
 from .config import ModelConfig
-from .layers import matmul, normal, swiglu, swiglu_init
+from .layers import cast, matmul, normal, swiglu, swiglu_init
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -70,8 +75,10 @@ def _bucket_capacity(assignments: int, buckets: int, factor: float) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss)."""
+def moe_apply(params: dict | list[dict], x: torch.Tensor,
+              cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss). Per-row params (a list, one tree
+    per rank of the expert-parallel group) take ``moe_apply_ep``."""
     if cfg.moe_ep_dispatch:
         return _moe_apply_ep_auto(params, x, cfg)
     if cfg.moe_row_dispatch:
@@ -166,9 +173,15 @@ def _combine(gathered: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (gathered.float() * w.float()[..., None]).sum(-2)
 
 
-def _with_shared(params: dict, cfg: ModelConfig, xf: torch.Tensor, out: torch.Tensor):
+def _with_shared(params, cfg: ModelConfig, xf: torch.Tensor, out: torch.Tensor):
+    """``out`` plus the shared experts of ``xf``; with per-row params
+    (a list), row ``r`` of ``xf`` runs through tree ``r``'s."""
     if cfg.num_shared_experts:
-        out = out + swiglu(params["shared"], xf).float()
+        if isinstance(params, list):
+            shared = torch.stack([swiglu(p["shared"], xr) for p, xr in zip(params, xf)])
+        else:
+            shared = swiglu(params["shared"], xf)
+        out = out + shared.float()
     return out
 
 
@@ -232,7 +245,7 @@ def moe_apply_rowwise(params: dict, x: torch.Tensor, cfg: ModelConfig):
 
 
 def moe_apply_ep(
-    params: dict,
+    params: dict | list[dict],
     x: torch.Tensor,
     cfg: ModelConfig,
     *,
@@ -256,13 +269,22 @@ def moe_apply_ep(
     with ``cfg.capacity_factor`` headroom. ``wire_dtype="int8"`` ships
     the token payloads of both exchanges quantized per hop; ``send_e``
     always travels exact. The aux loss is the global one: the per-row
-    ``f_i``/``P_i`` are averaged over the rows (JAX's ``pmean``)."""
+    ``f_i``/``P_i`` are averaged over the rows (JAX's ``pmean``).
+
+    ``params`` is one tree for every row, or a list of ``n`` trees: row
+    ``r`` then routes with tree ``r``'s router and shared experts, and
+    its expert block (the experts row ``r`` owns) is tree ``r``'s — what
+    each of JAX's ``shard_map`` ranks reads from its own copy of the
+    params."""
     from repro_torch.parallel.collectives import torrent_all_to_all
 
     n, B, S, d = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     if E % n:
         raise ValueError(f"num_experts={E} not divisible by EP group size {n}")
+    ranked = isinstance(params, list)
+    if ranked and len(params) != n:
+        raise ValueError(f"{len(params)} per-row param trees for {n} rows")
     E_loc = E // n
     T = B * S
     dev = x.device
@@ -270,7 +292,8 @@ def moe_apply_ep(
     a2a = dict(num_chains=num_chains, scheduler=scheduler)
 
     # -- routing (f32, local tokens; global aux via row-averaged stats) -
-    probs, top_p, top_e = _route(xf, params["router"], k)  # (n, T, ...)
+    router = torch.stack([p["router"] for p in params]) if ranked else params["router"]
+    probs, top_p, top_e = _route(xf, router, k)  # (n, T, ...)
     P_i = probs.mean(1).mean(0)
     rows = torch.arange(n, device=dev)[:, None].expand(n, T * k)
     flat_e = top_e.reshape(n, T * k)
@@ -301,7 +324,12 @@ def moe_apply_ep(
     buf = _put((n, E_loc, C_loc), (rows2, le_s, pos2), recv.reshape(n, n * C_pair, d))
 
     # -- each row's expert block (row r's local expert j is r·E_loc + j)
-    out_buf = _experts(buf.reshape(E, C_loc, d), params["wg"], params["wu"], params["wd"])
+    if ranked:  # row r's block from tree r, cast per block
+        w = [torch.cat([cast(p[name][r * E_loc : (r + 1) * E_loc]) for r, p in enumerate(params)])
+             for name in ("wg", "wu", "wd")]
+    else:
+        w = [params[name] for name in ("wg", "wu", "wd")]
+    out_buf = _experts(buf.reshape(E, C_loc, d), *w)
     out_buf = out_buf.reshape(n, E_loc, C_loc, d)
 
     # -- results back to the token owners, combine at the source --------
@@ -312,15 +340,18 @@ def moe_apply_ep(
     return out.to(x.dtype).reshape(n, B, S, d), aux
 
 
-def _moe_apply_ep_auto(params: dict, x: torch.Tensor, cfg: ModelConfig):
+def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelConfig):
     """Route ``cfg.moe_ep_dispatch``: with a virtual mesh named by
     ``parallel.hints.set_mesh`` whose DP group divides the experts and
     the batch, split the batch into that many rows, run
     :func:`moe_apply_ep` on them and merge; anything else (no mesh, no
     DP axis, indivisible experts or batch) takes the single-device
-    path."""
+    path, which per-row params (a list) cannot take."""
 
     def fallback():
+        if isinstance(params, list):
+            raise ValueError("per-row MoE params need an expert-parallel group: "
+                             "name a DP mesh that divides the experts and the batch")
         if cfg.moe_row_dispatch:
             return moe_apply_rowwise(params, x, cfg)
         return _moe_apply_flat(params, x, cfg)

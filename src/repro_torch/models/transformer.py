@@ -19,17 +19,29 @@ has the Pallas kernel): ``attn_impl="flash"`` under autograd raises.
 A MoE layer (``models.moe``) returns its load-balance aux loss, which
 :func:`groups_apply` sums and :func:`loss_fn` adds to the loss.
 
-Not ported yet (raise ``NotImplementedError``): MLA and Mamba mixers,
-GeLU FFNs, cross-attention/encoder stacks, learned and M-RoPE
-positions.
+:func:`loss_fn_ranks` is the training forward of ``n`` data-parallel
+ranks at once, for expert parallelism inside the train step: rank
+``r``'s rows read rank ``r``'s param tree in every op, and each MoE
+layer runs once on the stacked ranks, exchanging tokens with
+``moe_apply_ep``'s chain all-to-alls (JAX runs the same forward inside
+its DP ``shard_map``, every rank at once).
+
+The mixer is GQA or MLA (``spec.mixer``); an MLA layer caches the
+compressed ``ckv``/``krope`` leaves instead of ``k``/``v``.
+
+Not ported yet (raise ``NotImplementedError``): the Mamba mixer, GeLU
+FFNs, cross-attention/encoder stacks, learned and M-RoPE positions.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel import hints
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -44,7 +56,7 @@ REMAT_POLICIES = ("none", "dots", "full")
 
 
 def _check_spec(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.mixer != "gqa":
+    if spec.mixer not in ("gqa", "mla"):
         raise NotImplementedError(f"{spec.mixer} mixer is not ported yet")
     if spec.ffn == "dense" and cfg.ffn_activation != "swiglu":
         raise NotImplementedError(f"{cfg.ffn_activation} FFN is not ported yet")
@@ -65,7 +77,7 @@ def _check_model(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device) -> Params:
     _check_spec(spec, cfg)
     p: Params = {"norm1": rmsnorm_init(cfg.d_model, device)}
-    p["mixer"] = attn.gqa_init(gen, cfg, device)
+    p["mixer"] = (attn.mla_init if spec.mixer == "mla" else attn.gqa_init)(gen, cfg, device)
     if spec.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
         p["ffn"] = (
@@ -88,6 +100,14 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
     return x + swiglu(params["ffn"], h), None
 
 
+def _mix(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
+         positions: torch.Tensor, causal: bool) -> torch.Tensor:
+    """The mixer sub-block, full sequence: x + mixer(norm(x))."""
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
+    apply = attn.mla_apply if spec.mixer == "mla" else attn.gqa_apply
+    return x + apply(params["mixer"], h, positions, cfg, causal=causal)
+
+
 def layer_apply(
     params: Params,
     spec: LayerSpec,
@@ -100,10 +120,36 @@ def layer_apply(
     """Full-sequence layer, no cache. Returns (x, aux_loss) — aux is 0
     for the dense FFN."""
     _check_spec(spec, cfg)
-    h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    h = attn.gqa_apply(params["mixer"], h, positions, cfg, causal=causal)
-    x, aux = _ffn(params, spec, cfg, x + h)
+    x, aux = _ffn(params, spec, cfg, _mix(params, spec, cfg, x, positions, causal))
     return x, x.new_zeros((), dtype=torch.float32) if aux is None else aux
+
+
+def layer_apply_ranks(
+    rank_params: list[Params],
+    spec: LayerSpec,
+    cfg: ModelConfig,
+    xs: list[torch.Tensor],
+    positions: torch.Tensor,
+    *,
+    causal: bool = True,
+) -> tuple[list[torch.Tensor], torch.Tensor]:
+    """:func:`layer_apply` for ``n`` ranks at once: rank ``r``'s rows
+    ``xs[r]`` through tree ``rank_params[r]``, except that a MoE FFN
+    runs once on all ranks' tokens (``moe.moe_apply`` with the per-rank
+    trees; ``cfg.moe_ep_dispatch`` and the mesh named by
+    ``parallel.hints.set_mesh`` make it ``moe_apply_ep``). Returns
+    (xs, aux): the MoE aux is the global one, every rank's."""
+    _check_spec(spec, cfg)
+    xs = [_mix(p, spec, cfg, x, positions, causal) for p, x in zip(rank_params, xs)]
+    aux = xs[0].new_zeros((), dtype=torch.float32)
+    if spec.ffn == "moe":
+        h = torch.cat([rmsnorm(p["norm2"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
+                       for p, x in zip(rank_params, xs)])
+        out, aux = moe_mod.moe_apply([p["ffn"] for p in rank_params], h, cfg)
+        xs = [x + o for x, o in zip(xs, out.chunk(len(xs)))]
+    else:
+        xs = [_ffn(p, spec, cfg, x)[0] for p, x in zip(rank_params, xs)]
+    return xs, aux
 
 
 def layer_prefill(
@@ -117,7 +163,8 @@ def layer_prefill(
     """Full-sequence layer that also emits its decode cache."""
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    h, cache = attn.gqa_prefill(params["mixer"], h, positions, cfg, max_seq)
+    prefill = attn.mla_prefill if spec.mixer == "mla" else attn.gqa_prefill
+    h, cache = prefill(params["mixer"], h, positions, cfg, max_seq)
     return _ffn(params, spec, cfg, x + h)[0], cache
 
 
@@ -132,14 +179,16 @@ def layer_decode(
     """One-token layer; updates ``cache`` in place (see ``gqa_decode``)."""
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    h, cache = attn.gqa_decode(params["mixer"], h, pos, cache, cfg)
+    decode = attn.mla_decode if spec.mixer == "mla" else attn.gqa_decode
+    h, cache = decode(params["mixer"], h, pos, cache, cfg)
     return _ffn(params, spec, cfg, x + h)[0], cache
 
 
 def layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, max_seq: int,
                      device) -> Params:
     _check_spec(spec, cfg)
-    return attn.gqa_init_cache(cfg, batch, max_seq, device=device)
+    init = attn.mla_init_cache if spec.mixer == "mla" else attn.gqa_init_cache
+    return init(cfg, batch, max_seq, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -286,20 +335,11 @@ def forward_hidden(
     return rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm), aux
 
 
-def loss_fn(
-    params: Params,
-    cfg: ModelConfig,
-    batch: dict,
-    *,
-    remat: str = "dots",
-    loss_chunks: int = 8,
-    z_loss: float = 1e-4,
-) -> tuple[torch.Tensor, dict]:
-    """Next-token CE, in sequence chunks (``loss_chunks``, lowered until
-    it divides S), with f32 logits against the f32 head table, plus the
-    z-loss ``z_loss * lse**2``. Returns (loss, {"loss", "ce", "aux"})."""
-    hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
-    labels = batch["labels"].long()
+def _ce(params: Params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
+        loss_chunks: int, z_loss: float) -> torch.Tensor:
+    """Mean next-token CE plus z-loss of ``hidden`` (B, S, d), in
+    sequence chunks, with f32 logits against the f32 head table."""
+    labels = labels.long()
     B, S, _ = hidden.shape
     chunks = loss_chunks
     while S % chunks:
@@ -315,9 +355,87 @@ def loss_fn(
         ce = (lse - gold).sum()
         zl = (lse ** 2).sum() * z_loss
         total = total + ce + zl
-    ntok = B * S
-    loss = total / ntok + aux
-    return loss, {"loss": loss, "ce": total / ntok, "aux": aux}
+    return total / (B * S)
+
+
+def loss_fn(
+    params: Params,
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    remat: str = "dots",
+    loss_chunks: int = 8,
+    z_loss: float = 1e-4,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token CE, in sequence chunks (``loss_chunks``, lowered until
+    it divides S), with f32 logits against the f32 head table, plus the
+    z-loss ``z_loss * lse**2``. Returns (loss, {"loss", "ce", "aux"})."""
+    hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
+    ce = _ce(params, cfg, hidden, batch["labels"], loss_chunks, z_loss)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+def loss_fn_ranks(
+    rank_params: list[Params],
+    cfg: ModelConfig,
+    batch: dict,
+    *,
+    remat: str = "dots",
+    loss_chunks: int = 8,
+    z_loss: float = 1e-4,
+) -> tuple[torch.Tensor, dict]:
+    """:func:`loss_fn` of ``n = len(rank_params)`` data-parallel ranks
+    in one forward: ``batch``'s rows split into ``n`` equal blocks, rank
+    ``r``'s block through tree ``rank_params[r]`` (the trees may be one
+    object), every MoE layer across the ranks (:func:`layer_apply_ranks`).
+    Returns ((n,) per-rank losses, metrics averaged over the ranks) — each
+    rank's loss its own mean CE plus the global aux, as under JAX's DP
+    ``shard_map``. ``remat != "none"`` checkpoints each pattern
+    application of all ranks."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
+    _check_model(cfg)
+    n = len(rank_params)
+    tokens = batch["tokens"]
+    if tokens.shape[0] % n:
+        raise ValueError(f"batch dim {tokens.shape[0]} not divisible by {n} DP ranks")
+    tokens = tokens.reshape((n, -1) + tuple(tokens.shape[1:]))
+    labels = batch["labels"].reshape(tokens.shape)
+    S = tokens.shape[-1]
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(
+        tokens.shape[1], S)
+    xs = [embed(p["embed"], t) for p, t in zip(rank_params, tokens)]
+    aux = xs[0].new_zeros((), dtype=torch.float32)
+    mesh = hints.concrete_mesh()
+    groups = cfg.layer_groups()
+    for g, (pattern, reps) in enumerate(groups):
+        for r in range(reps):
+            layers = [[_index(p, r) for p in rp["groups"][g]] for rp in rank_params]
+
+            def body(*hs, layers=layers, pattern=pattern):
+                hs, a = list(hs), hs[0].new_zeros((), dtype=torch.float32)
+                for pi, spec in enumerate(pattern):
+                    hs, ai = layer_apply_ranks([lp[pi] for lp in layers], spec, cfg, hs,
+                                               positions)
+                    a = a + ai
+                return (*hs, a)
+
+            if remat != "none" and torch.is_grad_enabled():
+                # the recompute runs in the backward, on the autograd
+                # engine's thread for a CUDA device: give it the mesh
+                # that names the expert-parallel group here
+                *xs, a = checkpoint(body, *xs, use_reentrant=False, context_fn=lambda: (
+                    contextlib.nullcontext(), hints.set_mesh(mesh)))
+            else:
+                *xs, a = body(*xs)
+            aux = aux + a
+    ce = torch.stack([
+        _ce(p, cfg, rmsnorm(p["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm), lab,
+            loss_chunks, z_loss)
+        for p, x, lab in zip(rank_params, xs, labels)])
+    losses = ce + aux
+    return losses, {"loss": losses.mean(), "ce": ce.mean(), "aux": aux}
 
 
 def prefill(
@@ -378,10 +496,12 @@ __all__ = [
     "groups_init_cache",
     "init_cache",
     "layer_apply",
+    "layer_apply_ranks",
     "layer_decode",
     "layer_init",
     "layer_prefill",
     "loss_fn",
+    "loss_fn_ranks",
     "model_init",
     "prefill",
 ]

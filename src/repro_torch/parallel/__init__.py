@@ -14,6 +14,7 @@ from .collectives import (
     torrent_all_gather,
     torrent_all_to_all,
     torrent_grad_reduce,
+    torrent_joint_grad_reduce,
     torrent_reduce_scatter,
 )
 
@@ -29,5 +30,6 @@ __all__ = [
     "torrent_all_gather",
     "torrent_all_to_all",
     "torrent_grad_reduce",
+    "torrent_joint_grad_reduce",
     "torrent_reduce_scatter",
 ]

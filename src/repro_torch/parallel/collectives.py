@@ -7,7 +7,10 @@ One card runs every DP rank as a row of the stacked view (see
 ``grad_fn(params, batch_slice) -> (grads, metrics)``, runs it once per
 rank on that rank's rows of the global batch, writes each rank's grads
 into its row of one preallocated ``(dp, *shape)`` buffer per leaf, and
-reduces the rows with the chain all-reduce. The reduction keeps the
+reduces the rows with the chain all-reduce; :func:`torrent_joint_grad_reduce`
+takes a grad function that runs every rank at once and returns those
+stacked rows itself (the train step's expert-parallel forward, whose
+MoE layers exchange tokens between the ranks). The reduction keeps the
 JAX package's order exactly: per-leaf flat payloads (or chunk-aligned
 buckets in reverse leaf order), the EF residual added before the int8
 wire and the new residual ``flat - dequantize(quantize(flat))``, the
@@ -604,17 +607,62 @@ def torrent_grad_reduce(
     exact wire the result is bit-identical to the per-leaf reduce.
     ``spans`` (a :class:`~repro_torch.runtime.spans.Spans`) records a
     ``fwd_bwd`` span per rank and a ``reduce`` span."""
-    reduce = make_stacked_reduce(
-        mesh, scheduler=scheduler, hierarchical=hierarchical, num_chains=num_chains,
-        algo=algo, wire_dtype=wire_dtype, error_feedback=error_feedback,
-        bucket_bytes=bucket_bytes, topology=topology,
-    )
     dp_size = dp_size_of(mesh)
+
+    def per_rank(params, batch, out):
+        return stack_rank_grads(grad_fn, params, batch, dp_size, out=out, spans=spans)
+
+    return _reduced(per_rank, mesh, scheduler=scheduler, hierarchical=hierarchical,
+                    num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,
+                    error_feedback=error_feedback, bucket_bytes=bucket_bytes,
+                    topology=topology, spans=spans)
+
+
+def torrent_joint_grad_reduce(
+    joint_grad_fn: Callable[..., tuple[list[torch.Tensor], PyTree]],
+    mesh,
+    *,
+    scheduler: str = "tsp",
+    hierarchical: bool = True,
+    num_chains: int | str = 1,
+    algo: str = "rs_ag",
+    wire_dtype: str | None = None,
+    error_feedback: bool = False,
+    bucket_bytes: int | None = None,
+    topology=None,
+    spans=None,
+) -> Callable[..., tuple[PyTree, PyTree]]:
+    """:func:`torrent_grad_reduce` for a grad function that runs every
+    DP rank at once: ``joint_grad_fn(params, batch, out) -> (stacked,
+    metrics)`` writes rank ``r``'s grads into row ``r`` of one ``(dp,
+    *shape)`` leaf per param (``out``, reused when its shapes match, else
+    allocated; tree order) and returns the metrics averaged over ranks —
+    the train step's expert-parallel forward, whose MoE layers exchange
+    tokens between the ranks. Its call is recorded as one ``fwd_bwd``
+    span; the reduction, its knobs, the signatures and the ``reduce``
+    span are :func:`torrent_grad_reduce`'s."""
+    def joint(params, batch, out):
+        with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
+            stacked, metrics = joint_grad_fn(params, batch, out)
+        _same_device(stacked)
+        return stacked, metrics
+
+    return _reduced(joint, mesh, scheduler=scheduler, hierarchical=hierarchical,
+                    num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,
+                    error_feedback=error_feedback, bucket_bytes=bucket_bytes,
+                    topology=topology, spans=spans)
+
+
+def _reduced(stacked_fn, mesh, *, spans, error_feedback, **reduce_kw):
+    """Wrap ``stacked_fn(params, batch, out) -> (stacked, metrics)`` so
+    its stacked per-rank grads come back reduced by
+    :func:`make_stacked_reduce`; the stacked buffers are kept and handed
+    back as ``out`` on the next call."""
+    reduce = make_stacked_reduce(mesh, error_feedback=error_feedback, **reduce_kw)
     buf: dict[str, list[torch.Tensor] | None] = {"stacked": None}
 
     def _grads(params, batch, residual=None):
-        stacked, metrics = stack_rank_grads(
-            grad_fn, params, batch, dp_size, out=buf["stacked"], spans=spans)
+        stacked, metrics = stacked_fn(params, batch, buf["stacked"])
         buf["stacked"] = stacked
         with maybe_span(spans, "reduce", stacked[0].device):
             out = reduce(stacked, None if residual is None else leaves(residual))
@@ -648,5 +696,6 @@ __all__ = [
     "torrent_all_gather",
     "torrent_all_to_all",
     "torrent_grad_reduce",
+    "torrent_joint_grad_reduce",
     "torrent_reduce_scatter",
 ]

@@ -32,7 +32,7 @@ from repro_torch.kernels.flash_attention import ops as FA  # noqa: E402
 from repro_torch.kernels.relayout import ops as R  # noqa: E402
 from repro_torch.launch.serve import ServeConfig, Server  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
-from repro_torch.tree import map_tree  # noqa: E402
+from repro_torch.tree import leaves, map_tree  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -591,7 +591,6 @@ def test_trainer_on_cuda_restarts_and_tracks_cpu(cuda, tmp_path):
     same run on the CPU from the same params (bf16 rounding order;
     measured 1.2e-3 on an H100)."""
     from repro_torch.launch.train import TrainConfig, Trainer
-    from repro_torch.tree import leaves
 
     base = dict(arch="yi-6b", smoke=True, steps=20, global_batch=8, seq_len=32,
                 peak_lr=2e-3, warmup_steps=5, ckpt_every=10, loss_chunks=2, log_every=100,
@@ -677,3 +676,95 @@ def test_moe_server_on_cuda_goes_through_both_kernels(cuda):
     assert R.relayout.launches_by_route == {"copy": 3, "staged": 0, "direct": 0}
     assert FA.flash_attention.launches > 0 and FA.flash_attention.launches_by_route == {
         **dict.fromkeys(FA.ROUTES, 0), "wgmma": FA.flash_attention.launches}
+
+
+# -- MLA serving and expert parallelism in the train step on the card -----
+
+
+def _close_to_scale(got, want, rel=5e-2):
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= rel * scale, (float((got - want).abs().max()), scale)
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_prefill_and_decode_on_cuda_match_cpu(cuda, absorb):
+    """deepseek-v2-lite-16b smoke (MLA with the compressed ``ckv``/
+    ``krope`` cache, layer 0 dense, then MoE): a prefill and three
+    per-slot decode steps on the card, with ``mla_absorb`` off and on,
+    against the same calls on the CPU from the same params. The card's
+    MoE layers are routed as the CPU's chose (``tests/_moe_routing.py``),
+    so the two differ only by bf16 rounding: logits and cache rows within
+    5e-2 of their scale (``tests/test_torch_model.py``'s bounds)."""
+    from _moe_routing import recorded_routing, routing_as
+
+    cfg = dataclasses.replace(C.get_smoke_config("deepseek-v2-lite-16b"), mla_absorb=absorb)
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 12)).astype(np.int32))
+    pos = torch.tensor([12, 9], dtype=torch.int32)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), params)
+        ctx = routing_as(runs[0][2]) if runs else recorded_routing()
+        with torch.no_grad(), ctx as seen:
+            logits, cache = T.prefill(p, cfg, {"tokens": toks.to(dev)}, 24)
+            outs, cur = [logits], toks[:, -1].to(dev)
+            for step in range(3):
+                logits, cache = T.decode_step(p, cfg, cur, (pos + step).to(dev), cache)
+                outs.append(logits)
+                cur = logits.argmax(-1).to(torch.int32)
+        runs.append((outs, cache, seen))
+    (cpu, pcache, _), (card, ccache, _) = runs
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and torch.isfinite(a).all()
+        _close_to_scale(a, b)
+    assert {k for g in ccache["layers"] for q in g for k in q} == {"ckv", "krope"}
+    for a, b in zip(leaves(ccache), leaves(pcache)):
+        _close_to_scale(a, b)
+
+
+def test_ep_train_step_on_cuda_matches_cpu(cuda):
+    """Expert parallelism inside the train step at smoke size
+    (deepseek-moe-16b with ``moe_ep_dispatch``, 4 virtual ranks, K = 2
+    EP rings): every rank's grads from the joint forward and backward on
+    the card against the CPU's, the card routed as the CPU chose (each
+    rank's grads within 5% of each leaf's largest element, cosine >=
+    0.999), then one Torrent step (K = 2, int8 + EF) whose loss is the
+    CPU step's within 2e-3; the executor's bytes equal the byte model's."""
+    from _moe_routing import recorded_routing, routing_as
+
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.data.pipeline import MarkovSource
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_joint_grad_fn, make_train_step
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.collectives import ef_residual_init
+
+    cfg = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"), moe_ep_dispatch=True,
+                              moe_ep_chains=2)
+    mesh = make_host_mesh(data=4)
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch_np = MarkovSource(cfg.vocab_size, 16, 8, seed=1).batch(0)
+    grads, losses, routing = [], [], None
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), params)
+        batch = {k: torch.from_numpy(v.copy()).to(dev) for k, v in batch_np.items()}
+        ctx = recorded_routing() if routing is None else routing_as(routing)
+        cw.wire_counter.reset()
+        with ctx as seen:
+            stacked, _ = make_joint_grad_fn(cfg, mesh, remat="none", loss_chunks=2)(p, batch)
+            step = make_train_step(cfg, adamw.OptConfig(), collectives="torrent", num_chains=2,
+                                   compress_grads=True, error_feedback=True, mesh=mesh,
+                                   remat="none", loss_chunks=2)
+            _, _, _, m = step(p, adamw.init(p), ef_residual_init(p, 4), batch)
+        assert cw.wire_counter.bytes == cw.wire_counter.modeled_bytes() > 0
+        routing = routing if routing is not None else list(seen)
+        grads.append([g.cpu().double() for g in stacked])
+        losses.append(float(m["loss"]))
+    assert abs(losses[1] - losses[0]) < 2e-3, losses
+    for w, g in zip(*grads):
+        for r in range(4):
+            a, b = g[r], w[r]
+            assert torch.isfinite(a).all()
+            assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
+            assert float((a * b).sum() / ((a * a).sum() * (b * b).sum()).sqrt()) >= 0.999

@@ -1,7 +1,9 @@
-"""The port's GQA decoder against ``repro.models`` with the same weights
+"""The port's decoder against ``repro.models`` with the same weights
 (carried across by ``params_from_numpy``), on the yi-6b, llama3-8b,
-h2o-danube-1.8b (sliding window, ring-buffer cache), starcoder2-3b and
-deepseek-moe-16b (dense layer 0, then MoE) smoke configs.
+h2o-danube-1.8b (sliding window, ring-buffer cache), starcoder2-3b,
+deepseek-moe-16b (dense layer 0, then MoE) and deepseek-v2-lite-16b
+(MLA with the compressed ``ckv``/``krope`` cache, dense layer 0, then
+MoE) smoke configs.
 
 Tolerances (bf16 compute at every matmul boundary, as in the JAX
 package): the two frameworks round the same bf16 graph at different
@@ -13,10 +15,17 @@ rows within 0.05 abs/rel (the JAX package's own bound for bf16 cache
 rows computed along two paths, ``tests/test_serve_kv_multicast.py``).
 Layer 0's K/V cache rows see identical inputs and must match bit for
 bit. A wrong mask, position or head mapping moves logits by O(scale).
+
+deepseek-v2-lite-16b's MoE calls are routed as JAX routed them
+(``tests/_jax_moe_routing.py``): a near-tie flip of a top-k choice moves
+a token's output by O(1) and, through the later layers' cache rows,
+beyond the cache tolerance. Each flip the port would make on its own
+must be a near tie.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -36,10 +45,15 @@ from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
-ARCHS = ["yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deepseek-moe-16b"]
+from _jax_moe_routing import NEAR_TIE, flip_margins, record_jax_routing  # noqa: E402
+from _moe_routing import routing_as  # noqa: E402
+
+ARCHS = ["yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deepseek-moe-16b",
+         "deepseek-v2-lite-16b"]
 LOGIT_REL = 5e-2
 CACHE_TOL = 5e-2
 MAX_SEQ = 24
+PINNED_ROUTING = {"deepseek-v2-lite-16b"}
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -74,6 +88,32 @@ def _caches_close(tcache, jcache, exact_layer0=False):
             np.testing.assert_array_equal(_np(t)[0], _np(j)[0])
 
 
+@contextlib.contextmanager
+def _jax_routing(cfg, monkeypatch):
+    """For an arch in ``PINNED_ROUTING``: record JAX's MoE routing, and
+    yield a context that routes the port's MoE calls made in it as JAX's
+    calls made before them chose; on exit, hold the port's own flips to
+    near ties. Other archs run unpinned."""
+    if cfg.name.removesuffix("-smoke") not in PINNED_ROUTING:
+        yield contextlib.nullcontext
+        return
+    seen = record_jax_routing(monkeypatch)
+    flips: list = []
+
+    @contextlib.contextmanager
+    def pinned():
+        done = len(flips)
+        with routing_as(torch.from_numpy(np.array(e, np.int64))
+                        for _, e in seen[done:]) as f:
+            yield
+        flips.extend(f)
+
+    yield pinned
+    jax.effects_barrier()
+    margins = flip_margins(seen[: len(flips)], flips)
+    assert len(flips) == len(seen) and all(m <= NEAR_TIE for m in margins), margins
+
+
 def _tokens(cfg, B, S, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
 
@@ -93,42 +133,52 @@ def test_params_layout_matches_jax(model):
 
 
 @pytest.mark.parametrize("impl", ["reference", "chunked", "flash"])
-def test_prefill_logits_and_cache_match(model, impl):
+def test_prefill_logits_and_cache_match(model, impl, monkeypatch):
     jcfg, tcfg, jp, tp = model
     jcfg = dataclasses.replace(jcfg, attn_impl=impl, attn_chunk=8)
     tcfg = dataclasses.replace(tcfg, attn_impl=impl, attn_chunk=8)
     toks = _tokens(jcfg, 2, 16, seed=1)
-    jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, MAX_SEQ)
-    tl, tc = TT.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)}, MAX_SEQ)
+    with _jax_routing(jcfg, monkeypatch) as pinned:
+        jl, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, MAX_SEQ)
+        jax.effects_barrier()
+        with pinned():
+            tl, tc = TT.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)}, MAX_SEQ)
     assert tl.shape == (2, jcfg.vocab_size) and tl.dtype == torch.float32
     _logits_close(tl, jl)
     _caches_close(tc, jc, exact_layer0=True)
 
 
 @pytest.mark.parametrize("per_slot", [True, False])
-def test_decode_steps_match(model, per_slot):
+def test_decode_steps_match(model, per_slot, monkeypatch):
     """Prefill, then three decode steps — with a (B,) per-slot position
     vector (continuous batching) or a scalar position."""
     jcfg, tcfg, jp, tp = model
     S = 12
     toks = _tokens(jcfg, 2, S, seed=2)
-    _, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, MAX_SEQ)
-    _, tc = TT.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)}, MAX_SEQ)
-    if per_slot:  # row 1 is 3 positions behind row 0
-        pos = np.array([S, S - 3], np.int32)
-    cur = toks[:, -1]
-    for step in range(3):
-        p = pos + step if per_slot else np.int32(S + step)
-        jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(cur), jnp.asarray(p), jc)
-        tl, tc = TT.decode_step(tp, tcfg, torch.from_numpy(cur.copy()), torch.as_tensor(p), tc)
-        _logits_close(tl, jl)
-        cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    with _jax_routing(jcfg, monkeypatch) as pinned:
+        _, jc = JT.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, MAX_SEQ)
+        jax.effects_barrier()
+        with pinned():
+            _, tc = TT.prefill(tp, tcfg, {"tokens": torch.from_numpy(toks)}, MAX_SEQ)
+        if per_slot:  # row 1 is 3 positions behind row 0
+            pos = np.array([S, S - 3], np.int32)
+        cur = toks[:, -1]
+        for step in range(3):
+            p = pos + step if per_slot else np.int32(S + step)
+            jl, jc = JT.decode_step(jp, jcfg, jnp.asarray(cur), jnp.asarray(p), jc)
+            jax.effects_barrier()
+            with pinned():
+                tl, tc = TT.decode_step(tp, tcfg, torch.from_numpy(cur.copy()),
+                                        torch.as_tensor(p), tc)
+            _logits_close(tl, jl)
+            cur = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
     _caches_close(tc, jc)
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_gqa_apply_matches_jax(model, causal):
-    """Full-sequence GQA without a cache (the training/prefill mixer)."""
+    """Full-sequence GQA without a cache (the training/prefill mixer);
+    for an MLA arch, ``mla_apply`` in its place."""
     from repro.models import attention as JA
     from repro_torch.models import attention as TA
 
@@ -137,10 +187,11 @@ def test_gqa_apply_matches_jax(model, causal):
     pos = np.broadcast_to(np.arange(16, dtype=np.int32), (2, 16))
     jlayer = jax.tree.map(lambda t: t[0], jp["groups"][0][0]["mixer"])
     tlayer = TT._index(tp["groups"][0][0]["mixer"], 0)
-    want = JA.gqa_apply(jlayer, jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(pos), jcfg,
-                        causal=causal)
-    got = TA.gqa_apply(tlayer, torch.from_numpy(x).to(torch.bfloat16),
-                       torch.from_numpy(pos.copy()), tcfg, causal=causal)
+    name = "mla_apply" if jcfg.attention == "mla" else "gqa_apply"
+    want = getattr(JA, name)(jlayer, jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(pos),
+                             jcfg, causal=causal)
+    got = getattr(TA, name)(tlayer, torch.from_numpy(x).to(torch.bfloat16),
+                            torch.from_numpy(pos.copy()), tcfg, causal=causal)
     np.testing.assert_allclose(_np(got), _np(want), atol=CACHE_TOL, rtol=CACHE_TOL)
 
 
@@ -185,8 +236,7 @@ def test_params_from_numpy_keeps_bf16_bits_and_nesting():
 
 
 @pytest.mark.parametrize(
-    "arch", ["deepseek-v2-lite-16b", "mamba2-2.7b", "whisper-tiny", "qwen2-vl-7b",
-             "jamba-v0.1-52b"]
+    "arch", ["mamba2-2.7b", "whisper-tiny", "qwen2-vl-7b", "jamba-v0.1-52b"]
 )
 def test_unported_branches_raise(arch):
     with pytest.raises(NotImplementedError):

@@ -49,6 +49,7 @@ from repro_torch.parallel import hints  # noqa: E402
 from repro_torch.parallel.collectives import sub_ring_orders  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
+from _jax_moe_routing import NEAR_TIE, flip_margins, record_jax_routing  # noqa: E402
 from _moe_routing import routing_as  # noqa: E402
 
 ARCH = "deepseek-moe-16b"
@@ -263,6 +264,8 @@ def test_ep_auto_route(ep_case):
     _close(auto, jout["auto"].reshape(x.shape))
     _aux_close(aux, jout["auto_aux"])
     assert hints.concrete_mesh() is None
+    with pytest.raises(ValueError, match="per-row MoE params"):  # one tree per rank, no group
+        TM.moe_apply([tp] * EP_DEVICES, x, tcfg)
     flat = TM._moe_apply_flat(tp, x, tcfg)[0]
     assert torch.equal(TM.moe_apply(tp, x, tcfg)[0], flat)
     for mesh in (make_host_mesh(data=3), make_mesh((1,), ("model",))):  # 3 divides neither
@@ -383,45 +386,6 @@ def model():
     return jp, params_from_numpy(jax.device_get(jp), "cpu")
 
 
-# Top-k routing is discontinuous: where two router probabilities are
-# within the bf16 noise of the hidden state (XLA and PyTorch round the
-# layers below differently), the packages can pick different experts,
-# and the token's output then moves by O(1). So the model tests route
-# the port's MoE calls as JAX routed them (the port's probabilities,
-# gathered at JAX's experts, so grads reach the router), and hold the
-# port's own choices to JAX's except at such near ties. Routing on
-# identical inputs is exact (test_single_device_paths_match_jax).
-NEAR_TIE = 1e-2  # probability margin; flips seen on the smoke model: <= 1.5e-3
-
-
-def _record_jax_routing(monkeypatch) -> list:
-    """JAX's (probs, top-k experts) of every MoE call, in call order."""
-    seen = []
-    flat = JM._moe_apply_flat
-
-    def recording(params, x, cfg):
-        probs = jax.nn.softmax(x.reshape(-1, x.shape[-1]).astype(jnp.float32)
-                               @ params["router"], axis=-1)
-        jax.debug.callback(lambda p, e: seen.append((np.asarray(p), np.asarray(e))),
-                           probs, jax.lax.top_k(probs, cfg.moe_top_k)[1], ordered=True)
-        return flat(params, x, cfg)
-
-    monkeypatch.setattr(JM, "_moe_apply_flat", recording)
-    return seen
-
-
-def _flip_margins(seen: list, flips: list) -> list:
-    """JAX's margin (k-th minus (k+1)-th probability) at every decision
-    where the port's own top-k set differs from JAX's."""
-    out = []
-    for (jprobs, jtop), differs in zip(seen, flips, strict=True):
-        k = jtop.shape[-1]
-        ranked = np.sort(jprobs, -1)[:, ::-1]
-        d = differs.numpy()
-        out.extend(ranked[d, k - 1] - ranked[d, k])
-    return out
-
-
 def _logits_close(got, want):
     want = _np(want)
     err = np.abs(_np(got) - want).max()
@@ -435,7 +399,7 @@ def test_model_prefill_and_decode_match_jax(model, bf16_norm, monkeypatch):
     d)) with per-slot positions."""
     jp, tp = model
     jcfg, tcfg = _cfgs(bf16_norm=bf16_norm)
-    seen = _record_jax_routing(monkeypatch)
+    seen = record_jax_routing(monkeypatch)
     S = 12
     toks = np.random.default_rng(6).integers(0, jcfg.vocab_size, (2, S)).astype(np.int32)
     pos, cur = np.array([S, S - 3], np.int32), toks[:, -1]
@@ -457,7 +421,7 @@ def test_model_prefill_and_decode_match_jax(model, bf16_norm, monkeypatch):
             tl, tc = TT.decode_step(tp, tcfg, torch.from_numpy(cur.copy()),
                                     torch.from_numpy(pos + step), tc)
             _logits_close(tl, jlogits[step + 1])
-    margins = _flip_margins(seen, flips)
+    margins = flip_margins(seen, flips)
     assert all(m <= NEAR_TIE for m in margins), margins
 
 
@@ -468,7 +432,7 @@ def test_model_loss_aux_and_grads_match_jax(model, bf16_norm, monkeypatch):
     when it is on."""
     jp, tp = model
     jcfg, tcfg = _cfgs(bf16_norm=bf16_norm)
-    seen = _record_jax_routing(monkeypatch)
+    seen = record_jax_routing(monkeypatch)
     b = JD.MarkovSource(jcfg.vocab_size, 32, 4, seed=1).batch(0)
     (jl, jm), jg = jax.value_and_grad(
         lambda p: JT.loss_fn(p, jcfg, {k: jnp.asarray(v) for k, v in b.items()},
@@ -478,7 +442,7 @@ def test_model_loss_aux_and_grads_match_jax(model, bf16_norm, monkeypatch):
     with routing_as([torch.from_numpy(np.array(e, np.int64)) for _, e in seen]) as flips:
         tg, tm = make_grad_fn(tcfg, remat="none", loss_chunks=4)(
             tp, {k: torch.from_numpy(v) for k, v in b.items()})
-    margins = _flip_margins(seen, flips)
+    margins = flip_margins(seen, flips)
     assert all(m <= NEAR_TIE for m in margins), margins
     assert float(tm["aux"]) > 0
     assert abs(float(jm["aux"]) - float(tm["aux"])) <= 1e-3 * float(jm["aux"])
@@ -490,18 +454,43 @@ def test_model_loss_aux_and_grads_match_jax(model, bf16_norm, monkeypatch):
         assert (a * g).sum() / np.sqrt((a * a).sum() * (g * g).sum()) >= 0.999
 
 
-def test_ep_training_with_dp_raises(model, monkeypatch):
-    """EP inside the train step is not ported: JAX runs it inside the DP
-    ``shard_map``, across ranks that run together; the port runs its
-    ranks one after another. ``make_train_step`` and the ``Trainer``
-    refuse it for DP > 1 rather than take another path quietly."""
+def test_ep_training_with_dp_raises(model, monkeypatch, tmp_path):
+    """EP inside the train step: with DP 4, ``make_train_step`` (torrent
+    and xla) and the ``Trainer`` run the ranks in one forward whose MoE
+    layers exchange tokens (``tests/test_torch_ep_train.py`` holds them
+    against JAX); nothing raises. With one rank there is no exchange: the
+    step is the per-rank step, and its MoE layers take the flat path; so
+    do they when the ranks do not divide the experts."""
+    jp, _ = model
     _, tcfg = _cfgs(moe_ep_dispatch=True)
     opt = TA.OptConfig()
-    with pytest.raises(NotImplementedError, match="moe_ep_dispatch"):
-        make_train_step(tcfg, opt, collectives="torrent", mesh=make_host_mesh(data=4))
-    # no shipped config sets moe_ep_dispatch: the Trainer looks one up
-    monkeypatch.setattr(TTrain.C, "get_smoke_config", lambda arch: tcfg)
-    with pytest.raises(NotImplementedError, match="moe_ep_dispatch"):
-        TTrain.Trainer(TTrain.TrainConfig(arch=ARCH, dp=4, collectives="torrent"),
-                       device="cpu")
-    make_train_step(tcfg, opt, mesh=make_host_mesh(data=1))  # one rank: no exchange
+    b = {k: torch.from_numpy(v) for k, v in
+         JD.MarkovSource(tcfg.vocab_size, 16, 8, seed=1).batch(0).items()}
+    calls = []
+    ep = TM.moe_apply_ep
+    monkeypatch.setattr(TM, "moe_apply_ep", lambda *a, **k: calls.append(tuple(a[1].shape))
+                        or ep(*a, **k))
+    for collectives in ("torrent", "xla"):
+        p = params_from_numpy(jax.device_get(jp), "cpu")
+        step = make_train_step(tcfg, opt, collectives=collectives, mesh=make_host_mesh(data=4),
+                               loss_chunks=2)
+        _, _, m = step(p, TA.init(p), b)
+        assert np.isfinite(float(m["loss"])) and float(m["aux"]) > 0
+    # 2 MoE layers, each run again by the remat'd backward, x 2 steps; all
+    # on the stacked view
+    assert calls == [(4, 2, 16, 64)] * 8
+    # no shipped config sets moe_ep_dispatch: the Trainer is handed one
+    out = TTrain.Trainer(TTrain.TrainConfig(arch=ARCH, dp=4, collectives="torrent", steps=1,
+                                            global_batch=8, seq_len=16, loss_chunks=2,
+                                            ckpt_dir=str(tmp_path)),
+                         device="cpu", model_cfg=tcfg).run()
+    assert out["final_step"] == 1 and np.isfinite(out["losses"]).all() and len(calls) == 12
+    calls.clear()
+    p = params_from_numpy(jax.device_get(jp), "cpu")
+    make_train_step(tcfg, opt, mesh=make_host_mesh(data=1))(p, TA.init(p), b)  # one rank
+    # 3 ranks do not divide the 8 experts: each rank's MoE layers take the
+    # flat path on its own tokens, as JAX's manual-axis route falls back
+    b6 = {k: v[:6] for k, v in b.items()}
+    make_train_step(tcfg, opt, collectives="torrent", mesh=make_host_mesh(data=3))(
+        p, TA.init(p), b6)
+    assert calls == []
