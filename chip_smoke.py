@@ -26,7 +26,7 @@ Phases (any failure exits non-zero and prints no result):
    (``wgmma`` for bf16/f16, ``tf32x3`` for f32, asserted per case)
    against the plain twin, within the stated tolerances: the serve
    phase's prefill shape and a 4096-token prefill, each in bf16 and in
-   f32, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
+   f32, the moe and hybrid serve phases' prefill shapes, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
    prefills at head dims 40 (bf16, padded to 64), 192 and 256 (f32, on a
    cluster of two blocks). f32 cases print two bounds: the CUDA cores'
    f32 rate and the 3xTF32 rate (the TF32 tensor-core rate over the
@@ -71,7 +71,26 @@ Phases (any failure exits non-zero and prints no result):
    ``4 x 2 x 16 x 128``), and the CUDA-event time of one decode step of
    the serve batch against a full cache (T = max_seq) with K/V recovered
    and with ``mla_absorb``, their logits within ``LOGIT_REL_TOL``;
-9. train: yi-6b at full width (depth cut to 4 layers,
+9. ssm serve: the same traffic through a ``Server`` for mamba2-2.7b at
+   full width and full depth (64 Mamba-2 SSD layers, d_inner 5120, 80
+   heads of 64, state 128, no FFN, vocab 50280): ``register_prefix`` must
+   refuse the prefix (a mamba cache has no per-position axis) and leave
+   no entry, so all 8 prompts are misses; no kernel launches. Each mamba
+   layer's chunked form against its recurrence on the same hidden states
+   of a 200-token prompt (8 decode steps across a padded chunk boundary)
+   within ``LOGIT_REL_TOL`` of its scale, and the whole model's last
+   logits of ``prefill(200)`` against ``prefill(192)`` and 8 decode steps
+   finite and within ``SSM_DRIFT_TOL``. Prints the CUDA-event time of one
+   decode step of the serve batch and of one 512-token prefill;
+10. hybrid serve: jamba-v0.1-52b at full width (Mamba layers with 8
+   groups, GQA 32 heads / 8 KV heads of 128 with no positions, MoE 16
+   experts top-2 of 14336 every other layer), depth cut 32 -> 5 layers
+   (the shallowest cut that holds its GQA layer), one replica (the weight
+   refresh must be a no-op): the prefix refused, 8 misses, flash launches
+   (wgmma) for the refused prefix's prefill and each miss, the flash
+   prefill logits against the reference's, and the mamba layers' two
+   forms and times as in ssm serve;
+11. train: yi-6b at full width (depth cut to 4 layers,
    ``attn_impl="reference"`` as the JAX trainer uses, random weights from
    a seed) on 4 virtual data-parallel ranks, Markov batches of 8 x 512
    tokens, Torrent gradient reduction (``rs_ag``, K = 2). One step's
@@ -91,7 +110,7 @@ Phases (any failure exits non-zero and prints no result):
    (int8 + EF, a failure injected at step 13): one restart from a
    checkpoint written from the card, and every step's loss within
    ``CLI_LOSS_TOL`` of a CPU Trainer's from the same initial params;
-10. ep train: expert parallelism inside the Torrent train step:
+12. ep train: expert parallelism inside the Torrent train step:
    deepseek-moe-16b at full width (depth cut 28 -> 2 layers, 1 dense + 1
    MoE) on 4 virtual DP ranks of 2 x 512 tokens, through a ``Trainer``
    with ``moe_ep_dispatch``: one forward over the ranks whose MoE layer
@@ -359,6 +378,9 @@ def flash_phase() -> dict:
         ("yi6b_prefill_4k_f32", 1, 32, 4, 4096, 128, f32, True, None, "tf32x3"),
         # the moe serve phase's prefill shape (deepseek-moe-16b: MHA, 16 heads)
         ("dsmoe_prefill", 1, 16, 16, 512, 128, bf16, True, None, "wgmma"),
+        # the hybrid serve phase's (jamba-v0.1-52b's GQA layer: 32 heads,
+        # 8 KV heads, no positions)
+        ("jamba_prefill", 1, 32, 8, 512, 128, bf16, True, None, "wgmma"),
         ("f32_window", 2, 4, 2, 384, 64, f32, True, 48, "tf32x3"),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, f32, False, 100, "tf32x3"),
         # h2o-danube-1.8b's head dim, padded 80 -> 128
@@ -666,24 +688,60 @@ def serve_prompts(V: int):
 SERVE_CONFIG = dict(smoke=False, batch=4, replicas=4, page_size=8, prompt_len=512,
                     max_seq=546, seed=0)
 
-# Each serve path: (arch, depth cut, the kernel launches its run makes).
-# Flash: one launch per layer of each of the 3 prefills (the registered
-# prefix and the 2 misses), all on the wgmma route; MLA attends by
-# einsums, as the JAX package's does, so its path launches none.
-# Relayout: one launch (copy route) per replica that pages the KV prefix.
+
+@dataclasses.dataclass(frozen=True)
+class ServePath:
+    """One serve phase: the arch, its depth cut, the kernel launches its
+    run makes, whether its cache admits KV-prefix multicast (a mamba
+    layer's cache has no per-position axis, and ``register_prefix`` must
+    refuse it) and how many replicas its ``Server`` runs."""
+
+    arch: str
+    layers: int
+    launches: dict
+    kv_multicast: bool = True
+    replicas: int = 4
+
+
+# Flash: one launch per attention layer of each prefill (the registered
+# prefix and the 2 misses; with no KV multicast, the prefix prefill that
+# ``register_prefix`` makes before it refuses, as the JAX package's does,
+# and the 8 misses), all on the wgmma route; MLA attends by einsums, as
+# the JAX package's does, so its path launches none, and neither does
+# attention-free mamba2. Relayout: one launch (copy route) per replica
+# that pages the KV prefix.
 SERVE_PATHS = {
-    "serve": ("yi-6b", 8, {"relayout": 4, "flash_attention": 3 * 8}),
-    "moe serve": ("deepseek-moe-16b", 4, {"relayout": 4, "flash_attention": 3 * 4}),
-    "mla serve": ("deepseek-v2-lite-16b", 4, {"relayout": 4, "flash_attention": 0}),
+    "serve": ServePath("yi-6b", 8, {"relayout": 4, "flash_attention": 3 * 8}),
+    "moe serve": ServePath("deepseek-moe-16b", 4, {"relayout": 4, "flash_attention": 3 * 4}),
+    "mla serve": ServePath("deepseek-v2-lite-16b", 4, {"relayout": 4, "flash_attention": 0}),
+    # full depth: 2.83 B params; the phase holds ~5x them (params, the
+    # refresh payload and 3 delivered copies), 57 GB
+    "ssm serve": ServePath("mamba2-2.7b", 64, {"relayout": 0, "flash_attention": 0},
+                           kv_multicast=False),
+    # 5 of 32 layers, the shallowest cut that holds the GQA layer
+    # (attn_offset 4): 7.15 B params, 28.6 GB f32; one replica, since ~5x
+    # the params fit no card and ssm serve covers an SSM's weight multicast
+    "hybrid serve": ServePath("jamba-v0.1-52b", 5, {"relayout": 0, "flash_attention": 1 + 8},
+                              kv_multicast=False, replicas=1),
 }
+# mamba layers: a layer's chunked mixer against its recurrence on the
+# same inputs, within LOGIT_REL_TOL of its output scale (CPU, width 512,
+# 64 layers: at most 0.94%); the last logits of a prefill against a
+# shorter prefill and decode steps drift through the 64 layers by the
+# two forms' bf16 roundings (prefill rounds the conv output before silu,
+# decode does not: 9-14% of the logit scale on the CPU at widths
+# 256-1024, 2.3e-5 with every rounding removed), so that one is held to
+# a bound that a wrong state handoff (O(scale)) still breaks
+SSM_DRIFT_TOL = 0.25
 
 
 def serve_phase(label: str) -> dict:
     """``Server.run()`` for the arch of ``SERVE_PATHS[label]`` at full
     width, depth cut as that entry says, with ``attn_impl="flash"`` and
     random weights: weight multicast, a 384-token shared prefix
-    registered and multicast, then 6 prefix hits and 2 misses of 32 new
-    tokens each. The kernel launches must be the entry's."""
+    registered and multicast (refused where the cache admits no KV
+    multicast), then the 8 prompts of 32 new tokens each (6 prefix hits
+    and 2 misses, or 8 misses). The kernel launches must be the entry's."""
     import torch
     from repro_torch import configs as C
     from repro_torch.kernels.flash_attention import ops as FA
@@ -692,11 +750,12 @@ def serve_phase(label: str) -> dict:
     from repro_torch.launch.serve import ServeConfig, Server
     from repro_torch.tree import leaves
 
-    arch, layers, want_launches = SERVE_PATHS[label]
+    path = SERVE_PATHS[label]
+    arch, layers, want_launches = path.arch, path.layers, path.launches
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(C.get_config(arch), num_layers=layers, attn_impl="flash")
-    sc = ServeConfig(arch=arch, **SERVE_CONFIG)
+    sc = ServeConfig(arch=arch, **{**SERVE_CONFIG, "replicas": path.replicas})
     t0 = time.perf_counter()
     server = Server(sc, device="cuda", model_cfg=cfg)
     torch.cuda.synchronize()
@@ -719,7 +778,18 @@ def serve_phase(label: str) -> dict:
     torch.cuda.synchronize()
     spans["broadcast_weights_64MiB_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    entry = server.register_prefix(prefix)
+    if path.kv_multicast:
+        entry = server.register_prefix(prefix)
+    else:
+        try:
+            server.register_prefix(prefix)
+        except ValueError as e:
+            print(f"{label}: register_prefix refused: {e}", flush=True)
+        else:
+            raise AssertionError(f"{label}: register_prefix accepted a cache with no "
+                                 "per-position axis")
+        if server.prefix_cache.entries or server.kv_multicast_log:
+            raise AssertionError(f"{label}: a refused prefix left an entry or a KV record")
     torch.cuda.synchronize()
     spans["register_prefix_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -737,7 +807,8 @@ def serve_phase(label: str) -> dict:
     retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
 
     print(f"{label}: weight multicast", json.dumps(wrec), flush=True)
-    print(f"{label}: kv multicast", json.dumps(entry.broadcast), flush=True)
+    if path.kv_multicast:
+        print(f"{label}: kv multicast", json.dumps(entry.broadcast), flush=True)
     print(f"{label}: run", json.dumps(out), flush=True)
     print(f"{label}: wall_s {out['wall_s']:.3f} tokens/s {out['tokens_per_s']:.2f} "
           f"peak memory {peak_gb:.1f} GB alloc retries {retries} launches {launches} "
@@ -746,14 +817,18 @@ def serve_phase(label: str) -> dict:
 
     if out["served"] != len(reqs) or not all(len(r.out) == 32 for r in reqs):
         raise AssertionError(f"{label}: served {out['served']} of {len(reqs)} requests")
-    if [r.prefix_hit for r in reqs] != [True] * 6 + [False] * 2:
+    want_hits = [True] * 6 + [False] * 2 if path.kv_multicast else [False] * 8
+    if [r.prefix_hit for r in reqs] != want_hits:
         raise AssertionError(f"{label}: prefix hits {[r.prefix_hit for r in reqs]}")
     if any(not 0 <= t < V for r in reqs for t in r.out):
         raise AssertionError(f"{label}: a generated token is outside the vocabulary")
     delivered = sum(x.numel() * x.element_size() for x in server.last_delivery.values())
-    if wrec["delivered_bytes"] != 3 * wrec["bytes"] or delivered != wrec["delivered_bytes"]:
+    copies = path.replicas - 1
+    if wrec["delivered_bytes"] != copies * wrec["bytes"] or delivered != wrec["delivered_bytes"]:
         raise AssertionError(f"{label}: weight multicast delivered {wrec['delivered_bytes']} B")
-    if entry.broadcast["delivered_bytes"] != 3 * entry.broadcast["bytes"]:
+    if not copies and not (wrec["noop"] and wrec["chunks"] == 0):
+        raise AssertionError(f"{label}: one replica's weight refresh is not a no-op: {wrec}")
+    if path.kv_multicast and entry.broadcast["delivered_bytes"] != 3 * entry.broadcast["bytes"]:
         raise AssertionError(f"{label}: KV multicast did not reach every replica")
     if retries:
         raise AssertionError(f"{label}: the caching allocator retried {retries} times")
@@ -763,35 +838,117 @@ def serve_phase(label: str) -> dict:
     if by_route != {**dict.fromkeys(FA.ROUTES, 0), "wgmma": launches["flash_attention"]}:
         raise AssertionError(f"{label}: flash launches {launches['flash_attention']} "
                              f"by route {by_route}")
-    if relayout_routes != {"copy": 4, "staged": 0, "direct": 0}:
+    if relayout_routes != {**dict.fromkeys(R.ROUTES, 0), "copy": launches["relayout"]}:
         raise AssertionError(f"{label}: relayout launches {launches['relayout']} "
                              f"by route {relayout_routes}")
-    F = kv_feature_width(server.cache, sc.max_seq)
-    kv = {"F": F, "F_per_layer": F // layers, "prefix_tokens": len(prefix),
-          "payload_bytes": entry.broadcast["bytes"],
-          "delivered_bytes": entry.broadcast["delivered_bytes"]}
-    if entry.broadcast["bytes"] != len(prefix) * F * 2:
-        raise AssertionError(f"{label}: KV payload {entry.broadcast['bytes']} B != "
-                             f"{len(prefix)} positions x F {F} x 2 B")
-    print(f"{label}: kv multicast per position", json.dumps(kv), flush=True)
+    kv = None
+    if path.kv_multicast:
+        F = kv_feature_width(server.cache, sc.max_seq)
+        kv = {"F": F, "F_per_layer": F // layers, "prefix_tokens": len(prefix),
+              "payload_bytes": entry.broadcast["bytes"],
+              "delivered_bytes": entry.broadcast["delivered_bytes"]}
+        if entry.broadcast["bytes"] != len(prefix) * F * 2:
+            raise AssertionError(f"{label}: KV payload {entry.broadcast['bytes']} B != "
+                                 f"{len(prefix)} positions x F {F} x 2 B")
+        print(f"{label}: kv multicast per position", json.dumps(kv), flush=True)
 
-    # flash vs reference attention on one prompt, same weights
-    toks = torch.as_tensor(prompts[-1], device="cuda")[None]
-    lf, lr, flips = same_routing_prefill(server.params, cfg, toks, sc.max_seq)
-    if lf.shape != (1, V) or not torch.isfinite(lf).all():
-        raise AssertionError(f"{label}: flash prefill logits {tuple(lf.shape)} not finite")
-    d = float((lf - lr).abs().max())
-    scale = float(lr.abs().max())
-    print(f"{label}: prefill logits flash vs reference: max |d| {d:.5f}, "
-          f"max |ref| {scale:.3f}, argmax {int(lf.argmax())} vs {int(lr.argmax())}, "
-          f"routing flips the reference would make {flips}", flush=True)
-    if d > LOGIT_REL_TOL * scale:
-        raise AssertionError(f"{label}: flash prefill logits differ by {d} "
-                             f"(> {LOGIT_REL_TOL} x {scale})")
+    specs = [cfg.layer_spec(i) for i in range(layers)]
+    if any(s.mixer != "mamba" for s in specs):
+        # flash vs reference attention on one prompt, same weights
+        toks = torch.as_tensor(prompts[-1], device="cuda")[None]
+        lf, lr, flips = same_routing_prefill(server.params, cfg, toks, sc.max_seq)
+        if lf.shape != (1, V) or not torch.isfinite(lf).all():
+            raise AssertionError(f"{label}: flash prefill logits {tuple(lf.shape)} not finite")
+        d = float((lf - lr).abs().max())
+        scale = float(lr.abs().max())
+        print(f"{label}: prefill logits flash vs reference: max |d| {d:.5f}, "
+              f"max |ref| {scale:.3f}, argmax {int(lf.argmax())} vs {int(lr.argmax())}, "
+              f"routing flips the reference would make {flips}", flush=True)
+        if d > LOGIT_REL_TOL * scale:
+            raise AssertionError(f"{label}: flash prefill logits differ by {d} "
+                                 f"(> {LOGIT_REL_TOL} x {scale})")
+    if any(s.mixer == "mamba" for s in specs):
+        ssm_checks(label, server, cfg, sc, prompts[-1])
     absorb = mla_absorb_decode(server.params, cfg, sc) if cfg.attention == "mla" else None
     profile_run(server, [prompts[0], prompts[-1]])
     return {"relayout": launches["relayout"], "flash_attention_wgmma": by_route["wgmma"],
             "relayout_by_route": relayout_routes, "kv": kv, "mla_absorb": absorb}
+
+
+def ssm_checks(label: str, server, cfg, sc, prompt, S: int = 200, k: int = 8) -> None:
+    """The SSD's two forms at full width on the card, and their times.
+    Each mamba layer's chunked mixer (``mamba2_apply``) on the hidden
+    states of a prefill of ``prompt[:S]`` against its recurrence
+    (``mamba2_prefill`` of the first S - k, then k ``mamba2_decode``
+    steps) on the same inputs, over the last k tokens: the chunked form
+    pads S to whole chunks, so this crosses a padded chunk boundary.
+    For an attention-free model, also the last logits of a whole-model
+    ``prefill(S)`` against ``prefill(S - k)`` and k ``decode_step`` calls
+    (``SSM_DRIFT_TOL``). Every logit must be finite. Prints the
+    CUDA-event time of one decode step of the serve batch and of one
+    512-token prefill."""
+    import torch
+    from repro_torch.models import mamba2 as mb
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.tree import leaves
+
+    params = server.params
+    toks = torch.as_tensor(prompt[:S], device="cuda")[None]
+    positions = torch.arange(S, dtype=torch.int32, device="cuda")[None]
+    layer_errs = []
+    with torch.no_grad():
+        x = embed(params["embed"], toks)
+        for (pattern, reps), stacked in zip(cfg.layer_groups(), params["groups"]):
+            for r in range(reps):
+                for spec, p in zip(pattern, stacked):
+                    p = T._index(p, r)
+                    if spec.mixer == "mamba":
+                        h = rmsnorm(p["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
+                        full = mb.mamba2_apply(p["mixer"], h, cfg)[:, S - k:].float()
+                        _, cache = mb.mamba2_prefill(p["mixer"], h[:, : S - k], cfg)
+                        rec = torch.cat([mb.mamba2_decode(p["mixer"], h[:, t : t + 1], cache,
+                                                          cfg)[0] for t in range(S - k, S)], 1)
+                        if not torch.isfinite(full).all():
+                            raise AssertionError(f"{label}: a mamba layer's output is not finite")
+                        layer_errs.append(float((full - rec.float()).abs().max()
+                                                / full.abs().max()))
+                    x, _ = T.layer_apply(p, spec, cfg, x, positions)
+    rec = {"S": S, "k": k, "mamba_layers": len(layer_errs),
+           "layer_rel_err_max": max(layer_errs),
+           "layer_rel_err_median": sorted(layer_errs)[len(layer_errs) // 2]}
+    if cfg.family == "ssm":
+        with torch.no_grad():
+            lf, _ = T.prefill(params, cfg, {"tokens": toks}, sc.max_seq)
+            lp, cache = T.prefill(params, cfg, {"tokens": toks[:, : S - k]}, sc.max_seq)
+            for t in range(S - k, S):
+                lp, cache = T.decode_step(params, cfg, toks[:, t],
+                                          torch.tensor(t, dtype=torch.int32, device="cuda"),
+                                          cache)
+        if not (torch.isfinite(lf).all() and torch.isfinite(lp).all()):
+            raise AssertionError(f"{label}: prefill or decode logits not finite")
+        rec["logits_rel_drift"] = float((lf - lp).abs().max() / lf.abs().max())
+        rec["argmax"] = [int(lf.argmax()), int(lp.argmax())]
+
+    B = sc.batch
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cache = T.init_cache(cfg, B, sc.max_seq, device="cuda")
+    cur = torch.randint(0, cfg.vocab_size, (B,), device="cuda", generator=gen)
+    pos = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    p512 = torch.randint(0, cfg.vocab_size, (1, 512), device="cuda", generator=gen)
+    with torch.no_grad():
+        rec["decode_step_ms"] = time_ms(lambda: T.decode_step(params, cfg, cur, pos, cache),
+                                        iters=10)
+        rec["prefill_512_ms"] = time_ms(lambda: T.prefill(params, cfg, {"tokens": p512},
+                                                          sc.max_seq), iters=3, warmup=1)
+    rec["cache_bytes_per_slot"] = sum(t.nbytes // B for t in leaves(server.cache))
+    print(f"{label}: ssm", json.dumps(rec), flush=True)
+    if rec["layer_rel_err_max"] > LOGIT_REL_TOL:
+        raise AssertionError(f"{label}: a mamba layer's chunked and recurrent forms differ by "
+                             f"{rec['layer_rel_err_max']} of its scale (> {LOGIT_REL_TOL})")
+    if rec.get("logits_rel_drift", 0.0) > SSM_DRIFT_TOL:
+        raise AssertionError(f"{label}: prefill and decode logits drift by "
+                             f"{rec['logits_rel_drift']} of their scale (> {SSM_DRIFT_TOL})")
 
 
 def mla_absorb_decode(params, cfg, sc) -> dict:
@@ -1276,6 +1433,8 @@ def main() -> int:
     launches.update(serve_phase("serve"))
     moe = serve_phase("moe serve")
     mla = serve_phase("mla serve")
+    ssm = serve_phase("ssm serve")
+    hybrid = serve_phase("hybrid serve")
     print(f"kv multicast per position: mla serve F {mla['kv']['F']} ({mla['kv']['F_per_layer']} "
           f"a layer), {mla['kv']['payload_bytes']} B; moe serve F {moe['kv']['F']} "
           f"({moe['kv']['F_per_layer']} a layer), {moe['kv']['payload_bytes']} B; ratio "
@@ -1288,10 +1447,12 @@ def main() -> int:
                                            "flash_attention_tf32x3")}
 
     moe_launches, mla_launches = path_launches(moe), path_launches(mla)
+    ssm_launches, hybrid_launches = path_launches(ssm), path_launches(hybrid)
 
     def row(name, source, replaces, rec, bound_by, **extra):
         by_path = {"serve_or_f32": launches[name], "moe_serve": moe_launches[name],
-                   "mla_serve": mla_launches[name], "train": train["train_launches"][name],
+                   "mla_serve": mla_launches[name], "ssm_serve": ssm_launches[name],
+                   "hybrid_serve": hybrid_launches[name], "train": train["train_launches"][name],
                    "ep_train": ep_train["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1322,7 +1483,8 @@ def main() -> int:
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"],
-            dsmoe_prefill=sub("dsmoe_prefill"), bf16_d40=sub("bf16_d40"),
+            dsmoe_prefill=sub("dsmoe_prefill"), jamba_prefill=sub("jamba_prefill"),
+            bf16_d40=sub("bf16_d40"),
             d80_gqa=sub("d80_gqa")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",
             flash_replaces, tf32x3_rec, tf32x3_rec["bound_by"],

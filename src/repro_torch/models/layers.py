@@ -97,6 +97,15 @@ class RMSNormBF16(torch.autograd.Function):
         return dscale.to(scale.dtype), dx, None
 
 
+def gated_rmsnorm(params: dict, x: torch.Tensor, z: torch.Tensor,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """Mamba-2's RMSNorm(x * silu(z)), in f32, output in ``x``'s dtype."""
+    xf = x.float() * F.silu(z.float())
+    var = (xf * xf).mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Embedding
 # ---------------------------------------------------------------------------

@@ -26,11 +26,15 @@ layer runs once on the stacked ranks, exchanging tokens with
 ``moe_apply_ep``'s chain all-to-alls (JAX runs the same forward inside
 its DP ``shard_map``, every rank at once).
 
-The mixer is GQA or MLA (``spec.mixer``); an MLA layer caches the
-compressed ``ckv``/``krope`` leaves instead of ``k``/``v``.
+The mixer is GQA, MLA or Mamba-2 (``spec.mixer``), dispatched three
+ways at every site as in the JAX package; an MLA layer caches the
+compressed ``ckv``/``krope`` leaves instead of ``k``/``v``, a Mamba
+layer its conv window ``conv`` and SSM state ``ssm`` (``models.mamba2``;
+no per-position axis). A layer with ``ffn="none"`` (mamba2-2.7b) has no
+FFN and no ``norm2``; a hybrid (jamba) interleaves Mamba and GQA layers.
 
-Not ported yet (raise ``NotImplementedError``): the Mamba mixer, GeLU
-FFNs, cross-attention/encoder stacks, learned and M-RoPE positions.
+Not ported yet (raise ``NotImplementedError``): GeLU FFNs,
+cross-attention/encoder stacks, learned and M-RoPE positions.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from repro_torch.device import resolve_device
 from repro_torch.parallel import hints
 
 from . import attention as attn
+from . import mamba2 as mb
 from . import moe as moe_mod
 from .config import LayerSpec, ModelConfig
 from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
@@ -56,8 +61,6 @@ REMAT_POLICIES = ("none", "dots", "full")
 
 
 def _check_spec(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.mixer not in ("gqa", "mla"):
-        raise NotImplementedError(f"{spec.mixer} mixer is not ported yet")
     if spec.ffn == "dense" and cfg.ffn_activation != "swiglu":
         raise NotImplementedError(f"{cfg.ffn_activation} FFN is not ported yet")
     if spec.cross_attention:
@@ -77,7 +80,12 @@ def _check_model(cfg: ModelConfig) -> None:
 def layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device) -> Params:
     _check_spec(spec, cfg)
     p: Params = {"norm1": rmsnorm_init(cfg.d_model, device)}
-    p["mixer"] = (attn.mla_init if spec.mixer == "mla" else attn.gqa_init)(gen, cfg, device)
+    if spec.mixer == "gqa":
+        p["mixer"] = attn.gqa_init(gen, cfg, device)
+    elif spec.mixer == "mla":
+        p["mixer"] = attn.mla_init(gen, cfg, device)
+    else:  # mamba
+        p["mixer"] = mb.mamba2_init(gen, cfg, device)
     if spec.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
         p["ffn"] = (
@@ -104,8 +112,13 @@ def _mix(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
          positions: torch.Tensor, causal: bool) -> torch.Tensor:
     """The mixer sub-block, full sequence: x + mixer(norm(x))."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    apply = attn.mla_apply if spec.mixer == "mla" else attn.gqa_apply
-    return x + apply(params["mixer"], h, positions, cfg, causal=causal)
+    if spec.mixer == "gqa":
+        h = attn.gqa_apply(params["mixer"], h, positions, cfg, causal=causal)
+    elif spec.mixer == "mla":
+        h = attn.mla_apply(params["mixer"], h, positions, cfg, causal=causal)
+    else:  # mamba: causal by construction
+        h = mb.mamba2_apply(params["mixer"], h, cfg)
+    return x + h
 
 
 def layer_apply(
@@ -163,8 +176,12 @@ def layer_prefill(
     """Full-sequence layer that also emits its decode cache."""
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    prefill = attn.mla_prefill if spec.mixer == "mla" else attn.gqa_prefill
-    h, cache = prefill(params["mixer"], h, positions, cfg, max_seq)
+    if spec.mixer == "gqa":
+        h, cache = attn.gqa_prefill(params["mixer"], h, positions, cfg, max_seq)
+    elif spec.mixer == "mla":
+        h, cache = attn.mla_prefill(params["mixer"], h, positions, cfg, max_seq)
+    else:
+        h, cache = mb.mamba2_prefill(params["mixer"], h, cfg)
     return _ffn(params, spec, cfg, x + h)[0], cache
 
 
@@ -179,16 +196,23 @@ def layer_decode(
     """One-token layer; updates ``cache`` in place (see ``gqa_decode``)."""
     _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    decode = attn.mla_decode if spec.mixer == "mla" else attn.gqa_decode
-    h, cache = decode(params["mixer"], h, pos, cache, cfg)
+    if spec.mixer == "gqa":
+        h, cache = attn.gqa_decode(params["mixer"], h, pos, cache, cfg)
+    elif spec.mixer == "mla":
+        h, cache = attn.mla_decode(params["mixer"], h, pos, cache, cfg)
+    else:
+        h, cache = mb.mamba2_decode(params["mixer"], h, cache, cfg)
     return _ffn(params, spec, cfg, x + h)[0], cache
 
 
 def layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, max_seq: int,
                      device) -> Params:
     _check_spec(spec, cfg)
-    init = attn.mla_init_cache if spec.mixer == "mla" else attn.gqa_init_cache
-    return init(cfg, batch, max_seq, device=device)
+    if spec.mixer == "gqa":
+        return attn.gqa_init_cache(cfg, batch, max_seq, device=device)
+    if spec.mixer == "mla":
+        return attn.mla_init_cache(cfg, batch, max_seq, device=device)
+    return mb.mamba2_init_cache(cfg, batch, device=device)
 
 
 # ---------------------------------------------------------------------------

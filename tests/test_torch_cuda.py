@@ -723,6 +723,77 @@ def test_mla_prefill_and_decode_on_cuda_match_cpu(cuda, absorb):
         _close_to_scale(a, b)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b"])
+def test_mamba2_prefill_and_decode_on_cuda_match_cpu(cuda, arch):
+    """The Mamba-2 mixer at smoke size (G = 1 and G = 2 groups): a
+    prefill over two and a half chunks and three decode steps on the
+    card, against the same calls on the CPU from the same params:
+    outputs and the conv/ssm cache within 5e-2 of their scale
+    (``tests/test_torch_model.py``'s bounds). Then ``dt_bias = 20``,
+    where exp(Λ_i − Λ_j) above the diagonal would overflow f32: the
+    card's forward and grads are finite and its output agrees with the
+    CPU's."""
+    from repro_torch.models import mamba2 as M
+
+    cfg = C.get_smoke_config(arch)
+    params = M.mamba2_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 23, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.to(dev), params)
+        with torch.no_grad():
+            y, cache = M.mamba2_prefill(p, x[:, :20].to(dev), cfg)
+            outs = [y]
+            for t in range(20, 23):
+                y, cache = M.mamba2_decode(p, x[:, t : t + 1].to(dev), cache, cfg)
+                outs.append(y)
+        runs.append((outs, cache))
+    (cpu, ccache), (card, gcache) = runs
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and torch.isfinite(a).all()
+        _close_to_scale(a, b)
+    for k in ("conv", "ssm"):
+        assert gcache[k].dtype == ccache[k].dtype
+        _close_to_scale(gcache[k], ccache[k])
+
+    hot = {**params, "dt_bias": torch.full_like(params["dt_bias"], 20.0)}
+    outs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda t: t.detach().to(dev).requires_grad_(True), hot)
+        y = M.mamba2_apply(p, x.to(dev).float(), cfg)
+        grads = torch.autograd.grad(y.float().square().sum(), leaves(p))
+        assert torch.isfinite(y).all() and all(torch.isfinite(g).all() for g in grads)
+        outs.append(y.detach())
+    _close_to_scale(outs[1], outs[0])
+
+
+def test_jamba_server_on_cuda_launches_flash_per_prefill(cuda):
+    """A jamba-v0.1-52b smoke server on the card (mamba and GQA layers,
+    dense and MoE FFNs): ``register_prefix`` refuses the mamba cache and
+    pages nothing, every request is served, and the flash kernel
+    launches once per prefill and GQA layer, all on the wgmma route."""
+    cfg = dataclasses.replace(C.get_smoke_config("jamba-v0.1-52b"), attn_impl="flash")
+    sc = ServeConfig(arch="jamba-v0.1-52b", batch=2, prompt_len=24, max_seq=48, replicas=3,
+                     page_size=8)
+    server = Server(sc, device=cuda, model_cfg=cfg)
+    rng = np.random.default_rng(0)
+    with pytest.raises(ValueError, match="per-position"):
+        server.register_prefix(rng.integers(0, cfg.vocab_size, 16).astype(np.int32))
+    assert server.prefix_cache.entries == [] and server.kv_multicast_log == []
+    R.relayout.launches = FA.flash_attention.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    reqs = [server.submit(rng.integers(0, 256, n), 4) for n in (20, 13, 9)]
+    out = server.run(reqs)
+    assert out["served"] == 3 and all(len(r.out) == 4 for r in reqs)
+    gqa = sum(cfg.layer_spec(i).mixer == "gqa" for i in range(cfg.num_layers))
+    assert gqa == 1 and R.relayout.launches == 0
+    assert FA.flash_attention.launches == len(reqs) * gqa
+    assert FA.flash_attention.launches_by_route == {
+        **dict.fromkeys(FA.ROUTES, 0), "wgmma": len(reqs) * gqa}
+
+
 def test_ep_train_step_on_cuda_matches_cpu(cuda):
     """Expert parallelism inside the train step at smoke size
     (deepseek-moe-16b with ``moe_ep_dispatch``, 4 virtual ranks, K = 2

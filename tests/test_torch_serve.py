@@ -132,8 +132,16 @@ def _check_tokens(jserver, jreqs, treqs, prefix_len):
         assert top[0] - top[1] <= 2 * LOGIT_REL * np.abs(top).max(), (jr.rid, k, top[:2])
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "llama3-8b", "deepseek-moe-16b", "deepseek-v2-lite-16b"])
+# a mamba layer's cache has no per-position axis: KV-prefix multicast is
+# not defined for it, and both packages' register_prefix refuse it
+NO_KV_MULTICAST = ("mamba2-2.7b", "jamba-v0.1-52b")
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "llama3-8b", "deepseek-moe-16b", "deepseek-v2-lite-16b",
+                                  *NO_KV_MULTICAST])
 def test_server_matches_jax_server(arch):
+    """Without a prefix for an arch with mamba layers: every request is
+    then a miss."""
     sc = dict(arch=arch, smoke=True, batch=2, prompt_len=24, max_seq=MAX_SEQ,
               replicas=4, page_size=8)
     js = JServer(JServeConfig(**sc))
@@ -152,14 +160,16 @@ def test_server_matches_jax_server(arch):
     # KV-prefix multicast: identical records, each replica's pages pinned
     rng = np.random.default_rng(5)
     prefix = rng.integers(0, js.cfg.vocab_size, 16).astype(np.int32)
-    jentry = js.register_prefix(prefix)
-    tentry = ts.register_prefix(prefix)
-    assert tentry.broadcast == jentry.broadcast
-    assert sorted(tentry.replica_paged) == [0, 1, 2, 3]
-    for pages in tentry.replica_paged.values():
-        np.testing.assert_array_equal(_bits(pages), _bits(TK.paged_ref(tentry.dense, 8)))
-    np.testing.assert_allclose(tentry.dense.float().numpy(),
-                               np.asarray(jentry.dense, np.float32), atol=5e-2, rtol=5e-2)
+    kv = arch not in NO_KV_MULTICAST
+    if kv:
+        jentry = js.register_prefix(prefix)
+        tentry = ts.register_prefix(prefix)
+        assert tentry.broadcast == jentry.broadcast
+        assert sorted(tentry.replica_paged) == [0, 1, 2, 3]
+        for pages in tentry.replica_paged.values():
+            np.testing.assert_array_equal(_bits(pages), _bits(TK.paged_ref(tentry.dense, 8)))
+        np.testing.assert_allclose(tentry.dense.float().numpy(),
+                                   np.asarray(jentry.dense, np.float32), atol=5e-2, rtol=5e-2)
 
     reqs = _requests(rng, prefix, js.cfg.vocab_size)
     jreqs = [js.submit(p, 6, arrival=a) for p, a in reqs]
@@ -169,7 +179,8 @@ def test_server_matches_jax_server(arch):
                 "prefix_entries", "prefix_bytes", "latency_ticks_p50", "latency_ticks_p99",
                 "weight_multicast", "kv_multicast"):
         assert tout[key] == jout[key], key
-    assert [r.prefix_hit for r in treqs] == [True, False, True, False, True, True]
+    assert [r.prefix_hit for r in treqs] == (
+        [True, False, True, False, True, True] if kv else [False] * 6)
     _check_tokens(js, jreqs, treqs, prefix.size)
 
     # elastic scale-down: the same lost ids and re-formed chains, and the
@@ -179,6 +190,26 @@ def test_server_matches_jax_server(arch):
     assert ts.broadcast_weights(chunk_bytes=1 << 18) == js.broadcast_weights(chunk_bytes=1 << 18)
     assert list(ts.last_delivery) == [1]
     np.testing.assert_array_equal(ts.last_delivery[1].numpy(), js.last_delivery[1])
+
+
+@pytest.mark.parametrize("arch", NO_KV_MULTICAST)
+def test_register_prefix_refuses_mamba_caches_like_jax(arch):
+    """Both packages' servers refuse a prefix for a model with mamba
+    layers (its conv/ssm cache leaves have no per-position axis) with
+    ``ValueError``, and register nothing: the prefix cache, the KV
+    multicast log and every replica's cache stay as they were."""
+    sc = dict(arch=arch, smoke=True, batch=2, prompt_len=24, max_seq=MAX_SEQ, replicas=4,
+              page_size=8)
+    js, ts = JServer(JServeConfig(**sc)), Server(ServeConfig(**sc), device="cpu")
+    before = [t.clone() for t in leaves(ts.cache)]
+    prefix = np.random.default_rng(5).integers(0, ts.cfg.vocab_size, 16).astype(np.int32)
+    for server in (js, ts):
+        with pytest.raises(ValueError, match="per-position"):
+            server.register_prefix(prefix)
+        assert server.prefix_cache.entries == [] and server.kv_multicast_log == []
+        assert server.prefix_cache.total_bytes == 0
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves(ts.cache)))
+    assert {"conv", "ssm"} <= {k for g in ts.cache["layers"] for p in g for k in p}
 
 
 def test_single_replica_records_are_noops():
