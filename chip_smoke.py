@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's serving and training paths on one NVIDIA card
-and check them.
+"""Run the PyTorch port's serving, decoding and training paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,8 @@ Phases (any failure exits non-zero and prints no result):
    (``wgmma`` for bf16/f16, ``tf32x3`` for f32, asserted per case)
    against the plain twin, within the stated tolerances: the serve
    phase's prefill shape and a 4096-token prefill, each in bf16 and in
-   f32, the moe and hybrid serve phases' prefill shapes, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
+   f32, the moe and hybrid serve phases' and the vlm decode phase's
+   prefill shapes, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
    prefills at head dims 40 (bf16, padded to 64), 192 and 256 (f32, on a
    cluster of two blocks). f32 cases print two bounds: the CUDA cores'
    f32 rate and the 3xTF32 rate (the TF32 tensor-core rate over the
@@ -90,7 +91,29 @@ Phases (any failure exits non-zero and prints no result):
    (wgmma) for the refused prefix's prefill and each miss, the flash
    prefill logits against the reference's, and the mamba layers' two
    forms and times as in ssm serve;
-11. train: yi-6b at full width (depth cut to 4 layers,
+11. vlm decode: qwen2-vl-7b at full width and full depth (28 layers,
+   M-RoPE, 28 heads on 4 KV heads, 7.6 B params) through
+   ``make_prefill_step`` and ``make_serve_step``: 4 prompts of 512 random
+   embeddings at Qwen2-VL's image-then-text positions, then 32 greedy
+   steps at a scalar position: 28 flash launches (wgmma), the flash
+   logits against the reference attention's, the first decode step
+   against a prefill of the S + 1 rows, the image layout against text
+   positions, no host wait in a decode step;
+12. audio decode: whisper-tiny at full size (1500 frames, reference
+   attention): the flash encoder refused at 1500 frames as JAX refuses
+   it, a prefill of 4 prompts of 64 tokens, 32 per-slot decode steps,
+   each step's logits against the forward over the tokens so far, the
+   scalar-position step equal to the per-slot one, no kernel launch;
+13. audio train: whisper-tiny at full size through ``make_train_step``
+   on 4 virtual DP ranks of 4 x 448 tokens and their frames, Torrent
+   reduction (rs_ag, K = 2): the first batch's loss and grads of the
+   4-rank reduction against one rank's on the whole batch (``TRAIN_*_TOL``;
+   a quarter batch's grads must miss), then 6 exact and 6 int8 + EF
+   steps: finite losses, the first within ``TRAIN_LOSS_REL_TOL`` of the
+   one-rank loss, the last below the first, every param moved, wire
+   bytes equal to the byte model and the int8 payload a quarter of the
+   exact one plus its scales, no kernel launch;
+14. train: yi-6b at full width (depth cut to 4 layers,
    ``attn_impl="reference"`` as the JAX trainer uses, random weights from
    a seed) on 4 virtual data-parallel ranks, Markov batches of 8 x 512
    tokens, Torrent gradient reduction (``rs_ag``, K = 2). One step's
@@ -110,7 +133,7 @@ Phases (any failure exits non-zero and prints no result):
    (int8 + EF, a failure injected at step 13): one restart from a
    checkpoint written from the card, and every step's loss within
    ``CLI_LOSS_TOL`` of a CPU Trainer's from the same initial params;
-12. ep train: expert parallelism inside the Torrent train step:
+15. ep train: expert parallelism inside the Torrent train step:
    deepseek-moe-16b at full width (depth cut 28 -> 2 layers, 1 dense + 1
    MoE) on 4 virtual DP ranks of 2 x 512 tokens, through a ``Trainer``
    with ``moe_ep_dispatch``: one forward over the ranks whose MoE layer
@@ -265,6 +288,26 @@ def l2_flush():
     return lambda: buf.sum()
 
 
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch counters to 0."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relayout import ops as R
+
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    R.relayout.launches = 0
+    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+
+
+def read_launches() -> dict:
+    """The relayout's launches and the flash kernel's per route."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.kernels.relayout import ops as R
+
+    return {"relayout": R.relayout.launches,
+            **{f"flash_attention_{r}": n for r, n in FA.flash_attention.launches_by_route.items()}}
+
+
 def div64_calls(sass: str) -> int:
     """Subroutine calls in ``cuobjdump -sass`` output. The relayout
     kernels call no function of their own, so a call there is one the
@@ -381,6 +424,9 @@ def flash_phase() -> dict:
         # the hybrid serve phase's (jamba-v0.1-52b's GQA layer: 32 heads,
         # 8 KV heads, no positions)
         ("jamba_prefill", 1, 32, 8, 512, 128, bf16, True, None, "wgmma"),
+        # the vlm decode phase's (qwen2-vl-7b: 28 heads on 4 KV heads, a
+        # GQA group of 7; make_prefill_step runs the batch's 4 prompts at once)
+        ("qwen2vl_prefill", 4, 28, 4, 512, 128, bf16, True, None, "wgmma"),
         ("f32_window", 2, 4, 2, 384, 64, f32, True, 48, "tf32x3"),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, f32, False, 100, "tf32x3"),
         # h2o-danube-1.8b's head dim, padded 80 -> 128
@@ -487,8 +533,7 @@ def f32_attention_path() -> dict:
         k = torch.randn((1, Hkv, S, D), device="cuda", generator=gen)
         v = torch.randn((1, Hkv, S, D), device="cuda", generator=gen)
         calls.append((q, k, v, FA.flash_attention_plain(q, k, v)))
-    FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    reset_launches()
     outs = [FA.flash_attention(q, k, v) for q, k, v, _ in calls]
     torch.cuda.synchronize()
     by_route = dict(FA.flash_attention.launches_by_route)
@@ -766,10 +811,7 @@ def serve_phase(label: str) -> dict:
     V = cfg.vocab_size
     prefix, prompts = serve_prompts(V)
 
-    R.relayout.launches = 0
-    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
-    FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
     spans = {}
@@ -1066,9 +1108,12 @@ def mem_spans():
 
 def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo) -> dict:
     """Drive a ``Trainer``'s state and step function ``steps`` steps (and
-    one more under the profiler) and return the run's record: losses,
+    one more under the profiler) and return the run's record (``tr`` may
+    be any object with a ``state`` dict, a ``step_fn`` and a
+    ``_device_batch(i)``): losses,
     per-step wall, CUDA-event spans, tokens/s, the executor's wire bytes
-    per step against the byte model's (they must be equal), the bytes of
+    per step against the byte model's (they must be equal) and the int8
+    frames' scale bytes among them, the bytes of
     the expert-parallel all-to-alls (the programs the ``fwd_bwd`` span
     ran: the executor's count when that span ends, and the byte model of
     the ``all_to_all`` programs), the modeled CC, peak memory, allocator
@@ -1106,7 +1151,7 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
     torch.cuda.reset_peak_memory_stats()
     retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
     state_gb = torch.cuda.memory_allocated() / 1e9  # params, AdamW moments, EF residuals
-    losses, walls, span_ms, wire, model, ep, ep_model, cc, gc_s = ([] for _ in range(9))
+    losses, walls, span_ms, wire, model, ep, ep_model, cc, gc_s, scales = ([] for _ in range(10))
     peak = torch.cuda.max_memory_allocated()  # the state
     for i in range(steps):
         cw.wire_counter.reset()
@@ -1126,6 +1171,10 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
         ep_model.append(modeled("all_to_all"))
         cc.append(sum(n * sim.program_latency(topo, 0, p, size)
                       for (p, size, _), n in cw.wire_counter.runs.items()))
+        # the f32 scale (4 B) each int8 frame carries
+        scales.append(sum(n * 4 * sum(st.num_permutes() for st in p.steps
+                                      if p.step_wire_dtype(st) == "int8")
+                          for (p, _, _), n in cw.wire_counter.runs.items()))
         if wire[-1] != model[-1] or ep[-1] != ep_model[-1]:
             raise AssertionError(f"{label} step {i}: executor wire bytes {wire[-1]} (EP "
                                  f"{ep[-1]}) != program_wire_bytes {model[-1]} (EP "
@@ -1143,7 +1192,7 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
         "window_tokens_per_s": steps * tokens_per_step / sum(walls),
         "spans_ms": span_ms[-1], "max_fwd_bwd_ms": max(max(m["fwd_bwd"]) for m in span_ms),
         "step_gc_s": gc_s,
-        "wire_bytes_per_step": wire[-1],
+        "wire_bytes_per_step": wire[-1], "wire_scale_bytes_per_step": scales[-1],
         "modeled_wire_bytes_per_step": model[-1], "modeled_cc_per_step": cc[-1],
         "ep_wire_bytes_per_step": ep[-1], "ep_modeled_wire_bytes_per_step": ep_model[-1],
         "peak_memory_gb": peak_gb, "alloc_retries": retries,
@@ -1172,8 +1221,6 @@ def train_phase() -> dict:
     from repro_torch.core import chainwrite_ref as ref
     from repro_torch.core.topology import MeshTopology
     from repro_torch.data.pipeline import MarkovSource, make_device_placer
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.relayout import ops as R
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.launch.train import TrainConfig, Trainer
@@ -1201,10 +1248,7 @@ def train_phase() -> dict:
     def init():
         return T.model_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
 
-    FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
-    R.relayout.launches = 0
-    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
 
     # 1. one step's grads, reduced per leaf and bucketed
@@ -1298,8 +1342,7 @@ def train_phase() -> dict:
             np.isfinite(card["losses"]).all() and len(card["losses"]) == len(cpu["losses"])
             and diff < CLI_LOSS_TOL and card["last_loss"] < card["first_loss"]):
         raise AssertionError(f"train cli: card {card['losses']} cpu {cpu['losses']}")
-    launches = {**{f"flash_attention_{r}": n for r, n in FA.flash_attention.launches_by_route.items()},
-                "relayout": R.relayout.launches}
+    launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"train: the training path launched kernels {launches}")
     print(f"train: losses exact {runs['exact']['losses']}", flush=True)
@@ -1328,18 +1371,13 @@ def ep_train_phase() -> dict:
     import torch
     from repro_torch import configs as C
     from repro_torch.core.topology import MeshTopology
-    from repro_torch.kernels.flash_attention import ops as FA
-    from repro_torch.kernels.relayout import ops as R
     from repro_torch.launch.train import TrainConfig, Trainer
     from repro_torch.tree import leaves
 
     gc.collect()
     torch.cuda.empty_cache()
     layers, dp, B, S, steps, K = 2, 4, 8, 512, 6, 2
-    FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
-    R.relayout.launches = 0
-    R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
+    reset_launches()
     runs = {}
     for name, int8 in (("exact", False), ("int8_ef", True)):
         spans = mem_spans()
@@ -1367,8 +1405,7 @@ def ep_train_phase() -> dict:
         runs[name] = rec
         del tr
         torch.cuda.empty_cache()
-    launches = {**{f"flash_attention_{r}": n for r, n in FA.flash_attention.launches_by_route.items()},
-                "relayout": R.relayout.launches}
+    launches = read_launches()
     if any(launches.values()):
         raise AssertionError(f"ep train: the training path launched kernels {launches}")
     ex, q8 = runs["exact"], runs["int8_ef"]
@@ -1376,6 +1413,410 @@ def ep_train_phase() -> dict:
           f"{q8['ep_wire_bytes_per_step']}; tokens/s exact {ex['tokens_per_s']:.1f} int8+ef "
           f"{q8['tokens_per_s']:.1f}; kernel launches {launches}", flush=True)
     return {"train_launches": launches, "runs": runs}
+
+# qwen2-vl's image-then-text layout: a 1 x 16 x 16 patch grid, then 256
+# text tokens, 32 greedy decode steps
+VLM_GRID, VLM_TEXT, VLM_STEPS = (16, 16), 256, 32
+# the first decode step's logits against a reference prefill of the S + 1
+# rows (tests/test_models_smoke.py:217's bound), relative to the logit
+# scale; and the least change, relative to that scale, that the image
+# layout's positions must make against text positions
+DECODE_REL_TOL = 8e-2
+POSITION_EFFECT_MIN = 0.1
+# the audio train phase's 4-rank Torrent reduction against one rank on the
+# whole batch: the loss, relative; each grad leaf's error norm over its norm
+# (the two differ by bf16 roundings of per-rank matmuls)
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_GRAD_REL_TOL = 2e-2
+
+
+def generate(prefill_step, serve_step, params, batch, steps: int, pos_at):
+    """Prefill ``batch``, then ``steps`` greedy decode steps (step i at
+    position ``pos_at(i)``), with every kernel's launch count set to 0
+    just before and read just after. Returns the prefill's logits, the
+    generated tokens ((B,) each, ``steps`` + 1), the cache, the wall
+    seconds, the launches, the allocator's retries and the peak memory
+    (GB)."""
+    import torch
+
+    with torch.no_grad():
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        retries0 = torch.cuda.memory_stats()["num_alloc_retries"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch)
+        cur = logits.argmax(-1).to(torch.int32)
+        generated = [cur]
+        for i in range(steps):
+            cur, cache = serve_step(params, cur, pos_at(i), cache)
+            generated.append(cur)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
+    return (logits, generated, cache, wall, launches, retries,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def vlm_positions(B: int, grid: tuple[int, int], text: int, device):
+    """(3, B, gh*gw + text) int32 M-RoPE positions of an image followed
+    by text, as Qwen2-VL lays them out: patch i of the (1, gh, gw) grid
+    at (0, i // gw, i % gw), then text whose three streams run on from
+    the grid's maximum + 1."""
+    import torch
+
+    gh, gw = grid
+    i = torch.arange(gh * gw, device=device)
+    img = torch.stack([torch.zeros_like(i), i // gw, i % gw])
+    t = max(gh, gw) + torch.arange(text, device=device)
+    pos = torch.cat([img, t.expand(3, text)], 1).to(torch.int32)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+
+
+def vlm_decode_phase() -> dict:
+    """qwen2-vl-7b at full width and full depth (28 layers, M-RoPE,
+    ``attn_impl="flash"``, random f32 weights from a seed) through the
+    step builders JAX's cells use: ``make_prefill_step(cfg, 546)`` on 4
+    prompts of 512 random bf16 embeddings at the image-then-text
+    positions, then ``VLM_STEPS`` greedy ``make_serve_step`` steps at a
+    scalar position (JAX's M-RoPE decode takes no per-slot one). The
+    flash kernel launches once per layer of the prefill (28, ``wgmma``),
+    no relayout, no allocator retry; the flash prefill's logits against
+    the reference attention's (``LOGIT_REL_TOL``), the first decode
+    step's against a reference prefill of the S + 1 rows
+    (``DECODE_REL_TOL``), the image layout's against text positions
+    (apart by at least ``POSITION_EFFECT_MIN`` of the scale); every
+    logit finite. Prints event times of one prefill of the batch and of
+    one decode step, tokens/s, peak memory and a profiled run."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(C.get_config("qwen2-vl-7b"), attn_impl="flash")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    B, max_seq = SERVE_CONFIG["batch"], SERVE_CONFIG["max_seq"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.model_init(gen, cfg, "cuda")
+    positions = vlm_positions(B, VLM_GRID, VLM_TEXT, "cuda")
+    S = positions.shape[2]
+    # patch and text embeddings at the token table's scale
+    embeds = (torch.randn((B, S, cfg.d_model), device="cuda", generator=gen) * 0.02).to(
+        torch.bfloat16)
+    batch = {"embeds": embeds, "positions": positions}
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    print(f"vlm decode: qwen2-vl-7b, {cfg.num_layers} layers, model init "
+          f"{time.perf_counter() - t0:.2f}s, {n_params} params ({4 * n_params / 1e9:.2f} GB f32)",
+          flush=True)
+    prefill_step, serve_step = make_prefill_step(cfg, max_seq), make_serve_step(cfg)
+    # decode step i runs at S + i: the reference's decode_step takes one
+    # pos for the cache row it writes and the rotary position, so it cannot
+    # rotate at Qwen2-VL's positions.max() + 1 + i (the rope delta) while
+    # writing row S + i
+
+    def pos_at(t):
+        return torch.tensor(t, dtype=torch.int32, device="cuda")
+
+    logits, generated, cache, wall, launches, retries, peak_gb = generate(
+        prefill_step, serve_step, params, batch, VLM_STEPS, lambda i: pos_at(S + i))
+    cur = generated[-1]
+    with torch.no_grad():
+        ref, _ = T.prefill(params, ref_cfg, batch, max_seq)
+        _, fresh = prefill_step(params, batch)
+        first, _ = T.decode_step(params, cfg, generated[0], pos_at(S), fresh)
+        del fresh
+        longer = {"embeds": torch.cat([embeds, embed(params["embed"], generated[0][:, None])], 1),
+                  "positions": torch.cat([positions, torch.full((3, B, 1), S, dtype=torch.int32,
+                                                                device="cuda")], 2)}
+        full, _ = T.prefill(params, ref_cfg, longer, max_seq)
+        text = torch.arange(S, dtype=torch.int32, device="cuda").expand(3, B, S)
+        as_text, _ = prefill_step(params, {"embeds": embeds, "positions": text})
+        torch.cuda.synchronize()
+        prefill_ms = time_ms(lambda: prefill_step(params, batch), iters=3, warmup=1)
+        last = pos_at(S + VLM_STEPS)
+        decode_ms = time_ms(lambda: serve_step(params, cur, last, cache), iters=10)
+        syncs = host_syncs(lambda: serve_step(params, cur, last, cache))
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    rec = {"batch": B, "prompt": S, "grid": list(VLM_GRID), "new_tokens": VLM_STEPS,
+           "params": n_params, "wall_s": wall,
+           "tokens_per_s": B * (VLM_STEPS + 1) / wall,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "decode_tokens_per_s": B / decode_ms * 1e3,
+           "flash_vs_reference_rel": rel(logits, ref),
+           "decode_vs_prefill_rel": rel(first, full),
+           "image_vs_text_positions_rel": rel(as_text, logits),
+           "argmax": [int(logits[0].argmax()), int(ref[0].argmax())],
+           "cache_bytes": sum(t.nbytes for t in leaves(cache)), "decode_host_syncs": syncs,
+           "peak_memory_gb": peak_gb, "alloc_retries": retries, "launches": launches}
+    print("vlm decode", json.dumps(rec), flush=True)
+    if syncs:
+        raise AssertionError(f"vlm decode: a decode step makes the host wait for the card "
+                             f"{syncs} times")
+    if not all(torch.isfinite(t).all() for t in (logits, ref, first, full, as_text)):
+        raise AssertionError("vlm decode: non-finite logits")
+    if launches != {"relayout": 0, "flash_attention_wgmma": cfg.num_layers,
+                    "flash_attention_tf32x3": 0}:
+        raise AssertionError(f"vlm decode: launches {launches}, the path makes "
+                             f"{cfg.num_layers} wgmma flash launches (one prefill)")
+    if retries:
+        raise AssertionError(f"vlm decode: the caching allocator retried {retries} times")
+    if rec["flash_vs_reference_rel"] > LOGIT_REL_TOL:
+        raise AssertionError(f"vlm decode: flash prefill logits {rec['flash_vs_reference_rel']} "
+                             f"of the scale from the reference's (> {LOGIT_REL_TOL})")
+    if rec["decode_vs_prefill_rel"] > DECODE_REL_TOL:
+        raise AssertionError(f"vlm decode: the first decode step's logits "
+                             f"{rec['decode_vs_prefill_rel']} of the scale from a prefill of "
+                             f"S + 1 rows (> {DECODE_REL_TOL})")
+    if rec["image_vs_text_positions_rel"] < POSITION_EFFECT_MIN:
+        raise AssertionError(f"vlm decode: the image layout moves the logits only "
+                             f"{rec['image_vs_text_positions_rel']} of the scale")
+
+    def profiled():
+        with torch.no_grad():
+            _, c = prefill_step(params, batch)
+            t = generated[0]
+            for i in range(8):
+                t, c = serve_step(params, t, pos_at(S + i), c)
+
+    device_breakdown("vlm decode: prefill + 8 decode steps", profiled)
+    del params, cache
+    return launches
+
+
+AUDIO_PROMPT, AUDIO_STEPS, AUDIO_MAX_SEQ = 64, 32, 128
+
+
+def audio_frames(gen, B: int, cfg):
+    """Random bf16 frame embeddings (the stub conv frontend's output)."""
+    import torch
+
+    return torch.randn((B, cfg.encoder_seq_len, cfg.d_model), device="cuda",
+                       generator=gen).to(torch.bfloat16)
+
+
+def audio_decode_phase() -> dict:
+    """whisper-tiny at full size (4 encoder + 4 decoder layers, 1500
+    frames, vocab 51,865; reference attention, random weights from a
+    seed): first, the flash encoder at 1500 frames must be refused with
+    JAX's ``ValueError``. Then ``make_prefill_step`` on 4 prompts of 64
+    tokens with their frames, and ``AUDIO_STEPS`` greedy
+    ``make_serve_step`` steps at a per-slot ``(B,)`` position. Each
+    step's logits (the same decode replayed) against ``forward_hidden``
+    over the prompt plus the tokens so far (``DECODE_REL_TOL``); the
+    scalar-position step equal to the per-slot one; no kernel launch, no
+    allocator retry. Prints event times of ``encode``, the prefill and a
+    decode step, tokens/s and peak memory."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import unembed
+    from repro_torch.tree import leaves, map_tree
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = C.get_config("whisper-tiny")
+    B = SERVE_CONFIG["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.model_init(gen, cfg, "cuda")
+    n_params = sum(p.numel() for p in leaves(params))
+    frames = audio_frames(gen, B, cfg)
+    prompts = torch.randint(0, cfg.vocab_size, (B, AUDIO_PROMPT), device="cuda", generator=gen,
+                            dtype=torch.int32)
+    batch = {"tokens": prompts, "enc_frames": frames}
+    with torch.no_grad():
+        try:
+            T.encode(params, dataclasses.replace(cfg, attn_impl="flash"), frames)
+        except ValueError as e:
+            print(f"audio decode: flash encoder at {cfg.encoder_seq_len} frames refused: {e}",
+                  flush=True)
+        else:
+            raise AssertionError("audio decode: the flash encoder took 1500 frames")
+    prefill_step = make_prefill_step(cfg, AUDIO_MAX_SEQ)
+    serve_step = make_serve_step(cfg)
+
+    def pos_at(t):
+        return torch.full((B,), t, dtype=torch.int32, device="cuda")
+
+    _, generated, cache, wall, launches, retries, peak_gb = generate(
+        prefill_step, serve_step, params, batch, AUDIO_STEPS, lambda i: pos_at(AUDIO_PROMPT + i))
+    cur = generated[-1]
+    with torch.no_grad():
+        # replay the decode for its logits, each against the forward
+        _, cache = prefill_step(params, batch)
+        toks, errs, same_tokens, scalar_equal = prompts, [], 0, True
+        for i in range(AUDIO_STEPS):
+            t = generated[i]
+            toks = torch.cat([toks, t[:, None]], 1)
+            p = AUDIO_PROMPT + i
+            scalar, _ = T.decode_step(params, cfg, t, torch.tensor(p, dtype=torch.int32,
+                                                                   device="cuda"),
+                                      map_tree(torch.clone, cache))
+            step, cache = T.decode_step(params, cfg, t, pos_at(p), cache)
+            scalar_equal &= bool(torch.equal(scalar, step))
+            same_tokens += int(torch.equal(step.argmax(-1).to(torch.int32), generated[i + 1]))
+            hidden, _ = T.forward_hidden(params, cfg, {"tokens": toks, "enc_frames": frames},
+                                         remat="none")
+            want = unembed(params["lm_head"], hidden[:, -1])
+            if not (torch.isfinite(step).all() and torch.isfinite(want).all()):
+                raise AssertionError(f"audio decode step {i}: non-finite logits")
+            errs.append(float((step - want).abs().max() / want.abs().max()))
+        encode_ms = time_ms(lambda: T.encode(params, cfg, frames), iters=10)
+        prefill_ms = time_ms(lambda: prefill_step(params, batch), iters=10)
+        first = pos_at(AUDIO_PROMPT)
+        decode_ms = time_ms(lambda: serve_step(params, cur, first, cache), iters=20)
+        syncs = host_syncs(lambda: serve_step(params, cur, first, cache))
+    rec = {"batch": B, "prompt": AUDIO_PROMPT, "frames": cfg.encoder_seq_len,
+           "new_tokens": AUDIO_STEPS, "params": n_params, "wall_s": wall,
+           "tokens_per_s": B * (AUDIO_STEPS + 1) / wall, "encode_ms": encode_ms,
+           "prefill_ms": prefill_ms, "decode_step_ms": decode_ms,
+           "decode_tokens_per_s": B / decode_ms * 1e3,
+           "decode_vs_forward_rel_max": max(errs), "decode_vs_forward_rel_median":
+           sorted(errs)[len(errs) // 2], "scalar_equals_per_slot": scalar_equal,
+           "replayed_steps_same_tokens": same_tokens,
+           "cache_bytes": sum(t.nbytes for t in leaves(cache)), "decode_host_syncs": syncs,
+           "peak_memory_gb": peak_gb, "alloc_retries": retries, "launches": launches}
+    print("audio decode", json.dumps(rec), flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"audio decode: kernel launches {launches} (the path has none)")
+    if retries:
+        raise AssertionError(f"audio decode: the caching allocator retried {retries} times")
+    if not scalar_equal:
+        raise AssertionError("audio decode: a scalar-position step differs from the per-slot one")
+    if syncs:
+        raise AssertionError(f"audio decode: a decode step makes the host wait for the card "
+                             f"{syncs} times")
+    if max(errs) > DECODE_REL_TOL:
+        raise AssertionError(f"audio decode: a step's logits are {max(errs)} of the scale from "
+                             f"the forward's (> {DECODE_REL_TOL})")
+    del params, cache
+    return launches
+
+
+def audio_train_phase() -> dict:
+    """whisper-tiny at full size through ``make_train_step``
+    (``collectives="torrent"``, K = 2, rs_ag; the ranks' rows split along
+    ``parallel.sharding.batch_pspecs``' axes) on 4 virtual DP ranks of 4
+    sequences of 448 decoder tokens (whisper's target length; Markov
+    tokens) with their (16, 1500, 384) bf16 frames (random from the
+    step's seed), reference attention. First, on the first batch from
+    the init: the 4-rank Torrent reduction's loss and grads (the step's
+    ``grad_fn``) against one rank's ``make_grad_fn`` on the whole batch,
+    within ``TRAIN_LOSS_REL_TOL`` and ``TRAIN_GRAD_REL_TOL`` (every
+    leaf's error norm over its grad norm), and a quarter batch's grads
+    beyond the latter (the check tells the batch apart). Then 6 exact
+    steps and 6 of int8 + error feedback, from that init (driven by
+    ``drive_trainer``): finite losses, the first step's within
+    ``TRAIN_LOSS_REL_TOL`` of the one-rank loss, the last below the
+    first; every param leaf moved; each step's wire bytes equal to
+    ``program_wire_bytes``; the int8 run's payload a quarter of the exact
+    run's wire bytes (up to each frame's rounding) plus its scales; no
+    allocator retry; no kernel launch."""
+    import types
+
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core.topology import MeshTopology
+    from repro_torch.data.pipeline import MarkovSource, make_device_placer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.collectives import (
+        ef_residual_init, split_batch, torrent_grad_reduce)
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = C.get_config("whisper-tiny")
+    dp, B, S, steps, K = 4, 16, 448, 6, 2
+    mesh = make_host_mesh(data=dp)
+    specs = sharding.batch_pspecs(cfg, C.Shape("audio_train", "train", S, B))
+    source = MarkovSource(vocab=cfg.vocab_size, seq_len=S, global_batch=B, seed=1)
+    place = make_device_placer("cuda")
+
+    def device_batch(i):
+        frames = audio_frames(torch.Generator(device="cuda").manual_seed(100 + i), B, cfg)
+        return {**place(source.batch(i)), "enc_frames": frames}
+
+    def init_params():
+        return T.model_init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+
+    def worst_leaf(got, want):
+        return max(float((a - b).norm() / b.norm()) for a, b in zip(leaves(got), leaves(want)))
+
+    reset_launches()
+    params, batch = init_params(), device_batch(0)
+    one_rank = make_grad_fn(cfg, loss_chunks=8)
+    g1, m1 = one_rank(params, batch)
+    g4, m4 = torrent_grad_reduce(make_grad_fn(cfg, loss_chunks=8), mesh, specs,
+                                 num_chains=K, algo="rs_ag")(params, batch)
+    quarter, _ = one_rank(params, split_batch(batch, dp, 0, specs))
+    ref_loss = float(m1["loss"])
+    check = {"loss_one_rank": ref_loss, "loss_rel": abs(float(m4["loss"]) / ref_loss - 1),
+             "grad_rel_worst_leaf": worst_leaf(g4, g1),
+             "quarter_batch_grad_rel_worst_leaf": worst_leaf(quarter, g1)}
+    print("audio train: 4 ranks vs one rank on the whole batch", json.dumps(check), flush=True)
+    if not (check["loss_rel"] <= TRAIN_LOSS_REL_TOL
+            and check["grad_rel_worst_leaf"] <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"audio train: the 4-rank reduction's loss or grads miss one rank's "
+                             f"on the whole batch ({TRAIN_LOSS_REL_TOL}, {TRAIN_GRAD_REL_TOL}): "
+                             f"{check}")
+    if check["quarter_batch_grad_rel_worst_leaf"] <= TRAIN_GRAD_REL_TOL:
+        raise AssertionError(f"audio train: a quarter batch's grads pass the grad check: {check}")
+    del params, batch, g1, g4, quarter
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, compress in (("exact", False), ("int8_ef", True)):
+        spans = mem_spans()
+        params = init_params()
+        init = [p.clone() for p in leaves(params)]
+        state = {"params": params, "opt": adamw.init(params)}
+        if compress:
+            state["ef"] = ef_residual_init(params, dp)
+        step_fn = make_train_step(
+            cfg, adamw.OptConfig(peak_lr=5e-4, warmup_steps=2, decay_steps=steps),
+            collectives="torrent", num_chains=K, ar_algo="rs_ag", compress_grads=compress,
+            error_feedback=compress, mesh=mesh, loss_chunks=8, spans=spans)
+        tr = types.SimpleNamespace(state=state, step_fn=step_fn, _device_batch=device_batch)
+        rec = drive_trainer(f"audio train {name}", tr, spans, steps, B * S, MeshTopology(dp, 1))
+        moved = sum(not torch.equal(a, b) for a, b in zip(init, leaves(tr.state["params"])))
+        rec["leaves_moved"] = [moved, len(init)]
+        losses = rec["losses"]
+        if (not np.isfinite(losses).all() or moved != len(init) or losses[-1] >= losses[0]
+                or abs(losses[0] / ref_loss - 1) > TRAIN_LOSS_REL_TOL):
+            raise AssertionError(f"audio train {name}: losses {losses} (the first within "
+                                 f"{TRAIN_LOSS_REL_TOL} of one rank's {ref_loss}, the last "
+                                 f"below it), {moved} of {len(init)} param leaves moved")
+        runs[name] = rec
+        del tr, state, params, init
+        torch.cuda.empty_cache()
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"audio train: kernel launches {launches} (the path has none)")
+    exact = runs["exact"]["wire_bytes_per_step"]
+    q8, scales = runs["int8_ef"]["wire_bytes_per_step"], runs["int8_ef"]["wire_scale_bytes_per_step"]
+    print(f"audio train: wire bytes per step exact {exact} int8 {q8} (scales {scales}, payload "
+          f"x 4 / exact {4 * (q8 - scales) / exact:.6f}); tokens/s exact "
+          f"{runs['exact']['tokens_per_s']:.1f} int8+ef {runs['int8_ef']['tokens_per_s']:.1f}; "
+          f"kernel launches {launches}", flush=True)
+    # each int8 frame is its f32 frame's bytes / 4, rounded up, + 4 B
+    if not 0 <= 4 * (q8 - scales) - exact < scales:
+        raise AssertionError(f"audio train: int8 wire {q8} B (scales {scales}) is not a quarter "
+                             f"of the exact {exact} B plus its scales")
+    return launches
 
 
 def main() -> int:
@@ -1435,6 +1876,9 @@ def main() -> int:
     mla = serve_phase("mla serve")
     ssm = serve_phase("ssm serve")
     hybrid = serve_phase("hybrid serve")
+    vlm = vlm_decode_phase()
+    audio = audio_decode_phase()
+    audio_train = audio_train_phase()
     print(f"kv multicast per position: mla serve F {mla['kv']['F']} ({mla['kv']['F_per_layer']} "
           f"a layer), {mla['kv']['payload_bytes']} B; moe serve F {moe['kv']['F']} "
           f"({moe['kv']['F_per_layer']} a layer), {moe['kv']['payload_bytes']} B; ratio "
@@ -1452,7 +1896,9 @@ def main() -> int:
     def row(name, source, replaces, rec, bound_by, **extra):
         by_path = {"serve_or_f32": launches[name], "moe_serve": moe_launches[name],
                    "mla_serve": mla_launches[name], "ssm_serve": ssm_launches[name],
-                   "hybrid_serve": hybrid_launches[name], "train": train["train_launches"][name],
+                   "hybrid_serve": hybrid_launches[name], "vlm_decode": vlm[name],
+                   "audio_decode": audio[name], "audio_train": audio_train[name],
+                   "train": train["train_launches"][name],
                    "ep_train": ep_train["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1484,6 +1930,7 @@ def main() -> int:
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"],
             dsmoe_prefill=sub("dsmoe_prefill"), jamba_prefill=sub("jamba_prefill"),
+            qwen2vl_prefill=sub("qwen2vl_prefill"),
             bf16_d40=sub("bf16_d40"),
             d80_gqa=sub("d80_gqa")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",

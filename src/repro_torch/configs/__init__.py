@@ -3,7 +3,8 @@
 ``get_config(arch_id)`` / ``get_smoke_config(arch_id)`` resolve by the
 public architecture id (e.g. ``"llama3-8b"``). The arch files are copies
 of ``repro.configs``'s, pinned field for field by
-``tests/test_torch_core.py``.
+``tests/test_torch_core.py``; ``shapes`` holds the assigned input
+shapes and their meta-tensor input specs.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.models.config import ModelConfig
+
+from .shapes import LONG_CONTEXT_ARCHS, SHAPES, Shape, applicable, input_specs
 
 _MODULES: dict[str, str] = {
     "starcoder2-3b": "starcoder2_3b",
@@ -42,4 +45,13 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _load(arch).SMOKE_CONFIG
 
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config"]
+__all__ = [
+    "ARCHS",
+    "LONG_CONTEXT_ARCHS",
+    "SHAPES",
+    "Shape",
+    "applicable",
+    "get_config",
+    "get_smoke_config",
+    "input_specs",
+]

@@ -111,7 +111,9 @@ class Server:
     ``device`` defaults to ``"cuda"`` (raises without a card unless
     ``"cpu"`` is asked for). ``model_cfg`` replaces the ``sc.arch`` /
     ``sc.smoke`` lookup (e.g. a depth-cut or ``attn_impl``-changed
-    config); with the default the model is the JAX server's."""
+    config); with the default the model is the JAX server's. A
+    vision-language or encoder-decoder model raises
+    ``NotImplementedError``: neither package's server can feed it."""
 
     def __init__(self, sc: ServeConfig, *, device="cuda",
                  model_cfg: ModelConfig | None = None):
@@ -121,6 +123,15 @@ class Server:
             self.cfg = model_cfg
         else:
             self.cfg = C.get_smoke_config(sc.arch) if sc.smoke else C.get_config(sc.arch)
+        if self.cfg.family == "vlm" or self.cfg.is_encdec:
+            # the slot prefill feeds tokens only: JAX's Server fails inside
+            # its first prefill for these (M-RoPE positions, encoder
+            # frames); their entry points are make_prefill_step and
+            # make_serve_step
+            raise NotImplementedError(
+                f"Server cannot serve {self.cfg.name!r} ({self.cfg.family}): its prompts need "
+                "embeds/positions or encoder frames, which the token-only slot prefill does "
+                "not carry; the JAX Server cannot serve it either")
         gen = torch.Generator(device=self.device).manual_seed(sc.seed)
         self.params = T.model_init(gen, self.cfg, self.device)
         self.slot_prefill = make_slot_prefill_step(self.cfg, sc.max_seq)

@@ -1,4 +1,4 @@
-"""Step factories: train, serve and slot prefill — the port of
+"""Step factories: train, prefill, serve and slot prefill — the port of
 ``repro.launch.steps``.
 
 PyTorch runs eagerly, so a "step" is a plain closure over the config;
@@ -11,11 +11,13 @@ import functools
 
 import torch
 
+from repro_torch.configs.shapes import SHAPES
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.parallel import hints
+from repro_torch.parallel.sharding import batch_pspecs
 from repro_torch.parallel.collectives import (
     dp_size_of,
     split_batch,
@@ -29,13 +31,15 @@ from repro_torch.tree import leaves, map_tree, unflatten
 def make_grad_fn(cfg: ModelConfig, *, remat: str = "dots", loss_chunks: int = 8):
     """``grad_fn(params, batch) -> (grads, metrics)``: the grads of
     :func:`~repro_torch.models.transformer.loss_fn` on ``batch`` (one
-    rank's rows) with respect to every param leaf, by autograd."""
+    rank's rows) with respect to every param leaf, by autograd; a leaf
+    the loss does not read (the token table under a batch of ``embeds``)
+    gets zeros, as under ``jax.grad``."""
 
     def grad_fn(params, batch):
         ps = map_tree(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
             loss, metrics = T.loss_fn(ps, cfg, batch, remat=remat, loss_chunks=loss_chunks)
-            grads = torch.autograd.grad(loss, leaves(ps))
+            grads = torch.autograd.grad(loss, leaves(ps), materialize_grads=True)
         return unflatten(params, list(grads)), {k: v.detach() for k, v in metrics.items()}
 
     return grad_fn
@@ -140,7 +144,11 @@ def make_train_step(
     :func:`~repro_torch.parallel.collectives.torrent_grad_reduce`
     (``num_chains``, ``ar_algo``, ``compress_grads`` = int8 wire,
     ``bucket_bytes``, ``topology``); ``"xla"`` takes the plain mean of
-    the ranks' grads. ``error_feedback`` (needs ``compress_grads``)
+    the ranks' grads. The ranks' rows and the microbatches are split
+    along each batch leaf's batch axis, which ``cfg`` decides
+    (``parallel.sharding.batch_pspecs``: axis 1 of M-RoPE ``positions``
+    (3, B, S), axis 0 of every other leaf), as JAX's cells pass
+    ``batch_specs``. ``error_feedback`` (needs ``compress_grads``)
     changes the signature to ``(params, opt_state, ef_state, batch) ->
     (params, opt_state, ef_state, metrics)``. ``microbatches > 1``
     accumulates grads over M slices of the batch (a loop where JAX
@@ -187,6 +195,8 @@ def make_train_step(
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
     joint = _ep_joint(cfg, dp_size)
+    # the axes depend on the shape's kind only
+    batch_specs = batch_pspecs(cfg, SHAPES["train_4k"])
 
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
     grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
@@ -200,7 +210,8 @@ def make_train_step(
         acc, msum = None, None
         for r in range(dp_size):
             with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
-                grads, metrics = grad_fn_local(params, split_batch(batch, dp_size, r))
+                grads, metrics = grad_fn_local(params,
+                                               split_batch(batch, dp_size, r, batch_specs))
             acc = grads if acc is None else map_tree(torch.add, acc, grads)
             msum = metrics if msum is None else map_tree(torch.add, msum, metrics)
         return (map_tree(lambda g: g / dp_size, acc),
@@ -218,7 +229,8 @@ def make_train_step(
             torrent_joint_grad_reduce,
             make_joint_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks))
     else:
-        reducer = functools.partial(torrent_grad_reduce, grad_fn_local)
+        reducer = functools.partial(torrent_grad_reduce, grad_fn_local,
+                                    batch_specs=batch_specs)
 
     if collectives == "torrent":
         grad_fn = reducer(mesh, **reduce_kw)
@@ -240,7 +252,7 @@ def make_train_step(
             M = microbatches
             acc, ms = None, []
             for m in range(M):
-                grads, metrics = grad_fn(params, split_batch(batch, M, m))
+                grads, metrics = grad_fn(params, split_batch(batch, M, m, batch_specs))
                 grads = map_tree(lambda g: g.to(torch.float32), grads)
                 acc = grads if acc is None else map_tree(torch.add, acc, grads)
                 ms.append(metrics)
@@ -252,6 +264,18 @@ def make_train_step(
         return new_params, new_opt, {**metrics, **om}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, max_seq: int):
+    """``prefill_step(params, batch) -> (last-token logits (B, V),
+    cache)``: the whole batch's prompts (tokens, or embeds and M-RoPE
+    positions, plus encoder frames where the model has an encoder) at
+    once."""
+
+    def prefill_step(params, batch):
+        return T.prefill(params, cfg, batch, max_seq)
+
+    return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig):
@@ -279,7 +303,13 @@ def make_slot_prefill_step(cfg: ModelConfig, max_seq: int):
 def write_cache_slot(cache, one_cache, slot: int):
     """Write a batch=1 cache (from ``make_slot_prefill_step``) into row
     ``slot`` of a live multi-slot cache, in place; returns ``cache``.
-    Leaves are (reps, B, ...)."""
+    Leaves are (reps, B, ...). An encoder-decoder's ``enc`` leaf is
+    (B, T, d) with no ``reps`` axis, so it is refused: writing it as a
+    stacked leaf would index its frame axis (the JAX function does so,
+    and no JAX path calls it with one)."""
+    if "enc" in cache:
+        raise ValueError("write_cache_slot: an encoder-decoder cache's 'enc' leaf has no "
+                         "reps axis")
 
     def put(full, one):
         full[:, slot] = one[:, 0].to(full.dtype)

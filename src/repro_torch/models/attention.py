@@ -1,6 +1,6 @@
-"""Attention mixers: GQA (+RoPE, SWA ring-buffer caches) and MLA
-(DeepSeek-V2) — the port of ``repro.models.attention`` without M-RoPE
-and cross-attention.
+"""Attention mixers: GQA (+RoPE/M-RoPE, SWA ring-buffer caches), MLA
+(DeepSeek-V2) and whisper's cross-attention — the port of
+``repro.models.attention``.
 
 ``gqa_apply``/``gqa_prefill`` handle the full-sequence path (through the
 flash kernel when ``cfg.attn_impl == "flash"``) and ``gqa_decode`` the
@@ -14,6 +14,13 @@ use — the paper's P3/D3 multicast workload, whose KV-prefix payload is
 ``r + dr`` values a position and layer. It attends by einsums in f32, as
 JAX does, so no MLA call reaches the flash kernel; ``cfg.mla_absorb``
 absorbs the up-projections into the query and output at decode.
+
+Cross-attention (whisper's decoder) attends to the encoder output by
+f32 einsums with no mask; decode recomputes its K/V from all encoder
+rows every step (there is no cross-KV cache in either package).
+JAX's ``cfg.attn_seq_shard`` is a tensor-parallel sharding hint, a
+no-op without a TP mesh; the port has no TP mesh, so it reads it
+nowhere.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 from .config import ModelConfig
-from .layers import apply_rope, cast, normal
+from .layers import apply_mrope, apply_rope, cast, normal
 
 NEG_INF = -1e30
 
@@ -86,18 +93,19 @@ def _project_qkv(params, x, cfg: ModelConfig):
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
     if cfg.pos_scheme == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
-    if cfg.pos_scheme == "rope":
+        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.pos_scheme == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    # 'none': no positional rotation (learned PE lives at the embedding).
+    # 'learned' / 'none': positions handled at the embedding level.
     return q, k
 
 
 def gqa_apply(
     params: dict,
     x: torch.Tensor,  # (B, S, d)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S) or (3, B, S) for M-RoPE
     cfg: ModelConfig,
     *,
     causal: bool = True,
@@ -157,16 +165,22 @@ def gqa_decode(
 
     ``pos`` is either a scalar (every row at the same absolute position)
     or a ``(B,)`` vector of per-slot positions (continuous batching).
-    The new K/V rows are written into ``cache`` in place — the port
-    keeps one cache instead of copying it every token — and ``cache`` is
-    returned."""
+    With M-RoPE a scalar ``pos`` feeds all three position streams, and a
+    per-slot one raises, as JAX's does. The new K/V rows are written
+    into ``cache`` in place — the port keeps one cache instead of
+    copying it every token — and ``cache`` is returned."""
     B = x.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q, k, v = _project_qkv(params, x, cfg)  # (B,1,*,Dh)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_slot = pos.dim() == 1
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
-    q, k = _rope_qk(q, k, pos_b, cfg)
+    if cfg.mrope_sections is not None:
+        if per_slot:
+            raise NotImplementedError("per-slot decode with M-RoPE")
+        q, k = _rope_qk(q, k, pos_b.expand(3, B, 1), cfg)
+    else:
+        q, k = _rope_qk(q, k, pos_b, cfg)
 
     ck, cv = cache["k"], cache["v"]
     slots = ck.shape[1]
@@ -392,3 +406,39 @@ def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConf
     o_c = torch.einsum("bht,btr->bhr", p.to(ckv.dtype).float(), ckv.float())  # (B,H,r)
     out = torch.einsum("bhr,rhd->bhd", o_c, w_uv.float())
     return out.reshape(B, 1, H * dv).to(q_nope.dtype) @ cast(params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    d, H, Dh = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    return {
+        "wq": normal(gen, (d, H * Dh), d ** -0.5, device),
+        "wk": normal(gen, (d, H * Dh), d ** -0.5, device),
+        "wv": normal(gen, (d, H * Dh), d ** -0.5, device),
+        "wo": normal(gen, (H * Dh, d), (H * Dh) ** -0.5, device),
+    }
+
+
+def cross_attn_apply(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d) decoder states
+    enc: torch.Tensor,  # (B, T, d) encoder output
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Every decoder position attends to every encoder row (no mask),
+    scores and softmax in f32; the output is cast back to ``x``'s dtype
+    before ``wo``."""
+    B, S, _ = x.shape
+    T = enc.shape[1]
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ cast(params["wq"])).reshape(B, S, H, Dh)
+    k = (enc @ cast(params["wk"])).reshape(B, T, H, Dh)
+    v = (enc @ cast(params["wv"])).reshape(B, T, H, Dh)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (Dh ** -0.5)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    return out.reshape(B, S, H * Dh).to(x.dtype) @ cast(params["wo"])

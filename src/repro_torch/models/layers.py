@@ -106,8 +106,22 @@ def gated_rmsnorm(params: dict, x: torch.Tensor, z: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layernorm_init(d: int, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32, output in ``x``'s dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
-# Embedding
+# Embedding / unembedding
 # ---------------------------------------------------------------------------
 
 
@@ -121,8 +135,13 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
     return cast(params["table"][tokens])
 
 
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Logits in f32 (loss numerics)."""
+    return x.float() @ params["table"].float().T
+
+
 # ---------------------------------------------------------------------------
-# Dense FFN
+# Dense FFNs
 # ---------------------------------------------------------------------------
 
 
@@ -150,14 +169,41 @@ def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
     return matmul(h, params["down"])
 
 
+def gelu_mlp_init(gen: torch.Generator, d: int, ff: int, device) -> dict:
+    return {
+        "fc1": normal(gen, (d, ff), d ** -0.5, device),
+        "b1": torch.zeros((ff,), dtype=torch.float32, device=device),
+        "fc2": normal(gen, (ff, d), ff ** -0.5, device),
+        "b2": torch.zeros((d,), dtype=torch.float32, device=device),
+    }
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's FFN. ``jax.nn.gelu`` defaults to the tanh form, so this
+    one uses it too (``F.gelu``'s default is the exact erf)."""
+    h = F.gelu(matmul(x, params["fc1"]) + cast(params["b1"]), approximate="tanh")
+    return matmul(h, params["fc2"]) + cast(params["b2"])
+
+
 # ---------------------------------------------------------------------------
-# RoPE
+# RoPE (+ M-RoPE)
 # ---------------------------------------------------------------------------
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
     return 1.0 / (theta ** exps)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs ([0:D/2], [D/2:D]) of ``x`` (..., S, H, D) by f32
+    ``angles`` (..., S, D/2), shared by every head; ``x``'s dtype out."""
+    D = x.shape[-1]
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    xf1, xf2 = x[..., : D // 2].float(), x[..., D // 2 :].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
+    return out.to(x.dtype)
 
 
 def apply_rope(
@@ -167,11 +213,27 @@ def apply_rope(
 ) -> torch.Tensor:
     """Standard rotary embedding over the last dim (pairs split as
     [0:D/2], [D/2:D], llama convention)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
+    return _rotate(x, positions[..., None].float() * freqs)  # angles (..., S, D/2)
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (B, S, H, D)
+    positions: torch.Tensor,  # (3, B, S) — temporal / height / width
+    theta: float,
+    sections: tuple[int, int, int],
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the D/2 frequency slots are split into
+    three contiguous sections, each rotated by its own position stream
+    (slot i reads stream ``repeat(arange(3), sections)[i]``); the
+    rotate-half convention and f32 angles are :func:`apply_rope`'s."""
     D = x.shape[-1]
+    if sum(sections) != D // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to D/2 = {D // 2}")
     freqs = rope_freqs(D, theta, x.device)  # (D/2,)
-    angles = positions[..., None].float() * freqs  # (..., S, D/2)
-    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
-    sin = torch.sin(angles)[..., None, :]
-    xf1, xf2 = x[..., : D // 2].float(), x[..., D // 2 :].float()
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
-    return out.to(x.dtype)
+    # each slot's stream, made on the device: a host-made index would be
+    # a blocking copy in every call
+    slot = torch.arange(D // 2, device=x.device)
+    sec_ids = (slot >= sections[0]).long() + (slot >= sections[0] + sections[1]).long()
+    pos = positions.float()[sec_ids]  # (D/2, B, S)
+    return _rotate(x, pos.movedim(0, -1) * freqs)  # angles (B, S, D/2)

@@ -1,7 +1,6 @@
-"""Model assembly for the GQA decoder with dense or MoE FFNs: layer
-blocks, stacked layer groups, the cache-free training forward and
-chunked loss, prefill and decode — the port of
-``repro.models.transformer``.
+"""Model assembly: layer blocks, stacked layer groups, the encoder, the
+cache-free training forward and chunked loss, prefill and decode — the
+port of ``repro.models.transformer``.
 
 Layer stacks are compiled into (pattern, repeat) groups
 (``ModelConfig.layer_groups``) and each group's params are stacked along
@@ -33,13 +32,19 @@ layer its conv window ``conv`` and SSM state ``ssm`` (``models.mamba2``;
 no per-position axis). A layer with ``ffn="none"`` (mamba2-2.7b) has no
 FFN and no ``norm2``; a hybrid (jamba) interleaves Mamba and GQA layers.
 
-Not ported yet (raise ``NotImplementedError``): GeLU FFNs,
-cross-attention/encoder stacks, learned and M-RoPE positions.
+A vision-language batch (qwen2-vl: stub frontend) carries precomputed
+``embeds`` (B, S, d) and M-RoPE ``positions`` (3, B, S) instead of
+``tokens``. The encoder-decoder (whisper) adds learned positions
+(``pos_emb``), a bidirectional encoder over precomputed ``enc_frames``
+(:func:`encode`, :func:`encoder_config`), cross-attention and GeLU FFNs
+in its decoder layers, and an ``enc`` cache leaf (B, T, d) bf16 with no
+``reps`` axis, which every decode step attends to.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -51,7 +56,19 @@ from . import attention as attn
 from . import mamba2 as mb
 from . import moe as moe_mod
 from .config import LayerSpec, ModelConfig
-from .layers import embed, embedding_init, rmsnorm, rmsnorm_init, swiglu, swiglu_init
+from .layers import (
+    cast,
+    embed,
+    embedding_init,
+    gelu_mlp,
+    gelu_mlp_init,
+    normal,
+    rmsnorm,
+    rmsnorm_init,
+    swiglu,
+    swiglu_init,
+    unembed,
+)
 
 Params = dict
 
@@ -60,25 +77,12 @@ Params = dict
 REMAT_POLICIES = ("none", "dots", "full")
 
 
-def _check_spec(spec: LayerSpec, cfg: ModelConfig) -> None:
-    if spec.ffn == "dense" and cfg.ffn_activation != "swiglu":
-        raise NotImplementedError(f"{cfg.ffn_activation} FFN is not ported yet")
-    if spec.cross_attention:
-        raise NotImplementedError("cross-attention (encoder-decoder) is not ported yet")
-
-
-def _check_model(cfg: ModelConfig) -> None:
-    if cfg.pos_scheme in ("learned", "mrope") or cfg.is_encdec:
-        raise NotImplementedError(f"pos_scheme={cfg.pos_scheme!r} / encoder is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
 
 
 def layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device) -> Params:
-    _check_spec(spec, cfg)
     p: Params = {"norm1": rmsnorm_init(cfg.d_model, device)}
     if spec.mixer == "gqa":
         p["mixer"] = attn.gqa_init(gen, cfg, device)
@@ -86,12 +90,17 @@ def layer_init(gen: torch.Generator, spec: LayerSpec, cfg: ModelConfig, device) 
         p["mixer"] = attn.mla_init(gen, cfg, device)
     else:  # mamba
         p["mixer"] = mb.mamba2_init(gen, cfg, device)
+    if spec.cross_attention:
+        p["norm_ca"] = rmsnorm_init(cfg.d_model, device)
+        p["cross"] = attn.cross_attn_init(gen, cfg, device)
     if spec.ffn != "none":
         p["norm2"] = rmsnorm_init(cfg.d_model, device)
-        p["ffn"] = (
-            moe_mod.moe_init(gen, cfg, device) if spec.ffn == "moe"
-            else swiglu_init(gen, cfg.d_model, cfg.d_ff, device)
-        )
+        if spec.ffn == "moe":
+            p["ffn"] = moe_mod.moe_init(gen, cfg, device)
+        elif cfg.ffn_activation == "swiglu":
+            p["ffn"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, device)
+        else:
+            p["ffn"] = gelu_mlp_init(gen, cfg.d_model, cfg.d_ff, device)
     return p
 
 
@@ -105,7 +114,20 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
     if spec.ffn == "moe":
         h, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
         return x + h, aux
-    return x + swiglu(params["ffn"], h), None
+    dense = swiglu if cfg.ffn_activation == "swiglu" else gelu_mlp
+    return x + dense(params["ffn"], h), None
+
+
+def _cross(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
+           enc: torch.Tensor | None) -> torch.Tensor:
+    """The cross-attention sub-block of a decoder layer of an
+    encoder-decoder (x + cross(norm(x), enc)); ``x`` elsewhere."""
+    if not spec.cross_attention:
+        return x
+    if enc is None:
+        raise ValueError("a cross-attention layer needs the encoder output")
+    h = rmsnorm(params["norm_ca"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
+    return x + attn.cross_attn_apply(params["cross"], h, enc, cfg)
 
 
 def _mix(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
@@ -128,12 +150,13 @@ def layer_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    enc: torch.Tensor | None = None,
     causal: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence layer, no cache. Returns (x, aux_loss) — aux is 0
     for the dense FFN."""
-    _check_spec(spec, cfg)
-    x, aux = _ffn(params, spec, cfg, _mix(params, spec, cfg, x, positions, causal))
+    x = _cross(params, spec, cfg, _mix(params, spec, cfg, x, positions, causal), enc)
+    x, aux = _ffn(params, spec, cfg, x)
     return x, x.new_zeros((), dtype=torch.float32) if aux is None else aux
 
 
@@ -152,7 +175,6 @@ def layer_apply_ranks(
     trees; ``cfg.moe_ep_dispatch`` and the mesh named by
     ``parallel.hints.set_mesh`` make it ``moe_apply_ep``). Returns
     (xs, aux): the MoE aux is the global one, every rank's."""
-    _check_spec(spec, cfg)
     xs = [_mix(p, spec, cfg, x, positions, causal) for p, x in zip(rank_params, xs)]
     aux = xs[0].new_zeros((), dtype=torch.float32)
     if spec.ffn == "moe":
@@ -172,9 +194,10 @@ def layer_prefill(
     x: torch.Tensor,
     positions: torch.Tensor,
     max_seq: int,
+    *,
+    enc: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """Full-sequence layer that also emits its decode cache."""
-    _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     if spec.mixer == "gqa":
         h, cache = attn.gqa_prefill(params["mixer"], h, positions, cfg, max_seq)
@@ -182,7 +205,7 @@ def layer_prefill(
         h, cache = attn.mla_prefill(params["mixer"], h, positions, cfg, max_seq)
     else:
         h, cache = mb.mamba2_prefill(params["mixer"], h, cfg)
-    return _ffn(params, spec, cfg, x + h)[0], cache
+    return _ffn(params, spec, cfg, _cross(params, spec, cfg, x + h, enc))[0], cache
 
 
 def layer_decode(
@@ -192,9 +215,10 @@ def layer_decode(
     x: torch.Tensor,  # (B, 1, d)
     pos: torch.Tensor,
     cache: Params,
+    *,
+    enc: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Params]:
     """One-token layer; updates ``cache`` in place (see ``gqa_decode``)."""
-    _check_spec(spec, cfg)
     h = rmsnorm(params["norm1"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
     if spec.mixer == "gqa":
         h, cache = attn.gqa_decode(params["mixer"], h, pos, cache, cfg)
@@ -202,12 +226,11 @@ def layer_decode(
         h, cache = attn.mla_decode(params["mixer"], h, pos, cache, cfg)
     else:
         h, cache = mb.mamba2_decode(params["mixer"], h, cache, cfg)
-    return _ffn(params, spec, cfg, x + h)[0], cache
+    return _ffn(params, spec, cfg, _cross(params, spec, cfg, x + h, enc))[0], cache
 
 
 def layer_init_cache(spec: LayerSpec, cfg: ModelConfig, batch: int, max_seq: int,
                      device) -> Params:
-    _check_spec(spec, cfg)
     if spec.mixer == "gqa":
         return attn.gqa_init_cache(cfg, batch, max_seq, device=device)
     if spec.mixer == "mla":
@@ -251,6 +274,7 @@ def groups_apply(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    enc: torch.Tensor | None = None,
     causal: bool = True,
     remat: str = "dots",
     groups=None,
@@ -269,7 +293,7 @@ def groups_apply(
             def body(h, layer_params=layer_params, pattern=pattern):
                 aux = h.new_zeros((), dtype=torch.float32)
                 for spec, p in zip(pattern, layer_params):
-                    h, a = layer_apply(p, spec, cfg, h, positions, causal=causal)
+                    h, a = layer_apply(p, spec, cfg, h, positions, enc=enc, causal=causal)
                     aux = aux + a
                 return h, aux
 
@@ -299,6 +323,8 @@ def groups_decode(
     cfg: ModelConfig,
     x: torch.Tensor,
     pos: torch.Tensor,
+    *,
+    enc: torch.Tensor | None = None,
     groups=None,
 ) -> tuple[torch.Tensor, list[list[Params]]]:
     """Decode through every group; each layer writes its K/V row into
@@ -307,7 +333,7 @@ def groups_decode(
     for (pattern, reps), stacked, cstacked in zip(groups, gparams, caches):
         for r in range(reps):
             for spec, p, c in zip(pattern, stacked, cstacked):
-                x, _ = layer_decode(_index(p, r), spec, cfg, x, pos, _index(c, r))
+                x, _ = layer_decode(_index(p, r), spec, cfg, x, pos, _index(c, r), enc=enc)
     return x, caches
 
 
@@ -320,7 +346,6 @@ def model_init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
     """Random f32 params from ``gen`` on ``device`` (default ``"cuda"``),
     nested as ``repro.models.transformer.model_init``'s."""
     device = resolve_device(device)
-    _check_model(cfg)
     p: Params = {
         "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
@@ -328,17 +353,79 @@ def model_init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model, device)
+    if cfg.pos_scheme == "learned":
+        p["pos_emb"] = normal(gen, (cfg.max_position_embeddings, cfg.d_model), 0.02, device)
+    if cfg.is_encdec:
+        enc_cfg = encoder_config(cfg)
+        p["encoder"] = {
+            "groups": groups_init(gen, enc_cfg, device, enc_cfg.layer_groups()),
+            "final_norm": rmsnorm_init(cfg.d_model, device),
+            "pos_emb": normal(gen, (cfg.encoder_seq_len, cfg.d_model), 0.02, device),
+        }
     return p
+
+
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """Whisper encoder stack: bidirectional GQA + GeLU FFN, no MoE. It
+    inherits ``attn_impl``, so ``"flash"`` reaches the flash wrapper,
+    which refuses the published 1500 frames (not a multiple of its
+    block), as the Pallas kernel's wrapper does."""
+    return dataclasses.replace(
+        cfg,
+        num_layers=cfg.encoder_layers,
+        num_experts=0,
+        attn_period=0,
+        encoder_layers=0,  # the encoder itself is not enc-dec
+        pos_scheme="learned",
+    )
+
+
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
+           remat: str = "dots") -> torch.Tensor:
+    """Whisper encoder over precomputed frame embeddings (B, T, d) (stub
+    frontend): bf16 frames plus the encoder's learned positions, its
+    layers with no causal mask, then its final RMSNorm."""
+    enc_cfg = encoder_config(cfg)
+    B, T = frames.shape[:2]
+    x = cast(frames) + cast(params["encoder"]["pos_emb"][:T])
+    pos = torch.arange(T, dtype=torch.int32, device=frames.device).expand(B, T)
+    x, _ = groups_apply(params["encoder"]["groups"], enc_cfg, x, pos, causal=False,
+                        remat=remat, groups=enc_cfg.layer_groups())
+    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
     device = resolve_device(device)
-    _check_model(cfg)
-    return {"layers": groups_init_cache(cfg, batch, max_seq, device)}
+    cache: dict = {"layers": groups_init_cache(cfg, batch, max_seq, device)}
+    if cfg.is_encdec:
+        cache["enc"] = torch.zeros((batch, cfg.encoder_seq_len, cfg.d_model),
+                                   dtype=torch.bfloat16, device=device)
+    return cache
 
 
 def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return (params["embed"] if cfg.tie_embeddings else params["lm_head"])["table"]
+
+
+def _inputs(params: Params, cfg: ModelConfig, batch: dict, remat: str):
+    """The decoder's input rows, their positions and the encoder output
+    of ``batch``: precomputed ``embeds`` with M-RoPE ``positions``
+    (3, B, S), or embedded ``tokens`` at 0..S-1; plus the learned
+    positions and ``encode(batch["enc_frames"])`` where the model has
+    them."""
+    if "embeds" in batch:  # vlm: precomputed patch/token embeddings
+        x = cast(batch["embeds"])
+        positions = batch["positions"]
+    else:
+        tokens = batch["tokens"]
+        x = embed(params["embed"], tokens)
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device).expand(tokens.shape)
+    S = x.shape[1]
+    if cfg.pos_scheme == "learned":
+        x = x + cast(params["pos_emb"][:S])
+    enc = encode(params, cfg, batch["enc_frames"], remat=remat) if cfg.is_encdec else None
+    return x, positions, enc
 
 
 def forward_hidden(
@@ -350,12 +437,8 @@ def forward_hidden(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, aux_loss), with
     no cache: the training forward."""
-    _check_model(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-    x, aux = groups_apply(params["groups"], cfg, x, positions, remat=remat)
+    x, positions, enc = _inputs(params, cfg, batch, remat)
+    x, aux = groups_apply(params["groups"], cfg, x, positions, enc=enc, remat=remat)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm), aux
 
 
@@ -419,7 +502,9 @@ def loss_fn_ranks(
     application of all ranks."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
-    _check_model(cfg)
+    if "embeds" in batch or cfg.is_encdec:
+        raise NotImplementedError("the joint expert-parallel forward takes token batches of "
+                                  "decoder-only models")
     n = len(rank_params)
     tokens = batch["tokens"]
     if tokens.shape[0] % n:
@@ -468,26 +553,26 @@ def prefill(
     batch: dict,
     max_seq: int,
 ) -> tuple[torch.Tensor, dict]:
-    """Process the prompt ``batch["tokens"]`` (B, S), build the decode
-    cache, return last-token logits (B, V) in f32."""
-    _check_model(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed(params["embed"], tokens)
-    positions = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
+    """Process the prompt (``batch["tokens"]`` (B, S), or ``embeds`` and
+    ``positions``; plus ``enc_frames`` for an encoder-decoder), build
+    the decode cache, return last-token logits (B, V) in f32."""
+    x, positions, enc = _inputs(params, cfg, batch, "none")
 
     caches: list[list[Params]] = []
     for (pattern, reps), stacked in zip(cfg.layer_groups(), params["groups"]):
         per_pos: list[list[Params]] = [[] for _ in pattern]
         for r in range(reps):
             for pi, (spec, p) in enumerate(zip(pattern, stacked)):
-                x, c = layer_prefill(_index(p, r), spec, cfg, x, positions, max_seq)
+                x, c = layer_prefill(_index(p, r), spec, cfg, x, positions, max_seq, enc=enc)
                 per_pos[pi].append(c)
         caches.append([_stack(cs) for cs in per_pos])
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    logits = x[:, -1].float() @ _head_table(params, cfg).float().T
-    return logits, {"layers": caches}
+    logits = unembed({"table": _head_table(params, cfg)}, x[:, -1])
+    cache: dict = {"layers": caches}
+    if cfg.is_encdec:
+        cache["enc"] = enc.to(torch.bfloat16)
+    return logits, cache
 
 
 def decode_step(
@@ -501,18 +586,23 @@ def decode_step(
 
     With a ``(B,)`` ``pos`` every batch row advances at its own absolute
     position (continuous batching). The cache is updated in place and
-    returned."""
-    _check_model(cfg)
+    returned; an encoder-decoder attends to its ``enc`` leaf."""
     x = embed(params["embed"], tokens[:, None])  # (B, 1, d)
-    x, _ = groups_decode(params["groups"], cache["layers"], cfg, x, pos)
+    if cfg.pos_scheme == "learned":
+        # index_select: a 0-dim index would be read back to the host
+        idx = torch.as_tensor(pos, device=x.device).reshape(-1)
+        x = x + cast(params["pos_emb"].index_select(0, idx))[:, None, :]  # (B or 1, 1, d)
+    x, _ = groups_decode(params["groups"], cache["layers"], cfg, x, pos, enc=cache.get("enc"))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    logits = x[:, 0].float() @ _head_table(params, cfg).float().T
+    logits = unembed({"table": _head_table(params, cfg)}, x[:, 0])
     return logits, cache
 
 
 __all__ = [
     "REMAT_POLICIES",
     "decode_step",
+    "encode",
+    "encoder_config",
     "forward_hidden",
     "groups_apply",
     "groups_decode",

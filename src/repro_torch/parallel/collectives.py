@@ -366,15 +366,21 @@ def _mesh_size(mesh, axes) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
-def split_batch(batch: PyTree, dp: int, r: int) -> PyTree:
-    """Rank ``r``'s rows of every batch leaf (``P(dp_axes, None)``)."""
-    def take(x):
-        if x.shape[0] % dp:
-            raise ValueError(f"batch dim {x.shape[0]} not divisible by {dp} DP ranks")
-        n = x.shape[0] // dp
-        return x[r * n : (r + 1) * n]
+def split_batch(batch: dict, dp: int, r: int, batch_specs: dict | None = None) -> dict:
+    """Rank ``r``'s rows of every batch leaf: its ``r``-th of ``dp``
+    equal slices along the leaf's batch axis, which ``batch_specs``
+    (``parallel.sharding.batch_pspecs``: a leaf's name to its axis)
+    names, axis 0 for a leaf it does not name. M-RoPE ``positions``
+    (3, B, S) are split along axis 1, so each rank keeps all three
+    streams of its rows."""
+    def take(x, axis):
+        if x.shape[axis] % dp:
+            raise ValueError(f"batch dim {x.shape[axis]} not divisible by {dp} DP ranks")
+        n = x.shape[axis] // dp
+        return x.narrow(axis, r * n, n)
 
-    return map_tree(take, batch)
+    axes = batch_specs or {}
+    return {k: take(x, axes.get(k, 0)) for k, x in batch.items()}
 
 
 def _same_device(tensors) -> torch.device:
@@ -420,17 +426,19 @@ def stack_rank_grads(
     *,
     out: list[torch.Tensor] | None = None,
     spans=None,
+    batch_specs: dict | None = None,
 ) -> tuple[list[torch.Tensor], PyTree]:
-    """Run ``grad_fn`` once per DP rank on its rows of ``batch`` and
-    write rank ``r``'s grads into row ``r`` of one ``(dp_size, *shape)``
-    buffer per leaf (``out``, reused when its shapes match, else
-    allocated). Returns (stacked leaves in tree order, metrics averaged
-    over ranks)."""
+    """Run ``grad_fn`` once per DP rank on its rows of ``batch`` (split
+    along ``batch_specs``' axes, see :func:`split_batch`) and write rank
+    ``r``'s grads into row ``r`` of one ``(dp_size, *shape)`` buffer per
+    leaf (``out``, reused when its shapes match, else allocated).
+    Returns (stacked leaves in tree order, metrics averaged over
+    ranks)."""
     metrics_sum = None
     device = leaves(params)[0].device
     for r in range(dp_size):
         with maybe_span(spans, "fwd_bwd", device):
-            grads, metrics = grad_fn(params, split_batch(batch, dp_size, r))
+            grads, metrics = grad_fn(params, split_batch(batch, dp_size, r, batch_specs))
         g_leaves = leaves(grads)
         _same_device(g_leaves)
         if out is None or [(tuple(s.shape), s.dtype, s.device) for s in out] != [
@@ -575,6 +583,7 @@ def make_stacked_reduce(
 def torrent_grad_reduce(
     grad_fn: Callable[..., tuple[PyTree, PyTree]],
     mesh,
+    batch_specs: dict | None = None,
     *,
     scheduler: str = "tsp",
     hierarchical: bool = True,
@@ -590,8 +599,9 @@ def torrent_grad_reduce(
     rank's local mean loss) so grads come back chain-all-reduced over
     the DP axes of ``mesh`` and divided by the DP size.
 
-    ``wrapped(params, batch)`` splits every batch leaf along dim 0 into
-    the ranks' rows, runs ``grad_fn`` per rank into one preallocated
+    ``wrapped(params, batch)`` splits every batch leaf along its batch
+    axis (``batch_specs``, as in :func:`split_batch`; dim 0 when None)
+    into the ranks' rows, runs ``grad_fn`` per rank into one preallocated
     stacked buffer per leaf (:func:`stack_rank_grads`), reduces it
     (:func:`make_stacked_reduce`) and returns ``(grads, metrics)``: the
     reduced grads (rank 0's row, as the JAX package's replicated output)
@@ -610,7 +620,8 @@ def torrent_grad_reduce(
     dp_size = dp_size_of(mesh)
 
     def per_rank(params, batch, out):
-        return stack_rank_grads(grad_fn, params, batch, dp_size, out=out, spans=spans)
+        return stack_rank_grads(grad_fn, params, batch, dp_size, out=out, spans=spans,
+                                batch_specs=batch_specs)
 
     return _reduced(per_rank, mesh, scheduler=scheduler, hierarchical=hierarchical,
                     num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,

@@ -839,3 +839,95 @@ def test_ep_train_step_on_cuda_matches_cpu(cuda):
             assert torch.isfinite(a).all()
             assert float((a - b).abs().max()) <= 5e-2 * float(b.abs().max())
             assert float((a * b).sum() / ((a * a).sum() * (b * b).sum()).sqrt()) >= 0.999
+
+
+def test_apply_mrope_on_cuda_matches_cpu(cuda):
+    """M-RoPE at qwen2-vl-7b's head dim and sections on the card against
+    the CPU, with three distinct position streams: the same f32 angles,
+    so within 1e-5 in f32 and one bf16 rounding in bf16."""
+    from repro_torch.models.layers import apply_mrope
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 28, 128)).astype(np.float32))
+    pos = torch.from_numpy(np.stack([rng.integers(0, 40, (2, 40)), rng.integers(0, 900, (2, 40)),
+                                     rng.integers(0, 5000, (2, 40))]).astype(np.int32))
+    for dtype, (atol, rtol) in ((torch.float32, (1e-5, 1e-5)), (torch.bfloat16, (1e-2, 8e-3))):
+        want = apply_mrope(x.to(dtype), pos, 1e6, (16, 24, 24))
+        got = apply_mrope(x.to(dtype).to(cuda), pos.to(cuda), 1e6, (16, 24, 24))
+        assert got.device.type == "cuda" and got.dtype == dtype
+        torch.testing.assert_close(got.cpu().float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_qwen2vl_flash_prefill_on_cuda_matches_cpu(cuda):
+    """qwen2-vl-7b smoke (M-RoPE, qkv bias): a flash prefill of a
+    vision-language batch (embeds, image-then-text positions) and three
+    scalar-position decode steps on the card against the same calls on
+    the CPU (the kernel's plain twin): logits and cache rows within 5e-2
+    of their scale; the flash kernel launches once per layer, all on
+    the wgmma route."""
+    cfg = dataclasses.replace(C.get_smoke_config("qwen2-vl-7b"), attn_impl="flash")
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    i = torch.arange(16)
+    img = torch.stack([torch.zeros_like(i), i // 4, i % 4])
+    t = 4 + torch.arange(16)
+    pos = torch.cat([img, t.expand(3, 16)], 1).to(torch.int32)[:, None].expand(3, 2, 32)
+    embeds = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda x: x.to(dev), params)
+        FA.flash_attention.launches = 0
+        FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+        with torch.no_grad():
+            logits, cache = T.prefill(p, cfg, {"embeds": embeds.to(dev),
+                                               "positions": pos.contiguous().to(dev)}, 40)
+            outs, cur = [logits], logits.argmax(-1).to(torch.int32)
+            for step in range(3):
+                logits, cache = T.decode_step(p, cfg, cur, torch.tensor(32 + step,
+                                                                        dtype=torch.int32), cache)
+                outs.append(logits)
+                cur = logits.argmax(-1).to(torch.int32)
+        runs.append((outs, cache, dict(FA.flash_attention.launches_by_route)))
+    (cpu, pcache, _), (card, ccache, routes) = runs
+    assert routes == {**dict.fromkeys(FA.ROUTES, 0), "wgmma": cfg.num_layers}
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and torch.isfinite(a).all()
+        _close_to_scale(a, b)
+    for a, b in zip(leaves(ccache), leaves(pcache)):
+        _close_to_scale(a, b)
+
+
+def test_whisper_prefill_and_decode_on_cuda_match_cpu(cuda):
+    """whisper-tiny smoke (encoder over 24 frames, cross-attention, GeLU
+    FFNs, learned positions): a prefill and three per-slot decode steps
+    on the card against the same calls on the CPU: logits, the layer
+    caches and the ``enc`` leaf within 5e-2 of their scale; no kernel
+    launch (reference attention)."""
+    cfg = C.get_smoke_config("whisper-tiny")
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    pos = torch.tensor([12, 9], dtype=torch.int32)
+    FA.flash_attention.launches = R.relayout.launches = 0
+    runs = []
+    for dev in ("cpu", cuda):
+        p = map_tree(lambda x: x.to(dev), params)
+        with torch.no_grad():
+            logits, cache = T.prefill(p, cfg, {"tokens": toks.to(dev),
+                                               "enc_frames": frames.to(dev)}, 24)
+            outs, cur = [logits], toks[:, -1].to(dev)
+            for step in range(3):
+                logits, cache = T.decode_step(p, cfg, cur, (pos + step).to(dev), cache)
+                outs.append(logits)
+                cur = logits.argmax(-1).to(torch.int32)
+        runs.append((outs, cache))
+    (cpu, pcache), (card, ccache) = runs
+    assert FA.flash_attention.launches == R.relayout.launches == 0
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda" and torch.isfinite(a).all()
+        _close_to_scale(a, b)
+    assert ccache["enc"].dtype == torch.bfloat16
+    for a, b in zip(leaves(ccache), leaves(pcache)):
+        _close_to_scale(a, b)

@@ -267,10 +267,51 @@ def test_params_from_numpy_keeps_bf16_bits_and_nesting():
     assert torch.equal(out["l"][0][0]["b"], torch.from_numpy(a))
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
-def test_unported_branches_raise(arch):
-    with pytest.raises(NotImplementedError):
-        TT.model_init(torch.Generator().manual_seed(0), TC.get_smoke_config(arch), "cpu")
+@pytest.mark.parametrize("arch,call", [
+    ("qwen2-vl-7b", "per_slot_decode"),
+    ("whisper-tiny", "flash_encoder_at_1500_frames"),
+    ("qwen2-vl-7b", "server"),
+    ("whisper-tiny", "server"),
+])
+def test_unported_branches_raise(arch, call):
+    """What neither package runs for the last two families, refused by
+    both: per-slot decode with M-RoPE (``NotImplementedError``), the
+    flash encoder at whisper's published 1500 frames (not a multiple of
+    the 512-row block: ``ValueError``), and ``Server``, whose slot
+    prefill feeds tokens only (the port's refuses the config when it is
+    built; JAX's fails inside its first prefill)."""
+    jcfg, tcfg = JC.get_smoke_config(arch), TC.get_smoke_config(arch)
+    if call == "server":
+        from repro.launch.serve import ServeConfig as JServeConfig
+        from repro.launch.serve import Server as JServer
+        from repro_torch.launch.serve import ServeConfig, Server
+
+        sc = dict(arch=arch, batch=2, prompt_len=8, max_seq=16, replicas=2)
+        with pytest.raises(NotImplementedError, match="JAX Server cannot serve it either"):
+            Server(ServeConfig(**sc), device="cpu")
+        server = JServer(JServeConfig(**sc))
+        with pytest.raises(KeyError if jcfg.is_encdec else IndexError):
+            server.run([server.submit(np.arange(5, dtype=np.int32), 2)])
+        return
+    jp = JT.model_init(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.device_get(jp), "cpu")
+    if call == "per_slot_decode":
+        jc, tc = JT.init_cache(jcfg, 2, 8), TT.init_cache(tcfg, 2, 8, "cpu")
+        pos = np.array([3, 1], np.int32)
+        with pytest.raises(NotImplementedError, match="M-RoPE"):
+            JT.decode_step(jp, jcfg, jnp.zeros(2, jnp.int32), jnp.asarray(pos), jc)
+        with pytest.raises(NotImplementedError, match="M-RoPE"):
+            TT.decode_step(tp, tcfg, torch.zeros(2, dtype=torch.int32), torch.from_numpy(pos), tc)
+        return
+    frames = np.zeros((1, 1500, jcfg.d_model), np.float32)
+    jcfg = dataclasses.replace(jcfg, encoder_seq_len=1500, attn_impl="flash")
+    tcfg = dataclasses.replace(tcfg, encoder_seq_len=1500, attn_impl="flash")
+    jp["encoder"]["pos_emb"] = jnp.zeros((1500, jcfg.d_model))
+    tp["encoder"]["pos_emb"] = torch.zeros((1500, tcfg.d_model))
+    with pytest.raises(ValueError, match="seq 1500 must be divisible by blocks 512/512"):
+        JT.encode(jp, jcfg, jnp.asarray(frames))
+    with pytest.raises(ValueError, match="seq 1500 must be divisible by blocks 512/512"):
+        TT.encode(tp, tcfg, torch.from_numpy(frames))
 
 
 def test_entry_points_default_to_cuda():
