@@ -169,11 +169,18 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 sys.path.append(str(Path(__file__).resolve().parent / "tests"))  # _moe_routing
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}  # dense, SXM
-# f32 on the tf32x3 route: three TF32 products per product, at the
-# 495 TFLOP/s dense TF32 rate
-PEAK_OPS_PER_S["tf32x3"] = 495e12 / 3
+
+def card_rates() -> tuple[float, dict]:
+    """The card's device-memory bytes/s and dense peak ops/s by dtype,
+    from the port's machine description (``repro_torch.launch.roofline
+    .H100_SXM``); f32 on the tf32x3 route runs three TF32 products per
+    product, at a third of the TF32 rate."""
+    from repro_torch.launch.roofline import H100_SXM as M
+
+    return M.hbm_bw, {"bfloat16": M.peak_flops, "float16": M.peak_flops,
+                      "float32": M.peak_flops_f32, "tf32x3": M.peak_flops_tf32 / 3}
+
+
 # the train phase's smoke-size Trainer run on the card against the same
 # run on the CPU: per-step loss difference (bf16 rounding order;
 # measured 3.6e-4 on an H100)
@@ -324,6 +331,7 @@ def relayout_phase() -> dict:
     def nbytes(t):
         return t.numel() * t.element_size()
 
+    hbm_bytes_per_s, _ = card_rates()
     gen = torch.Generator(device="cuda").manual_seed(1)
     flush = l2_flush()
     cases = [
@@ -388,7 +396,7 @@ def relayout_phase() -> dict:
             "library_ms": library_ms,
             "library_device_ms_hot": device_ms(library, None),
             "library_device_ms_cold": device_ms(library, None, flush=flush),
-            "bound_ms": 2 * nbytes(x) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": 2 * nbytes(x) / hbm_bytes_per_s * 1e3,
             "max_abs_err": float((got.double() - want.double()).abs().max()),
         }
         rec["device_ms"] = rec["device_ms_hot"]
@@ -410,6 +418,7 @@ def flash_phase() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
 
+    hbm_bytes_per_s, peak_ops_per_s = card_rates()
     gen = torch.Generator(device="cuda").manual_seed(2)
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     cases = [
@@ -491,8 +500,8 @@ def flash_phase() -> dict:
         pairs = int(mask.sum())  # (row, col) pairs this input needs
         flops = 4 * D * B * H * pairs  # QK^T and PV, 2 flops per MAC
         io_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        t_ops = flops / PEAK_OPS_PER_S["tf32x3" if route == "tf32x3" else dt]
-        t_bytes = io_bytes / HBM_BYTES_PER_S
+        t_ops = flops / peak_ops_per_s["tf32x3" if route == "tf32x3" else dt]
+        t_bytes = io_bytes / hbm_bytes_per_s
         rec = {
             "name": name, "route": route, "shape": [B, H, Hkv, S, D], "dtype": dt,
             "causal": causal, "window": window, "atol": atol, "rtol": rtol,
@@ -506,8 +515,8 @@ def flash_phase() -> dict:
             "max_abs_err": float(err.max()),
         }
         if dt == "float32":
-            rec["bound_ms_cuda_cores"] = max(flops / PEAK_OPS_PER_S["float32"], t_bytes) * 1e3
-            rec["bound_ms_tf32x3"] = max(flops / PEAK_OPS_PER_S["tf32x3"], t_bytes) * 1e3
+            rec["bound_ms_cuda_cores"] = max(flops / peak_ops_per_s["float32"], t_bytes) * 1e3
+            rec["bound_ms_tf32x3"] = max(flops / peak_ops_per_s["tf32x3"], t_bytes) * 1e3
         if route == "tf32x3":
             rec["split_device_ms"] = device_ms(kernel, "tf32x3_split_kernel")
         rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
@@ -1222,6 +1231,7 @@ def train_phase() -> dict:
     from repro_torch.core.topology import MeshTopology
     from repro_torch.data.pipeline import MarkovSource, make_device_placer
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import H100_SXM, modeled_train_overlap
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.launch.train import TrainConfig, Trainer
     from repro_torch.launch.train import main as train_main
@@ -1312,6 +1322,32 @@ def train_phase() -> dict:
         del tr
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+
+    # the cost model beside the measurement: modeled_train_overlap on
+    # the card's machine for this step's leaves, per-rank tokens and
+    # knobs; its wire bytes must equal the executor's count exactly
+    meta = leaves(T.model_init(torch.Generator(), cfg, device="meta"))
+    model = {name: modeled_train_overlap(meta, dp, B * S // dp, bucket_bytes=bucket,
+                                         num_chains=K, algo=algo, machine=H100_SXM,
+                                         wire_dtype="int8" if name == "int8_ef" else None)
+             for name in runs}
+    cc_ms = 64 / H100_SXM.link_bw * 1e3  # one NoC cycle moves 64 B of a link
+    for name, m in model.items():
+        spans = runs[name]["spans_ms"]
+        print(f"train {name} model vs measured: " + json.dumps({
+            "buckets": len(m["buckets"]), "num_chains": sorted({b["num_chains"]
+                                                                for b in m["buckets"]}),
+            "modeled_backward_ms_per_rank": m["buckets"][-1]["ready_cc"] * cc_ms,
+            "measured_fwd_bwd_ms_per_rank": spans["fwd_bwd"],
+            "modeled_comm_ms": sum(b["comm_cc"] for b in m["buckets"]) * cc_ms,
+            "measured_reduce_ms": spans["reduce"],
+            "modeled_serial_ms": m["serial_cc"] * cc_ms,
+            "modeled_overlap_ms": m["overlap_cc"] * cc_ms, "efficiency": m["efficiency"],
+            "modeled_wire_bytes": m["total_wire_bytes"],
+            "executor_wire_bytes": runs[name]["wire_bytes_per_step"]}), flush=True)
+        if m["total_wire_bytes"] != runs[name]["wire_bytes_per_step"]:
+            raise AssertionError(f"train {name}: modeled wire bytes {m['total_wire_bytes']} != "
+                                 f"the executor's {runs[name]['wire_bytes_per_step']}")
 
     # 4. the Trainer's own loop, as `python -m repro_torch.launch.train`
     # runs it, at smoke size: int8 + EF with a failure injected at step
@@ -1819,6 +1855,300 @@ def audio_train_phase() -> dict:
     return launches
 
 
+# JAX's smoke shapes (tests/test_steps_and_dryrun.py), registered in the
+# port's SHAPES while the cell phase runs its smoke cells
+CELL_SMOKE_SHAPES = {"train": ("train_smoke", 32, 4), "prefill": ("prefill_smoke", 32, 2),
+                     "decode": ("decode_smoke", 64, 4)}
+ASSIGNED_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+CELL_VARIANTS = ("k2", "k-auto", "int8-ar", "bucketed")
+
+
+@contextlib.contextmanager
+def registered(table: dict, key, value):
+    """``table[key] = value`` inside the block (a shape or a variant the
+    phase adds to the port's registries), removed after it."""
+    if key in table:
+        raise KeyError(f"{key!r} is already registered")
+    table[key] = value
+    try:
+        yield
+    finally:
+        del table[key]
+
+
+def active_params(cfg, total: int) -> int:
+    """Parameters a token uses: all of them, less the routed experts it
+    is not sent to (top-k of them, and the shared ones, are), as the
+    JAX package's dry run counts them."""
+    if not cfg.num_experts:
+        return total
+    moe_layers = sum(1 for i in range(cfg.num_layers) if cfg.layer_spec(i).ffn == "moe")
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    return total - moe_layers * per_expert * (cfg.num_experts - cfg.moe_top_k)
+
+
+def abstract_cells() -> int:
+    """Every applicable (arch × assigned shape) cell at full width, built
+    by ``build_cell`` on a 4-rank data mesh with meta tensors: no device
+    memory may move. One line a cell: total and active params, the
+    args' bytes and the model FLOPs of one step."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import model_flops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import leaves
+
+    mesh = make_host_mesh(data=4)
+    before = torch.cuda.memory_allocated()
+    n = 0
+    for arch in C.ARCHS:
+        for name in ASSIGNED_SHAPES:
+            if not C.applicable(arch, name)[0]:
+                continue
+            cell = build_cell(arch, name, mesh, collectives="torrent")
+            args = leaves(cell.args)
+            if any(t.device.type != "meta" for t in args):
+                raise AssertionError(f"cell {arch} {name}: an arg is not a meta tensor")
+            total = sum(p.numel() for p in leaves(cell.args[0]))
+            active = active_params(cell.cfg, total)
+            sh = cell.shape
+            tokens = sh.global_batch * (sh.seq_len if sh.kind != "decode" else 1)
+            print(f"cell {arch} {name}: " + json.dumps({
+                "kind": sh.kind, "params": total, "active_params": active,
+                "arg_bytes": sum(t.numel() * t.element_size() for t in args),
+                "model_flops": model_flops(active, tokens, sh.kind),
+                "donate": list(cell.donate_argnums)}), flush=True)
+            n += 1
+    moved = torch.cuda.memory_allocated() - before
+    if moved or n != 40 - 7:
+        raise AssertionError(f"cells: {n} built (33 expected), device memory moved {moved} B")
+    return n
+
+
+def smoke_cells() -> dict:
+    """Every arch's train, prefill and decode cell at its smoke config
+    and JAX's smoke shapes, built by ``build_cell`` on the card (2 data
+    ranks, Torrent reduction) and run once: every output finite, the
+    train step moves every param, no allocator retry, no kernel launch
+    (every arch's cells use reference attention)."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import leaves
+
+    mesh = make_host_mesh(data=2)
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reset_launches()
+    out = {}
+    with contextlib.ExitStack() as stack:
+        for kind, (name, seq, batch) in CELL_SMOKE_SHAPES.items():
+            stack.enter_context(registered(C.SHAPES, name, C.Shape(name, kind, seq, batch)))
+        for arch in C.ARCHS:
+            rec = {}
+            for kind, (name, _, _) in CELL_SMOKE_SHAPES.items():
+                cell = build_cell(arch, name, mesh, collectives="torrent", smoke=True,
+                                  device="cuda")
+                before = [p.clone() for p in leaves(cell.args[0])] if kind == "train" else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = cell.step_fn(*cell.args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                finite = all(bool(torch.isfinite(t).all()) for t in leaves(res)
+                             if t.dtype.is_floating_point)
+                if kind == "train":
+                    moved = sum(not torch.equal(a, b) for a, b in zip(before, leaves(res[0])))
+                    ok = finite and moved == len(before)
+                    rec[kind] = {"loss": float(res[2]["loss"]), "moved": [moved, len(before)],
+                                 "ms": ms}
+                elif kind == "prefill":
+                    ok = finite and tuple(res[0].shape) == (cell.shape.global_batch,
+                                                            cell.cfg.vocab_size)
+                    rec[kind] = {"logits_absmax": float(res[0].abs().max()), "ms": ms}
+                else:
+                    tok = res[0]
+                    ok = finite and bool(((tok >= 0) & (tok < cell.cfg.vocab_size)).all())
+                    rec[kind] = {"tokens": tok.tolist(), "ms": ms}
+                if not ok:
+                    raise AssertionError(f"cell {arch} {kind}: {rec[kind]} (finite {finite})")
+                del cell, res, before
+            print(f"cell smoke {arch}: {json.dumps(rec)}", flush=True)
+            out[arch] = rec
+    launches = read_launches()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    if retries or any(launches.values()):
+        raise AssertionError(f"cell smoke: {retries} allocator retries, launches {launches}")
+    return out
+
+
+def variant_cells() -> dict:
+    """yi-6b's smoke train cell under the ``k2``, ``k-auto``,
+    ``int8-ar`` and ``bucketed`` variants, one step each on 4 data ranks
+    (on 2 a ring takes one chain whatever K asks): the executor's wire
+    bytes equal the byte model's, and for ``bucketed`` the modeled
+    overlap's ``total_wire_bytes`` too."""
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import modeled_train_overlap
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import leaves
+
+    name, seq, batch = CELL_SMOKE_SHAPES["train"]
+    dp = 4
+    out = {}
+    with registered(C.SHAPES, name, C.Shape(name, "train", seq, batch)):
+        for variant in CELL_VARIANTS:
+            cell = build_cell("yi-6b", name, make_host_mesh(data=dp), collectives="torrent",
+                              smoke=True, variant=variant, device="cuda")
+            cw.wire_counter.reset()
+            res = cell.step_fn(*cell.args)
+            torch.cuda.synchronize()
+            rec = {"num_chains": cell.num_chains, "compress_grads": cell.compress_grads,
+                   "bucket_bytes": cell.bucket_bytes, "loss": float(res[2]["loss"]),
+                   "wire_bytes": cw.wire_counter.bytes,
+                   "modeled_wire_bytes": cw.wire_counter.modeled_bytes()}
+            if cell.bucket_bytes is not None:
+                rec["overlap_model_wire_bytes"] = modeled_train_overlap(
+                    leaves(cell.args[0]), dp, seq * batch // dp, bucket_bytes=cell.bucket_bytes,
+                    num_chains=cell.num_chains,
+                    wire_dtype="int8" if cell.compress_grads else None)["total_wire_bytes"]
+            print(f"cell variant {variant}: {json.dumps(rec)}", flush=True)
+            if not (rec["wire_bytes"] == rec["modeled_wire_bytes"] > 0
+                    and rec.get("overlap_model_wire_bytes", rec["wire_bytes"]) == rec["wire_bytes"]
+                    and torch.isfinite(res[2]["loss"])):
+                raise AssertionError(f"cell variant {variant}: {rec}")
+            out[variant] = rec
+            del cell, res
+    return out
+
+
+def family_train(arch: str, layers: int, B: int, S: int, steps: int = 4) -> dict:
+    """``arch`` at full width, depth cut to ``layers`` (a variant of the
+    phase's own), through the train step of its ``build_cell`` train
+    cell on the card: 2 virtual ranks, Torrent rs_ag with K = 2 asked
+    for (a 2-rank ring runs one chain), exact wire, the cell's AdamW
+    (``OptConfig()``: the first steps of its warmup). First, on the first batch from the init, the 2-rank
+    reduction's loss and grads against one rank's on the whole batch
+    (``TRAIN_LOSS_REL_TOL``, ``TRAIN_GRAD_REL_TOL``; every grad finite)
+    and half a batch's beyond the latter; then ``steps`` steps on that
+    batch of Markov tokens (a vision-language model gets their rows of
+    its own embedding table, as text, at text positions; one batch, so
+    a step in the grads' direction must lower the loss): losses finite
+    and falling, wire bytes equal to the model's, every param leaf moved
+    and finite, no allocator retry."""
+    import numpy as np
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.data.pipeline import MarkovSource, make_device_placer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import VARIANTS, build_cell, make_grad_fn
+    from repro_torch.parallel.collectives import split_batch, torrent_grad_reduce
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reset_launches()
+    name, variant, dp = f"{arch}_train", f"depth{layers}", 2
+    with registered(C.SHAPES, name, C.Shape(name, "train", S, B)), \
+            registered(VARIANTS, variant, {"num_layers": layers}):
+        cell = build_cell(arch, name, make_host_mesh(data=dp), collectives="torrent",
+                          num_chains=2, variant=variant, device="cuda")
+    cfg, (params, opt, _), specs = cell.cfg, cell.args, cell.in_specs[2]
+    source = MarkovSource(vocab=cfg.vocab_size, seq_len=S, global_batch=B, seed=1)
+    place = make_device_placer("cuda")
+
+    def batch_at(i):
+        b = place(source.batch(i))
+        if cfg.family != "vlm":
+            return b
+        pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(3, B, S).contiguous()
+        embeds = params["embed"]["table"][b["tokens"].long()].to(torch.bfloat16)
+        return {"embeds": embeds, "positions": pos, "labels": b["labels"]}
+
+    def worst_leaf(got, want):
+        return max(float((a - b).norm() / b.norm()) for a, b in zip(leaves(got), leaves(want))
+                   if b.norm() > 0)
+
+    batch = batch_at(0)
+    grad_fn = make_grad_fn(cfg)
+    g1, m1 = grad_fn(params, batch)
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(g1))
+    g2, m2 = torrent_grad_reduce(grad_fn, cell.mesh, specs, num_chains=2)(params, batch)
+    ref_loss = float(m1["loss"])
+    check = {"params": sum(p.numel() for p in leaves(params)), "loss_one_rank": ref_loss,
+             "loss_rel": abs(float(m2["loss"]) / ref_loss - 1),
+             "grad_rel_worst_leaf": worst_leaf(g2, g1), "grads_finite": finite}
+    del g2
+    half, _ = grad_fn(params, split_batch(batch, dp, 0, specs))
+    check["half_batch_grad_rel_worst_leaf"] = worst_leaf(half, g1)
+    del g1, half, batch
+    torch.cuda.empty_cache()
+    print(f"{arch} train: {dp} ranks vs one rank on the whole batch {json.dumps(check)}",
+          flush=True)
+    if not (finite and check["loss_rel"] <= TRAIN_LOSS_REL_TOL
+            and check["grad_rel_worst_leaf"] <= TRAIN_GRAD_REL_TOL
+            and check["half_batch_grad_rel_worst_leaf"] > TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"{arch} train: the {dp}-rank reduction misses one rank's grads, "
+                             f"or a grad is not finite, or half a batch passes: {check}")
+    init = [p.clone() for p in leaves(params)]
+    losses, walls, wire = [], [], []
+    batch = batch_at(0)
+    for _ in range(steps):
+        cw.wire_counter.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = cell.step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        wire.append((cw.wire_counter.bytes, cw.wire_counter.modeled_bytes()))
+    moved = sum(not torch.equal(a, b) for a, b in zip(init, leaves(params)))
+    finite = all(bool(torch.isfinite(p).all()) for p in leaves(params))
+    rec = {"layers": layers, "batch": [B, S], "losses": losses, "step_wall_s": walls,
+           "median_step_s": float(np.median(walls)),
+           "tokens_per_s": B * S / float(np.median(walls)),
+           "wire_bytes_per_step": wire[-1][0], "leaves_moved": [moved, len(init)],
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0,
+           "launches": read_launches()}
+    print(f"{arch} train: {json.dumps(rec)}", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0] and finite
+            and moved == len(init) and all(a == b > 0 for a, b in wire)
+            and rec["alloc_retries"] == 0 and not any(rec["launches"].values())):
+        raise AssertionError(f"{arch} train: {rec}")
+    del cell, params, opt, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**check, **rec}
+
+
+def cell_phase() -> dict:
+    """The cell layer: every assigned cell built abstractly, every
+    arch's three smoke cells and yi-6b's variant cells run on the card
+    from ``build_cell``, and mamba2-2.7b (4 of 64 layers) and
+    qwen2-vl-7b (2 of 28) trained at full width through their train
+    cells."""
+    t0 = time.perf_counter()
+    n = abstract_cells()
+    t1 = time.perf_counter()
+    smoke = smoke_cells()
+    variants = variant_cells()
+    t2 = time.perf_counter()
+    trains = {"mamba2-2.7b": family_train("mamba2-2.7b", 4, 8, 512),
+              "qwen2-vl-7b": family_train("qwen2-vl-7b", 2, 4, 512)}
+    t3 = time.perf_counter()
+    print(f"cell phase: {n} abstract cells {t1 - t0:.2f}s, {len(smoke)} x 3 smoke cells + "
+          f"{len(variants)} variants {t2 - t1:.2f}s, ssm and vlm training {t3 - t2:.2f}s",
+          flush=True)
+    return {"smoke": smoke, "variants": variants, "train": trains}
+
+
 def main() -> int:
     import torch
 
@@ -1885,6 +2215,7 @@ def main() -> int:
           f"{moe['kv']['F'] / mla['kv']['F']:.3f}", flush=True)
     train = train_phase()
     ep_train = ep_train_phase()
+    cell_phase()
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",

@@ -1,23 +1,32 @@
-"""Step factories: train, prefill, serve and slot prefill — the port of
-``repro.launch.steps``.
+"""Step factories (train, prefill, serve and slot prefill) and the cell
+builder — the port of ``repro.launch.steps``.
 
 PyTorch runs eagerly, so a "step" is a plain closure over the config;
-there is no compile cache to key.
+there is no compile cache to key. :func:`build_cell` is the one entry
+that a dry run, a trainer and a benchmark share: given (arch, shape,
+mesh) it returns the step function, its arguments (meta tensors by
+default, as JAX's ``ShapeDtypeStruct``s: nothing allocated) and the
+partition specs of its inputs and outputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Any, Callable
 
 import torch
 
-from repro_torch.configs.shapes import SHAPES
+from repro_torch import configs as C
+from repro_torch.configs.shapes import SHAPES, Shape, input_specs
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.parallel import hints
-from repro_torch.parallel.sharding import batch_pspecs
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel.spec import P, keep_axes
 from repro_torch.parallel.collectives import (
     dp_size_of,
     split_batch,
@@ -25,7 +34,9 @@ from repro_torch.parallel.collectives import (
     torrent_joint_grad_reduce,
 )
 from repro_torch.runtime.spans import maybe_span
-from repro_torch.tree import leaves, map_tree, unflatten
+from repro_torch.tree import leaves, map_tree, map_with_path, unflatten
+
+PyTree = Any
 
 
 def make_grad_fn(cfg: ModelConfig, *, remat: str = "dots", loss_chunks: int = 8):
@@ -128,6 +139,7 @@ def make_train_step(
     bucket_bytes: int | None = None,
     topology: str | None = None,
     mesh=None,
+    batch_specs=None,
     loss_chunks: int = 8,
     microbatches: int = 1,
     spans=None,
@@ -145,11 +157,11 @@ def make_train_step(
     (``num_chains``, ``ar_algo``, ``compress_grads`` = int8 wire,
     ``bucket_bytes``, ``topology``); ``"xla"`` takes the plain mean of
     the ranks' grads. The ranks' rows and the microbatches are split
-    along each batch leaf's batch axis, which ``cfg`` decides
-    (``parallel.sharding.batch_pspecs``: axis 1 of M-RoPE ``positions``
-    (3, B, S), axis 0 of every other leaf), as JAX's cells pass
-    ``batch_specs``. ``error_feedback`` (needs ``compress_grads``)
-    changes the signature to ``(params, opt_state, ef_state, batch) ->
+    along each batch leaf's batch axis, the dim its spec in
+    ``batch_specs`` splits over the batch axes, as JAX's cells pass
+    them; by default ``cfg``'s (``parallel.sharding.batch_pspecs``: axis
+    1 of M-RoPE ``positions`` (3, B, S), axis 0 of every other leaf).
+    ``error_feedback`` (needs ``compress_grads``) changes the signature to ``(params, opt_state, ef_state, batch) ->
     (params, opt_state, ef_state, metrics)``. ``microbatches > 1``
     accumulates grads over M slices of the batch (a loop where JAX
     scans; mean of the microbatch means, as JAX computes it). The step
@@ -195,8 +207,8 @@ def make_train_step(
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
     joint = _ep_joint(cfg, dp_size)
-    # the axes depend on the shape's kind only
-    batch_specs = batch_pspecs(cfg, SHAPES["train_4k"])
+    if batch_specs is None:  # the specs depend on the shape's kind only
+        batch_specs = shd.batch_pspecs(cfg, SHAPES["train_4k"])
 
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
     grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
@@ -316,3 +328,224 @@ def write_cache_slot(cache, one_cache, slot: int):
 
     map_tree(put, cache, one_cache)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cell assembly
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Cell:
+    """One (arch × shape × mesh) cell: JAX's ``Cell`` with the partition
+    specs of the step's inputs and outputs (``in_specs``/``out_specs``)
+    where JAX holds ``NamedSharding``s, and no ``lower()`` (XLA's)."""
+
+    cfg: ModelConfig
+    shape: Shape
+    mesh: Any
+    step_fn: Callable
+    args: tuple  # meta tensors (or concrete ones)
+    in_specs: tuple
+    out_specs: Any
+    donate_argnums: tuple[int, ...] = ()
+    num_chains: int | str = 1  # effective K after VARIANTS resolution ("auto" = model-picked)
+    ar_algo: str = "rs_ag"  # multi-ring all-reduce schedule (rs_ag | rotation)
+    compress_grads: bool = False  # int8 wire on the DP grad reduction
+    bucket_bytes: int | None = None  # bucketed backward-overlapped reduce
+    topology: str | None = None  # tiered link-graph spec for auto-K planning
+
+
+def _sanitize(spec: P | None, mesh) -> P:
+    """Drop axes the mesh doesn't have (e.g. 'pod' on single-pod)."""
+    return P() if spec is None else keep_axes(spec, mesh.axis_names)
+
+
+def _sanitized(mesh, specs):
+    return map_tree(lambda s: _sanitize(s, mesh), specs)
+
+
+# Named optimization bundles, entry for entry the JAX package's.
+# "baseline" is the paper-faithful configuration; each variant is one
+# recorded change. Entries are ModelConfig field overrides, except the
+# step-builder knobs "num_chains", "ar_algo", "compress_grads",
+# "bucket_bytes" and "topology" (popped by build_cell and routed to
+# make_train_step).
+VARIANTS: dict[str, dict] = {
+    "baseline": {},
+    # multi-chain Chainwrite DP reduction (K=2 concurrent sub-rings,
+    # fused RS+AG schedule); only meaningful with collectives="torrent".
+    "k2": {"num_chains": 2},
+    # K=2 with the full-payload rotation schedule.
+    "k2-rot": {"num_chains": 2, "ar_algo": "rotation"},
+    # model-driven K: all_reduce_latency picks per gradient leaf.
+    "k-auto": {"num_chains": "auto"},
+    # chunked online-softmax attention (flash twin).
+    "chunked": {"attn_impl": "chunked"},
+    # + absorbed MLA decode + bf16 MoE wire + bf16 norms + row-wise
+    # MoE dispatch.
+    "opt": {
+        "attn_impl": "chunked", "mla_absorb": True,
+        "moe_bf16_wire": True, "bf16_norm": True, "moe_row_dispatch": True,
+    },
+    # Torrent expert-parallel MoE (chain all-to-all dispatch/combine).
+    "moe-ep": {"moe_ep_dispatch": True},
+    # moe-ep with the K=2 multi-chain all-to-all exchange.
+    "moe-ep-k2": {"moe_ep_dispatch": True, "moe_ep_chains": 2},
+    # int8-compressed DP gradient reduction; collectives="torrent" only.
+    "int8-ar": {"compress_grads": True},
+    # int8 wire on the K=2 multi-chain schedule.
+    "int8-ar-k2": {"compress_grads": True, "num_chains": 2},
+    # Torrent EP MoE with int8-quantized token dispatch/return.
+    "moe-ep-int8": {"moe_ep_dispatch": True, "moe_ep_int8_wire": True},
+    # bucketed, backward-overlapped DP grad reduce: 4 MiB dtype-grouped
+    # buckets in reverse-topological order, model-picked K per bucket.
+    "bucketed": {"bucket_bytes": 4 << 20, "num_chains": "auto"},
+    # bucketed dispatch with the int8 wire.
+    "bucketed-int8": {
+        "bucket_bytes": 4 << 20, "num_chains": "auto",
+        "compress_grads": True,
+    },
+    # tiered link-graph planning: 2 pods with 4x slower inter-pod links
+    # for num_chains="auto"; degrades to the uniform ring where 2 does
+    # not divide the DP axis.
+    "tiered": {
+        "topology": "pods=2:interpod_bw=0.25", "num_chains": "auto",
+    },
+    # opt + query-sequence-sharded attention (heads ∤ TP archs).
+    "opt-seq": {
+        "attn_impl": "chunked", "mla_absorb": True,
+        "moe_bf16_wire": True, "bf16_norm": True, "moe_row_dispatch": True,
+        "attn_seq_shard": True,
+    },
+}
+
+# build_cell's step-builder knobs, in the order JAX's resolves them:
+# (name, the value that never conflicts, whether its message quotes it)
+_STEP_KNOBS = (("num_chains", 1, False), ("ar_algo", "rs_ag", True),
+               ("compress_grads", False, False), ("bucket_bytes", None, False),
+               ("topology", None, True))
+
+
+def _concrete(specs: PyTree, vocab: int, device: torch.device, seed: int) -> PyTree:
+    """Tensors on ``device`` with the shapes and dtypes of the meta
+    ``specs`` (a batch, or decode tokens): integer leaves uniform in
+    [0, vocab) (M-RoPE ``positions``: text positions 0..S-1 on all
+    three streams), float leaves standard normal, from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def one(path, x):
+        shape = tuple(x.shape)
+        if path and path[-1] == "positions":
+            return torch.arange(shape[-1], dtype=x.dtype, device=device).expand(shape).contiguous()
+        if x.dtype.is_floating_point:
+            return torch.randn(shape, generator=gen, device=device).to(x.dtype)
+        return torch.randint(0, vocab, shape, generator=gen, device=device, dtype=x.dtype)
+
+    return map_with_path(one, specs)
+
+
+def build_cell(
+    arch: str,
+    shape_name: str,
+    mesh,
+    *,
+    collectives: str = "xla",
+    num_chains: int | str = 1,
+    ar_algo: str = "rs_ag",
+    compress_grads: bool = False,
+    bucket_bytes: int | None = None,
+    topology: str | None = None,
+    remat: str = "dots",
+    smoke: bool = False,
+    variant: str = "baseline",
+    device="meta",
+) -> Cell:
+    """The cell of ``arch`` at ``C.SHAPES[shape_name]`` on ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.VirtualMesh`), with ``variant``'s
+    overrides: ``VARIANTS`` resolves as in JAX, and a step-builder knob
+    passed explicitly against the variant's raises ``ValueError``.
+
+    On ``device="meta"`` the args are meta tensors (``model_init`` and
+    ``adamw.init`` on the meta device, ``configs.shapes.input_specs``):
+    nothing is allocated. On a real device the params are
+    ``model_init``'s from a generator seeded 0, the optimizer state
+    ``adamw.init``'s, a batch or the decode tokens come from a generator
+    seeded 1 (:func:`_concrete`), the decode position is 0 and its cache
+    ``init_cache``'s. ``remat`` reaches the train step (prefill keeps no
+    autograd state, so the port's takes none)."""
+    cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
+    overrides = dict(VARIANTS.get(variant) or {})
+    knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
+                 bucket_bytes=bucket_bytes, topology=topology)
+    for name, default, quoted in _STEP_KNOBS:
+        pinned = overrides.pop(name, None)
+        if pinned is None:
+            continue
+        if knobs[name] not in (default, pinned):
+            fmt = repr if quoted else str
+            raise ValueError(
+                f"variant {variant!r} sets {name}={fmt(pinned)} but "
+                f"{name}={fmt(knobs[name])} was passed explicitly"
+            )
+        knobs[name] = pinned
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    shape = C.SHAPES[shape_name]
+    tp = mesh.shape.get("model", 1)
+    dev = resolve_device(device)
+    meta = dev.type == "meta"
+
+    params = T.model_init(torch.Generator(device="cpu" if meta else dev).manual_seed(0),
+                          cfg, device=dev)
+    pspecs = shd.param_pspecs(params, cfg, tp=tp)
+    specs = input_specs(cfg, shape)
+
+    def batch_of(spec_batch):
+        return spec_batch if meta else _concrete(spec_batch, cfg.vocab_size, dev, 1)
+
+    if shape.kind == "train":
+        opt_state = adamw.init(params)
+        ospecs = shd.opt_pspecs(pspecs, params, data_size=mesh.shape.get("data", 1))
+        bspecs = shd.batch_pspecs(cfg, shape)
+        step = make_train_step(
+            cfg, adamw.OptConfig(), remat=remat, collectives=collectives,
+            **knobs, mesh=mesh, batch_specs=_sanitized(mesh, bspecs),
+        )
+        return Cell(
+            cfg=cfg, shape=shape, mesh=mesh, step_fn=step,
+            args=(params, opt_state, batch_of(specs["batch"])),
+            in_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, ospecs),
+                      _sanitized(mesh, bspecs)),
+            out_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, ospecs), None),
+            donate_argnums=(0, 1),
+            **knobs,
+        )
+
+    if shape.kind == "prefill":
+        bspecs = shd.batch_pspecs(cfg, shape)
+        cache = T.init_cache(cfg, shape.global_batch, specs["max_seq"], device="meta")
+        cspecs = shd.cache_pspecs(cache, cfg, shape, tp=tp)
+        return Cell(
+            cfg=cfg, shape=shape, mesh=mesh,
+            step_fn=make_prefill_step(cfg, specs["max_seq"]),
+            args=(params, batch_of(specs["batch"])),
+            in_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, bspecs)),
+            out_specs=(_sanitize(P(shd.BATCH_AXES, None), mesh), _sanitized(mesh, cspecs)),
+        )
+
+    # decode
+    cspecs = shd.cache_pspecs(specs["cache"], cfg, shape, tp=tp)
+    tok_spec = P() if shape.global_batch == 1 else _sanitize(P(shd.BATCH_AXES), mesh)
+    if meta:
+        args = (params, specs["tokens"], specs["pos"], specs["cache"])
+    else:
+        args = (params, _concrete(specs["tokens"], cfg.vocab_size, dev, 1),
+                torch.zeros((), dtype=torch.int32, device=dev),
+                T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev))
+    return Cell(
+        cfg=cfg, shape=shape, mesh=mesh, step_fn=make_serve_step(cfg), args=args,
+        in_specs=(_sanitized(mesh, pspecs), tok_spec, P(), _sanitized(mesh, cspecs)),
+        out_specs=(tok_spec, _sanitized(mesh, cspecs)),
+        donate_argnums=(3,),
+    )

@@ -9,8 +9,8 @@ as f32, weight decay inside the update. ``step`` is an int32 tensor.
 ``update`` writes the new moments and params into the buffers of
 ``state`` and ``params``, leaf by leaf, as the JAX step donates them,
 so a step holds one copy of the optimizer state and the params, not
-two. The ZeRO-1 partition specs of the JAX module
-are sharding specs and wait for the multi-process backend.
+two. :func:`zero1_specs` gives the ZeRO-1 partition specs of the
+optimizer state (each leaf also split over the data axis), as JAX's.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.parallel.spec import P
 from repro_torch.tree import leaves, map_tree
 
 PyTree = Any
@@ -104,4 +105,33 @@ def update(
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
-__all__ = ["OptConfig", "global_norm", "init", "schedule", "update"]
+# ---------------------------------------------------------------------------
+# ZeRO-1 partition specs
+# ---------------------------------------------------------------------------
+
+
+def zero1_leaf_spec(param_spec, shape: tuple[int, ...], data_size: int,
+                    axis: str = "data") -> P:
+    """Additionally shard an optimizer leaf over the data axis: pick the
+    first dim that is divisible by the data-axis size and not already
+    sharded. Falls back to the param's own spec."""
+    existing = tuple(param_spec) if param_spec is not None else (None,) * len(shape)
+    existing = existing + (None,) * (len(shape) - len(existing))
+    for i, dim in enumerate(shape):
+        if existing[i] is None and dim % data_size == 0 and dim >= data_size:
+            new = list(existing)
+            new[i] = axis
+            return P(*new)
+    return P(*existing)
+
+
+def zero1_specs(param_specs: PyTree, params: PyTree, data_size: int) -> dict:
+    """Specs for the optimizer state tree (:func:`init`'s) given the
+    param specs and the params (meta tensors will do)."""
+    mu_specs = map_tree(lambda spec, p: zero1_leaf_spec(spec, tuple(p.shape), data_size),
+                        param_specs, params)
+    return {"mu": mu_specs, "nu": mu_specs, "step": P()}
+
+
+__all__ = ["OptConfig", "global_norm", "init", "schedule", "update", "zero1_leaf_spec",
+           "zero1_specs"]

@@ -46,6 +46,8 @@ from repro_torch.core.scheduling import (
 from repro_torch.core.simulator import SourceFailedError
 from repro_torch.core.topology import MeshTopology, parse_topology_spec
 from repro_torch.parallel.hints import dp_axes
+from repro_torch.parallel.sharding import batch_axis
+from repro_torch.parallel.spec import P
 from repro_torch.runtime.compression import dequantize_rows, quantize_rows
 from repro_torch.runtime.spans import maybe_span
 from repro_torch.tree import leaves, map_tree, unflatten
@@ -362,25 +364,33 @@ def ef_residual_init(params: PyTree, dp_size: int) -> PyTree:
     )
 
 
+def ef_residual_specs(mesh, params: PyTree) -> PyTree:
+    """Partition specs of :func:`ef_residual_init` state: dim 0 over the
+    DP axes of ``mesh`` (each rank owns its residual row)."""
+    dp = dp_axes(mesh.axis_names)
+    return map_tree(lambda _: P(dp), params)
+
+
 def _mesh_size(mesh, axes) -> int:
     return math.prod(mesh.shape[a] for a in axes)
 
 
 def split_batch(batch: dict, dp: int, r: int, batch_specs: dict | None = None) -> dict:
     """Rank ``r``'s rows of every batch leaf: its ``r``-th of ``dp``
-    equal slices along the leaf's batch axis, which ``batch_specs``
-    (``parallel.sharding.batch_pspecs``: a leaf's name to its axis)
-    names, axis 0 for a leaf it does not name. M-RoPE ``positions``
-    (3, B, S) are split along axis 1, so each rank keeps all three
-    streams of its rows."""
+    equal slices along the leaf's batch axis, which its spec in
+    ``batch_specs`` (``parallel.sharding.batch_pspecs``, sanitized to a
+    mesh or not) splits over the batch axes
+    (``parallel.sharding.batch_axis``); axis 0 for a leaf it does not
+    name. M-RoPE ``positions`` (3, B, S) are split along axis 1, so
+    each rank keeps all three streams of its rows."""
     def take(x, axis):
         if x.shape[axis] % dp:
             raise ValueError(f"batch dim {x.shape[axis]} not divisible by {dp} DP ranks")
         n = x.shape[axis] // dp
         return x.narrow(axis, r * n, n)
 
-    axes = batch_specs or {}
-    return {k: take(x, axes.get(k, 0)) for k, x in batch.items()}
+    specs = batch_specs or {}
+    return {k: take(x, batch_axis(specs[k]) if k in specs else 0) for k, x in batch.items()}
 
 
 def _same_device(tensors) -> torch.device:
@@ -698,6 +708,7 @@ __all__ = [
     "bucket_shard_layout",
     "dp_size_of",
     "ef_residual_init",
+    "ef_residual_specs",
     "make_stacked_reduce",
     "resolve_ring_chains",
     "ring_order_for_axis",

@@ -55,3 +55,13 @@ def paths(tree: Any, prefix: tuple = ()) -> list[tuple[tuple, Any]]:
     if isinstance(tree, (list, tuple)):
         return [p for i, t in enumerate(tree) for p in paths(t, prefix + (i,))]
     return [(prefix, tree)]
+
+
+def map_with_path(fn: Callable, tree: Any, prefix: tuple = ()) -> Any:
+    """``jax.tree_util.tree_map_with_path``: ``fn(path, leaf)`` over
+    ``tree``, with paths as :func:`paths` gives them."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, tree[k], prefix + (k,)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_with_path(fn, t, prefix + (i,)) for i, t in enumerate(tree))
+    return fn(prefix, tree)

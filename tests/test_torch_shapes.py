@@ -3,9 +3,9 @@ layouts (``repro_torch.parallel.sharding.batch_pspecs``) and the DP
 split that follows them (``collectives.split_batch``) against the JAX
 package: every arch × shape's applicability and input specs (the port's
 meta tensors against JAX's ``ShapeDtypeStruct``s: keys, shapes and
-dtypes, the decode cache included), and each batch leaf's batch axis
-against the position of JAX's batch axes in its ``PartitionSpec``.
-These are exact: shapes and layouts, no arithmetic.
+dtypes, the decode cache included), and each batch leaf's spec against
+JAX's ``PartitionSpec`` and the DP split along the position of the
+batch axes in it. These are exact: shapes and layouts, no arithmetic.
 """
 
 from __future__ import annotations
@@ -61,7 +61,10 @@ def test_batch_axes_match_jax_batch_pspecs(arch):
     for name in ("train_4k", "prefill_32k"):
         want = JSh.batch_pspecs(JC.get_config(arch), JC.SHAPES[name])
         got = sharding.batch_pspecs(TC.get_config(arch), TC.SHAPES[name])
-        assert got == {k: tuple(spec).index(JSh.BATCH_AXES) for k, spec in want.items()}
+        assert {k: tuple(spec) for k, spec in got.items()} == {
+            k: tuple(spec) for k, spec in want.items()}
+        assert {k: sharding.batch_axis(spec) for k, spec in got.items()} == {
+            k: tuple(spec).index(JSh.BATCH_AXES) for k, spec in want.items()}
     with pytest.raises(ValueError):
         sharding.batch_pspecs(TC.get_config(arch), TC.SHAPES["decode_32k"])
 
