@@ -143,7 +143,39 @@ Phases (any failure exits non-zero and prints no result):
    first near ln(vocab); every step's EP all-to-all bytes (the
    executor's, counted over the joint fwd+bwd span) nonzero and equal to
    ``program_wire_bytes`` of those programs; no allocator retry; no
-   kernel launch. Prints the train phase's record for each run.
+   kernel launch. Prints the train phase's record for each run;
+16. cells: every assigned (arch x shape) cell built on the meta device
+   by ``build_cell``, every arch's smoke cells and yi-6b's variants run
+   from it, mamba2-2.7b and qwen2-vl-7b trained at full width through
+   their train cells;
+17. dist: the process form, one rank per process sharing the card over
+   gloo (NCCL refuses two ranks on one device), whose frames go through
+   pinned host buffers. First 4 ranks run the executor's matrix on CUDA
+   tensors (broadcasts with K = 1, 2 and F = 1, 3; rs_ag and rotation
+   all-reduce, reduce-scatter, all-gather, all-to-all; exact and int8
+   wires): each rank's result equal to the stacked executor's row on the
+   card bit for bit, each rank's bytes equal to their model (a ring
+   rank's to ``program_wire_bytes``; a broadcast's ranks' sum to the
+   members times the payload). Then yi-6b at full width, 4 of 32 layers,
+   through the process-form ``Trainer`` on 2 ranks x 4 x 512 tokens
+   (rs_ag, K = 1, 25 MiB buckets): the first step's reduced grads leaf by
+   leaf bit for bit the stacked reduction of the two ranks' grads
+   (all-gathered by the executor), then 3 exact and 3 int8 + EF steps
+   whose losses must equal a stacked ``Trainer``'s (``dp=2``, run in
+   this process before the spawn) within ``DIST_LOSS_TOL``; per rank
+   the step walls, the spans, the transport, the wire bytes against the
+   model, peak memory and allocator retries (must be 0); no kernel
+   launch. Then expert parallelism across the processes:
+   deepseek-moe-16b at full width, 2 of 28 layers, ``moe_ep_dispatch``
+   (the MoE layer's dispatch and return as all-to-alls over the group,
+   its backward the transposed exchange, the remat'd recompute's
+   exchanges on the autograd engine's thread), one train step on 2
+   ranks x 4 x 512 tokens against the stacked joint step that rank 0
+   runs first from the same params and batch: loss, each leaf's update
+   and the updates' cosine within ``DIST_EP_TOL``, the ranks' updates
+   equal bit for bit, the EP bytes nonzero and the wire bytes equal to
+   the model, no allocator retry, no kernel launch. A failing rank
+   fails the phase.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -1115,6 +1147,19 @@ def mem_spans():
     return MemSpans()
 
 
+def trainer_step(tr, i: int) -> dict:
+    """One step of a ``Trainer``'s state and step function on batch
+    ``i``; returns the step's metrics."""
+    st = tr.state
+    if "ef" in st:
+        p_, o_, e_, m = tr.step_fn(st["params"], st["opt"], st["ef"], tr._device_batch(i))
+        tr.state = {"params": p_, "opt": o_, "ef": e_}
+    else:
+        p_, o_, m = tr.step_fn(st["params"], st["opt"], tr._device_batch(i))
+        tr.state = {"params": p_, "opt": o_}
+    return m
+
+
 def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo) -> dict:
     """Drive a ``Trainer``'s state and step function ``steps`` steps (and
     one more under the profiler) and return the run's record (``tr`` may
@@ -1141,16 +1186,6 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
         else:
             gc_clock["s"] = gc_clock.get("s", 0.0) + time.perf_counter() - gc_clock.pop("t0")
 
-    def step(i):
-        st = tr.state
-        if "ef" in st:
-            p_, o_, e_, m = tr.step_fn(st["params"], st["opt"], st["ef"], tr._device_batch(i))
-            tr.state = {"params": p_, "opt": o_, "ef": e_}
-        else:
-            p_, o_, m = tr.step_fn(st["params"], st["opt"], tr._device_batch(i))
-            tr.state = {"params": p_, "opt": o_}
-        return m
-
     def modeled(collective=None):
         return sum(n * prg.pipelined_wire_bytes(p, size, frames)
                    for (p, size, frames), n in cw.wire_counter.runs.items()
@@ -1167,7 +1202,7 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
         torch.cuda.synchronize()
         gc_clock.clear()
         t0 = time.perf_counter()
-        loss = float(step(i)["loss"])
+        loss = float(trainer_step(tr, i)["loss"])
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         gc_s.append(gc_clock.get("s", 0.0))
@@ -1192,7 +1227,7 @@ def drive_trainer(label: str, tr, spans, steps: int, tokens_per_step: int, topo)
     peak_gb = max(peak, *spans.peak.values()) / 1e9
     retries = torch.cuda.memory_stats()["num_alloc_retries"] - retries0
     cw.wire_counter.reset()
-    device_breakdown(f"{label} step", lambda: step(steps))  # not one of the timed steps
+    device_breakdown(f"{label} step", lambda: trainer_step(tr, steps))  # not one of the timed steps
     spans.read()
     rec = {
         "losses": losses, "step_wall_s": walls,
@@ -2148,6 +2183,302 @@ def cell_phase() -> dict:
           flush=True)
     return {"smoke": smoke, "variants": variants, "train": trains}
 
+# the losses of the process form against the stacked Trainer's on the
+# card: exact wire (the same per-rank grads and a bit-exact reduction:
+# expect 0) and int8 + EF (each process keeps its own reduced row, where
+# the stacked form hands every rank row 0; 3e-4 on the CPU after 2
+# steps, tests/test_torch_dist.py)
+DIST_LOSS_TOL = {"exact": 1e-5, "int8_ef": 2e-3}
+DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=4, steps=3, global_batch=8, seq_len=512,
+                  peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
+                  bucket_bytes=25 << 20, loss_chunks=8, seed=0)
+
+
+def dist_executor_rank(rank, world, device, case_list):
+    """One rank of the dist phase's executor check (a spawned process)."""
+    import torch.distributed as dist
+    import _dist_cases as dc
+    from repro_torch.core import chainwrite_dist as cwd
+
+    return {"transport": cwd.transport(dist.group.WORLD, device),
+            "cases": dc.executor_rank(rank, world, device, case_list)}
+
+
+def dist_train_rank(rank, world, device):
+    """One rank of the process-form training (a spawned process): the
+    first step's reduced grads checked leaf by leaf, then 3 exact and 3
+    int8 + EF steps through the process-form ``Trainer``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.parallel import collectives as col
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    reset_launches()
+    out = {"transport": cwd.transport(dist.group.WORLD, device)}
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for name, compress in (("exact", False), ("int8_ef", True)):
+        t0 = time.perf_counter()
+        spans = Spans()
+        tr = Trainer(TrainConfig(compress_grads=compress, **DIST_TRAIN), device=device,
+                     spans=spans)
+        group = tr.mesh.group("data")
+        init_s = time.perf_counter() - t0
+        if name == "exact":
+            # the first step's grads: this process's reduction against the
+            # stacked reduction of the two ranks' grads, leaf by leaf
+            raw, _ = make_grad_fn(tr.cfg, loss_chunks=DIST_TRAIN["loss_chunks"])(
+                tr.state["params"], tr._device_batch(0))
+            raw = leaves(raw)
+            reduced = col.make_stacked_reduce(tr.mesh, num_chains=1,
+                                              bucket_bytes=DIST_TRAIN["bucket_bytes"])(
+                [g.unsqueeze(0) for g in raw])
+            stacked_reduce = col.make_stacked_reduce(make_host_mesh(data=world), num_chains=1)
+            unequal = []
+            for i in range(len(raw)):
+                both = cw.chain_all_gather(raw[i], group=group)
+                if not torch.equal(stacked_reduce([both])[0], reduced[i]):
+                    unequal.append(i)
+                del both
+            out["grad_check"] = {"leaves": len(raw), "unequal": unequal,
+                                 "params": sum(g.numel() for g in raw)}
+            del raw, reduced
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, walls, span_ms, wire = [], [], [], []
+        for i in range(DIST_TRAIN["steps"]):
+            cwd.wire_counter.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer_step(tr, i)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            span_ms.append({k: [round(v, 3) for v in vs] for k, vs in spans.read().items()})
+            wire.append((cwd.wire_counter.bytes, cwd.wire_counter.modeled_bytes(),
+                         cwd.wire_counter.program_bytes()))
+        out[name] = {"losses": losses, "step_wall_s": walls, "init_s": init_s,
+                     "median_step_s": float(np.median(walls)), "spans_ms": span_ms[-1],
+                     "wire_bytes_per_step": wire[-1][0],
+                     "modeled_wire_bytes_per_step": wire[-1][1],
+                     "program_wire_bytes_per_step": wire[-1][2],
+                     "wire_equal_model": all(a == b == c for a, b, c in wire),
+                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    out["launches"] = read_launches()
+    return out
+
+
+# expert parallelism across the processes: deepseek-moe-16b at full
+# width, 2 of 28 layers (1 dense + 1 MoE), one train step with the
+# remat'd recompute (its exchanges run on the autograd engine's thread)
+DIST_EP = dict(arch="deepseek-moe-16b", layers=2, global_batch=8, seq_len=512, loss_chunks=8,
+               num_chains=1, remat="dots")
+# its step against the stacked joint step: the bounds of
+# tests/test_torch_dist.py::test_ep_train_step_matches_stacked_joint_step
+# (bf16 grads of the batch run as one joint forward or as one forward a
+# rank; equal bit for bit on the CPU): the loss, each leaf's update
+# difference over the update's largest element, the updates' cosine
+DIST_EP_TOL = {"loss": 1e-3, "update_rel": 5e-2, "cosine_min": 0.999}
+
+
+def dist_ep_rank(rank, world, device):
+    """One rank of the dist phase's expert-parallel check (a spawned
+    process): one train step of ``DIST_EP``'s model with
+    ``moe_ep_dispatch`` on the process form, each MoE layer exchanging
+    this rank's tokens with the other rank's over the group, from the
+    params of seed 0 and batch 0 (a linear AdamW step, as the test's).
+    Rank 0 first runs the stacked joint step (both ranks in one forward)
+    from the same params and batch, alone on the card while rank 1 waits
+    at a barrier, and keeps its update on the host; then it holds the
+    process form's update against it leaf by leaf. Every rank's update
+    must equal rank 0's bit for bit (the exact wire)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import _dist_cases as dc
+    from repro_torch import configs as C
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.data.pipeline import MarkovSource, make_device_placer, rank_slice
+    from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(C.get_config(DIST_EP["arch"]), moe_ep_dispatch=True,
+                              num_layers=DIST_EP["layers"])
+    source = MarkovSource(cfg.vocab_size, DIST_EP["seq_len"], DIST_EP["global_batch"], seed=1)
+    place = make_device_placer(device)
+
+    def init():
+        return T.model_init(torch.Generator(device=device).manual_seed(0), cfg, device)
+
+    def step_on(mesh):
+        return make_train_step(cfg, adamw.OptConfig(**dc.LINEAR_ADAMW), collectives="torrent",
+                               mesh=mesh, loss_chunks=DIST_EP["loss_chunks"],
+                               num_chains=DIST_EP["num_chains"], remat=DIST_EP["remat"])
+
+    def run(step, batch):
+        p = init()
+        p0 = [t.cpu() for t in leaves(p)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, _, m = step(p, adamw.init(p), batch)
+        loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        return leaves(new_p), p0, loss, wall
+
+    out = {"transport": cwd.transport(dist.group.WORLD, device)}
+    ref = None
+    if rank == 0:
+        new_p, p0, loss, wall = run(step_on(make_host_mesh(data=world)), place(source.batch(0)))
+        ref = {"loss": loss, "update": [(a - b.to(device)).cpu() for a, b in zip(new_p, p0)]}
+        out["stacked"] = {"loss": loss, "step_wall_s": wall,
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del new_p, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    mesh = make_process_mesh()
+    step = step_on(mesh)
+    batch = place(source.batch(0, host_slice=rank_slice(DIST_EP["global_batch"], world, rank)))
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    reset_launches()
+    cwd.wire_counter.reset()
+    new_p, p0, loss, wall = run(step, batch)
+    launches = read_launches()
+    ep_bytes = sum(n * cwd.sent_wire_bytes(p, size, frames, r)
+                   for (p, size, frames, r), n in cwd.wire_counter.runs.items()
+                   if p.collective == "all_to_all")
+    out["process"] = {
+        "loss": loss, "step_wall_s": wall, "wire_bytes": cwd.wire_counter.bytes,
+        "modeled_wire_bytes": cwd.wire_counter.modeled_bytes(), "ep_wire_bytes": ep_bytes,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0,
+        "launches": launches, "params": sum(t.numel() for t in new_p)}
+    group = mesh.group("data")
+    unequal, errs, coss = [], [], []
+    for i, (a, b) in enumerate(zip(new_p, p0)):
+        if not all(torch.equal(x, a) for x in cw.chain_all_gather(a, group=group)):
+            unequal.append(i)
+        if ref is not None:
+            db = (a - b.to(device)).double()
+            da = ref["update"][i].to(device).double()
+            errs.append(float((da - db).abs().max() / da.abs().max()))
+            coss.append(float((da * db).sum() / ((da * da).sum() * (db * db).sum()).sqrt()))
+            del da, db
+    out["ranks_unequal_leaves"] = unequal
+    if ref is not None:
+        # np.max/np.min keep a NaN, which then fails the bounds
+        out["vs_stacked"] = {"loss_diff": abs(loss - ref["loss"]),
+                             "max_update_rel_err": float(np.max(errs)),
+                             "min_cosine": float(np.min(coss)), "leaves": len(new_p)}
+    return out
+
+
+def dist_phase() -> dict:
+    """The process form on the card (phase 17 of the module docstring)."""
+    import numpy as np
+    import torch
+    import _dist_cases as dc
+    from repro_torch.core import chainwrite as cw
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.train import TrainConfig, Trainer
+
+    # 1. the executor's matrix on 4 ranks sharing the card; two of them
+    # at a size that makes the staged frames megabytes
+    L = 4
+    cases = dc.cases(L, Ks=(1, 2), seeds=(0, 1), full=False)
+    for wire in (None, "int8"):
+        c = dict(kind="all_reduce", K=2, seed=1, algo="rs_ag", wire=wire, n=1 << 18)
+        c["name"] = f"all_reduce-large-{wire}"
+        cases.append(c)
+    t0 = time.perf_counter()
+    ranks = spawn(dist_executor_rank, L, backend="gloo", device="cuda", timeout_s=300,
+                  args=(cases,))
+    spawn_s = time.perf_counter() - t0
+    bad = dc.executor_mismatches(cases, ranks, "cuda")
+    transport = {r["transport"] for r in ranks}
+    print(f"dist executor: {json.dumps({'ranks': L, 'cases': len(cases), 'bit_exact': not bad, 'transport': sorted(transport), 'spawn_and_run_s': round(spawn_s, 2)})}", flush=True)
+    if bad or transport != {"gloo via pinned host"}:
+        raise AssertionError(f"dist executor: {bad[:10]} transport {transport}")
+
+    # 2. the stacked reference in this process first, then freed: its
+    # ~40 GB and two ranks' ~30 GB each do not fit one card together
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = {}
+    for name, compress in (("exact", False), ("int8_ef", True)):
+        tr = Trainer(TrainConfig(dp=2, compress_grads=compress, **DIST_TRAIN), device="cuda")
+        want[name] = [float(trainer_step(tr, i)["loss"]) for i in range(DIST_TRAIN["steps"])]
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"dist train: stacked Trainer (dp=2) losses {json.dumps(want)}; card free "
+          f"{free / 1e9:.2f} of {total / 1e9:.2f} GB before the spawn", flush=True)
+    if free < 0.75 * total:
+        raise AssertionError(f"dist train: only {free / 1e9:.2f} GB free before the spawn")
+    t0 = time.perf_counter()
+    ranks = spawn(dist_train_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        print(f"dist train rank {r}: {json.dumps(rec)}", flush=True)
+    errors = {}
+    for name in want:
+        got = ranks[0][name]["losses"]
+        errors[name] = max(abs(a - b) for a, b in zip(got, want[name]))
+        if not (all(rk[name]["losses"] == got for rk in ranks) and errors[name] <= DIST_LOSS_TOL[name]
+                and all(rk[name]["wire_equal_model"] for rk in ranks)
+                and np.isfinite(got).all()):
+            raise AssertionError(f"dist train {name}: losses {got} vs stacked {want[name]}")
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    checks = [rk["grad_check"] for rk in ranks]
+    if any(c["unequal"] for c in checks) or any(rk["alloc_retries"] for rk in ranks) \
+            or any(launches.values()) or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
+        raise AssertionError(f"dist train: grad checks {checks}, retries "
+                             f"{[rk['alloc_retries'] for rk in ranks]}, launches {launches}")
+    print(f"dist train: {json.dumps({'ranks': 2, 'first_step_leaves_bit_exact': checks[0]['leaves'], 'params': checks[0]['params'], 'max_loss_diff_vs_stacked': errors, 'tolerance': DIST_LOSS_TOL, 'phase_wall_s': round(wall, 2), 'launches': launches})}", flush=True)
+
+    # 3. expert parallelism across the processes, against the stacked
+    # joint step that rank 0 runs first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(dist_ep_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    for r, rec in enumerate(ranks):
+        print(f"dist ep rank {r}: {json.dumps(rec)}", flush=True)
+    procs = [rk["process"] for rk in ranks]
+    vs = ranks[0]["vs_stacked"]
+    ep_launches = {k: sum(p_["launches"][k] for p_ in procs) for k in procs[0]["launches"]}
+    if not (vs["loss_diff"] <= DIST_EP_TOL["loss"]
+            and vs["max_update_rel_err"] <= DIST_EP_TOL["update_rel"]
+            and vs["min_cosine"] >= DIST_EP_TOL["cosine_min"]
+            and not any(rk["ranks_unequal_leaves"] for rk in ranks)
+            and all(p_["ep_wire_bytes"] > 0 and p_["wire_bytes"] == p_["modeled_wire_bytes"]
+                    for p_ in procs)
+            and all(np.isfinite(p_["loss"]) for p_ in procs)
+            and not any(p_["alloc_retries"] for p_ in procs)
+            and not any(ep_launches.values())
+            and {rk["transport"] for rk in ranks} == {"gloo via pinned host"}):
+        raise AssertionError(f"dist ep: {vs} vs {DIST_EP_TOL}, ranks {ranks}")
+    print(f"dist ep: {json.dumps({'ranks': 2, 'arch': DIST_EP['arch'], 'layers': DIST_EP['layers'], 'params': procs[0]['params'], 'vs_stacked_joint_step': vs, 'tolerance': DIST_EP_TOL, 'ep_wire_bytes_per_rank': [p_['ep_wire_bytes'] for p_ in procs], 'phase_wall_s': round(wall, 2), 'launches': ep_launches})}", flush=True)
+    return {"train_launches": launches, "ep_launches": ep_launches}
+
+
 
 def main() -> int:
     import torch
@@ -2216,6 +2547,7 @@ def main() -> int:
     train = train_phase()
     ep_train = ep_train_phase()
     cell_phase()
+    dist = dist_phase()
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
@@ -2230,7 +2562,9 @@ def main() -> int:
                    "hybrid_serve": hybrid_launches[name], "vlm_decode": vlm[name],
                    "audio_decode": audio[name], "audio_train": audio_train[name],
                    "train": train["train_launches"][name],
-                   "ep_train": ep_train["train_launches"][name]}
+                   "ep_train": ep_train["train_launches"][name],
+                   "dist_train": dist["train_launches"][name],
+                   "ep_dist_train": dist["ep_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

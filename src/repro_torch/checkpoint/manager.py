@@ -23,6 +23,13 @@ Design points for the 1000+-node posture:
   indices joined by ``/`` in sorted key order, as ``jax.tree_util``'s
   paths give them. ``restore`` returns a tree of tensors on ``device``.
 * **keep_last_k** garbage collection.
+* **One format for both forms.** With a ``group`` (the process form:
+  one rank per process), rank 0 writes and every rank waits at a
+  barrier in :meth:`wait`. The per-rank leaves (the ones under a key of
+  :data:`PER_RANK`: the error-feedback residual, a rank's ``(1,
+  *shape)`` row) are gathered to rank 0 on save as the ``(dp, *shape)``
+  leaf the stacked form writes, and each rank restores its own row of
+  it. A checkpoint written by either form restores in the other.
 """
 
 from __future__ import annotations
@@ -37,13 +44,18 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.chainwrite_dist import gather_rows
 from repro_torch.device import resolve_device
 from repro_torch.tree import paths, unflatten
 
 PyTree = Any
 
 _SEP = "/"
+
+# top-level state keys whose leaves are per-rank rows in the process form
+PER_RANK = ("ef",)
 
 
 def _host(leaf) -> np.ndarray:
@@ -64,10 +76,20 @@ def _key(path: tuple) -> str:
     return _SEP.join(str(p) for p in path)
 
 
+def _per_rank(path: tuple) -> bool:
+    return bool(path) and path[0] in PER_RANK
+
+
 class CheckpointManager:
-    def __init__(self, root: str, keep_last_k: int = 3):
+    """``group``: the ``torch.distributed`` group of the process form's
+    ranks (rank 0 writes; see the module docstring), or None for one
+    process."""
+
+    def __init__(self, root: str, keep_last_k: int = 3, *, group=None):
         self.root = root
         self.keep = keep_last_k
+        self.group = group
+        self.rank = 0 if group is None else dist.get_rank(group)
         os.makedirs(root, exist_ok=True)
         self._q: queue.Queue = queue.Queue()
         self._errors: list[Exception] = []
@@ -76,8 +98,19 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------
     def save(self, step: int, tree: PyTree, *, blocking: bool = False) -> None:
-        flat = _flatten(tree)  # host snapshot now
-        self._q.put((step, flat))
+        """Snapshot ``tree`` to the host now and write it in the
+        background (``blocking``: before returning). In the process form
+        every rank calls it: the per-rank leaves are gathered to rank 0,
+        which writes."""
+        if self.group is not None:
+            leaves_ = []
+            for path, leaf in paths(tree):
+                if _per_rank(path):
+                    leaf = gather_rows(leaf[0], self.group)
+                leaves_.append(leaf)
+            tree = unflatten(tree, leaves_) if self.rank == 0 else None
+        if self.rank == 0:
+            self._q.put((step, _flatten(tree)))  # host snapshot now
         if blocking:
             self.wait()
 
@@ -132,9 +165,13 @@ class CheckpointManager:
                     shutil.rmtree(full, ignore_errors=True)
 
     def wait(self):
+        """Drain the writes; in the process form every rank returns once
+        rank 0's have landed."""
         self._q.join()
         if self._errors:
             raise RuntimeError(f"checkpoint writer failed: {self._errors}")
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def close(self):
         self.wait()
@@ -157,7 +194,9 @@ class CheckpointManager:
     def restore(self, step: int, like: PyTree, *, device=None) -> PyTree:
         """Restore into the structure of ``like`` (values ignored) as
         tensors on ``device`` (default: each leaf of ``like``'s device,
-        or ``"cuda"`` when ``like`` holds no tensors)."""
+        or ``"cuda"`` when ``like`` holds no tensors). In the process
+        form a per-rank leaf restores as this rank's ``(1, *shape)`` row
+        of the saved ``(dp, *shape)`` leaf."""
         cdir = os.path.join(self.root, f"ckpt_{step:09d}")
         with open(os.path.join(cdir, "manifest.json")) as f:
             manifest = json.load(f)
@@ -168,7 +207,13 @@ class CheckpointManager:
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint {step} missing leaf {key}")
-            arr = np.load(os.path.join(cdir, meta["file"]))
+            rows = self.group is not None and _per_rank(path)
+            arr = np.load(os.path.join(cdir, meta["file"]), mmap_mode="r" if rows else None)
+            if rows:
+                if arr.shape[0] != dist.get_world_size(self.group):
+                    raise ValueError(f"{key}: ckpt has {arr.shape[0]} rank rows for "
+                                     f"{dist.get_world_size(self.group)} ranks")
+                arr = arr[self.rank:self.rank + 1]
             expect = tuple(getattr(leaf, "shape", arr.shape))
             if tuple(arr.shape) != expect:
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != {expect}")

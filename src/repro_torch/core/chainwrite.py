@@ -30,6 +30,12 @@ with the JAX signature minus the axis name: the axis is dim 0 of ``x``.
 ring collectives take the global view that ``chainwrite_ref``'s oracles
 take and return what they return.
 
+``group=`` (a ``torch.distributed`` group; ``dist.group.WORLD`` for the
+whole world) runs the same program one rank per process instead
+(:mod:`.chainwrite_dist`): the axis is the group, ``x`` is this rank's
+own view with JAX's per-device shapes, and the result is this rank's.
+``group=None`` is the stacked view.
+
 :data:`wire_counter` counts the bytes that cross an edge, step by step:
 per step, the executor's permute count (``Step.num_permutes``) times the
 bytes of one edge's frame (an int8 frame plus its 4-byte scale on a
@@ -49,6 +55,7 @@ import torch
 
 from repro_torch.runtime.compression import dequantize_rows, quantize_rows
 
+from . import chainwrite_dist as cwd
 from . import program as prg
 from .program import ALL_REDUCE_ALGOS, ChainProgram, validate_ring_partition
 from .scheduling import FailureSpec, normalize_failed
@@ -373,6 +380,7 @@ def execute_program(
     *,
     num_frames: int = 1,
     tiled: bool = False,
+    group=None,
 ) -> torch.Tensor:
     """Run a :class:`ChainProgram` on the global view ``x`` (row ``d`` =
     virtual device ``d``), with ``execute_program``'s per-collective
@@ -380,7 +388,11 @@ def execute_program(
     (``num_frames`` pipelines it); ``all_gather`` stacks (or, ``tiled``,
     concatenates) the rows; ``reduce_scatter``/``all_to_all`` take ``(L,
     L, ...)`` chunk trains; ``all_reduce`` zero-pads dim 1 to the
-    program's shard count and unpads on the way out."""
+    program's shard count and unpads on the way out. With a ``group``,
+    ``x`` is this rank's view and the program runs one rank per process
+    (:func:`.chainwrite_dist.execute_program`)."""
+    if group is not None:
+        return cwd.execute_program(x, prog, group=group, num_frames=num_frames, tiled=tiled)
     L = prog.num_devices
     if x.dim() < 1 or x.shape[0] != L:
         raise ValueError(f"global view has {x.shape[0] if x.dim() else 0} rows, "
@@ -428,24 +440,30 @@ def execute_program(
     raise ValueError(f"unknown collective {c!r}")
 
 
+def _axis(x: torch.Tensor, group) -> int:
+    """The axis size: dim 0 of the stacked view, or the group's size."""
+    return x.shape[0] if group is None else cwd.group_size(group)
+
+
 # ---------------------------------------------------------------------------
 # P2MP broadcast
 # ---------------------------------------------------------------------------
 
 
 def chain_broadcast(
-    x: torch.Tensor, order: Sequence[int], *, num_frames: int = 1
+    x: torch.Tensor, order: Sequence[int], *, num_frames: int = 1, group=None
 ) -> torch.Tensor:
     """Multicast row ``order[0]`` of ``x`` to every row in ``order`` by
     store-and-forward chaining; rows outside ``order`` get zeros.
-    ``num_frames > 1`` pipelines frames of dim 1 down the chain."""
+    ``num_frames > 1`` pipelines frames of dim 1 down the chain. With a
+    ``group``, ``x`` is this rank's payload (the head's is sent)."""
     order = tuple(int(o) for o in order)
     if len(order) == 0:
         raise ValueError("empty chain")
     prog = prg.plan_broadcast(
-        x.shape[0], order[0], (order[1:],) if len(order) > 1 else ()
+        _axis(x, group), order[0], (order[1:],) if len(order) > 1 else ()
     )
-    return execute_program(x, prog, num_frames=num_frames)
+    return execute_program(x, prog, num_frames=num_frames, group=group)
 
 
 def multi_chain_broadcast(
@@ -454,6 +472,7 @@ def multi_chain_broadcast(
     chains: Sequence[Sequence[int]],
     *,
     num_frames: int = 1,
+    group=None,
 ) -> torch.Tensor:
     """Multicast row ``head`` of ``x`` down K disjoint sub-chains
     (destination orders, head excluded). The head and every chain
@@ -461,8 +480,8 @@ def multi_chain_broadcast(
     clean = prg.validate_chains(int(head), chains)
     if not clean:
         raise ValueError("empty chain set")
-    prog = prg.plan_broadcast(x.shape[0], int(head), clean)
-    return execute_program(x, prog, num_frames=num_frames)
+    prog = prg.plan_broadcast(_axis(x, group), int(head), clean)
+    return execute_program(x, prog, num_frames=num_frames, group=group)
 
 
 def degraded_chains(
@@ -490,6 +509,7 @@ def degraded_multi_chain_broadcast(
     failed: FailureSpec,
     *,
     num_frames: int = 1,
+    group=None,
 ) -> torch.Tensor:
     """:func:`multi_chain_broadcast` with the ``failed`` member(s)
     dropped: survivors get the payload, the failed rows zeros."""
@@ -498,9 +518,9 @@ def degraded_multi_chain_broadcast(
         raise ValueError("the initiator (head) cannot be dropped")
     remaining = degraded_chains(chains, failed)
     if not remaining:  # every destination failed: head keeps its payload
-        prog = prg.plan_broadcast(x.shape[0], head, ())
-        return execute_program(x, prog, num_frames=num_frames)
-    return multi_chain_broadcast(x, head, remaining, num_frames=num_frames)
+        prog = prg.plan_broadcast(_axis(x, group), head, ())
+        return execute_program(x, prog, num_frames=num_frames, group=group)
+    return multi_chain_broadcast(x, head, remaining, num_frames=num_frames, group=group)
 
 
 # ---------------------------------------------------------------------------
@@ -516,40 +536,42 @@ def _ring_args(L: int, order: Sequence[int] | None) -> tuple[int, ...]:
 
 
 def chain_all_gather(
-    x: torch.Tensor, order: Sequence[int] | None = None, *, tiled: bool = False
+    x: torch.Tensor, order: Sequence[int] | None = None, *, tiled: bool = False, group=None
 ) -> torch.Tensor:
     """Ring all-gather: every row ends with the stacked (or, ``tiled``,
     concatenated) rows of ``x``, indexed by device id."""
-    L = x.shape[0]
-    return execute_program(x, prg.plan_all_gather(L, (_ring_args(L, order),)), tiled=tiled)
+    L = _axis(x, group)
+    return execute_program(x, prg.plan_all_gather(L, (_ring_args(L, order),)), tiled=tiled,
+                           group=group)
 
 
 def multi_chain_all_gather(
-    x: torch.Tensor, orders: Sequence[Sequence[int]], *, tiled: bool = False
+    x: torch.Tensor, orders: Sequence[Sequence[int]], *, tiled: bool = False, group=None
 ) -> torch.Tensor:
     """All-gather over K disjoint equal-size sub-rings."""
-    L = x.shape[0]
+    L = _axis(x, group)
     orders = tuple(validate_ring_partition(L, orders))
-    return execute_program(x, prg.plan_all_gather(L, orders), tiled=tiled)
+    return execute_program(x, prg.plan_all_gather(L, orders), tiled=tiled, group=group)
 
 
 def chain_reduce_scatter(
-    x: torch.Tensor, order: Sequence[int] | None = None
+    x: torch.Tensor, order: Sequence[int] | None = None, *, group=None
 ) -> torch.Tensor:
     """Ring reduce-scatter: ``x`` is ``(L, L, ...)`` (row ``d``'s chunk
     ``j`` goes to device ``j``); row ``d`` of the result is the reduced
     chunk ``d``."""
-    L = x.shape[0]
-    return execute_program(x, prg.plan_reduce_scatter(L, (_ring_args(L, order),)))
+    L = _axis(x, group)
+    return execute_program(x, prg.plan_reduce_scatter(L, (_ring_args(L, order),)),
+                           group=group)
 
 
 def multi_chain_reduce_scatter(
-    x: torch.Tensor, orders: Sequence[Sequence[int]]
+    x: torch.Tensor, orders: Sequence[Sequence[int]], *, group=None
 ) -> torch.Tensor:
     """Reduce-scatter over K disjoint equal-size sub-rings."""
-    L = x.shape[0]
+    L = _axis(x, group)
     orders = tuple(validate_ring_partition(L, orders))
-    return execute_program(x, prg.plan_reduce_scatter(L, orders))
+    return execute_program(x, prg.plan_reduce_scatter(L, orders), group=group)
 
 
 def chain_all_reduce(
@@ -557,13 +579,14 @@ def chain_all_reduce(
     order: Sequence[int] | None = None,
     *,
     wire_dtype: str | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Ring all-reduce (reduce-scatter + all-gather) of the rows of
     ``x`` (``(L, n, ...)``); ``wire_dtype="int8"`` ships every hop
     quantized."""
-    L = x.shape[0]
+    L = _axis(x, group)
     prog = prg.plan_all_reduce(L, (_ring_args(L, order),), wire_dtype=wire_dtype)
-    return execute_program(x, prog)
+    return execute_program(x, prog, group=group)
 
 
 def multi_chain_all_reduce(
@@ -572,14 +595,16 @@ def multi_chain_all_reduce(
     *,
     algo: str = "rs_ag",
     wire_dtype: str | None = None,
+    group=None,
 ) -> torch.Tensor:
     """All-reduce over K disjoint equal-size sub-rings (``algo`` is
     ``"rs_ag"`` or ``"rotation"``; K = 1 is the single ring)."""
     if algo not in ALL_REDUCE_ALGOS:
         raise ValueError(f"unknown algo {algo!r}; expected {ALL_REDUCE_ALGOS}")
-    L = x.shape[0]
+    L = _axis(x, group)
     orders = tuple(validate_ring_partition(L, orders))
-    return execute_program(x, prg.plan_all_reduce(L, orders, algo, wire_dtype=wire_dtype))
+    return execute_program(x, prg.plan_all_reduce(L, orders, algo, wire_dtype=wire_dtype),
+                           group=group)
 
 
 def chain_all_to_all(
@@ -587,12 +612,13 @@ def chain_all_to_all(
     order: Sequence[int] | None = None,
     *,
     wire_dtype: str | None = None,
+    group=None,
 ) -> torch.Tensor:
     """Ring all-to-all: ``x[s, d]`` is the chunk row ``s`` sends to
     device ``d``; returns ``out[d, s] = x[s, d]``."""
-    L = x.shape[0]
+    L = _axis(x, group)
     prog = prg.plan_all_to_all(L, (_ring_args(L, order),), wire_dtype=wire_dtype)
-    return execute_program(x, prog)
+    return execute_program(x, prog, group=group)
 
 
 def multi_chain_all_to_all(
@@ -600,11 +626,13 @@ def multi_chain_all_to_all(
     orders: Sequence[Sequence[int]],
     *,
     wire_dtype: str | None = None,
+    group=None,
 ) -> torch.Tensor:
     """All-to-all over K disjoint equal-size sub-rings."""
-    L = x.shape[0]
+    L = _axis(x, group)
     orders = tuple(validate_ring_partition(L, orders))
-    return execute_program(x, prg.plan_all_to_all(L, orders, wire_dtype=wire_dtype))
+    return execute_program(x, prg.plan_all_to_all(L, orders, wire_dtype=wire_dtype),
+                           group=group)
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,8 @@ Two sources:
 Batches are generated per *step index* with a counter-based generator
 (numpy Philox), so any host can regenerate any step independently —
 restart/elastic-rescale replays the exact stream with zero coordination,
-and each host slices only its addressable rows (host-sharded loading).
+and each host slices only its addressable rows (host-sharded loading):
+a process-form rank takes ``batch(step, host_slice=rank_slice(...))``.
 
 :class:`Prefetcher` runs the source on a background thread with a
 bounded queue and optionally places each batch on a device
@@ -116,6 +117,17 @@ class Prefetcher:
         except queue.Empty:
             pass
         self._thread.join(timeout=2)
+
+
+def rank_slice(global_batch: int, dp: int, rank: int) -> slice:
+    """Rank ``rank``'s rows of a ``global_batch`` split over ``dp`` data
+    ranks, for ``batch(step, host_slice=...)``: the rows that
+    ``parallel.collectives.split_batch`` gives rank ``rank`` of the
+    stacked form."""
+    if global_batch % dp:
+        raise ValueError(f"batch dim {global_batch} not divisible by {dp} DP ranks")
+    n = global_batch // dp
+    return slice(rank * n, (rank + 1) * n)
 
 
 def make_device_placer(device="cuda") -> Callable[[dict], dict]:

@@ -1,17 +1,33 @@
-"""Virtual meshes: the axis sizes of a device mesh, with no devices —
-the port of ``repro.launch.mesh``.
+"""Meshes of the port — the port of ``repro.launch.mesh``.
 
-One card runs every data-parallel rank as a row of the stacked view
-(``core.chainwrite``), so a mesh here only names axes and their sizes;
-``mesh.axis_names`` and ``mesh.shape[axis]`` read as on a
-``jax.sharding.Mesh``. A ``model`` (TP) axis larger than 1 raises
-``NotImplementedError``: tensor-parallel sharding waits for the
-multi-process backend.
+Two forms, read alike (``mesh.axis_names`` and ``mesh.shape[axis]``, as
+on a ``jax.sharding.Mesh``, and ``mesh.group(axes)``):
+
+* :class:`VirtualMesh` only names axes and their sizes: one process runs
+  every data-parallel rank as a row of the stacked view
+  (``core.chainwrite``).
+* :class:`ProcessMesh` is a mesh of ``torch.distributed`` processes, one
+  rank each (``core.chainwrite_dist``): it also knows this rank's
+  coordinates and holds one process group per data-parallel axis
+  slice, so a collective over an axis runs on the group of the ranks
+  that share this rank's other coordinates.
+
+``mesh.group(axes)`` is where the two part: ``None`` on a
+:class:`VirtualMesh` (the stacked view: every rank is a row here), the
+process group on a :class:`ProcessMesh`. The layers below (collectives,
+the MoE exchange) branch on it and nothing else.
+
+A ``model`` (TP) axis larger than 1 raises ``NotImplementedError`` in
+both: tensor-parallel sharding is ROADMAP item 9c.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,12 +42,17 @@ class VirtualMesh:
             raise ValueError(f"axis sizes must be positive, got {self.axis_sizes}")
         if dict(zip(self.axis_names, self.axis_sizes)).get("model", 1) != 1:
             raise NotImplementedError(
-                "a model (TP) axis > 1 waits for the multi-process backend"
+                "a model (TP) axis > 1 is not ported yet (ROADMAP item 9c)"
             )
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    def group(self, axes) -> None:
+        """No process group: every rank of the mesh is a row of this
+        process's stacked view."""
+        return None
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> VirtualMesh:
@@ -42,3 +63,93 @@ def make_host_mesh(data: int | None = None, model: int = 1) -> VirtualMesh:
     """A ``("data", "model")`` mesh of ``data`` virtual DP ranks
     (default 1: the one card) and ``model`` = 1."""
     return make_mesh((1 if data is None else int(data), int(model)), ("data", "model"))
+
+
+class ProcessMesh:
+    """A mesh over the ``torch.distributed`` world, one rank per process,
+    ranks laid out row-major over ``axis_names`` (``("pod", "data",
+    "model")``: rank ``pod·D + data`` at ``model`` = 1).
+
+    :meth:`group` returns the process group of the ranks that differ from
+    this one only along the given axes (group rank = the linear index
+    over those axes, as JAX's ``axis_index`` of an axis tuple). The
+    groups are created once, in the same order on every rank
+    (``dist.new_group`` must be called by the whole world alike): the
+    whole world (unless one axis spans it), then one group per slice of
+    each axis of size > 1, axis by axis. On NCCL each group this rank
+    is in then runs one all-reduce, in that same order, so that no
+    group's first operation is a point-to-point step that some of its
+    ranks skip (an NCCL group's first ``batch_isend_irecv`` must be
+    joined by every rank)."""
+
+    def __init__(self, axis_names: tuple[str, ...], axis_sizes: tuple[int, ...]) -> None:
+        self._virtual = VirtualMesh(tuple(axis_names), tuple(int(s) for s in axis_sizes))
+        self.axis_names = self._virtual.axis_names
+        self.axis_sizes = self._virtual.axis_sizes
+        world = dist.get_world_size()
+        if math.prod(self.axis_sizes) != world:
+            raise ValueError(f"mesh {self.shape} has {math.prod(self.axis_sizes)} ranks, "
+                             f"the world {world}")
+        self.rank = dist.get_rank()
+        coords, r = [], self.rank
+        for size in reversed(self.axis_sizes):
+            coords.append(r % size)
+            r //= size
+        self.coords = dict(zip(self.axis_names, reversed(coords)))
+        live = [a for a in self.axis_names if self.shape[a] > 1]
+        self._groups = {}
+        if len(live) != 1:
+            self._groups[tuple(self.axis_names)] = dist.new_group(list(range(world)))
+        for axis in live:
+            mine = None
+            for ranks in self._slices(axis):
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = g
+            self._groups[(axis,)] = mine
+        for g in self._groups.values():
+            if str(dist.get_backend(g)) == "nccl":
+                dist.all_reduce(torch.zeros(1, device=torch.cuda.current_device()), group=g)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return self._virtual.shape
+
+    def _slices(self, axis: str) -> list[list[int]]:
+        """Every slice along ``axis``: the ranks that share all other
+        coordinates, in ``axis`` order."""
+        i = self.axis_names.index(axis)
+        stride = math.prod(self.axis_sizes[i + 1:])
+        size = self.axis_sizes[i]
+        starts = [r for r in range(math.prod(self.axis_sizes)) if (r // stride) % size == 0]
+        return [[s + k * stride for k in range(size)] for s in starts]
+
+    def group(self, axes) -> object:
+        """The process group over ``axes`` (one name or a tuple) that holds
+        this rank. Axes of size 1 drop out; the data-parallel axes
+        together, or every axis, name the whole world."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        live = tuple(a for a in axes if self.shape[a] > 1)
+        every = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        if len(live) == 1:
+            return self._groups[live]
+        if set(live) == set(every):
+            return self._groups[every if len(every) == 1 else tuple(self.axis_names)]
+        raise ValueError(f"no process group over {axes} in mesh {self.shape}")
+
+    def __repr__(self) -> str:
+        return f"ProcessMesh({self.shape}, rank={self.rank})"
+
+
+def make_process_mesh(data: int | None = None, model: int = 1,
+                      pod: int | None = None) -> ProcessMesh:
+    """A mesh over the initialised ``torch.distributed`` world:
+    ``("data", "model")``, or ``("pod", "data", "model")`` with ``pod``;
+    ``data`` defaults to what the world leaves for it. ``model`` > 1
+    raises ``NotImplementedError`` (ROADMAP item 9c)."""
+    world = dist.get_world_size()
+    rest = world // (int(model) * (int(pod) if pod else 1))
+    data = rest if data is None else int(data)
+    if pod is None:
+        return ProcessMesh(("data", "model"), (data, int(model)))
+    return ProcessMesh(("pod", "data", "model"), (int(pod), data, int(model)))

@@ -171,6 +171,18 @@ def make_train_step(
     :class:`~repro_torch.runtime.spans.Spans`) records ``fwd_bwd`` per
     rank (one for the joint forward), ``reduce`` and ``optimizer`` spans
     of every step.
+
+    On a :class:`~repro_torch.launch.mesh.ProcessMesh` the step is one
+    rank's, as a JAX ``shard_map`` device's: ``batch`` is this rank's
+    rows, its grads are reduced over the mesh's process groups by the
+    Torrent reduction (``ef_state`` is this rank's ``(1, *shape)`` rows),
+    AdamW runs on this rank's copy, and ``microbatches > 1`` accumulates
+    the rank's microbatch grads locally before the one reduction (the
+    stacked step reduces each microbatch). With ``cfg.moe_ep_dispatch``
+    (experts the ranks divide) each rank's MoE layers exchange its tokens
+    with the other ranks' over the mesh's DP group, and its backward
+    gives it the grads JAX's ``shard_map`` rank gets.
+    ``collectives="xla"`` is not ported to this form.
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(
@@ -207,12 +219,25 @@ def make_train_step(
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
     joint = _ep_joint(cfg, dp_size)
+    process = mesh.group(hints.dp_axes(mesh.axis_names)) is not None
+    if process and collectives != "torrent":
+        raise NotImplementedError(
+            f'collectives={collectives!r} on a ProcessMesh: the process form reduces with '
+            'collectives="torrent"')
     if batch_specs is None:  # the specs depend on the shape's kind only
         batch_specs = shd.batch_pspecs(cfg, SHAPES["train_4k"])
 
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
+    if process and joint:
+        grad_fn_own = grad_fn_local
+
+        def grad_fn_local(params, batch):
+            """This rank's grads; its MoE layers find the mesh (the remat'd
+            recompute of the backward runs inside it too)."""
+            with hints.set_mesh(mesh):
+                return grad_fn_own(params, batch)
     grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
-                    if joint else None)
+                    if joint and not process else None)
 
     def grad_fn_xla(params, batch):
         """Plain mean of the ranks' grads (the fabric's all-reduce)."""
@@ -236,10 +261,30 @@ def make_train_step(
         with maybe_span(spans, "optimizer", leaves(params)[0].device):
             return adamw.update(opt_cfg, grads, opt_state, params)
 
-    if joint:
+    def accumulated(fn):
+        """``fn``'s grads accumulated over ``microbatches`` slices of the
+        batch (mean of the microbatch means, as JAX computes it)."""
+        if microbatches == 1:
+            return fn
+
+        def fn_acc(params, batch):
+            acc, ms = None, []
+            for m in range(microbatches):
+                grads, metrics = fn(params, split_batch(batch, microbatches, m, batch_specs))
+                grads = map_tree(lambda g: g.to(torch.float32), grads)
+                acc = grads if acc is None else map_tree(torch.add, acc, grads)
+                ms.append(metrics)
+            return (map_tree(lambda g: g / microbatches, acc),
+                    map_tree(lambda *xs: torch.stack(xs).mean(0), *ms))
+
+        return fn_acc
+
+    if joint and not process:
         reducer = functools.partial(
             torrent_joint_grad_reduce,
             make_joint_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks))
+    elif process:  # this rank's microbatches accumulate before the one reduction
+        reducer = functools.partial(torrent_grad_reduce, accumulated(grad_fn_local))
     else:
         reducer = functools.partial(torrent_grad_reduce, grad_fn_local,
                                     batch_specs=batch_specs)
@@ -259,19 +304,12 @@ def make_train_step(
 
         return train_step_ef
 
+    # the stacked step reduces each microbatch; the process form's grad_fn
+    # has accumulated them already
+    grad_fn_step = grad_fn if process else accumulated(grad_fn)
+
     def train_step(params, opt_state, batch):
-        if microbatches > 1:
-            M = microbatches
-            acc, ms = None, []
-            for m in range(M):
-                grads, metrics = grad_fn(params, split_batch(batch, M, m, batch_specs))
-                grads = map_tree(lambda g: g.to(torch.float32), grads)
-                acc = grads if acc is None else map_tree(torch.add, acc, grads)
-                ms.append(metrics)
-            grads = map_tree(lambda g: g / M, acc)
-            metrics = map_tree(lambda *xs: torch.stack(xs).mean(0), *ms)
-        else:
-            grads, metrics = grad_fn(params, batch)
+        grads, metrics = grad_fn_step(params, batch)
         new_params, new_opt, om = optimizer(grads, opt_state, params)
         return new_params, new_opt, {**metrics, **om}
 

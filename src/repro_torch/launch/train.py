@@ -2,12 +2,22 @@
 ``repro.launch.train``.
 
 Composes the port's layers: the Markov data source, the model, AdamW,
-a virtual DP mesh run on one card, Torrent or plain-mean gradient
-reduction, async checkpointing with restart-on-failure, and straggler
-monitoring.
+a DP mesh, Torrent or plain-mean gradient reduction, async
+checkpointing with restart-on-failure, and straggler monitoring.
+
+In one process the DP ranks are rows of the stacked view, run on one
+device (a virtual mesh of ``--dp`` ranks):
 
     python -m repro_torch.launch.train --smoke --steps 20 --dp 4 \
         --collectives torrent --device cpu
+
+Under ``torchrun`` each process is one DP rank (the process form, JAX's
+``shard_map`` devices): the mesh spans the world, each rank loads its
+own rows of every batch, and the Torrent reduction runs over
+``torch.distributed`` (NCCL on cards, gloo with ``--device cpu``):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
+        --steps 20 --collectives torrent --device cpu
 
 ``--device`` defaults to ``cuda`` and raises without a card.
 """
@@ -23,18 +33,21 @@ import time
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as C
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.data.pipeline import MarkovSource, make_device_placer
+from repro_torch.data.pipeline import MarkovSource, make_device_placer, rank_slice
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.dist import init_from_env
+from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import dp_size_of, ef_residual_init
+from repro_torch.parallel.hints import dp_axes
 from repro_torch.runtime.failure import FaultInjector, resilient_loop
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.tree import leaves, map_tree
@@ -63,7 +76,7 @@ class TrainConfig:
     ckpt_every: int = 50
     keep_last_k: int = 3
     tp: int = 1
-    dp: int = 1  # virtual data-parallel ranks on the one card
+    dp: int = 1  # data-parallel ranks: virtual ones, or the world's processes
     layers: int | None = None  # depth cut: the config's first N layers
     seed: int = 0
     log_every: int = 10
@@ -83,7 +96,15 @@ class Trainer:
     replaces the ``tc.arch`` / ``tc.smoke`` config lookup (as
     ``Server``'s does), e.g. a MoE config with ``moe_ep_dispatch``, whose
     step then runs the DP ranks in one forward that exchanges tokens
-    between them; ``tc.layers`` still cuts its depth."""
+    between them; ``tc.layers`` still cuts its depth.
+
+    When ``torch.distributed`` is initialised the Trainer is one rank of
+    the process form: its mesh is a
+    :class:`~repro_torch.launch.mesh.ProcessMesh` over the world
+    (``tc.dp`` must be 1 or the world size), it loads this rank's rows of
+    each batch onto ``device``, holds its own copy of the state (its EF
+    residual is its ``(1, *shape)`` row) and checkpoints through rank 0
+    in the stacked form's format."""
 
     def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None,
                  model_cfg: ModelConfig | None = None):
@@ -95,7 +116,18 @@ class Trainer:
         if tc.layers is not None:
             self.cfg = dataclasses.replace(self.cfg, num_layers=tc.layers)
         self.spans = spans
-        self.mesh = make_host_mesh(data=tc.dp, model=tc.tp)
+        self.rows = slice(None)
+        if dist.is_initialized():
+            world = dist.get_world_size()
+            if tc.dp not in (1, world):
+                raise ValueError(f"dp={tc.dp} on a world of {world} processes: the process "
+                                 "form runs one DP rank per process")
+            self.mesh = make_process_mesh(model=tc.tp)
+            self.rows = rank_slice(tc.global_batch, world, self.mesh.rank)
+        else:
+            self.mesh = make_host_mesh(data=tc.dp, model=tc.tp)
+        # the process group over the DP ranks: None in the stacked form
+        self.group = self.mesh.group(dp_axes(self.mesh.axis_names))
         self.opt_cfg = adamw.OptConfig(
             peak_lr=tc.peak_lr,
             warmup_steps=tc.warmup_steps,
@@ -125,7 +157,8 @@ class Trainer:
         if tc.compress_grads:
             # the EF residual rides in the state, so it survives
             # checkpoint/restart like the optimizer moments do
-            self.state["ef"] = ef_residual_init(params, dp_size_of(self.mesh))
+            self.state["ef"] = ef_residual_init(params, 1 if self.group is not None
+                                                else dp_size_of(self.mesh))
         self.step_fn = make_train_step(
             cfg,
             self.opt_cfg,
@@ -143,12 +176,12 @@ class Trainer:
         )
 
     def _device_batch(self, step: int) -> dict:
-        return self.place(self.source.batch(step))
+        return self.place(self.source.batch(step, host_slice=self.rows))
 
     # -- run loop ----------------------------------------------------------
     def run(self) -> dict[str, Any]:
         tc = self.tc
-        ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k)
+        ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k, group=self.group)
         injector = FaultInjector(tc.fail_at)
         losses: list[float] = []
 
@@ -230,7 +263,8 @@ def parse_args(argv=None) -> tuple[TrainConfig, str]:
                         "--collectives torrent)")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--dp", type=int, default=1,
-                   help="virtual data-parallel ranks, run on the one device")
+                   help="virtual data-parallel ranks, run on the one device (under "
+                        "torchrun: one rank per process, so 1 or the world size)")
     p.add_argument("--layers", type=int, default=None,
                    help="depth cut: train the config's first N layers")
     p.add_argument("--remat", default="dots")
@@ -259,9 +293,20 @@ def parse_args(argv=None) -> tuple[TrainConfig, str]:
 
 
 def main(argv=None) -> dict:
+    """Train from the command line; under ``torchrun`` (``RANK`` and
+    ``WORLD_SIZE`` set) as one rank of the process form, which joins the
+    process group here and leaves it on return."""
     tc, device = parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    out = Trainer(tc, device=device).run()
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if launched:
+        device = init_from_env(device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if rank0 else logging.WARNING, format="%(message)s")
+    try:
+        out = Trainer(tc, device=device).run()
+    finally:
+        if launched:
+            dist.destroy_process_group()
     log.info(
         "done: %d steps (%d restarts)  loss %.4f -> %.4f  %.1f tok/s",
         out["final_step"], out["restarts"], out["first_loss"],

@@ -26,7 +26,14 @@ stacked view (row ``r`` of ``x`` is virtual device ``r``'s token
 shard): the dispatch and the return are scheduled chain all-to-alls
 (``parallel.collectives.torrent_all_to_all``). ``cfg.moe_ep_dispatch``
 routes to it when a virtual DP group is named with
-``parallel.hints.set_mesh`` and divides the experts and the batch.
+``parallel.hints.set_mesh`` and divides the experts and the batch. With
+a ``group`` it is one rank of the process form, JAX's ``shard_map``
+formulation: ``x`` is this rank's own tokens, the exchanges run over
+the group as autograd functions whose backward is the transposed
+exchange, and the aux statistics are averaged over the ranks with an
+all-reduce (JAX's ``pmean``); ``moe_ep_dispatch`` takes it when the mesh
+named has a process group over its DP axes (``mesh.group``) and that
+group divides the experts.
 Its params are one tree that every row reads, or a list of one tree
 per row: then row ``r`` routes with and runs the shared experts of its
 own tree, and the experts it owns are read from its own tree — the
@@ -244,6 +251,46 @@ def moe_apply_rowwise(params: dict, x: torch.Tensor, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 
+class _GroupAllToAll(torch.autograd.Function):
+    """The process form's token exchange: ``torrent_all_to_all`` over a
+    group. Its transpose (``out[d][s] = x[s][d]`` read backwards) is the
+    same exchange of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, num_chains, scheduler):
+        from repro_torch.parallel.collectives import torrent_all_to_all
+
+        ctx.args = (group, num_chains, scheduler)
+        return torrent_all_to_all(x, num_chains=num_chains, scheduler=scheduler, group=group)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.parallel.collectives import torrent_all_to_all
+
+        group, num_chains, scheduler = ctx.args
+        return (torrent_all_to_all(g.contiguous(), num_chains=num_chains, scheduler=scheduler,
+                                   group=group), None, None, None)
+
+
+class _GroupMean(torch.autograd.Function):
+    """JAX's ``pmean`` over a group: the ranks' mean, whose transpose
+    averages the ranks' cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        from repro_torch.core.chainwrite_dist import all_reduce_sum
+
+        ctx.args = (group, n)
+        return all_reduce_sum(x, group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.core.chainwrite_dist import all_reduce_sum
+
+        group, n = ctx.args
+        return all_reduce_sum(g, group) / n, None, None
+
+
 def moe_apply_ep(
     params: dict | list[dict],
     x: torch.Tensor,
@@ -252,6 +299,7 @@ def moe_apply_ep(
     num_chains: int = 1,
     scheduler: str = "tsp",
     wire_dtype: str | None = None,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE on the stacked view: ``x`` is ``(n, B_loc,
     S, d)``, row ``r`` virtual device ``r``'s local tokens, and the
@@ -275,78 +323,107 @@ def moe_apply_ep(
     ``r`` then routes with tree ``r``'s router and shared experts, and
     its expert block (the experts row ``r`` owns) is tree ``r``'s — what
     each of JAX's ``shard_map`` ranks reads from its own copy of the
-    params."""
+    params.
+
+    With a ``group`` (``torch.distributed``; the process form) ``x`` is
+    ``(1, B_loc, S, d)``, this rank's tokens, ``n`` is the group's size
+    and ``params`` this rank's tree; the exchanges run over the group
+    (their backward is the transposed exchange; no gradient crosses an
+    int8 wire, as in the stacked executor) and the aux statistics are
+    averaged over it."""
+    from repro_torch.core import chainwrite_dist as cwd
     from repro_torch.parallel.collectives import torrent_all_to_all
 
-    n, B, S, d = x.shape
+    R, B, S, d = x.shape
+    n = R if group is None else cwd.group_size(group)
     E, k = cfg.num_experts, cfg.moe_top_k
     if E % n:
         raise ValueError(f"num_experts={E} not divisible by EP group size {n}")
     ranked = isinstance(params, list)
-    if ranked and len(params) != n:
+    if ranked and (group is not None or len(params) != n):
         raise ValueError(f"{len(params)} per-row param trees for {n} rows")
+    if group is not None and R != 1:
+        raise ValueError(f"the process form takes this rank's tokens as one row, got {R}")
     E_loc = E // n
     T = B * S
     dev = x.device
-    xf = x.reshape(n, T, d)
+    xf = x.reshape(R, T, d)
     a2a = dict(num_chains=num_chains, scheduler=scheduler)
+    ids = (torch.arange(n, device=dev) if group is None
+           else torch.tensor([cwd.group_rank(group)], device=dev))  # each row's device
+
+    def rank_mean(t):  # (R, ...) per-row statistics -> their mean over the devices
+        return t.mean(0) if group is None else _GroupMean.apply(t[0], group, n)
+
+    def exchange(t, wire=None):
+        if group is None:
+            return torrent_all_to_all(t, wire_dtype=wire, **a2a)
+        if wire is not None or not t.is_floating_point():
+            with torch.no_grad():
+                return torrent_all_to_all(t[0], wire_dtype=wire, group=group, **a2a)[None]
+        return _GroupAllToAll.apply(t[0], group, num_chains, scheduler)[None]
 
     # -- routing (f32, local tokens; global aux via row-averaged stats) -
     router = torch.stack([p["router"] for p in params]) if ranked else params["router"]
-    probs, top_p, top_e = _route(xf, router, k)  # (n, T, ...)
-    P_i = probs.mean(1).mean(0)
-    rows = torch.arange(n, device=dev)[:, None].expand(n, T * k)
-    flat_e = top_e.reshape(n, T * k)
-    f_i = (_counts(rows * E + flat_e, n * E).reshape(n, E) / (T * k)).mean(0)
+    probs, top_p, top_e = _route(xf, router, k)  # (R, T, ...)
+    P_i = rank_mean(probs.mean(1))
+    rows = torch.arange(R, device=dev)[:, None].expand(R, T * k)
+    flat_e = top_e.reshape(R, T * k)
+    f_i = rank_mean(_counts(rows * E + flat_e, R * E).reshape(R, E) / (T * k))
     aux = _aux(cfg, P_i, f_i)
 
     # -- dispatch: (n, C_pair, d) send buffers per row ------------------
     dest = flat_e // E_loc  # owner device per assignment
-    pos = _positions((rows * n + dest).reshape(-1), n * n).reshape(n, T * k)
+    pos = _positions((rows * n + dest).reshape(-1), R * n).reshape(R, T * k)
     C_pair = _bucket_capacity(T * k, n, cfg.capacity_factor)
-    xk = xf[:, :, None].expand(n, T, k, d).reshape(n, T * k, d)
-    send = _put((n, n, C_pair), (rows, dest, pos), xk)
-    send_e = _put((n, n, C_pair), (rows, dest, pos), flat_e.to(torch.int32), fill=-1)
+    xk = xf[:, :, None].expand(R, T, k, d).reshape(R, T * k, d)
+    send = _put((R, n, C_pair), (rows, dest, pos), xk)
+    send_e = _put((R, n, C_pair), (rows, dest, pos), flat_e.to(torch.int32), fill=-1)
 
     # -- the wire: tokens (and their expert ids) to the expert owners --
-    recv = torrent_all_to_all(send, wire_dtype=wire_dtype, **a2a)
-    recv_e = torrent_all_to_all(send_e, **a2a)
+    recv = exchange(send, wire_dtype)
+    recv_e = exchange(send_e)
 
     # -- receiver-side dispatch into (E_loc, C_loc, d) per row ----------
-    re = recv_e.reshape(n, n * C_pair).long()
-    le = re - torch.arange(n, device=dev)[:, None] * E_loc  # local expert index
+    re = recv_e.reshape(R, n * C_pair).long()
+    le = re - ids[:, None] * E_loc  # local expert index
     valid = (re >= 0) & (le >= 0) & (le < E_loc)
     C_loc = _bucket_capacity(n * C_pair, E_loc, cfg.capacity_factor)
     le_s = torch.where(valid, le, E_loc)  # E_loc: dropped
-    rows2 = torch.arange(n, device=dev)[:, None].expand(n, n * C_pair)
-    pos2 = _positions((rows2 * (E_loc + 1) + le_s).reshape(-1), n * (E_loc + 1))
-    pos2 = torch.where(valid, pos2.reshape(n, n * C_pair), C_loc)
-    buf = _put((n, E_loc, C_loc), (rows2, le_s, pos2), recv.reshape(n, n * C_pair, d))
+    rows2 = torch.arange(R, device=dev)[:, None].expand(R, n * C_pair)
+    pos2 = _positions((rows2 * (E_loc + 1) + le_s).reshape(-1), R * (E_loc + 1))
+    pos2 = torch.where(valid, pos2.reshape(R, n * C_pair), C_loc)
+    buf = _put((R, E_loc, C_loc), (rows2, le_s, pos2), recv.reshape(R, n * C_pair, d))
 
     # -- each row's expert block (row r's local expert j is r·E_loc + j)
     if ranked:  # row r's block from tree r, cast per block
         w = [torch.cat([cast(p[name][r * E_loc : (r + 1) * E_loc]) for r, p in enumerate(params)])
              for name in ("wg", "wu", "wd")]
-    else:
+    elif group is None:
         w = [params[name] for name in ("wg", "wu", "wd")]
-    out_buf = _experts(buf.reshape(E, C_loc, d), *w)
-    out_buf = out_buf.reshape(n, E_loc, C_loc, d)
+    else:  # this rank's experts
+        me = cwd.group_rank(group)
+        w = [params[name][me * E_loc : (me + 1) * E_loc] for name in ("wg", "wu", "wd")]
+    out_buf = _experts(buf.reshape(R * E_loc, C_loc, d), *w)
+    out_buf = out_buf.reshape(R, E_loc, C_loc, d)
 
     # -- results back to the token owners, combine at the source --------
-    back = _take(out_buf, (rows2, le_s, pos2)).reshape(n, n, C_pair, d)
-    ret = torrent_all_to_all(back, wire_dtype=wire_dtype, **a2a)
-    gathered = _take(ret, (rows, dest, pos)).reshape(n, T, k, d)
+    back = _take(out_buf, (rows2, le_s, pos2)).reshape(R, n, C_pair, d)
+    ret = exchange(back, wire_dtype)
+    gathered = _take(ret, (rows, dest, pos)).reshape(R, T, k, d)
     out = _with_shared(params, cfg, xf, _combine(gathered, top_p))
-    return out.to(x.dtype).reshape(n, B, S, d), aux
+    return out.to(x.dtype).reshape(R, B, S, d), aux
 
 
 def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelConfig):
     """Route ``cfg.moe_ep_dispatch``: with a virtual mesh named by
     ``parallel.hints.set_mesh`` whose DP group divides the experts and
     the batch, split the batch into that many rows, run
-    :func:`moe_apply_ep` on them and merge; anything else (no mesh, no
-    DP axis, indivisible experts or batch) takes the single-device
-    path, which per-row params (a list) cannot take."""
+    :func:`moe_apply_ep` on them and merge; with a mesh whose DP axes
+    have a process group (``mesh.group``) that divides the experts, run
+    this rank's tokens through its process form; anything else (no
+    mesh, no DP axis, indivisible experts or batch) takes the
+    single-device path, which per-row params (a list) cannot take."""
 
     def fallback():
         if isinstance(params, list):
@@ -363,10 +440,16 @@ def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelCon
     if not dp:
         return fallback()
     n = math.prod(mesh.shape[a] for a in dp)
-    if cfg.num_experts % n or x.shape[0] % n:
+    group = mesh.group(dp)
+    if cfg.num_experts % n or (group is None and x.shape[0] % n):
         return fallback()
     # moe_ep_chains must divide the EP group; degrade to the single ring
     K = cfg.moe_ep_chains if cfg.moe_ep_chains > 1 and n % cfg.moe_ep_chains == 0 else 1
+    if group is not None:  # this rank's tokens, exchanged over the mesh's DP group
+        out, aux = moe_apply_ep(params, x[None], cfg, num_chains=K,
+                                wire_dtype="int8" if cfg.moe_ep_int8_wire else None,
+                                group=group)
+        return out[0], aux
     B, S, d = x.shape
     out, aux = moe_apply_ep(
         params, x.reshape(n, B // n, S, d), cfg, num_chains=K,

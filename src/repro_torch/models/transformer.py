@@ -286,6 +286,7 @@ def groups_apply(
         raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
     groups = cfg.layer_groups() if groups is None else groups
     aux_total = x.new_zeros((), dtype=torch.float32)
+    mesh = hints.concrete_mesh()
     for (pattern, reps), stacked in zip(groups, gparams):
         for r in range(reps):
             layer_params = [_index(p, r) for p in stacked]
@@ -298,7 +299,11 @@ def groups_apply(
                 return h, aux
 
             if remat != "none" and torch.is_grad_enabled():
-                x, aux = checkpoint(body, x, use_reentrant=False)
+                # the recompute runs on the autograd engine's thread for a
+                # CUDA device: give it the mesh of the forward (a
+                # ProcessMesh's MoE layers exchange tokens across processes)
+                x, aux = checkpoint(body, x, use_reentrant=False, context_fn=lambda: (
+                    contextlib.nullcontext(), hints.set_mesh(mesh)))
             else:
                 x, aux = body(x)
             aux_total = aux_total + aux

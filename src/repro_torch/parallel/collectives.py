@@ -2,8 +2,9 @@
 DP ranks) vs "torrent" (Chainwrite: explicitly scheduled rings) — the
 port of ``repro.parallel.collectives``.
 
-One card runs every DP rank as a row of the stacked view (see
-``core.chainwrite``): :func:`torrent_grad_reduce` wraps a per-rank
+On a :class:`~repro_torch.launch.mesh.VirtualMesh` one process runs
+every DP rank as a row of the stacked view (see ``core.chainwrite``):
+:func:`torrent_grad_reduce` wraps a per-rank
 ``grad_fn(params, batch_slice) -> (grads, metrics)``, runs it once per
 rank on that rank's rows of the global batch, writes each rank's grads
 into its row of one preallocated ``(dp, *shape)`` buffer per leaf, and
@@ -18,6 +19,19 @@ sum divided by the DP size, metrics averaged over ranks. Every knob is
 there: ``num_chains`` (int or ``"auto"``), ``algo``, ``wire_dtype``,
 ``error_feedback``, ``bucket_bytes``, ``topology`` and ``hierarchical``
 over two DP axes (``("pod", "data")``, rank ``pod·D + data``).
+
+On a :class:`~repro_torch.launch.mesh.ProcessMesh` each process is one
+rank, as a JAX ``shard_map`` device is (``core.chainwrite_dist``):
+:func:`torrent_grad_reduce` runs ``grad_fn`` on this rank's own rows,
+reduces its grads over the mesh's process groups with the same
+programs, in the same order, and averages the metrics with one
+all-reduce. A leaf of this rank is the ``(1, *shape)`` row that the
+stacked form holds at ``(dp, *shape)``, so the reduction code is one for
+both, and a rank's reduced grads equal the stacked form's row of that
+rank bit for bit. Under the int8 wire the rows differ (a shard's owner
+keeps its f32 sum, the others dequantize its frame): each process
+keeps its own, as each JAX device does, where the stacked form hands
+every rank row 0.
 
 :class:`MultiChainPlan` is the host-side multi-chain broadcast plan the
 serving runtime holds; its :meth:`~MultiChainPlan.broadcast` runs the
@@ -34,6 +48,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.core import chainwrite as cw
+from repro_torch.core import chainwrite_dist as cwd
 from repro_torch.core import program as prg
 from repro_torch.core import simulator as sim
 from repro_torch.core.scheduling import (
@@ -128,16 +143,20 @@ class MultiChainPlan:
         self.failed.extend(sorted(dead))
         return True
 
-    def broadcast(self, x: torch.Tensor, *, num_frames: int = 1) -> torch.Tensor:
+    def broadcast(self, x: torch.Tensor, *, num_frames: int = 1, group=None) -> torch.Tensor:
         """The (possibly degraded) multi-chain broadcast of row
         ``head`` of the stacked view ``x`` (``(L, n, ...)``) over the
-        current survivor schedule."""
+        current survivor schedule; with a ``group``, of the head rank's
+        payload, ``x`` being this rank's (``core.chainwrite``)."""
         if not self.chains:
             # every destination failed: only the head keeps its payload
+            if group is not None:
+                return x.clone() if cwd.group_rank(group) == self.head else torch.zeros_like(x)
             out = torch.zeros_like(x)
             out[self.head] = x[self.head]
             return out
-        return cw.multi_chain_broadcast(x, self.head, self.chains, num_frames=num_frames)
+        return cw.multi_chain_broadcast(x, self.head, self.chains, num_frames=num_frames,
+                                        group=group)
 
 
 def ring_order_for_axis(axis_size: int, scheduler: str = "tsp") -> tuple[int, ...]:
@@ -174,14 +193,16 @@ def _axis_orders(size: int, num_chains: int, scheduler: str) -> list[tuple[int, 
 
 def torrent_all_to_all(
     x: torch.Tensor, *, num_chains: int = 1, scheduler: str = "tsp",
-    wire_dtype: str | None = None,
+    wire_dtype: str | None = None, group=None,
 ) -> torch.Tensor:
     """Scheduled-ring all-to-all over the rows of ``x`` (``(L, L,
-    ...)``: ``x[s, d]`` goes to device ``d``); returns ``out[d, s]``."""
+    ...)``: ``x[s, d]`` goes to device ``d``); returns ``out[d, s]``.
+    With a ``group``, ``x`` is this rank's ``(L, ...)`` chunk train and
+    the result its ``(L, ...)`` received chunks (``core.chainwrite``)."""
     orders = _axis_orders(x.shape[0], num_chains, scheduler)
     if len(orders) == 1:
-        return cw.chain_all_to_all(x, orders[0], wire_dtype=wire_dtype)
-    return cw.multi_chain_all_to_all(x, orders, wire_dtype=wire_dtype)
+        return cw.chain_all_to_all(x, orders[0], wire_dtype=wire_dtype, group=group)
+    return cw.multi_chain_all_to_all(x, orders, wire_dtype=wire_dtype, group=group)
 
 
 def torrent_reduce_scatter(
@@ -421,7 +442,7 @@ def dp_size_of(mesh) -> int:
     """The number of data-parallel ranks of ``mesh`` (raises for a TP
     axis > 1 or a mesh without DP axes)."""
     if mesh.shape.get("model", 1) != 1:
-        raise NotImplementedError("a model (TP) axis > 1 waits for the multi-process backend")
+        raise NotImplementedError("a model (TP) axis > 1 is not ported yet (ROADMAP item 9c)")
     dp = dp_axes(mesh.axis_names)
     if not dp:
         raise ValueError(f"mesh {mesh.axis_names} has no data-parallel axis")
@@ -478,14 +499,26 @@ def make_stacked_reduce(
     """``reduce(stacked, residual=None) -> grads``: the DP reduction of
     :func:`torrent_grad_reduce` over stacked per-rank leaves
     (``(dp, *shape)`` each, in tree order), returning one reduced leaf
-    per input (rank 0's row divided by the DP size). With
-    ``error_feedback`` pass the residual leaves: the new residual is
-    written into them, and ``stacked`` is used as scratch."""
+    per input (rank 0's row divided by the DP size). On a
+    :class:`~repro_torch.launch.mesh.ProcessMesh` each leaf is this
+    rank's ``(1, *shape)`` row, reduced over the mesh's process groups,
+    and the result is this rank's. With ``error_feedback`` pass the
+    residual leaves (of the same rows): the new residual is written into
+    them, and ``stacked`` is used as scratch."""
     wire_dtype = _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes)
     dp = dp_axes(mesh.axis_names)
     dp_size = dp_size_of(mesh)
+    process = mesh.group(dp) is not None
 
-    if hierarchical and len(dp) == 2:
+    if process:
+        # a stage is (the process group, its size): within each pod,
+        # then across pods; or one group over every DP axis
+        if hierarchical and len(dp) == 2:
+            stages = [(mesh.group(dp[1]), mesh.shape[dp[1]]),
+                      (mesh.group(dp[0]), mesh.shape[dp[0]])]
+        else:
+            stages = [(mesh.group(dp), dp_size)]
+    elif hierarchical and len(dp) == 2:
         # within each pod (rows p·D + d over d), then across pods (over p)
         P, D = mesh.shape[dp[0]], mesh.shape[dp[1]]
         stages = [([[p * D + d for d in range(D)] for p in range(P)], D),
@@ -499,13 +532,17 @@ def make_stacked_reduce(
             algo=algo, wire_dtype=wire_dtype, topology=topology,
         )
 
-    def _ar(x, k, rings):
+    def _ar(x, k, rings, group=None):
         if k > 1:
-            return cw.multi_chain_all_reduce(x, rings, algo=algo, wire_dtype=wire_dtype)
-        return cw.chain_all_reduce(x, rings[0], wire_dtype=wire_dtype)
+            return cw.multi_chain_all_reduce(x, rings, algo=algo, wire_dtype=wire_dtype,
+                                             group=group)
+        return cw.chain_all_reduce(x, rings[0], wire_dtype=wire_dtype, group=group)
 
     def _ar_stage(x, groups, k, rings):
-        """All-reduce ``x`` (``(dp, n)``) within each row group."""
+        """All-reduce ``x`` (``(dp, n)``) within each row group, or this
+        rank's ``(1, n)`` over its process group."""
+        if process:
+            return _ar(x[0], k, rings, groups)[None]
         if len(groups) == 1:
             return _ar(x, k, rings)
         out = torch.empty_like(x)
@@ -626,12 +663,29 @@ def torrent_grad_reduce(
     ONE chunk-aligned chain all-reduce, in reverse leaf order; at the
     exact wire the result is bit-identical to the per-leaf reduce.
     ``spans`` (a :class:`~repro_torch.runtime.spans.Spans`) records a
-    ``fwd_bwd`` span per rank and a ``reduce`` span."""
+    ``fwd_bwd`` span per rank and a ``reduce`` span.
+
+    On a :class:`~repro_torch.launch.mesh.ProcessMesh` (JAX's
+    ``shard_map`` form) ``batch`` is this rank's own rows, ``grad_fn``
+    runs once on them, the grads come back reduced over the mesh's
+    process groups (this rank's result) and the metrics averaged over the
+    ranks with one all-reduce; the residual leaves are this rank's
+    ``(1, *shape)`` rows (``ef_residual_init(params, 1)``), and the
+    ``fwd_bwd`` and ``reduce`` spans are this process's."""
     dp_size = dp_size_of(mesh)
 
-    def per_rank(params, batch, out):
-        return stack_rank_grads(grad_fn, params, batch, dp_size, out=out, spans=spans,
-                                batch_specs=batch_specs)
+    group = mesh.group(dp_axes(mesh.axis_names))
+    if group is not None:
+        def per_rank(params, batch, out):
+            with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
+                grads, metrics = grad_fn(params, batch)
+            g_leaves = leaves(grads)
+            _same_device(g_leaves)
+            return [g.unsqueeze(0) for g in g_leaves], _rank_mean(metrics, group, dp_size)
+    else:
+        def per_rank(params, batch, out):
+            return stack_rank_grads(grad_fn, params, batch, dp_size, out=out, spans=spans,
+                                    batch_specs=batch_specs)
 
     return _reduced(per_rank, mesh, scheduler=scheduler, hierarchical=hierarchical,
                     num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,
@@ -672,6 +726,14 @@ def torrent_joint_grad_reduce(
                     num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,
                     error_feedback=error_feedback, bucket_bytes=bucket_bytes,
                     topology=topology, spans=spans)
+
+
+def _rank_mean(metrics: PyTree, group, dp_size: int) -> PyTree:
+    """Every rank's metrics averaged over ``group``: one all-reduce of
+    the stacked leaves (the JAX package's ``psum / dp_size``)."""
+    flat = leaves(metrics)
+    total = cwd.all_reduce_sum(torch.stack([m.to(torch.float32) for m in flat]), group)
+    return unflatten(metrics, [(t / dp_size).to(m.dtype) for t, m in zip(total, flat)])
 
 
 def _reduced(stacked_fn, mesh, *, spans, error_feedback, **reduce_kw):

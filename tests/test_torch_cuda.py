@@ -931,3 +931,23 @@ def test_whisper_prefill_and_decode_on_cuda_match_cpu(cuda):
     assert ccache["enc"].dtype == torch.bfloat16
     for a, b in zip(leaves(ccache), leaves(pcache)):
         _close_to_scale(a, b)
+
+
+def test_process_form_executor_on_one_card(cuda):
+    """Two gloo ranks sharing the card (NCCL refuses two ranks on one
+    device), each frame staged through pinned host memory: every rank's
+    result of the executor's cases (K = 1 rings at both wires, the
+    broadcast at F = 1 and 3) equals the stacked executor's row on the
+    card bit for bit, and each rank's bytes their model."""
+    import _dist_cases as dc
+    from repro_torch.launch.dist import spawn
+
+    cases = dc.cases(2, Ks=(1,), seeds=(0,), full=False)
+    ranks = spawn(dc.executor_rank, 2, backend="gloo", device="cuda", timeout_s=300,
+                  args=(cases,))
+    for c in cases:
+        want = dc.run_stacked(c, torch.from_numpy(dc.global_input(c, 2)).to(cuda))
+        for r, rank in enumerate(ranks):
+            row, sent, model, _ = rank[c["name"]]
+            assert torch.equal(torch.from_numpy(row).to(cuda), want[r]), (c["name"], r)
+            assert sent == model
