@@ -175,7 +175,22 @@ Phases (any failure exits non-zero and prints no result):
    and the updates' cosine within ``DIST_EP_TOL``, the ranks' updates
    equal bit for bit, the EP bytes nonzero and the wire bytes equal to
    the model, no allocator retry, no kernel launch. A failing rank
-   fails the phase.
+   fails the phase;
+18. tp: tensor parallelism in the process form. yi-6b at full width, 4
+   of 32 layers, through the process-form ``Trainer`` at ``tp=2`` on a
+   ``(data=1, model=2)`` mesh of two gloo ranks sharing the card (each
+   rank holds its shards; Megatron's all-reduces over the model group
+   go through pinned host buffers), 4 x 512 tokens a step: the first
+   step's grads gathered leaf by leaf within ``TP_GRAD_TOL`` of the
+   stacked ``Trainer``'s at TP = 1 (run first in this process from the
+   same seed, then freed), then 3 exact and 3 int8 + EF steps whose
+   losses equal across the ranks and within ``TP_LOSS_TOL`` of TP = 1;
+   every leaf no spec splits equal bit for bit across the ranks after
+   every step; the model group's payload bytes a step equal to
+   ``modeled_tp_bytes``; ``tp_comm`` spans beside ``fwd_bwd``,
+   ``reduce`` and ``optimizer``; per rank the init and step peak memory
+   and no allocator retry; no kernel launch (``tp_train`` in the
+   kernels line). A failing rank fails the phase.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -2480,6 +2495,176 @@ def dist_phase() -> dict:
 
 
 
+# tensor parallelism on the card: yi-6b at full width, 4 of 32 layers,
+# TP = 2 over two gloo ranks sharing the card, 4 x 512 tokens a step
+TP_TRAIN = dict(arch="yi-6b", smoke=False, layers=4, steps=3, global_batch=4, seq_len=512,
+                peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
+                loss_chunks=8, seed=0)
+# TP = 2 against the stacked TP = 1 Trainer from the same seed: a rank
+# rounds its bf16 partial sums before the all-reduce, so the first
+# step's grads differ by bf16 rounding (measured on the CPU at smoke
+# size: 1.8e-2 of a leaf's max; with f32 compute 8.4e-7,
+# tests/test_torch_tp.py) and so do the losses (6.2e-4 after 6 steps)
+TP_GRAD_TOL = 3e-2
+TP_LOSS_TOL = 2e-3
+
+
+def tp_train_rank(rank, world, device, ref_dir):
+    """One rank of the tp phase (a spawned process): the process-form
+    ``Trainer`` at ``tp=world``. Its first step's grads gathered leaf by
+    leaf against the stacked Trainer's saved in ``ref_dir`` (rank 0
+    compares), then 3 exact and 3 int8 + EF steps: losses, walls,
+    spans, the model group's payload bytes against
+    ``parallel.tp.modeled_tp_bytes``, the whole leaves (params and AdamW
+    moments) bit for bit across the TP ranks after every step, peak
+    memory (after the init and of the steps) and allocator retries."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    reset_launches()
+    out = {"transport": cwd.transport(dist.group.WORLD, device)}
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for name, compress in (("exact", False), ("int8_ef", True)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        spans = Spans()
+        tr = Trainer(TrainConfig(tp=world, compress_grads=compress, **TP_TRAIN),
+                     device=device, spans=spans)
+        mesh, group = tr.mesh, tr.mesh.group("model")
+        rec = {"init_s": time.perf_counter() - t0,
+               "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "state_memory_gb": torch.cuda.memory_allocated() / 1e9}
+        pspecs = tr.specs["params"]
+        whole = [not shd.is_split(sp, mesh) for sp in leaves(tr.specs)]
+        if name == "exact":
+            with hints.set_mesh(mesh):
+                grads, _ = make_grad_fn(tr.cfg, loss_chunks=TP_TRAIN["loss_chunks"])(
+                    tr.state["params"], tr._device_batch(0))
+            errs = []
+            for i, (g, sp) in enumerate(zip(leaves(grads), leaves(pspecs))):
+                full = shd.gather_tree(g, sp, mesh)
+                if rank == 0:
+                    want = torch.load(f"{ref_dir}/{i}.pt", map_location=device)
+                    errs.append(float((full - want).abs().max() / want.abs().max()))
+                    del want
+                del full
+            del grads
+            torch.cuda.empty_cache()
+            out["grad_check"] = {"leaves": len(errs), "max_rel_err": errs}
+        torch.cuda.reset_peak_memory_stats()
+        tokens = TP_TRAIN["global_batch"] * TP_TRAIN["seq_len"] // mesh.shape["data"]
+        model = tpm.modeled_tp_bytes(tr.cfg, tokens, world)
+        losses, walls, span_ms, tp_bytes, equal = [], [], [], [], []
+        for i in range(TP_TRAIN["steps"]):
+            tpm.tp_counter.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer_step(tr, i)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            tp_bytes.append(dict(tpm.tp_counter.bytes))
+            ms = spans.read()
+            span_ms.append({k: round(sum(v), 3) if k == "tp_comm" else [round(x, 3) for x in v]
+                            for k, v in ms.items()})
+            span_ms[-1]["tp_comm_calls"] = len(ms.get("tp_comm", []))
+            # every leaf no spec splits (norm scales and their moments),
+            # across the TP ranks: all-gathered through the host, outside
+            # the counter
+            same = True
+            for x, w in zip(leaves(tr.state), whole):
+                if w:
+                    host = x.detach().reshape(-1).cpu()
+                    parts = [torch.empty_like(host) for _ in range(world)]
+                    dist.all_gather(parts, host, group=group)
+                    same &= all(torch.equal(parts[0], q) for q in parts[1:])
+            equal.append(bool(same))
+        rec.update({"losses": losses, "step_wall_s": walls,
+                    "median_step_s": float(np.median(walls)), "spans_ms": span_ms[-1],
+                    "tp_bytes_per_step": tp_bytes[-1], "modeled_tp_bytes_per_step": model,
+                    "tp_bytes_equal_model": all(b == model for b in tp_bytes),
+                    "whole_leaves_bit_equal": equal,
+                    "step_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[name] = rec
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    out["launches"] = read_launches()
+    return out
+
+
+def tp_phase() -> dict:
+    """Tensor parallelism on the card (phase 18 of the module
+    docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.tree import leaves
+
+    # 1. the stacked Trainer (TP = 1) from the same seed: the first
+    # step's grads saved leaf by leaf, the losses; then freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_dir = tempfile.mkdtemp(prefix="tp_ref_")
+    want = {}
+    try:
+        for name, compress in (("exact", False), ("int8_ef", True)):
+            tr = Trainer(TrainConfig(compress_grads=compress, **TP_TRAIN), device="cuda")
+            if name == "exact":
+                grads, _ = make_grad_fn(tr.cfg, loss_chunks=TP_TRAIN["loss_chunks"])(
+                    tr.state["params"], tr._device_batch(0))
+                for i, g in enumerate(leaves(grads)):
+                    torch.save(g.cpu(), f"{ref_dir}/{i}.pt")
+                del grads
+            want[name] = [float(trainer_step(tr, i)["loss"]) for i in range(TP_TRAIN["steps"])]
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+        print(f"tp train: stacked Trainer (tp=1) losses {json.dumps(want)}", flush=True)
+        t0 = time.perf_counter()
+        ranks = spawn(tp_train_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                      args=(ref_dir,))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    for r, rec in enumerate(ranks):
+        print(f"tp train rank {r}: {json.dumps(rec)}", flush=True)
+    errors = {}
+    for name in want:
+        got = ranks[0][name]["losses"]
+        errors[name] = max(abs(a - b) for a, b in zip(got, want[name]))
+        if not (all(rk[name]["losses"] == got for rk in ranks) and np.isfinite(got).all()
+                and errors[name] <= TP_LOSS_TOL
+                and all(rk[name]["tp_bytes_equal_model"] for rk in ranks)
+                and all(all(rk[name]["whole_leaves_bit_equal"]) for rk in ranks)
+                and all({"fwd_bwd", "reduce", "optimizer", "tp_comm"} <= set(rk[name]["spans_ms"])
+                        for rk in ranks)):
+            raise AssertionError(f"tp train {name}: losses {got} vs stacked {want[name]}, "
+                                 f"ranks {ranks}")
+    grad_err = max(ranks[0]["grad_check"]["max_rel_err"])
+    launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    if grad_err > TP_GRAD_TOL or any(rk["alloc_retries"] for rk in ranks) \
+            or any(launches.values()) or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
+        raise AssertionError(f"tp train: grad err {grad_err} (tolerance {TP_GRAD_TOL}), "
+                             f"retries {[rk['alloc_retries'] for rk in ranks]}, "
+                             f"launches {launches}")
+    print(f"tp train: {json.dumps({'ranks': 2, 'mesh': {'data': 1, 'model': 2}, 'first_step_grad_max_rel_err': grad_err, 'grad_tolerance': TP_GRAD_TOL, 'max_loss_diff_vs_tp1': errors, 'loss_tolerance': TP_LOSS_TOL, 'step_peak_memory_gb': [max(rk[n]['step_peak_memory_gb'] for n in want) for rk in ranks], 'phase_wall_s': round(wall, 2), 'launches': launches})}", flush=True)
+    return {"train_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2548,6 +2733,7 @@ def main() -> int:
     ep_train = ep_train_phase()
     cell_phase()
     dist = dist_phase()
+    tp = tp_phase()
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
@@ -2564,7 +2750,8 @@ def main() -> int:
                    "train": train["train_launches"][name],
                    "ep_train": ep_train["train_launches"][name],
                    "dist_train": dist["train_launches"][name],
-                   "ep_dist_train": dist["ep_launches"][name]}
+                   "ep_dist_train": dist["ep_launches"][name],
+                   "tp_train": tp["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

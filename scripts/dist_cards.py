@@ -24,10 +24,23 @@ its own, so the executor hands NCCL the device tensors themselves:
 3. ``train``: ``torchrun --nproc-per-node world -m
    repro_torch.launch.train`` (``init_from_env``, the ``ProcessMesh``
    and its groups, the Torrent reduce, int8 + EF, a checkpoint through
-   rank 0 and a restart after an injected failure) at smoke size.
+   rank 0 and a restart after an injected failure) at smoke size; then
+   the same with ``--tp 2`` (a ``(data=world/2, model=2)`` mesh, the
+   checkpoint holding the logical leaves).
+4. ``tp`` (4 ranks): tensor parallelism, one rank per card. yi-6b at
+   full width and full depth (32 layers) on ``(data=1, model=4)``, then
+   at 8 layers on ``(data=2, model=2)`` with the Torrent reduce over
+   ``data``; 4 x 512 tokens a step, 3 steps, through the process-form
+   ``Trainer``: losses, step walls and spans (``fwd_bwd``, ``tp_comm``,
+   ``reduce``, ``optimizer``), the model group's payload bytes against
+   ``parallel.tp.modeled_tp_bytes``, the DP wire bytes against
+   ``program_wire_bytes``, a rank's memory (its state, the init's peak,
+   the steps' peak) and allocator retries (must be 0). At smoke size on
+   the CPU.
 
-Prints the card's name and power limit, one ``dist cards PART {...}``
-line per part, and exits non-zero if a check fails.
+``--parts`` picks parts by name (default: all). Prints the card's name
+and power limit, one ``dist cards PART {...}`` line per part, and exits
+non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -111,17 +124,91 @@ def all_reduce_rank(rank, world, device, n, iters):
     return out
 
 
+# the tp part's runs: (label, data, model, layers; None = the config's);
+# 4 x 512 tokens a step, 3 steps
+TP_RUNS = [("1x4_full_depth", 1, 4, None), ("2x2_8_layers", 2, 2, 8)]
+TP_TRAIN = dict(arch="yi-6b", steps=3, global_batch=4, seq_len=512, peak_lr=5e-4,
+                warmup_steps=2, collectives="torrent", num_chains=1, loss_chunks=8, seed=0)
+
+
+def tp_rank(rank, world, device, tp, layers, smoke):
+    """One rank of the tp part: the process-form ``Trainer`` at
+    ``tp``, driven 3 steps, with its record."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+
+    cuda = device.type == "cuda"
+
+    def mem(fn):
+        return fn() / 1e9 if cuda else None
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0) if cuda else 0
+    spans = Spans()
+    t0 = time.perf_counter()
+    kw = dict(TP_TRAIN, smoke=smoke, layers=layers)
+    if smoke:
+        kw.update(seq_len=32, layers=None)
+    tr = Trainer(TrainConfig(tp=tp, **kw), device=device, spans=spans)
+    rec = {"mesh": tr.mesh.shape, "layers": tr.cfg.num_layers,
+           "init_s": time.perf_counter() - t0,
+           "state_memory_gb": mem(torch.cuda.memory_allocated),
+           "init_peak_memory_gb": mem(torch.cuda.max_memory_allocated),
+           "transport": cwd.transport(tr.mesh.group("model"), device)}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    tokens = kw["global_batch"] * kw["seq_len"] // tr.mesh.shape["data"]
+    model = tpm.modeled_tp_bytes(tr.cfg, tokens, tp)
+    losses, walls, span_ms, tp_bytes, wire = [], [], [], [], []
+    for i in range(kw["steps"]):
+        tpm.tp_counter.reset()
+        cwd.wire_counter.reset()
+        batch = tr.place(tr.source.batch(i))
+        if cuda:
+            torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        params, opt, m = tr.step_fn(tr.state["params"], tr.state["opt"], batch)
+        tr.state = {"params": params, "opt": opt}
+        losses.append(float(m["loss"]))
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        ms = spans.read()
+        span_ms.append({k: round(sum(v), 3) if k == "tp_comm" else [round(x, 3) for x in v]
+                        for k, v in ms.items()})
+        span_ms[-1]["tp_comm_calls"] = len(ms.get("tp_comm", []))
+        tp_bytes.append(dict(tpm.tp_counter.bytes))
+        wire.append((cwd.wire_counter.bytes, cwd.wire_counter.program_bytes()))
+    rec.update({"losses": losses, "step_wall_s": walls, "median_step_s": float(np.median(walls)),
+                "spans_ms": span_ms[-1], "tp_bytes_per_step": tp_bytes[-1],
+                "modeled_tp_bytes_per_step": model,
+                "tp_bytes_equal_model": all(b == model for b in tp_bytes),
+                "dp_wire_bytes_per_step": wire[-1][0],
+                "dp_wire_equal_program_bytes": all(a == b for a, b in wire),
+                "step_peak_memory_gb": mem(torch.cuda.max_memory_allocated),
+                "alloc_retries": (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                                  - retries0) if cuda else 0})
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every card; required with --device cpu)")
+    ap.add_argument("--parts", default="executor,all_reduce,train,tp",
+                    help="comma-separated parts to run (default: all)")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
 
     import torch
-    import _dist_cases as dc
-    from repro_torch.launch.dist import spawn
-    from repro_torch.launch.roofline import H100_SXM
 
     on_card = args.device != "cpu"
     if on_card:
@@ -138,29 +225,52 @@ def main() -> int:
     ref_dev = "cuda:0" if on_card else "cpu"
     ok = True
 
-    # 1. the executor's matrix
+    if "executor" in parts:
+        ok &= executor_part(args.device, world, on_card, ref_dev)
+    if "all_reduce" in parts:
+        ok &= all_reduce_part(args.device, world, on_card, ref_dev)
+    if "train" in parts:
+        for tp in (1, 2):
+            ok &= train_part(args.device, world, tp)
+    if "tp" in parts:
+        ok &= tp_part(args.device, world, on_card)
+    return 0 if ok else 1
+
+
+def executor_part(device, world, on_card, ref_dev) -> bool:
+    """Part 1: the executor's matrix."""
+    import torch
+    import _dist_cases as dc
+    from repro_torch.launch.dist import spawn
+
     cases = dc.cases(world, Ks=(1, 2), seeds=(0, 1), full=False)
     t0 = time.perf_counter()
-    ranks = spawn(executor_rank, world, device=args.device, timeout_s=TIMEOUT_S,
+    ranks = spawn(executor_rank, world, device=device, timeout_s=TIMEOUT_S,
                   args=(cases,))
     bad = dc.executor_mismatches(cases, ranks, ref_dev)
     transport = sorted({r["transport"] for r in ranks})
-    ok &= not bad and transport == (["nccl"] if on_card else ["gloo"])
     print("dist cards executor", json.dumps({
         "ranks": world, "cases": len(cases), "bit_exact": not bad, "mismatches": bad[:10],
         "transport": transport, "spawn_and_run_s": round(time.perf_counter() - t0, 2)}),
         flush=True)
+    return not bad and transport == (["nccl"] if on_card else ["gloo"])
 
-    # 2. the timed all-reduces
+
+def all_reduce_part(device, world, on_card, ref_dev) -> bool:
+    """Part 2: the timed all-reduces."""
+    import torch
+    import _dist_cases as dc
+    from repro_torch.launch.dist import spawn
+    from repro_torch.launch.roofline import H100_SXM
+
     # a rank's payload is (n, 3) f32 (_dist_cases.global_input)
     n = MIB["card" if on_card else "cpu"] * (1 << 20) // 12 // world * world
-    ranks = spawn(all_reduce_rank, world, device=args.device, timeout_s=TIMEOUT_S,
+    ranks = spawn(all_reduce_rank, world, device=device, timeout_s=TIMEOUT_S,
                   args=(n, ITERS))
     c = dict(kind="all_reduce", K=1, seed=0, algo="rs_ag", wire=None, n=n)
     want = dc.run_stacked(c, torch.from_numpy(dc.global_input(c, world)).to(ref_dev))
     exact = all(torch.equal(torch.from_numpy(r["rs_ag_k1"]["result"]).to(ref_dev), want[i])
                 for i, r in enumerate(ranks))
-    ok &= exact
     rec = {"ranks": world, "payload_bytes_per_rank": 12 * n, "rs_ag_k1_bit_exact": exact,
            "library_ms": max(r["library"]["ms"] for r in ranks)}
     for label, *_ in ALL_REDUCES:
@@ -168,27 +278,66 @@ def main() -> int:
         rec[label] = {"ms": max(r[label]["ms"] for r in ranks), "sent_bytes_per_rank": sent,
                       "bound_ms": sent / H100_SXM.link_bw * 1e3}
     print("dist cards all_reduce", json.dumps(rec), flush=True)
+    return exact
 
-    # 3. the process-form Trainer under torchrun
+
+def train_part(device, world, tp: int) -> bool:
+    """Part 3: the process-form Trainer under torchrun, at ``--tp``."""
     with tempfile.TemporaryDirectory(prefix="dist_cards_") as ckpt:
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(world), "-m", "repro_torch.launch.train",
-             "--device", args.device, "--smoke", "--steps", "4", "--batch", str(2 * world),
+             "--device", device, "--smoke", "--steps", "4", "--batch", str(2 * world),
              "--seq", "32", "--collectives", "torrent", "--compress-grads", "--fail-at", "2",
-             "--ckpt-every", "1", "--ckpt-dir", ckpt],
+             "--ckpt-every", "1", "--ckpt-dir", ckpt, "--tp", str(tp)],
             capture_output=True, text=True, timeout=TIMEOUT_S, env=env)
         log = proc.stdout + proc.stderr
         trained = proc.returncode == 0 and "done: 4 steps (1 restarts)" in log
-        ok &= trained
         print("dist cards train", json.dumps({
-            "ranks": world, "rc": proc.returncode, "ok": trained,
+            "ranks": world, "tp": tp, "rc": proc.returncode, "ok": trained,
             "done": [ln for ln in log.splitlines() if ln.startswith("done:")],
             "wall_s": round(time.perf_counter() - t0, 2),
             "tail": None if trained else log[-3000:]}), flush=True)
-    return 0 if ok else 1
+    return trained
+
+
+def tp_part(device, world, on_card) -> bool:
+    """Part 4: tensor parallelism, one rank per card (4 ranks)."""
+    import numpy as np
+    from repro_torch.launch.dist import spawn
+
+    if world != 4:
+        print(f"dist cards tp: needs 4 ranks, got {world}", file=sys.stderr)
+        return False
+    ok = True
+    for label, data, model, layers in TP_RUNS:
+        t0 = time.perf_counter()
+        ranks = spawn(tp_rank, world, device=device, timeout_s=900,
+                      args=(model, layers, not on_card))
+        for r, rec in enumerate(ranks):
+            print(f"dist cards tp {label} rank {r}", json.dumps(rec), flush=True)
+        losses = ranks[0]["losses"]
+        good = (all(np.isfinite(rk["losses"]).all() for rk in ranks)
+                and all(rk["mesh"] == {"data": data, "model": model} for rk in ranks)
+                and all(rk["tp_bytes_equal_model"] and rk["dp_wire_equal_program_bytes"]
+                        and not rk["alloc_retries"] for rk in ranks)
+                # the TP ranks of one DP rank hold the same loss
+                and all(ranks[i]["losses"] == ranks[i - i % model]["losses"]
+                        for i in range(world)))
+        ok &= bool(good)
+        print(f"dist cards tp {label}", json.dumps({
+            "ok": bool(good), "mesh": {"data": data, "model": model},
+            "layers": ranks[0]["layers"], "losses": losses,
+            "median_step_s": max(rk["median_step_s"] for rk in ranks),
+            "step_peak_memory_gb": [rk["step_peak_memory_gb"] for rk in ranks],
+            "init_peak_memory_gb": [rk["init_peak_memory_gb"] for rk in ranks],
+            "state_memory_gb": [rk["state_memory_gb"] for rk in ranks],
+            "spans_ms_rank0": ranks[0]["spans_ms"],
+            "transport": sorted({rk["transport"] for rk in ranks}),
+            "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    return ok
 
 
 if __name__ == "__main__":

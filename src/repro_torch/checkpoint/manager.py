@@ -30,6 +30,15 @@ Design points for the 1000+-node posture:
   *shape)`` row) are gathered to rank 0 on save as the ``(dp, *shape)``
   leaf the stacked form writes, and each rank restores its own row of
   it. A checkpoint written by either form restores in the other.
+* **Tensor parallelism.** With a ``mesh`` whose ``model`` axis is live
+  and the state's ``specs`` (``parallel.sharding.state_specs``), each
+  leaf a rank holds is its shard: save gathers every split leaf to its
+  logical shape over the ``model`` group (one leaf at a time, straight
+  to the host) before rank 0 writes it, so the files are the same at
+  any TP size; ``restore(..., specs=, mesh=)`` (JAX's ``shardings=``
+  role) gives each rank its own shards. A checkpoint written at TP = 2
+  restores at TP = 1, in the stacked form and in the JAX package, and
+  the reverse.
 """
 
 from __future__ import annotations
@@ -48,7 +57,9 @@ import torch.distributed as dist
 
 from repro_torch.core.chainwrite_dist import gather_rows
 from repro_torch.device import resolve_device
-from repro_torch.tree import paths, unflatten
+from repro_torch.parallel.sharding import gather_tree, shard_tree
+from repro_torch.parallel.spec import keep_axes
+from repro_torch.tree import leaves, paths, unflatten
 
 PyTree = Any
 
@@ -82,14 +93,19 @@ def _per_rank(path: tuple) -> bool:
 
 class CheckpointManager:
     """``group``: the ``torch.distributed`` group of the process form's
-    ranks (rank 0 writes; see the module docstring), or None for one
-    process."""
+    data-parallel ranks (world rank 0 writes; see the module docstring),
+    or None for one process. ``mesh`` and ``specs``: the process mesh
+    and the specs of the state's leaves, where a live ``model`` axis
+    splits them (tensor parallelism)."""
 
-    def __init__(self, root: str, keep_last_k: int = 3, *, group=None):
+    def __init__(self, root: str, keep_last_k: int = 3, *, group=None, mesh=None,
+                 specs=None):
         self.root = root
         self.keep = keep_last_k
         self.group = group
-        self.rank = 0 if group is None else dist.get_rank(group)
+        self.mesh, self.specs = mesh, specs
+        self.row = 0 if group is None else dist.get_rank(group)
+        self.rank = 0 if group is None else dist.get_rank()
         os.makedirs(root, exist_ok=True)
         self._q: queue.Queue = queue.Queue()
         self._errors: list[Exception] = []
@@ -103,13 +119,19 @@ class CheckpointManager:
         every rank calls it: the per-rank leaves are gathered to rank 0,
         which writes."""
         if self.group is not None:
-            leaves_ = []
-            for path, leaf in paths(tree):
+            specs = leaves(self.specs) if self.specs is not None else [None] * len(paths(tree))
+            flat = {}
+            for (path, leaf), spec in zip(paths(tree), specs):
+                if spec is not None:  # TP: the logical leaf, over the model group
+                    leaf = gather_tree(leaf, keep_axes(spec, ("model",)), self.mesh)
                 if _per_rank(path):
                     leaf = gather_rows(leaf[0], self.group)
-                leaves_.append(leaf)
-            tree = unflatten(tree, leaves_) if self.rank == 0 else None
-        if self.rank == 0:
+                if self.rank == 0:
+                    flat[_key(path)] = _host(leaf)  # host snapshot now
+                del leaf
+            if self.rank == 0:
+                self._q.put((step, flat))
+        else:
             self._q.put((step, _flatten(tree)))  # host snapshot now
         if blocking:
             self.wait()
@@ -165,13 +187,13 @@ class CheckpointManager:
                     shutil.rmtree(full, ignore_errors=True)
 
     def wait(self):
-        """Drain the writes; in the process form every rank returns once
-        rank 0's have landed."""
+        """Drain the writes; in the process form every rank of the world
+        returns once rank 0's have landed."""
         self._q.join()
         if self._errors:
             raise RuntimeError(f"checkpoint writer failed: {self._errors}")
         if self.group is not None:
-            dist.barrier(group=self.group)
+            dist.barrier()
 
     def close(self):
         self.wait()
@@ -191,29 +213,39 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: PyTree, *, device=None) -> PyTree:
+    def restore(self, step: int, like: PyTree, *, specs=None, mesh=None,
+                device=None) -> PyTree:
         """Restore into the structure of ``like`` (values ignored) as
         tensors on ``device`` (default: each leaf of ``like``'s device,
         or ``"cuda"`` when ``like`` holds no tensors). In the process
         form a per-rank leaf restores as this rank's ``(1, *shape)`` row
-        of the saved ``(dp, *shape)`` leaf."""
+        of the saved ``(dp, *shape)`` leaf. ``specs`` and ``mesh`` (JAX's
+        ``shardings=``; default: the manager's) restore each leaf as this
+        rank's shard of it (``parallel.sharding.shard_tree``: the per-rank
+        leaves' specs split dim 0 over the DP axes)."""
+        specs = self.specs if specs is None else specs
+        mesh = self.mesh if mesh is None else mesh
+        spec_list = leaves(specs) if specs is not None else [None] * len(paths(like))
         cdir = os.path.join(self.root, f"ckpt_{step:09d}")
         with open(os.path.join(cdir, "manifest.json")) as f:
             manifest = json.load(f)
         dev = None if device is None else resolve_device(device)
         out = []
-        for path, leaf in paths(like):
+        for (path, leaf), spec in zip(paths(like), spec_list):
             key = _key(path)
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint {step} missing leaf {key}")
-            rows = self.group is not None and _per_rank(path)
-            arr = np.load(os.path.join(cdir, meta["file"]), mmap_mode="r" if rows else None)
-            if rows:
+            rows = self.group is not None and _per_rank(path) and spec is None
+            arr = np.load(os.path.join(cdir, meta["file"]),
+                          mmap_mode="r" if rows or spec is not None else None)
+            if spec is not None:
+                arr = shard_tree(arr, spec, mesh)
+            elif rows:
                 if arr.shape[0] != dist.get_world_size(self.group):
                     raise ValueError(f"{key}: ckpt has {arr.shape[0]} rank rows for "
                                      f"{dist.get_world_size(self.group)} ranks")
-                arr = arr[self.rank:self.rank + 1]
+                arr = arr[self.row:self.row + 1]
             expect = tuple(getattr(leaf, "shape", arr.shape))
             if tuple(arr.shape) != expect:
                 raise ValueError(f"{key}: ckpt shape {arr.shape} != {expect}")

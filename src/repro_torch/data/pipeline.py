@@ -14,8 +14,10 @@ Two sources:
 Batches are generated per *step index* with a counter-based generator
 (numpy Philox), so any host can regenerate any step independently —
 restart/elastic-rescale replays the exact stream with zero coordination,
-and each host slices only its addressable rows (host-sharded loading):
-a process-form rank takes ``batch(step, host_slice=rank_slice(...))``.
+and each host can slice only its addressable rows (host-sharded
+loading, ``batch(step, host_slice=rank_slice(...))``); the process
+form's ``Trainer`` cuts each rank's rows in its placer
+(``make_device_placer(mesh, spec)``).
 
 :class:`Prefetcher` runs the source on a background thread with a
 bounded queue and optionally places each batch on a device
@@ -123,22 +125,47 @@ def rank_slice(global_batch: int, dp: int, rank: int) -> slice:
     """Rank ``rank``'s rows of a ``global_batch`` split over ``dp`` data
     ranks, for ``batch(step, host_slice=...)``: the rows that
     ``parallel.collectives.split_batch`` gives rank ``rank`` of the
-    stacked form."""
+    stacked form. ``rank`` is the DP coordinate (a ``ProcessMesh``'s
+    ``dp_index``), which the ranks of one TP group share."""
     if global_batch % dp:
         raise ValueError(f"batch dim {global_batch} not divisible by {dp} DP ranks")
     n = global_batch // dp
     return slice(rank * n, (rank + 1) * n)
 
 
-def make_device_placer(device="cuda") -> Callable[[dict], dict]:
-    """A placer that moves each numpy array of a batch onto ``device``
-    (default ``"cuda"``) as a tensor, without blocking the host."""
-    dev = resolve_device(device)
+def make_device_placer(mesh="cuda", spec=None, *, device=None) -> Callable[[dict], dict]:
+    """A placer that moves each numpy array of a batch onto a device as
+    a tensor, without blocking the host.
+
+    ``make_device_placer(mesh, spec)`` is JAX's signature: on a
+    ``ProcessMesh`` each leaf of the global batch is cut to this rank's
+    rows along the dim that ``spec`` (a ``PartitionSpec``) splits over
+    the DP axes, by the rank's DP coordinate (``mesh.dp_index``), so the
+    ranks of one TP group get the same rows; the device is ``device``
+    (default: the current CUDA device). On a ``VirtualMesh`` every row
+    stays (the stacked view holds them all). The device-only form,
+    ``make_device_placer(device)`` (default ``"cuda"``), moves the
+    whole batch."""
+    if isinstance(mesh, (str, torch.device)):
+        dev, rows = resolve_device(mesh), None
+    else:
+        dev = resolve_device("cuda" if device is None else device)
+        rows = None
+        if hasattr(mesh, "dp_index"):
+            from repro_torch.parallel.collectives import dp_size_of
+            from repro_torch.parallel.sharding import batch_axis
+
+            axis = batch_axis(spec)
+            rows = (axis, dp_size_of(mesh), mesh.dp_index)
 
     def place(batch: dict) -> dict:
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(dev, non_blocking=True)
-            for k, v in batch.items()
-        }
+        out = {}
+        for k, v in batch.items():
+            if rows is not None:
+                axis, dp, r = rows
+                idx = rank_slice(v.shape[axis], dp, r)
+                v = v[(slice(None),) * axis + (idx,)]
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(dev, non_blocking=True)
+        return out
 
     return place

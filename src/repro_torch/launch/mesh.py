@@ -15,10 +15,15 @@ on a ``jax.sharding.Mesh``, and ``mesh.group(axes)``):
 ``mesh.group(axes)`` is where the two part: ``None`` on a
 :class:`VirtualMesh` (the stacked view: every rank is a row here), the
 process group on a :class:`ProcessMesh`. The layers below (collectives,
-the MoE exchange) branch on it and nothing else.
+the MoE exchange, the tensor-parallel ops) branch on it and nothing
+else.
 
-A ``model`` (TP) axis larger than 1 raises ``NotImplementedError`` in
-both: tensor-parallel sharding is ROADMAP item 9c.
+A ``model`` (TP) axis larger than 1 exists only on a
+:class:`ProcessMesh`, where each rank holds its shards of the state
+(``parallel.sharding.shard_tree``) and the model code runs Megatron's
+collectives over ``mesh.group("model")`` (``parallel.tp``). The stacked
+:class:`VirtualMesh` refuses it: one process holding every TP shard as
+a row would only simulate those collectives.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ class VirtualMesh:
             raise ValueError(f"axis sizes must be positive, got {self.axis_sizes}")
         if dict(zip(self.axis_names, self.axis_sizes)).get("model", 1) != 1:
             raise NotImplementedError(
-                "a model (TP) axis > 1 is not ported yet (ROADMAP item 9c)"
+                "a model (TP) axis > 1 needs a ProcessMesh (make_process_mesh(model=...), "
+                "one rank per process): the stacked view has no tensor-parallel form"
             )
 
     @property
@@ -68,7 +74,8 @@ def make_host_mesh(data: int | None = None, model: int = 1) -> VirtualMesh:
 class ProcessMesh:
     """A mesh over the ``torch.distributed`` world, one rank per process,
     ranks laid out row-major over ``axis_names`` (``("pod", "data",
-    "model")``: rank ``pod·D + data`` at ``model`` = 1).
+    "model")``: rank ``(pod·D + data)·M + model``, so the ranks of one
+    TP group are consecutive: on one host, the NVLink neighbours).
 
     :meth:`group` returns the process group of the ranks that differ from
     this one only along the given axes (group rank = the linear index
@@ -80,12 +87,18 @@ class ProcessMesh:
     is in then runs one all-reduce, in that same order, so that no
     group's first operation is a point-to-point step that some of its
     ranks skip (an NCCL group's first ``batch_isend_irecv`` must be
-    joined by every rank)."""
+    joined by every rank). Where every data-parallel axis has size 1 and
+    the world does not (``(data=1, model=M)``), each rank also gets a
+    group of its own: the DP axes' group, over which a reduction is the
+    identity."""
 
     def __init__(self, axis_names: tuple[str, ...], axis_sizes: tuple[int, ...]) -> None:
-        self._virtual = VirtualMesh(tuple(axis_names), tuple(int(s) for s in axis_sizes))
-        self.axis_names = self._virtual.axis_names
-        self.axis_sizes = self._virtual.axis_sizes
+        self.axis_names = tuple(axis_names)
+        self.axis_sizes = tuple(int(s) for s in axis_sizes)
+        if len(self.axis_names) != len(self.axis_sizes):
+            raise ValueError(f"{self.axis_names} vs sizes {self.axis_sizes}")
+        if any(s < 1 for s in self.axis_sizes):
+            raise ValueError(f"axis sizes must be positive, got {self.axis_sizes}")
         world = dist.get_world_size()
         if math.prod(self.axis_sizes) != world:
             raise ValueError(f"mesh {self.shape} has {math.prod(self.axis_sizes)} ranks, "
@@ -107,13 +120,35 @@ class ProcessMesh:
                 if self.rank in ranks:
                     mine = g
             self._groups[(axis,)] = mine
-        for g in self._groups.values():
+        self._solo = None
+        if world > 1 and math.prod(self.shape[a] for a in self.dp_axes) == 1:
+            for r in range(world):
+                g = dist.new_group([r])
+                if r == self.rank:
+                    self._solo = g
+        for g in list(self._groups.values()) + [self._solo]:
+            if g is None:
+                continue
             if str(dist.get_backend(g)) == "nccl":
                 dist.all_reduce(torch.zeros(1, device=torch.cuda.current_device()), group=g)
 
     @property
     def shape(self) -> dict[str, int]:
-        return self._virtual.shape
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def dp_axes(self) -> tuple[str, ...]:
+        """The data-parallel axes, in canonical order (``pod``, ``data``)."""
+        return tuple(a for a in ("pod", "data") if a in self.axis_names)
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's linear index over the data-parallel axes: the
+        block of a global batch it takes (its TP peers take the same)."""
+        i = 0
+        for a in self.dp_axes:
+            i = i * self.shape[a] + self.coords[a]
+        return i
 
     def _slices(self, axis: str) -> list[list[int]]:
         """Every slice along ``axis``: the ranks that share all other
@@ -126,11 +161,14 @@ class ProcessMesh:
 
     def group(self, axes) -> object:
         """The process group over ``axes`` (one name or a tuple) that holds
-        this rank. Axes of size 1 drop out; the data-parallel axes
-        together, or every axis, name the whole world."""
+        this rank. Axes of size 1 drop out; axes that all have size 1
+        name this rank alone (a group of one, where the world has more);
+        every live axis names the whole world."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         live = tuple(a for a in axes if self.shape[a] > 1)
         every = tuple(a for a in self.axis_names if self.shape[a] > 1)
+        if not live and self._solo is not None:
+            return self._solo
         if len(live) == 1:
             return self._groups[live]
         if set(live) == set(every):
@@ -145,8 +183,8 @@ def make_process_mesh(data: int | None = None, model: int = 1,
                       pod: int | None = None) -> ProcessMesh:
     """A mesh over the initialised ``torch.distributed`` world:
     ``("data", "model")``, or ``("pod", "data", "model")`` with ``pod``;
-    ``data`` defaults to what the world leaves for it. ``model`` > 1
-    raises ``NotImplementedError`` (ROADMAP item 9c)."""
+    ``data`` defaults to what the world leaves for it; ``model`` is the
+    TP size, whose groups are consecutive ranks."""
     world = dist.get_world_size()
     rest = world // (int(model) * (int(pod) if pod else 1))
     data = rest if data is None else int(data)

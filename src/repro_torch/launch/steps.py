@@ -26,6 +26,7 @@ from repro_torch.optim import adamw
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.parallel import hints
 from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import tp as tp_mod
 from repro_torch.parallel.spec import P, keep_axes
 from repro_torch.parallel.collectives import (
     dp_size_of,
@@ -170,7 +171,8 @@ def make_train_step(
     exchange, and MoE layers take the flat path. ``spans`` (a
     :class:`~repro_torch.runtime.spans.Spans`) records ``fwd_bwd`` per
     rank (one for the joint forward), ``reduce`` and ``optimizer`` spans
-    of every step.
+    of every step, and on a TP mesh a ``tp_comm`` span per collective of
+    the model group.
 
     On a :class:`~repro_torch.launch.mesh.ProcessMesh` the step is one
     rank's, as a JAX ``shard_map`` device's: ``batch`` is this rank's
@@ -183,6 +185,16 @@ def make_train_step(
     with the other ranks' over the mesh's DP group, and its backward
     gives it the grads JAX's ``shard_map`` rank gets.
     ``collectives="xla"`` is not ported to this form.
+
+    With a ``model`` axis > 1 (a ``ProcessMesh`` only) the params, the
+    optimizer state, the grads and the EF residual are this rank's
+    shards (``parallel.sharding.param_pspecs`` placed by
+    ``shard_tree``): the forward and backward run Megatron's
+    collectives over the model group (``parallel.tp``; the remat'd
+    recompute runs them again, in the same order on every TP rank), the
+    Torrent reduction runs over the DP group on the shards, and AdamW
+    clips by the logical tree's norm. Microbatching is unchanged. The
+    TP form covers the dense family (``transformer.check_tp``).
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(
@@ -227,7 +239,17 @@ def make_train_step(
     if batch_specs is None:  # the specs depend on the shape's kind only
         batch_specs = shd.batch_pspecs(cfg, SHAPES["train_4k"])
 
+    tp = mesh.shape.get("model", 1)
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
+    if tp > 1:
+        grad_fn_tp = grad_fn_local
+
+        def grad_fn_local(params, batch):
+            """This rank's grads of its shards: the model code finds the
+            TP group on the mesh (the remat'd recompute runs inside it
+            too); each TP collective is a ``tp_comm`` span."""
+            with hints.set_mesh(mesh), tp_mod.timed(spans):
+                return grad_fn_tp(params, batch)
     if process and joint:
         grad_fn_own = grad_fn_local
 
@@ -257,9 +279,16 @@ def make_train_step(
     reduce_kw = dict(num_chains=num_chains, algo=ar_algo, wire_dtype=wire_dtype,
                      bucket_bytes=bucket_bytes, topology=topology, spans=spans)
 
+    # under TP, the clipping norm is the logical tree's: AdamW sums the
+    # split leaves' squares over the model group
+    norm_kw = {}
+    if tp > 1:
+        norm_kw = dict(group=mesh.group("model"), split=map_tree(
+            lambda s: shd.is_split(s, mesh), shd.logical_pspecs(cfg, tp)))
+
     def optimizer(grads, opt_state, params):
         with maybe_span(spans, "optimizer", leaves(params)[0].device):
-            return adamw.update(opt_cfg, grads, opt_state, params)
+            return adamw.update(opt_cfg, grads, opt_state, params, **norm_kw)
 
     def accumulated(fn):
         """``fn``'s grads accumulated over ``microbatches`` slices of the

@@ -19,6 +19,15 @@ own rows of every batch, and the Torrent reduction runs over
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --steps 20 --collectives torrent --device cpu
 
+With ``--tp N`` (process form only) the world is a ``(data, model)``
+mesh of ``world / N`` DP ranks by ``N`` TP ranks: each rank holds its
+shards of the state as ``parallel.sharding.param_pspecs`` places them
+and runs the dense family's Megatron-style forward and backward
+(``parallel.tp``); the Torrent reduction runs over the DP group:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
+        --steps 20 --collectives torrent --tp 2 --device cpu
+
 ``--device`` defaults to ``cuda`` and raises without a card.
 """
 
@@ -48,6 +57,14 @@ from repro_torch.models.convert import params_from_numpy
 from repro_torch.optim import adamw
 from repro_torch.parallel.collectives import dp_size_of, ef_residual_init
 from repro_torch.parallel.hints import dp_axes
+from repro_torch.parallel.sharding import (
+    BATCH_AXES,
+    leaf_placer,
+    logical_pspecs,
+    shard_tree,
+    state_specs,
+)
+from repro_torch.parallel.spec import P
 from repro_torch.runtime.failure import FaultInjector, resilient_loop
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.tree import leaves, map_tree
@@ -100,11 +117,19 @@ class Trainer:
 
     When ``torch.distributed`` is initialised the Trainer is one rank of
     the process form: its mesh is a
-    :class:`~repro_torch.launch.mesh.ProcessMesh` over the world
-    (``tc.dp`` must be 1 or the world size), it loads this rank's rows of
-    each batch onto ``device``, holds its own copy of the state (its EF
-    residual is its ``(1, *shape)`` row) and checkpoints through rank 0
-    in the stacked form's format."""
+    :class:`~repro_torch.launch.mesh.ProcessMesh` ``(data, model)`` over
+    the world with ``model = tc.tp`` (``tc.dp`` must be 1 or the world
+    size over ``tc.tp``), its placer cuts this rank's rows of each batch
+    by its DP coordinate (the TP ranks of one group share them), it
+    holds its own copy of the state (its EF residual is its ``(1,
+    *shape)`` row) and checkpoints through rank 0 in the stacked form's
+    format. With ``tc.tp`` > 1 that state is this rank's shards: the
+    whole model is drawn from the seed leaf by leaf, each leaf cut to
+    this rank's block as it is drawn (``parallel.sharding.leaf_placer``,
+    by ``param_pspecs``; carried params are cut by ``shard_tree``), so
+    every TP size starts from the same logical params; AdamW and the
+    EF residual are built on the shards, and checkpoints hold the
+    logical leaves."""
 
     def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None,
                  model_cfg: ModelConfig | None = None):
@@ -119,11 +144,13 @@ class Trainer:
         self.rows = slice(None)
         if dist.is_initialized():
             world = dist.get_world_size()
-            if tc.dp not in (1, world):
-                raise ValueError(f"dp={tc.dp} on a world of {world} processes: the process "
-                                 "form runs one DP rank per process")
+            if tc.tp < 1 or world % tc.tp:
+                raise ValueError(f"tp={tc.tp} does not divide a world of {world} processes")
+            if tc.dp not in (1, world // tc.tp):
+                raise ValueError(f"dp={tc.dp} on a world of {world} processes at tp={tc.tp}: "
+                                 "the process form runs one DP rank per TP group")
             self.mesh = make_process_mesh(model=tc.tp)
-            self.rows = rank_slice(tc.global_batch, world, self.mesh.rank)
+            self.rows = rank_slice(tc.global_batch, world // tc.tp, self.mesh.dp_index)
         else:
             self.mesh = make_host_mesh(data=tc.dp, model=tc.tp)
         # the process group over the DP ranks: None in the stacked form
@@ -139,20 +166,27 @@ class Trainer:
             global_batch=tc.global_batch,
             seed=tc.seed + 1,
         )
-        self.place = make_device_placer(self.device)
+        self.place = make_device_placer(self.mesh, P(BATCH_AXES, None), device=self.device)
         self.monitor = StepMonitor()
         self._build(params)
 
     # -- state / step ----------------------------------------------------
     def _build(self, params):
         tc, cfg = self.tc, self.cfg
-        if params is None:
+        # the specs that place this rank's shards (None: it holds every leaf)
+        pspecs = logical_pspecs(cfg, tc.tp) if tc.tp > 1 else None
+        if params is None:  # the whole model's draws; a TP rank keeps its blocks
             gen = torch.Generator(device=self.device).manual_seed(tc.seed)
-            params = T.model_init(gen, cfg, self.device)
+            params = T.model_init(gen, cfg, self.device, place=None if pspecs is None
+                                  else leaf_placer(pspecs, self.mesh))
         elif not isinstance(leaves(params)[0], torch.Tensor):
-            params = params_from_numpy(params, self.device)
+            params = params_from_numpy(params, self.device, specs=pspecs, mesh=self.mesh)
         else:
+            if pspecs is not None:
+                params = shard_tree(params, pspecs, self.mesh)
             params = map_tree(lambda t: t.to(self.device, copy=True), params)
+        self.specs = (None if pspecs is None else
+                      state_specs(pspecs, self.mesh, ef=tc.compress_grads))
         self.state = {"params": params, "opt": adamw.init(params)}
         if tc.compress_grads:
             # the EF residual rides in the state, so it survives
@@ -176,12 +210,14 @@ class Trainer:
         )
 
     def _device_batch(self, step: int) -> dict:
-        return self.place(self.source.batch(step, host_slice=self.rows))
+        return self.place(self.source.batch(step))
 
     # -- run loop ----------------------------------------------------------
     def run(self) -> dict[str, Any]:
         tc = self.tc
-        ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k, group=self.group)
+        ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k, group=self.group,
+                                 mesh=self.mesh if self.specs is not None else None,
+                                 specs=self.specs)
         injector = FaultInjector(tc.fail_at)
         losses: list[float] = []
 
@@ -261,7 +297,9 @@ def parse_args(argv=None) -> tuple[TrainConfig, str]:
                    help="tiered link-graph spec for auto-K ring planning, "
                         "e.g. 'pods=2:interpod_bw=0.25' (requires "
                         "--collectives torrent)")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks per DP rank (under torchrun only: the "
+                        "stacked view has no TP form)")
     p.add_argument("--dp", type=int, default=1,
                    help="virtual data-parallel ranks, run on the one device (under "
                         "torchrun: one rank per process, so 1 or the world size)")

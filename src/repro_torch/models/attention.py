@@ -18,19 +18,29 @@ absorbs the up-projections into the query and output at decode.
 Cross-attention (whisper's decoder) attends to the encoder output by
 f32 einsums with no mask; decode recomputes its K/V from all encoder
 rows every step (there is no cross-KV cache in either package).
-JAX's ``cfg.attn_seq_shard`` is a tensor-parallel sharding hint, a
-no-op without a TP mesh; the port has no TP mesh, so it reads it
-nowhere.
+Tensor parallelism (``gqa_apply`` on a mesh whose ``model`` axis is
+live, ``parallel.hints.tp_group``): ``wq``/``wk``/``wv`` (and their
+biases) are column-parallel, so a rank computes its block of the query
+heads, and ``wo`` is row-parallel, its partial sums reduced over the
+group. Where ``num_kv_heads`` does not divide by the TP size but
+``num_kv_heads·head_dim`` does, ``param_pspecs`` still splits the K/V
+columns, so a rank may hold part of a head: K and V are gathered over
+the group and each rank takes the KV heads its query heads read. A
+``num_heads`` that the TP size does not divide needs JAX's
+``attn_seq_shard`` (query-sequence sharding), which is not ported.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.chunked import attention_chunked
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.parallel import hints
+from repro_torch.parallel.tp import copy_to_tp, gather_from_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import apply_mrope, apply_rope, cast, normal
@@ -74,21 +84,42 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     return p
 
 
-def _project_qkv(params, x, cfg: ModelConfig):
+def _project_qkv(params, x, cfg: ModelConfig, group=None):
+    """Q, K, V (B, S, heads, Dh). With a TP ``group`` (``x`` already
+    through ``copy_to_tp``), this rank's query heads and the KV heads
+    they read: its own block of them when ``num_kv_heads`` divides by
+    the group size, else gathered over the group and selected."""
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = x @ cast(params["wq"])
-    k = x @ cast(params["wk"])
-    v = x @ cast(params["wv"])
+
+    def heads(t):
+        return t.reshape(B, S, -1, Dh)
+
+    if group is None:
+        return tuple(heads(_proj(params, x, cfg, n)) for n in "qkv")
+    tp, r = dist.get_world_size(group), dist.get_rank(group)
+    q = heads(_proj(params, x, cfg, "q"))
+    if Hkv % tp == 0:  # this rank's block of the KV heads serves its query heads
+        return q, heads(_proj(params, x, cfg, "k")), heads(_proj(params, x, cfg, "v"))
+    if (Hkv * Dh) % tp:
+        raise NotImplementedError(
+            f"num_kv_heads·head_dim = {Hkv * Dh} at TP={tp}: param_pspecs leaves K/V whole, "
+            "and TP over whole K/V columns is not ported (ROADMAP item 9c)")
+    # a block of the K/V columns: gather both in one collective
+    kv = torch.stack([_proj(params, x, cfg, n) for n in "kv"])
+    k, v = gather_from_tp(kv, group, -1).reshape(2, B, S, Hkv, Dh).unbind(0)
+    # the KV head of each of this rank's query heads
+    Hl = H // tp
+    idx = torch.arange(r * Hl, (r + 1) * Hl, device=x.device) // (H // Hkv)
+    return q, k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _proj(params, x, cfg: ModelConfig, name: str):
+    """``x @ w{name} (+ b{name})``, flat (B, S, columns)."""
+    t = x @ cast(params["w" + name])
     if cfg.qkv_bias:
-        q = q + cast(params["bq"])
-        k = k + cast(params["bk"])
-        v = v + cast(params["bv"])
-    return (
-        q.reshape(B, S, H, Dh),
-        k.reshape(B, S, Hkv, Dh),
-        v.reshape(B, S, Hkv, Dh),
-    )
+        t = t + cast(params["b" + name])
+    return t
 
 
 def _rope_qk(q, k, positions, cfg: ModelConfig):
@@ -110,14 +141,24 @@ def gqa_apply(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence GQA (training / prefill), no cache."""
-    q, k, v = _project_qkv(params, x, cfg)
+    """Full-sequence GQA (training / prefill), no cache; on a live TP
+    group, Megatron's column- and row-parallel form (module
+    docstring)."""
+    group = hints.tp_group()
+    if group is not None:
+        tp = dist.get_world_size(group)
+        if cfg.num_heads % tp:
+            raise NotImplementedError(
+                f"num_heads={cfg.num_heads} at TP={tp}: heads that the TP size does not "
+                "divide need attn_seq_shard (query-sequence sharding, ROADMAP item 9c)")
+        x = copy_to_tp(x, group)
+    q, k, v = _project_qkv(params, x, cfg, group)
     q, k = _rope_qk(q, k, positions, cfg)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
     out = _full_attention(qt, kt, vt, cfg, causal=causal)
     B, S = x.shape[:2]
     out = out.transpose(1, 2).reshape(B, S, -1)
-    return out @ cast(params["wo"])
+    return reduce_from_tp(out @ cast(params["wo"]), group)
 
 
 def gqa_prefill(

@@ -5,12 +5,21 @@ Conventions, as in ``repro.models.layers``:
   (``COMPUTE_DTYPE``) at the matmul boundary, norms/softmax in f32;
 * initializers take an explicit ``torch.Generator`` and a device;
 * all functions are shape-polymorphic over leading batch dims.
+
+Tensor parallelism (Megatron-style, ``parallel.tp``): :func:`embed`,
+:func:`unembed` and :func:`swiglu` take the ``model`` group over which
+their params are split (``group=None``: whole params, no collective).
+The embedding table is split by vocab rows, the SwiGLU's ``gate``/``up``
+by columns and its ``down`` by rows; norms stay replicated.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -129,15 +138,28 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, device) -> dict:
     return {"table": normal(gen, (vocab, d), 0.02, device)}
 
 
-def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: dict, tokens: torch.Tensor, group=None) -> torch.Tensor:
+    """bf16 rows of the table for ``tokens``. With ``group`` the table
+    is this rank's block of vocab rows (group rank ``r`` holds ids
+    ``[r·V, (r+1)·V)``): ids outside it read zeros, and the rows are
+    summed over ``group``, so each id's row comes from the one rank
+    that holds it, exactly."""
     # gather-then-cast: the same values as cast-then-gather, without a
     # bf16 copy of the whole table per call
-    return cast(params["table"][tokens])
+    table = params["table"]
+    if group is None:
+        return cast(table[tokens])
+    n = table.shape[0]
+    local = tokens - dist.get_rank(group) * n
+    inside = ((local >= 0) & (local < n))[..., None]
+    rows = table[local.clamp(0, n - 1)]
+    return reduce_from_tp(cast(torch.where(inside, rows, torch.zeros_like(rows))), group)
 
 
-def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in f32 (loss numerics)."""
-    return x.float() @ params["table"].float().T
+def unembed(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Logits in f32 (loss numerics); with ``group``, this rank's block
+    of the vocab (the table's rows it holds)."""
+    return copy_to_tp(x.float(), group) @ params["table"].float().T
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +186,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x @ w
 
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """SwiGLU FFN; with ``group``, column-parallel ``gate``/``up`` and
+    row-parallel ``down``, whose partial sums are reduced over it."""
+    x = copy_to_tp(x, group)
     h = F.silu(matmul(x, params["gate"])) * matmul(x, params["up"])
-    return matmul(h, params["down"])
+    return reduce_from_tp(matmul(h, params["down"]), group)
 
 
 def gelu_mlp_init(gen: torch.Generator, d: int, ff: int, device) -> dict:

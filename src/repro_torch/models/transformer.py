@@ -39,6 +39,15 @@ A vision-language batch (qwen2-vl: stub frontend) carries precomputed
 (:func:`encode`, :func:`encoder_config`), cross-attention and GeLU FFNs
 in its decoder layers, and an ``enc`` cache leaf (B, T, d) bf16 with no
 ``reps`` axis, which every decode step attends to.
+
+Tensor parallelism: on a mesh whose ``model`` axis is live
+(``parallel.hints.set_mesh`` of a ``ProcessMesh``, as the train step
+runs), the training forward of the dense family is Megatron's: the
+embedding and the head table split by vocab rows (a dim that the TP
+size does not divide stays whole, as ``param_pspecs`` leaves it),
+attention by heads, the SwiGLU by ``d_ff``, and the loss is the
+vocab-parallel cross-entropy (``parallel.tp``). Every other family
+raises ``NotImplementedError`` there (:func:`check_tp`).
 """
 
 from __future__ import annotations
@@ -51,6 +60,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.parallel import hints
+from repro_torch.parallel.tp import vocab_parallel_ce
+from repro_torch.tree import map_with_path
 
 from . import attention as attn
 from . import mamba2 as mb
@@ -114,8 +125,9 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
     if spec.ffn == "moe":
         h, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
         return x + h, aux
-    dense = swiglu if cfg.ffn_activation == "swiglu" else gelu_mlp
-    return x + dense(params["ffn"], h), None
+    if cfg.ffn_activation != "swiglu":
+        return x + gelu_mlp(params["ffn"], h), None
+    return x + swiglu(params["ffn"], h, group=_split_group(cfg.d_ff)), None
 
 
 def _cross(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
@@ -256,14 +268,21 @@ def _index(tree: dict, r: int) -> dict:
     return {k: _index(v, r) if isinstance(v, dict) else v[r] for k, v in tree.items()}
 
 
-def groups_init(gen: torch.Generator, cfg: ModelConfig, device, groups=None) -> list[list[Params]]:
+def groups_init(gen: torch.Generator, cfg: ModelConfig, device, groups=None, *,
+                place=None, prefix: tuple = ("groups",)) -> list[list[Params]]:
+    """Each group's layers from ``gen``, stacked per pattern position.
+    ``place(path, x)`` (see :func:`model_init`) is applied to each
+    layer's leaf before stacking, with the stacked leaf's path."""
     groups = cfg.layer_groups() if groups is None else groups
     out = []
-    for pattern, reps in groups:
+    for g, (pattern, reps) in enumerate(groups):
         per_pos: list[list[Params]] = [[] for _ in pattern]
         for _ in range(reps):
             for pi, spec in enumerate(pattern):
-                per_pos[pi].append(layer_init(gen, spec, cfg, device))
+                p = layer_init(gen, spec, cfg, device)
+                if place is not None:
+                    p = map_with_path(lambda path, x: place(prefix + (g, pi) + path, x), p)
+                per_pos[pi].append(p)
         out.append([_stack(ps) for ps in per_pos])
     return out
 
@@ -347,25 +366,40 @@ def groups_decode(
 # ---------------------------------------------------------------------------
 
 
-def model_init(gen: torch.Generator, cfg: ModelConfig, device="cuda") -> Params:
+def model_init(gen: torch.Generator, cfg: ModelConfig, device="cuda", *,
+               place=None) -> Params:
     """Random f32 params from ``gen`` on ``device`` (default ``"cuda"``),
-    nested as ``repro.models.transformer.model_init``'s."""
+    nested as ``repro.models.transformer.model_init``'s.
+
+    ``place(path, x) -> x`` is applied to each leaf as it is drawn, in
+    the draw order of the whole model, so the draws are the same with or
+    without it: a layer's leaf before its group is stacked (``path`` is
+    the stacked leaf's, ``x`` one layer of it). A tensor-parallel rank
+    keeps its block of each leaf this way, never holding the whole
+    model."""
     device = resolve_device(device)
-    p: Params = {
-        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, device),
-        "final_norm": rmsnorm_init(cfg.d_model, device),
-        "groups": groups_init(gen, cfg, device),
-    }
+
+    def put(path, x):
+        return x if place is None else map_with_path(lambda sub, t: place(path + sub, t), x)
+
+    p: Params = {"embed": put(("embed",), embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                                         device))}
+    p["final_norm"] = put(("final_norm",), rmsnorm_init(cfg.d_model, device))
+    p["groups"] = groups_init(gen, cfg, device, place=place)
     if not cfg.tie_embeddings:
-        p["lm_head"] = embedding_init(gen, cfg.vocab_size, cfg.d_model, device)
+        p["lm_head"] = put(("lm_head",), embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                                        device))
     if cfg.pos_scheme == "learned":
-        p["pos_emb"] = normal(gen, (cfg.max_position_embeddings, cfg.d_model), 0.02, device)
+        p["pos_emb"] = put(("pos_emb",), normal(
+            gen, (cfg.max_position_embeddings, cfg.d_model), 0.02, device))
     if cfg.is_encdec:
         enc_cfg = encoder_config(cfg)
         p["encoder"] = {
-            "groups": groups_init(gen, enc_cfg, device, enc_cfg.layer_groups()),
-            "final_norm": rmsnorm_init(cfg.d_model, device),
-            "pos_emb": normal(gen, (cfg.encoder_seq_len, cfg.d_model), 0.02, device),
+            "groups": groups_init(gen, enc_cfg, device, enc_cfg.layer_groups(), place=place,
+                                  prefix=("encoder", "groups")),
+            "final_norm": put(("encoder", "final_norm"), rmsnorm_init(cfg.d_model, device)),
+            "pos_emb": put(("encoder", "pos_emb"), normal(
+                gen, (cfg.encoder_seq_len, cfg.d_model), 0.02, device)),
         }
     return p
 
@@ -408,6 +442,41 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
     return cache
 
 
+def _split_group(n: int):
+    """The active TP group when it splits a dim of ``n`` (the TP size
+    divides it, as ``param_pspecs`` decides), else ``None``."""
+    group = hints.tp_group()
+    return group if group is not None and n % hints.tp_size() == 0 else None
+
+
+def check_tp(cfg: ModelConfig) -> None:
+    """Refuse a config whose tensor-parallel form is not ported, when
+    the active mesh's ``model`` axis is live: TP covers the dense family
+    (``NotImplementedError`` names the ROADMAP item of the others)."""
+    if hints.tp_size() == 1:
+        return
+    specs = {s for pattern, _ in cfg.layer_groups() for s in pattern}
+    left_out = [
+        (cfg.is_encdec, "the encoder-decoder"),
+        (any(s.ffn == "moe" for s in specs), "MoE experts over the model axis"),
+        (any(s.mixer == "mla" for s in specs), "MLA's column-parallel recovery projections"),
+        (any(s.mixer == "mamba" for s in specs), "Mamba-2's d_inner sharding"),
+        (cfg.pos_scheme == "mrope" or cfg.attn_seq_shard, "M-RoPE with attn_seq_shard"),
+    ]
+    missing = [what for hit, what in left_out if hit]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name} at TP={hints.tp_size()}: tensor parallelism for "
+            f"{' and '.join(missing)} is not ported (ROADMAP item 9c); the dense family runs")
+
+
+def _refuse_tp_serving() -> None:
+    if hints.tp_size() > 1:
+        raise NotImplementedError(
+            f"prefill and decode at TP={hints.tp_size()}: TP serving (the cells' "
+            "cache_pspecs) is not ported (ROADMAP item 9c)")
+
+
 def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return (params["embed"] if cfg.tie_embeddings else params["lm_head"])["table"]
 
@@ -423,7 +492,7 @@ def _inputs(params: Params, cfg: ModelConfig, batch: dict, remat: str):
         positions = batch["positions"]
     else:
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens)
+        x = embed(params["embed"], tokens, group=_split_group(cfg.vocab_size))
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device).expand(tokens.shape)
     S = x.shape[1]
@@ -442,6 +511,7 @@ def forward_hidden(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (hidden (B, S, d) after the final norm, aux_loss), with
     no cache: the training forward."""
+    check_tp(cfg)
     x, positions, enc = _inputs(params, cfg, batch, remat)
     x, aux = groups_apply(params["groups"], cfg, x, positions, enc=enc, remat=remat)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm), aux
@@ -450,7 +520,10 @@ def forward_hidden(
 def _ce(params: Params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Tensor,
         loss_chunks: int, z_loss: float) -> torch.Tensor:
     """Mean next-token CE plus z-loss of ``hidden`` (B, S, d), in
-    sequence chunks, with f32 logits against the f32 head table."""
+    sequence chunks, with f32 logits against the f32 head table; with a
+    vocab-split head table, each rank's block of the logits and the
+    vocab-parallel CE."""
+    group = _split_group(cfg.vocab_size)
     labels = labels.long()
     B, S, _ = hidden.shape
     chunks = loss_chunks
@@ -460,12 +533,8 @@ def _ce(params: Params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Te
     table = _head_table(params, cfg).float()
     total = hidden.new_zeros((), dtype=torch.float32)
     for c in range(chunks):
-        h = hidden[:, c * sc : (c + 1) * sc].float()
-        logits = h @ table.T  # (B, sc, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, c * sc : (c + 1) * sc, None])[..., 0]
-        ce = (lse - gold).sum()
-        zl = (lse ** 2).sum() * z_loss
+        logits = unembed({"table": table}, hidden[:, c * sc : (c + 1) * sc], group)
+        ce, zl = vocab_parallel_ce(logits, labels[:, c * sc : (c + 1) * sc], group, z_loss)
         total = total + ce + zl
     return total / (B * S)
 
@@ -481,7 +550,8 @@ def loss_fn(
 ) -> tuple[torch.Tensor, dict]:
     """Next-token CE, in sequence chunks (``loss_chunks``, lowered until
     it divides S), with f32 logits against the f32 head table, plus the
-    z-loss ``z_loss * lse**2``. Returns (loss, {"loss", "ce", "aux"})."""
+    z-loss ``z_loss * lse**2``. Returns (loss, {"loss", "ce", "aux"});
+    on a live TP group the loss is replicated on every rank of it."""
     hidden, aux = forward_hidden(params, cfg, batch, remat=remat)
     ce = _ce(params, cfg, hidden, batch["labels"], loss_chunks, z_loss)
     loss = ce + aux
@@ -561,6 +631,7 @@ def prefill(
     """Process the prompt (``batch["tokens"]`` (B, S), or ``embeds`` and
     ``positions``; plus ``enc_frames`` for an encoder-decoder), build
     the decode cache, return last-token logits (B, V) in f32."""
+    _refuse_tp_serving()
     x, positions, enc = _inputs(params, cfg, batch, "none")
 
     caches: list[list[Params]] = []
@@ -592,6 +663,7 @@ def decode_step(
     With a ``(B,)`` ``pos`` every batch row advances at its own absolute
     position (continuous batching). The cache is updated in place and
     returned; an encoder-decoder attends to its ``enc`` leaf."""
+    _refuse_tp_serving()
     x = embed(params["embed"], tokens[:, None])  # (B, 1, d)
     if cfg.pos_scheme == "learned":
         # index_select: a 0-dim index would be read back to the host
@@ -605,6 +677,7 @@ def decode_step(
 
 __all__ = [
     "REMAT_POLICIES",
+    "check_tp",
     "decode_step",
     "encode",
     "encoder_config",

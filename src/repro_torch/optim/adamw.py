@@ -11,6 +11,11 @@ as f32, weight decay inside the update. ``step`` is an int32 tensor.
 so a step holds one copy of the optimizer state and the params, not
 two. :func:`zero1_specs` gives the ZeRO-1 partition specs of the
 optimizer state (each leaf also split over the data axis), as JAX's.
+
+Under tensor parallelism each rank holds shards of some leaves: the
+clipping norm is still the whole logical tree's (:func:`global_norm`
+with the ``model`` group and which leaves are split), so every rank of
+a TP group clips by the same factor JAX's GSPMD step does.
 """
 
 from __future__ import annotations
@@ -67,8 +72,20 @@ def init(params: PyTree) -> dict:
     }
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)))
+def global_norm(tree: PyTree, *, group=None, split: PyTree | None = None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree``. With a TP ``group`` and
+    ``split`` (a tree of bools: the leaf is this rank's shard of a leaf
+    split over ``group``), the norm of the logical tree: the split
+    leaves' squares summed over ``group``, each whole leaf counted once."""
+    sq = [torch.sum(torch.square(x.to(torch.float32))) for x in leaves(tree)]
+    if group is None:
+        return torch.sqrt(sum(sq))
+    from repro_torch.parallel.tp import all_reduce
+
+    flags = leaves(split)
+    zero = sq[0].new_zeros(())
+    shards = all_reduce(sum((q for q, f in zip(sq, flags) if f), zero), group)
+    return torch.sqrt(shards + sum((q for q, f in zip(sq, flags) if not f), zero))
 
 
 def update(
@@ -76,12 +93,16 @@ def update(
     grads: PyTree,
     state: dict,
     params: PyTree,
+    *,
+    group=None,
+    split: PyTree | None = None,
 ) -> tuple[PyTree, dict, dict]:
     """One AdamW step, written into the buffers of ``params`` and
-    ``state``. Returns (params, state, metrics)."""
+    ``state``. Returns (params, state, metrics). ``group`` and ``split``
+    reach :func:`global_norm` (tensor parallelism)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group=group, split=split)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.to(torch.float32)

@@ -439,10 +439,9 @@ def _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes):
 
 
 def dp_size_of(mesh) -> int:
-    """The number of data-parallel ranks of ``mesh`` (raises for a TP
-    axis > 1 or a mesh without DP axes)."""
-    if mesh.shape.get("model", 1) != 1:
-        raise NotImplementedError("a model (TP) axis > 1 is not ported yet (ROADMAP item 9c)")
+    """The number of data-parallel ranks of ``mesh``: the product of its
+    DP axes, whatever its ``model`` size (raises for a mesh without DP
+    axes)."""
     dp = dp_axes(mesh.axis_names)
     if not dp:
         raise ValueError(f"mesh {mesh.axis_names} has no data-parallel axis")
@@ -671,7 +670,11 @@ def torrent_grad_reduce(
     process groups (this rank's result) and the metrics averaged over the
     ranks with one all-reduce; the residual leaves are this rank's
     ``(1, *shape)`` rows (``ef_residual_init(params, 1)``), and the
-    ``fwd_bwd`` and ``reduce`` spans are this process's."""
+    ``fwd_bwd`` and ``reduce`` spans are this process's. With a live
+    ``model`` axis the grads (and residuals) are this rank's TP shards,
+    reduced over its DP group only (a group of one where the DP axes
+    have size 1), so a rank sends ``program_wire_bytes`` of its shard
+    sizes."""
     dp_size = dp_size_of(mesh)
 
     group = mesh.group(dp_axes(mesh.axis_names))

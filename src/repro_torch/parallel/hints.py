@@ -2,14 +2,18 @@
 ``repro.parallel.hints``.
 
 JAX model code finds the mesh through ``jax.set_mesh``; here a caller
-names the virtual mesh (:class:`~repro_torch.launch.mesh.VirtualMesh`)
-with :func:`set_mesh`, and :func:`concrete_mesh` reads it back (the MoE
-expert-parallel dispatch does). Logical axes resolve against the active
-mesh as in JAX (:func:`resolve_spec`): every axis of a virtual mesh is
-Auto, since one card runs every rank as a row of the stacked view in
-one region and no axis is ever in JAX's Manual (``shard_map``) mode, so
-:func:`manual_axis_names` is always empty. One card has no layout to
-constrain, so :func:`maybe_shard` returns its input.
+names the mesh (a :class:`~repro_torch.launch.mesh.VirtualMesh` or a
+:class:`~repro_torch.launch.mesh.ProcessMesh`) with :func:`set_mesh`,
+and :func:`concrete_mesh` reads it back (the MoE expert-parallel
+dispatch does). Logical axes resolve against the active mesh as in JAX
+(:func:`resolve_spec`): no axis is ever in JAX's Manual (``shard_map``)
+mode, so :func:`manual_axis_names` is always empty, and a tensor has no
+layout to constrain, so :func:`maybe_shard` returns its input.
+
+Where JAX's ``maybe_shard`` lets GSPMD split a layer over the ``model``
+axis, the port's model code asks :func:`tp_group` and :func:`tp_size`
+for the active mesh's TP group and runs ``parallel.tp``'s collectives on
+it (``None`` and 1 without a ``model`` axis > 1).
 
 Logical axis vocabulary:
 * ``BATCH``  -> ``("pod", "data")``  (data parallel, pods included)
@@ -42,8 +46,8 @@ def dp_axes(axis_names) -> tuple[str, ...]:
 
 @contextlib.contextmanager
 def set_mesh(mesh):
-    """``jax.set_mesh``: ``mesh`` (a ``VirtualMesh``) is the active
-    mesh inside the block."""
+    """``jax.set_mesh``: ``mesh`` (a ``VirtualMesh`` or a
+    ``ProcessMesh``) is the active mesh inside the block."""
     token = _MESH.set(mesh)
     try:
         yield mesh
@@ -65,9 +69,24 @@ def resolve_spec(*axes: AxisLike) -> P | None:
     return keep_axes(axes, mesh.axis_names)
 
 
+def tp_group():
+    """The process group of this rank's ``model`` (TP) axis on the active
+    mesh, or ``None`` without a mesh or with a ``model`` axis of 1."""
+    mesh = concrete_mesh()
+    if mesh is None or mesh.shape.get(TP, 1) == 1:
+        return None
+    return mesh.group(TP)
+
+
+def tp_size() -> int:
+    """The size of the active mesh's ``model`` axis (1 without a mesh)."""
+    mesh = concrete_mesh()
+    return 1 if mesh is None else mesh.shape.get(TP, 1)
+
+
 def maybe_shard(x, *axes: AxisLike):
-    """JAX's ``with_sharding_constraint`` hint: ``x`` itself (one card
-    holds every row)."""
+    """JAX's ``with_sharding_constraint`` hint: ``x`` itself (the port
+    places state explicitly, by ``parallel.sharding.shard_tree``)."""
     return x
 
 

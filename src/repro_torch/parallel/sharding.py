@@ -24,16 +24,26 @@ Scheme (Megatron-style):
 One card runs the DP ranks as rows of a stacked view, so what a batch
 leaf's spec says to the split (``collectives.split_batch``) is which
 axis holds the batch: :func:`batch_axis`.
+
+On a :class:`~repro_torch.launch.mesh.ProcessMesh` the specs place
+state: :func:`shard_tree` takes this rank's block of each leaf along
+every dim whose spec names a live mesh axis (what JAX's ``device_put``
+with a ``NamedSharding`` leaves on a device), and :func:`gather_tree`
+puts the blocks back together over the mesh's process groups.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any
+
+import torch
 
 from repro_torch.configs.shapes import Shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.spec import P
-from repro_torch.tree import map_with_path
+from repro_torch.parallel.tp import all_gather
+from repro_torch.tree import leaves, map_tree, map_with_path, unflatten
 
 PyTree = Any
 
@@ -165,11 +175,121 @@ def cache_pspecs(cache: PyTree, cfg: ModelConfig, shape_cfg: Shape, tp: int = 16
         cache)
 
 
+def logical_pspecs(cfg: ModelConfig, tp: int) -> PyTree:
+    """:func:`param_pspecs` of ``cfg``'s whole (unsharded) params, from
+    ``model_init`` on the meta device: nothing is allocated."""
+    from repro_torch.models import transformer as T
+
+    return param_pspecs(T.model_init(torch.Generator(device="cpu"), cfg, "meta"), cfg, tp=tp)
+
+
+def split_axes(entry, mesh) -> tuple[str, ...]:
+    """The live axes of ``mesh`` (size > 1) that one spec entry splits
+    its dim over."""
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    return tuple(a for a in axes if mesh.shape.get(a, 1) > 1)
+
+
+def is_split(spec, mesh) -> bool:
+    """Whether ``spec`` splits some dim over the live ``model`` axis of
+    ``mesh``."""
+    return any("model" in split_axes(e, mesh) for e in spec)
+
+
+def _block(axes: tuple[str, ...], mesh) -> tuple[int, int]:
+    """(index, count) of this rank's block over ``axes``: the linear
+    index of its coordinates over them, as ``mesh.group(axes)`` ranks
+    its members."""
+    i = 0
+    for a in axes:
+        i = i * mesh.shape[a] + mesh.coords[a]
+    return i, math.prod(mesh.shape[a] for a in axes)
+
+
+def shard_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """This rank's block of every leaf of ``tree`` (tensors, or arrays
+    with ``shape``): along each dim whose spec in ``specs`` names live
+    axes of ``mesh``, block ``i`` of ``n`` equal blocks, ``i`` this
+    rank's linear index over those axes (``mesh.coords``). Views, no
+    copy. A spec shorter than its leaf leaves the trailing dims whole;
+    on a mesh without live axes, or any mesh without ``coords`` (the
+    stacked view, which holds every row), the leaf itself."""
+    if not hasattr(mesh, "coords"):
+        return tree
+
+    def one(x, spec):
+        for d, entry in enumerate(spec):
+            axes = split_axes(entry, mesh)
+            if not axes:
+                continue
+            i, n = _block(axes, mesh)
+            if x.shape[d] % n:
+                raise ValueError(f"dim {d} of {tuple(x.shape)} does not split into {n} "
+                                 f"blocks over {axes}")
+            size = x.shape[d] // n
+            x = x.narrow(d, i * size, size) if isinstance(x, torch.Tensor) else \
+                x[(slice(None),) * d + (slice(i * size, (i + 1) * size),)]
+        return x
+
+    return unflatten(tree, [one(x, s) for x, s in zip(leaves(tree), leaves(specs))])
+
+
+def leaf_placer(specs: PyTree, mesh):
+    """A ``place(path, x)`` for ``transformer.model_init``: this rank's
+    block of each leaf as it is drawn (a copy, so the whole leaf is
+    freed), by its spec in ``specs`` (``param_pspecs``' tree); a layer
+    of a stacked group leaf by the spec without its ``repeat`` entry."""
+    def place(path, x):
+        spec = specs
+        for key in path:
+            spec = spec[key]
+        if "groups" in path:
+            spec = P(*tuple(spec)[1:])
+        y = shard_tree(x, spec, mesh)
+        return y if y is x else y.clone()
+
+    return place
+
+
+def gather_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
+    """The inverse of :func:`shard_tree` on a process mesh: each split
+    dim all-gathered over ``mesh.group`` of its axes and concatenated in
+    the group's rank order, so every rank gets the whole leaf. The
+    identity where nothing is split (and on the stacked view)."""
+    if not hasattr(mesh, "coords"):
+        return tree
+
+    def one(x, spec):
+        for d, entry in enumerate(spec):
+            axes = split_axes(entry, mesh)
+            if axes:
+                x = all_gather(x, mesh.group(axes), d)
+        return x
+
+    return unflatten(tree, [one(x, s) for x, s in zip(leaves(tree), leaves(specs))])
+
+
+def state_specs(pspecs: PyTree, mesh, *, ef: bool = False) -> dict:
+    """Specs of a train state ``{"params", "opt", ["ef"]}`` whose params
+    have specs ``pspecs``: AdamW's moments split as their params, its
+    ``step`` whole; the error-feedback residual (``(dp, *shape)``,
+    ``collectives.ef_residual_init``) split over the DP axes along dim 0
+    and as its param after it."""
+    from repro_torch.parallel.hints import dp_axes
+
+    out = {"params": pspecs, "opt": {"mu": pspecs, "nu": pspecs, "step": P()}}
+    if ef:
+        dp = dp_axes(mesh.axis_names)
+        out["ef"] = map_tree(lambda s: P(dp, *s), pspecs)
+    return out
+
+
 def opt_pspecs(param_specs: PyTree, params: PyTree, data_size: int) -> dict:
     from repro_torch.optim.adamw import zero1_specs
 
     return zero1_specs(param_specs, params, data_size)
 
 
-__all__ = ["BATCH_AXES", "batch_axis", "batch_pspecs", "cache_pspecs", "opt_pspecs",
-           "param_pspecs"]
+__all__ = ["BATCH_AXES", "batch_axis", "batch_pspecs", "cache_pspecs", "gather_tree",
+           "is_split", "leaf_placer", "logical_pspecs", "opt_pspecs", "param_pspecs", "shard_tree",
+           "split_axes", "state_specs"]

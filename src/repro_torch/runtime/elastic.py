@@ -2,12 +2,16 @@
 
 Serving side: replica loss re-forms the live multicast plan instead of
 rebuilding it (:func:`scale_down_plan`). Training side: the mesh is
-re-factorized on the virtual mesh (:func:`choose_mesh_shape`,
-:func:`make_elastic_mesh`), and :func:`reshard_state` is a device move,
-because one card holds the whole state and has nothing to reshard.
+re-factorized (:func:`choose_mesh_shape`, :func:`make_elastic_mesh`, a
+virtual mesh), and :func:`reshard_state` places a restored logical state
+on a mesh: on a ``ProcessMesh`` this rank keeps its shards, as JAX's
+``device_put`` onto a new layout leaves them on a device; in the stacked
+view, which holds the whole state, it is a device move.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import VirtualMesh, make_host_mesh
@@ -54,8 +58,19 @@ def make_elastic_mesh(num_devices: int, preferred_tp: int) -> VirtualMesh:
     return make_host_mesh(data=data, model=model)
 
 
-def reshard_state(state, device="cuda"):
-    """Move a (restored) state tree onto ``device`` (default
-    ``"cuda"``)."""
-    dev = resolve_device(device)
-    return map_tree(lambda t: t.to(dev), state)
+def reshard_state(state, mesh="cuda", specs=None, *, device=None):
+    """Place a (restored) logical state tree. ``reshard_state(state,
+    mesh, specs)`` is JAX's signature: on a ``ProcessMesh``, this rank's
+    shards of each leaf (``parallel.sharding.shard_tree`` by ``specs``,
+    a matching tree of ``PartitionSpec``s), on ``device`` (default: the
+    current CUDA device); on a ``VirtualMesh``, the whole state on
+    ``device``. The device-only form ``reshard_state(state, device)``
+    (default ``"cuda"``) moves the whole state."""
+    if isinstance(mesh, (str, torch.device)):
+        dev = resolve_device(mesh)
+    else:
+        from repro_torch.parallel.sharding import shard_tree
+
+        dev = resolve_device("cuda" if device is None else device)
+        state = shard_tree(state, specs, mesh)
+    return map_tree(lambda t: torch.as_tensor(t).to(dev), state)

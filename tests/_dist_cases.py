@@ -273,10 +273,12 @@ def world8_rank(rank: int, world: int, device: torch.device, case_list: list[dic
         "dp_group": (cwd.group_rank(pm.group(("pod", "data"))),
                      cwd.group_size(pm.group(("pod", "data")))),
     }
-    try:
-        make_process_mesh(model=2)
-    except NotImplementedError as e:
-        out["mesh"]["tp_refused"] = str(e)
+    tpm = make_process_mesh(pod=2, model=2)  # a (data=2, model=2) mesh in each pod
+    out["mesh"]["tp"] = {
+        "coords": tpm.coords, "dp_index": tpm.dp_index,
+        "model_group": (cwd.group_rank(tpm.group("model")), cwd.group_size(tpm.group("model"))),
+        "data_group": (cwd.group_rank(tpm.group("data")), cwd.group_size(tpm.group("data"))),
+    }
 
     plan = MultiChainPlan(MeshTopology(2, 4), 0, [1, 2, 5, 6, 7], num_chains=2)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((8, 8)).astype(np.float32))

@@ -1,0 +1,340 @@
+"""Tensor parallelism in the process form: what each spawned rank runs,
+for ``tests/test_torch_tp.py`` (gloo ranks on the CPU) and
+``tests/test_torch_cuda.py`` (two gloo ranks sharing the card).
+
+Spawned ranks import this module, so it imports torch and the port
+only. Every function returns numpy arrays and plain numbers; the tests
+hold them against the port at TP = 1 and against JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+ARCH = "yi-6b"  # smoke: 4 heads, 2 KV heads (TP = 4 splits a KV head)
+ARCHS = ("starcoder2-3b", "yi-6b", "h2o-danube-1.8b", "llama3-8b", "deepseek-v2-lite-16b",
+         "deepseek-moe-16b", "jamba-v0.1-52b", "qwen2-vl-7b", "mamba2-2.7b", "whisper-tiny")
+# the families TP does not cover yet, each with the words its refusal names
+LEFT_OUT = {"deepseek-moe-16b": "MoE", "deepseek-v2-lite-16b": "MLA",
+            "mamba2-2.7b": "Mamba-2", "jamba-v0.1-52b": "MoE", "qwen2-vl-7b": "M-RoPE",
+            "whisper-tiny": "encoder-decoder"}
+# a first AdamW step linear in the grads (eps = 1), for comparing updates
+LINEAR_ADAMW = dict(peak_lr=1e-2, warmup_steps=1, decay_steps=10, eps=1.0)
+TRAINER = dict(arch=ARCH, smoke=True, steps=6, global_batch=8, seq_len=32, peak_lr=2e-3,
+               warmup_steps=3, ckpt_every=2, loss_chunks=2, log_every=100,
+               collectives="torrent")
+# the Trainer runs: exact in f32 compute, so that AdamW's sign-like early
+# updates cannot amplify bf16 rounding, across a failure and a restart;
+# int8 + EF in bf16
+TRAINER_RUNS = {"exact": dict(fail_at=(3,)), "int8": dict(compress_grads=True)}
+OPS_SHAPE = (3, 4, 8)  # each rank's input to the conjugate ops
+
+
+class compute_dtype:
+    """Set ``models.layers.COMPUTE_DTYPE`` inside the block."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import layers as LY
+
+        self.old, LY.COMPUTE_DTYPE = LY.COMPUTE_DTYPE, self.dtype
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as LY
+
+        LY.COMPUTE_DTYPE = self.old
+
+
+def _np(tree) -> list[np.ndarray]:
+    from repro_torch.tree import leaves
+
+    return [t.detach().cpu().float().numpy().copy() for t in leaves(tree)]
+
+
+def ops_inputs(rank: int) -> tuple[np.ndarray, np.ndarray]:
+    """Rank ``rank``'s input ``x`` and the weight ``w`` of its loss
+    ``sum(op(x) * w)`` (``w`` has ``x``'s shape; gather's loss weight is
+    ``w`` tiled to the gathered shape by the test)."""
+    rng = np.random.default_rng(100 + rank)
+    return (rng.standard_normal(OPS_SHAPE).astype(np.float32),
+            rng.standard_normal(OPS_SHAPE).astype(np.float32))
+
+
+def ce_inputs(vocab: int = 24, rows: int = 10) -> tuple[np.ndarray, np.ndarray]:
+    """Logits (rows, vocab) and labels (rows,) of the vocab-parallel CE."""
+    rng = np.random.default_rng(7)
+    return ((rng.standard_normal((rows, vocab)) * 3).astype(np.float32),
+            rng.integers(0, vocab, rows).astype(np.int64))
+
+
+def ops_rank(group, device) -> dict:
+    """``copy_to_tp``, ``reduce_from_tp`` and ``gather_from_tp`` (dim 1)
+    on this rank's inputs over ``group``: each output and the grad of
+    ``sum(out * w)`` (gather: ``w`` tiled along dim 1); and the
+    vocab-parallel CE of this rank's block of :func:`ce_inputs`, with
+    its logits' grad."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import tp as TPm
+
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    x_np, w_np = ops_inputs(rank)
+    out = {}
+    for name, fn in (("copy", lambda t: TPm.copy_to_tp(t, group)),
+                     ("reduce", lambda t: TPm.reduce_from_tp(t, group)),
+                     ("gather", lambda t: TPm.gather_from_tp(t, group, 1))):
+        x = torch.from_numpy(x_np).to(device).requires_grad_(True)
+        w = torch.from_numpy(np.concatenate([w_np] * n, 1) if name == "gather" else w_np)
+        y = fn(x)
+        (y * w.to(device)).sum().backward()
+        out[name] = (y.detach().cpu().numpy(), x.grad.cpu().numpy())
+    logits, labels = ce_inputs()
+    V = logits.shape[1] // n
+    lg = torch.from_numpy(logits[:, rank * V:(rank + 1) * V]).to(device).requires_grad_(True)
+    ce, zl = TPm.vocab_parallel_ce(lg, torch.from_numpy(labels).to(device), group, 1e-2)
+    (ce + zl).backward()
+    out["ce"] = (float(ce), float(zl), lg.grad.cpu().numpy())
+    return out
+
+
+def ops_world(rank: int, world: int, device) -> dict:
+    """:func:`ops_rank` over the model group of ``(data=1, model=world)``."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    return ops_rank(make_process_mesh(model=world).group("model"), device)
+
+
+def round_trip(mesh, tp: int) -> dict:
+    """Every arch's smoke params through ``shard_tree`` and back through
+    ``gather_tree`` on ``mesh``: whether each leaf comes back equal, and
+    this rank's shard shapes."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves
+
+    out = {}
+    for arch in ARCHS:
+        cfg = C.get_smoke_config(arch)
+        full = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+        specs = shd.param_pspecs(full, cfg, tp=tp)
+        shards = shd.shard_tree(full, specs, mesh)
+        back = shd.gather_tree(shards, specs, mesh)
+        out[arch] = (all(torch.equal(a, b) for a, b in zip(leaves(back), leaves(full))),
+                     [tuple(s.shape) for s in leaves(shards)])
+    return out
+
+
+def train_case(mesh, params_np, batch_np, device) -> dict:
+    """The smoke model on ``mesh`` from the carried logical params: the
+    first-step grads (bf16 and f32 compute) gathered, the clipping norm
+    of this rank's shards against the gathered tree's, two Torrent train
+    steps (losses, grad norms, gathered params, this rank's own leaves),
+    the DP wire bytes and the TP payload bytes of the first step."""
+    from repro_torch import configs as C
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.data.pipeline import make_device_placer
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.spec import P
+    from repro_torch.parallel.tp import tp_counter
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = C.get_smoke_config(ARCH)
+    tp = mesh.shape["model"]
+    specs = shd.logical_pspecs(cfg, tp)
+    split = map_tree(lambda s: shd.is_split(s, mesh), specs)
+    place = make_device_placer(mesh, P(shd.BATCH_AXES, None), device=device)
+    local = place(batch_np)
+    params = params_from_numpy(params_np, device, specs=specs, mesh=mesh)
+    out = {"rows": local["tokens"].cpu().numpy(), "dp_index": mesh.dp_index,
+           "shard_shapes": [tuple(p.shape) for p in leaves(params)]}
+
+    grad_fn = make_grad_fn(cfg, loss_chunks=2)
+    with hints.set_mesh(mesh):
+        grads, m = grad_fn(params, local)
+        out["loss0"] = float(m["loss"])
+        out["grads"] = _np(shd.gather_tree(grads, specs, mesh))
+        norm = adamw.global_norm(grads, group=mesh.group("model"), split=split)
+        out["norm"] = (float(norm), float(adamw.global_norm(shd.gather_tree(grads, specs, mesh))))
+        with compute_dtype(torch.float32):
+            out["grads_f32"] = _np(shd.gather_tree(grad_fn(params, local)[0], specs, mesh))
+
+    step = make_train_step(cfg, adamw.OptConfig(**LINEAR_ADAMW), collectives="torrent",
+                           mesh=mesh, loss_chunks=2)
+    opt = adamw.init(params)
+    cwd.wire_counter.reset()
+    tp_counter.reset()
+    params, opt, m1 = step(params, opt, local)
+    out["dp_wire_bytes"] = cwd.wire_counter.bytes
+    out["tp_bytes"] = dict(tp_counter.bytes)
+    out["shard_bytes"] = [p.numel() * 4 for p in leaves(params)]
+    params, opt, m2 = step(params, opt, local)
+    out["losses"] = [float(m1["loss"]), float(m2["loss"])]
+    out["grad_norms"] = [float(m1["grad_norm"]), float(m2["grad_norm"])]
+    out["params"] = _np(shd.gather_tree(params, specs, mesh))
+    out["local"] = _np(params)
+    out["split"] = leaves(split)
+    return out
+
+
+def refusals(mesh, device) -> dict:
+    """The message each left-out family's training forward raises with
+    on ``mesh`` (a live ``model`` axis), and a dense config whose heads
+    the TP size does not divide."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+
+    tp = mesh.shape["model"]
+    out = {}
+    cases = {arch: C.get_smoke_config(arch) for arch in LEFT_OUT}
+    cases["heads"] = dataclasses.replace(C.get_smoke_config(ARCH), num_heads=3,
+                                         num_kv_heads=1, d_model=48)
+    for name, cfg in cases.items():
+        full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
+        params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)
+        S = 8
+        batch = {"tokens": torch.zeros((2, S), dtype=torch.int32, device=device),
+                 "labels": torch.zeros((2, S), dtype=torch.int32, device=device)}
+        if cfg.family == "vlm":
+            batch = {"embeds": torch.zeros((2, S, cfg.d_model), device=device),
+                     "positions": torch.zeros((3, 2, S), dtype=torch.int32, device=device),
+                     "labels": batch["labels"]}
+        if cfg.is_encdec:
+            batch["enc_frames"] = torch.zeros((2, cfg.encoder_seq_len, cfg.d_model),
+                                              device=device)
+        try:
+            with hints.set_mesh(mesh):
+                T.loss_fn(params, cfg, batch, loss_chunks=1)
+            out[name] = None
+        except NotImplementedError as e:
+            out[name] = str(e)
+    # serving is not ported under TP: prefill refuses
+    cfg = C.get_smoke_config(ARCH)
+    try:
+        with hints.set_mesh(mesh):
+            T.prefill({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)
+        out["prefill"] = None
+    except NotImplementedError as e:
+        out["prefill"] = str(e)
+    return out
+
+
+def mesh_info(mesh) -> dict:
+    import torch.distributed as dist
+
+    info = {"coords": dict(mesh.coords), "shape": mesh.shape, "dp_index": mesh.dp_index}
+    for name, axes in (("model", "model"), ("data", "data"), ("dp", ("pod", "data")),
+                       ("all", mesh.axis_names)):
+        axes = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                     if a in mesh.axis_names)
+        g = mesh.group(axes)
+        info[name] = (dist.get_rank(g), dist.get_world_size(g))
+    return info
+
+
+def world4_rank(rank: int, world: int, device, params_np, batch_np) -> dict:
+    """(data=1, model=4) and (data=2, model=2) on 4 ranks: the meshes'
+    groups, the shard round trip at TP = 4, the conjugate ops over both
+    model groups, and the train case on both meshes."""
+    from repro_torch.launch.mesh import make_process_mesh
+
+    meshes = {"1x4": make_process_mesh(model=4), "2x2": make_process_mesh(data=2, model=2)}
+    out = {"mesh": {k: mesh_info(m) for k, m in meshes.items()},
+           "round_trip": round_trip(meshes["1x4"], 4)}
+    out["ops"] = {k: ops_rank(m.group("model"), device) for k, m in meshes.items()}
+    out["train"] = {k: train_case(m, params_np, batch_np, device) for k, m in meshes.items()}
+    return out
+
+
+def world2_rank(rank: int, world: int, device, params_np, batch_np, root: str,
+                stacked_ckpt: str, jax_ckpt: str) -> dict:
+    """(data=1, model=2) on 2 ranks: the round trip at TP = 2, the train
+    case, the refusals, the ``Trainer`` at TP = 2 (exact with a failure
+    and a restart, and int8 + EF), its checkpoint restored at TP = 1 in
+    the process form, and the stacked ``Trainer``'s checkpoint restored
+    as this rank's shards."""
+    from repro_torch import configs as C
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.collectives import ef_residual_init
+
+    mesh = make_process_mesh(model=2)
+    out = {"mesh": mesh_info(mesh), "round_trip": round_trip(mesh, 2),
+           "ops": ops_rank(mesh.group("model"), device),
+           "train": train_case(mesh, params_np, batch_np, device),
+           "refusals": refusals(mesh, device)}
+    for name, kw in TRAINER_RUNS.items():
+        tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, f"tp2_{name}"), tp=2,
+                                 **TRAINER, **kw), device=device, params=params_np)
+        with compute_dtype(torch.float32 if name == "exact" else torch.bfloat16):
+            res = tr.run()
+        out[name] = {"losses": res["losses"], "restarts": res["restarts"],
+                     "rows": (tr.rows.start, tr.rows.stop),
+                     "state": _np(shd.gather_tree(tr.state, tr.specs, mesh)),
+                     "ef_shapes": ([tuple(e.shape) for e in _leaves(tr.state["ef"])]
+                                   if "ef" in tr.state else None)}
+
+    # the seeded init: each leaf cut as it is drawn, the logical model whole
+    cfg = C.get_smoke_config(ARCH)
+    full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
+    tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, "seeded"), tp=2, **TRAINER),
+                 device=device)
+    out["seed_init_equal"] = all(torch.equal(a, b) for a, b in zip(
+        _leaves(shd.gather_tree(tr.state["params"], tr.specs["params"], mesh)), _leaves(full)))
+
+    # the TP = 2 checkpoint at TP = 1 in the process form: every leaf whole
+    like = {"params": full, "opt": adamw.init(full)}
+    dp_mesh = make_process_mesh()
+    ckpt = CheckpointManager(os.path.join(root, "tp2_exact"), group=dp_mesh.group("data"))
+    out["tp1_restore"] = _np(ckpt.restore(ckpt.latest_step(), like))
+    ckpt.close()
+
+    # the stacked form's checkpoint (exact and int8 + EF) as this rank's shards
+    specs = shd.logical_pspecs(cfg, 2)
+    shards = shd.shard_tree(full, specs, mesh)
+    like = {"params": shards, "opt": adamw.init(shards), "ef": ef_residual_init(shards, 1)}
+    st = shd.state_specs(specs, mesh, ef=True)
+    ckpt = CheckpointManager(stacked_ckpt, group=mesh.group("data"), mesh=mesh, specs=st)
+    out["tp2_restore"] = _np(ckpt.restore(ckpt.latest_step(), like))
+    ckpt.close()
+    # and the JAX package's checkpoint (params and AdamW state)
+    like = {"params": shards, "opt": adamw.init(shards)}
+    ckpt = CheckpointManager(jax_ckpt, group=mesh.group("data"), mesh=mesh,
+                             specs=shd.state_specs(specs, mesh))
+    out["jax_restore"] = _np(ckpt.restore(ckpt.latest_step(), like))
+    ckpt.close()
+
+    # a logical state placed on the mesh: this rank's shards
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.tree import map_tree
+
+    logical = {"params": map_tree(lambda t: t.numpy(), full), "opt": adamw.init(full)}
+    placed = reshard_state(logical, mesh, shd.state_specs(specs, mesh), device=device)
+    want = shd.shard_tree({"params": full, "opt": adamw.init(full)},
+                          shd.state_specs(specs, mesh), mesh)
+    out["reshard_equal"] = all(torch.equal(a, b) for a, b in zip(_leaves(placed),
+                                                                 _leaves(want)))
+    out["reshard_shapes"] = [tuple(x.shape) for x in _leaves(placed["params"])]
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.tree import leaves
+
+    return leaves(tree)

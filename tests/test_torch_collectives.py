@@ -263,7 +263,7 @@ def test_knob_validation_matches_jax():
             TC.torrent_grad_reduce(fn, mesh, **kw)
         with pytest.raises(ValueError):
             J.torrent_grad_reduce(fn, None, None, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ProcessMesh"):
         make_host_mesh(data=2, model=2)
 
 

@@ -951,3 +951,23 @@ def test_process_form_executor_on_one_card(cuda):
             row, sent, model, _ = rank[c["name"]]
             assert torch.equal(torch.from_numpy(row).to(cuda), want[r]), (c["name"], r)
             assert sent == model
+
+
+def test_tp_ops_on_one_card_match_cpu(cuda):
+    """The tensor-parallel conjugate ops (``copy_to_tp``,
+    ``reduce_from_tp``, ``gather_from_tp``) and the vocab-parallel CE on
+    two gloo ranks sharing the card (each collective staged through the
+    host) against the same ranks on the CPU: outputs and grads within
+    1e-6, the CE's sums within 1e-5 relative."""
+    import _tp_cases as tc
+    from repro_torch.launch.dist import spawn
+
+    got = spawn(tc.ops_world, 2, backend="gloo", device="cuda", timeout_s=300)
+    want = spawn(tc.ops_world, 2, backend="gloo", device="cpu", timeout_s=300)
+    for g, w in zip(got, want):
+        for op in ("copy", "reduce", "gather"):
+            for a, b in zip(g[op], w[op]):
+                np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+        for a, b in zip(g["ce"][:2], w["ce"][:2]):
+            assert abs(a - b) <= 1e-5 * abs(b)
+        np.testing.assert_allclose(g["ce"][2], w["ce"][2], atol=1e-6, rtol=1e-5)

@@ -277,14 +277,20 @@ def test_sent_wire_bytes_model(planner, K, frames):
 def test_process_mesh_groups(world8):
     """The 2 x 4 ``("pod", "data")`` mesh: each rank's coordinates, its
     within-pod, across-pod and whole groups (group rank = the linear
-    index over the axes), and the refused TP axis."""
+    index over the axes); and a ``(pod=2, data=2, model=2)`` mesh, a
+    ``(data=2, model=2)`` mesh in each pod: its ``model`` groups are
+    consecutive ranks (group rank = the model coordinate), its ``data``
+    groups join the ranks of one model coordinate."""
     for r in range(L):
         m = world8[r]["mesh"]
         assert m["coords"] == {"pod": r // 4, "data": r % 4, "model": 0}
         assert m["shape"] == {"pod": 2, "data": 4, "model": 1}
         assert m["data_group"] == (r % 4, 4) and m["pod_group"] == (r // 4, 2)
         assert m["dp_group"] == (r, 8)
-        assert "9c" in m["tp_refused"]
+        tp = m["tp"]
+        assert tp["coords"] == {"pod": r // 4, "data": (r // 2) % 2, "model": r % 2}
+        assert tp["model_group"] == (r % 2, 2) and tp["data_group"] == ((r // 2) % 2, 2)
+        assert tp["dp_index"] == r // 2
 
 
 def test_multichain_plan_broadcast_over_a_group(world8):

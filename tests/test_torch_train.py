@@ -418,7 +418,7 @@ def test_elastic_mesh_matches_jax(n, tp):
         mesh = TE.make_elastic_mesh(n, tp)
         assert mesh.axis_names == ("data", "model") and mesh.shape == {"data": data, "model": 1}
     else:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="ProcessMesh"):
             TE.make_elastic_mesh(n, tp)
 
 
