@@ -191,6 +191,20 @@ Phases (any failure exits non-zero and prints no result):
    ``reduce`` and ``optimizer``; per rank the init and step peak memory
    and no allocator retry; no kernel launch (``tp_train`` in the
    kernels line). A failing rank fails the phase.
+19. tp families: the same on ``(data=1, model=2)`` for the MoE, MLA,
+   Mamba-2 and hybrid families at full width: deepseek-v2-lite-16b (4
+   of 27 layers: one dense, three MoE), mamba2-2.7b (8 of 64) and
+   jamba-v0.1-52b (2 of 32: Mamba with a dense FFN, Mamba with a MoE).
+   Per model (``TP_FAMILIES``): a TP = 1 reference from the same seed in
+   this process, then freed — the stacked ``Trainer`` (its first step's
+   grads and 3 steps' losses a run), or for jamba, whose TP = 1
+   ``Trainer`` would pass the card, the first step's grads and loss of
+   ``make_grad_fn`` alone; the MoE models' grads with the TP ranks
+   routed as TP = 1 chose (``tests/_moe_routing.py``: bf16 rounding
+   flips near-tie top-k choices). Then the two ranks: each rank's
+   first-step grad shards within ``TP_GRAD_TOL`` of its block of the
+   reference's, 3 exact (and, but for jamba, 3 int8 + EF) steps, with
+   every check of phase 18. ``tp_families_train`` in the kernels line.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -206,6 +220,7 @@ import dataclasses
 import gc
 import json
 import logging
+import os
 import re
 import shutil
 import subprocess
@@ -2665,6 +2680,288 @@ def tp_phase() -> dict:
     return {"train_launches": launches}
 
 
+# tensor parallelism for the MoE, MLA, Mamba-2 and hybrid families on the
+# card: full width, depth cut, TP = 2 over two gloo ranks sharing the card,
+# 4 x 512 tokens a step. ``reference``: "trainer", the stacked Trainer's
+# first-step grads and losses of every run; "grads", make_grad_fn's first
+# step alone (jamba: a TP = 1 Trainer, 16 B a param for 3.74 B params and
+# its activations, would pass the card)
+TP_FAMILIES = {
+    "deepseek-v2-lite-16b": dict(layers=4, runs=("exact", "int8_ef"), reference="trainer"),
+    "mamba2-2.7b": dict(layers=8, runs=("exact", "int8_ef"), reference="trainer"),
+    "jamba-v0.1-52b": dict(layers=2, runs=("exact",), reference="grads"),
+}
+TP_FAMILY_TRAIN = dict(smoke=False, steps=3, global_batch=4, seq_len=512, peak_lr=5e-4,
+                       warmup_steps=2, collectives="torrent", num_chains=1, loss_chunks=8,
+                       seed=0)
+# the first step's grads, both sides in f32 compute: in bf16 a rank rounds
+# its partial sums before the all-reduce and the families amplify it (the
+# smoke mamba2-2.7b's TP = 2 grads 9.4e-2 of a leaf's max from TP = 1's,
+# its TP = 1 bf16 grads 3.4e-2 from f32, on the CPU), and bf16 flips MoE
+# routing; in f32 the two differ by the order of f32 sums
+TP_GRAD_F32_TOL = 1e-3
+# the bf16 steps' losses of a MoE model against TP = 1: the two round their
+# partial sums differently, and bf16 flips near-tie top-k choices, each
+# moving a token's output by O(1) (deepseek-v2-lite-16b, 4 layers, on an
+# H100: 2.17e-3 at the second step, where yi-6b's TP_LOSS_TOL is 2e-3;
+# the first step's bf16 loss routed as TP = 1 chose, and the f32 grads,
+# show the rest is rounding: the phase prints both)
+TP_MOE_LOSS_TOL = 5e-3
+
+
+def _is_moe(cfg) -> bool:
+    return any(s.ffn == "moe" for pattern, _ in cfg.layer_groups() for s in pattern)
+
+
+def tp_family_rank(rank, world, device, arch, ref_dir):
+    """One rank of the tp families phase (a spawned process): the
+    process-form ``Trainer`` for ``arch`` at ``tp=world``. The first
+    step's grads (routed as the reference chose, for a MoE) against this
+    rank's block of the reference's leaves saved in ``ref_dir``, then
+    the runs of ``TP_FAMILIES[arch]``, each with the records and checks
+    of :func:`tp_train_rank`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from _moe_routing import routing_as
+    from _tp_cases import compute_dtype
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    spec = TP_FAMILIES[arch]
+    reset_launches()
+    out = {"transport": cwd.transport(dist.group.WORLD, device)}
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for name in spec["runs"]:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        spans = Spans()
+        tr = Trainer(TrainConfig(arch=arch, tp=world, layers=spec["layers"],
+                                 compress_grads=name == "int8_ef", **TP_FAMILY_TRAIN),
+                     device=device, spans=spans)
+        mesh, group = tr.mesh, tr.mesh.group("model")
+        rec = {"init_s": time.perf_counter() - t0,
+               "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "state_memory_gb": torch.cuda.memory_allocated() / 1e9}
+        pspecs = tr.specs["params"]
+        whole = [not shd.is_split(sp, mesh) for sp in leaves(tr.specs)]
+        if name == "exact":
+            routing = (torch.load(f"{ref_dir}/routing.pt") if _is_moe(tr.cfg)
+                       else None)
+            with hints.set_mesh(mesh), compute_dtype(torch.float32), \
+                    (routing_as(routing) if routing is not None
+                     else contextlib.nullcontext([])) as flips:
+                grads, m = make_grad_fn(tr.cfg, loss_chunks=TP_FAMILY_TRAIN["loss_chunks"])(
+                    tr.state["params"], tr._device_batch(0))
+            # this rank's block of each reference leaf, against its shard
+            errs = []
+            for i, (g, sp) in enumerate(zip(leaves(grads), leaves(pspecs))):
+                want = shd.shard_tree(torch.load(f"{ref_dir}/{i}.pt"), sp, mesh).to(device)
+                errs.append((float((g - want).abs().max()), float(want.abs().max())))
+                del want
+            rec["grad_check"] = {"leaves": len(errs), "err_and_scale": errs,
+                                 "loss": float(m["loss"]),
+                                 "routing_flips": int(sum(int(f.sum()) for f in flips)),
+                                 "routed_tokens": int(sum(f.numel() for f in flips))}
+            del grads
+            torch.cuda.empty_cache()
+            if routing is not None:
+                # the first step's bf16 loss routed as TP = 1 chose in bf16
+                with torch.no_grad(), hints.set_mesh(mesh), \
+                        routing_as(torch.load(f"{ref_dir}/routing_bf16.pt")) as flips:
+                    loss = loss_fn(tr.state["params"], tr.cfg, tr._device_batch(0),
+                                   loss_chunks=TP_FAMILY_TRAIN["loss_chunks"])[0]
+                rec["bf16_routed_as_tp1"] = {
+                    "loss0": float(loss), "flips": int(sum(int(f.sum()) for f in flips)),
+                    "routed_tokens": int(sum(f.numel() for f in flips))}
+        torch.cuda.reset_peak_memory_stats()
+        tokens = TP_FAMILY_TRAIN["global_batch"] * TP_FAMILY_TRAIN["seq_len"] // mesh.shape["data"]
+        model = tpm.modeled_tp_bytes(tr.cfg, tokens, world)
+        losses, walls, span_ms, tp_bytes, equal = [], [], [], [], []
+        for i in range(TP_FAMILY_TRAIN["steps"]):
+            tpm.tp_counter.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer_step(tr, i)["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            tp_bytes.append(dict(tpm.tp_counter.bytes))
+            ms = spans.read()
+            span_ms.append({k: round(sum(v), 3) if k == "tp_comm" else [round(x, 3) for x in v]
+                            for k, v in ms.items()})
+            span_ms[-1]["tp_comm_calls"] = len(ms.get("tp_comm", []))
+            # every leaf no spec splits, across the TP ranks (outside the
+            # counter): the router, w_dkv, in_BC, in_dt, conv_BC_*,
+            # dt_bias, A_log, D, the norms, and their moments
+            same = True
+            for x, w in zip(leaves(tr.state), whole):
+                if w:
+                    host = x.detach().reshape(-1).cpu()
+                    parts = [torch.empty_like(host) for _ in range(world)]
+                    dist.all_gather(parts, host, group=group)
+                    same &= all(torch.equal(parts[0], q) for q in parts[1:])
+            equal.append(bool(same))
+        rec.update({"losses": losses, "step_wall_s": walls,
+                    "median_step_s": float(np.median(walls)), "spans_ms": span_ms[-1],
+                    "tp_bytes_per_step": tp_bytes[-1], "modeled_tp_bytes_per_step": model,
+                    "tp_bytes_equal_model": all(b == model for b in tp_bytes),
+                    "whole_leaves_bit_equal": equal,
+                    "step_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        out[name] = rec
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    out["launches"] = read_launches()
+    return out
+
+
+def tp_family_reference(arch: str, ref_dir: str) -> dict:
+    """The TP = 1 reference of ``arch`` from the seed the ranks use: the
+    first step's grads in f32 compute saved leaf by leaf in ``ref_dir``
+    (with the routing a MoE chose, ``routing.pt``) and its loss; the
+    losses of the stacked ``Trainer``'s runs where ``TP_FAMILIES`` asks
+    for them, else the first step's loss in bf16. Frees the card before
+    it returns."""
+    import torch
+    from _moe_routing import recorded_routing
+    from _tp_cases import compute_dtype
+    from repro_torch import configs as Cfg
+    from repro_torch.data.pipeline import MarkovSource, make_device_placer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel.sharding import BATCH_AXES
+    from repro_torch.parallel.spec import P
+    from repro_torch.tree import leaves
+
+    spec, kw = TP_FAMILIES[arch], TP_FAMILY_TRAIN
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": {}}
+
+    def save_grads(cfg, params, batch):
+        with compute_dtype(torch.float32), recorded_routing() as seen:
+            grads, m = make_grad_fn(cfg, loss_chunks=kw["loss_chunks"])(params, batch)
+        for i, g in enumerate(leaves(grads)):
+            torch.save(g.cpu(), f"{ref_dir}/{i}.pt")
+        out["loss0"] = float(m["loss"])
+        del grads
+        # the first step's loss as the ranks' bf16 steps compute it, and
+        # a MoE's routing there
+        with torch.no_grad(), recorded_routing() as seen16:
+            out["loss0_bf16"] = float(Tm.loss_fn(params, cfg, batch,
+                                                 loss_chunks=kw["loss_chunks"])[0])
+        if _is_moe(cfg):
+            torch.save([t.cpu() for t in seen], f"{ref_dir}/routing.pt")
+            torch.save([t.cpu() for t in seen16], f"{ref_dir}/routing_bf16.pt")
+
+    if spec["reference"] == "grads":
+        cfg = dataclasses.replace(Cfg.get_config(arch), num_layers=spec["layers"])
+        gen = torch.Generator(device="cuda").manual_seed(kw["seed"])
+        params = Tm.model_init(gen, cfg, "cuda")
+        source = MarkovSource(vocab=cfg.vocab_size, seq_len=kw["seq_len"],
+                              global_batch=kw["global_batch"], seed=kw["seed"] + 1)
+        batch = make_device_placer(make_host_mesh(), P(BATCH_AXES, None), device="cuda")(
+            source.batch(0))
+        save_grads(cfg, params, batch)
+        del params, batch
+    else:
+        for name in spec["runs"]:
+            tr = Trainer(TrainConfig(arch=arch, layers=spec["layers"],
+                                     compress_grads=name == "int8_ef", **kw), device="cuda")
+            if name == "exact":
+                save_grads(tr.cfg, tr.state["params"], tr._device_batch(0))
+            out["losses"][name] = [float(trainer_step(tr, i)["loss"])
+                                   for i in range(kw["steps"])]
+            del tr
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_families_phase() -> dict:
+    """Tensor parallelism for the MoE, MLA, Mamba-2 and hybrid families
+    on the card (phase 19 of the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.launch.dist import spawn
+
+    launches = None
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    for arch, spec in TP_FAMILIES.items():
+        ref_dir = tempfile.mkdtemp(prefix="tp_family_ref_")
+        t0 = time.perf_counter()
+        try:
+            ref = tp_family_reference(arch, ref_dir)
+            print(f"tp families {arch}: TP = 1 reference {json.dumps(ref)}", flush=True)
+            # two jamba ranks hold ~36 GB each at the optimizer's peak: the
+            # ranks' allocators map memory as they grow, so that what one
+            # rank has reserved and not used cannot starve the other
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+            ranks = spawn(tp_family_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                          args=(arch, ref_dir))
+        finally:
+            if alloc_conf is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+            shutil.rmtree(ref_dir, ignore_errors=True)
+        wall = time.perf_counter() - t0
+        for r, rec in enumerate(ranks):
+            print(f"tp families {arch} rank {r}: {json.dumps(rec)}", flush=True)
+        # the grads: per leaf, the worst rank's error over the leaf's max
+        checks = [rk["exact"]["grad_check"] for rk in ranks]
+        grad_err = max(max(c["err_and_scale"][i][0] for c in checks)
+                       / max(max(c["err_and_scale"][i][1] for c in checks), 1e-30)
+                       for i in range(checks[0]["leaves"]))
+        loss0_err = abs(checks[0]["loss"] - ref["loss0"])
+        loss_tol = TP_MOE_LOSS_TOL if "bf16_routed_as_tp1" in ranks[0]["exact"] else TP_LOSS_TOL
+        routed = ranks[0]["exact"].get("bf16_routed_as_tp1")
+        if routed is not None:
+            routed["loss0_diff"] = abs(routed["loss0"] - ref["loss0_bf16"])
+            routed["unrouted_loss0_diff"] = abs(ranks[0]["exact"]["losses"][0] - ref["loss0_bf16"])
+        errors = {}
+        for name in spec["runs"]:
+            got = ranks[0][name]["losses"]
+            want = ref["losses"].get(name)
+            errors[name] = (max(abs(a - b) for a, b in zip(got, want)) if want is not None
+                            else abs(got[0] - ref["loss0_bf16"]))
+            if not (all(rk[name]["losses"] == got for rk in ranks) and np.isfinite(got).all()
+                    and errors[name] <= loss_tol
+                    and all(rk[name]["tp_bytes_equal_model"] for rk in ranks)
+                    and all(all(rk[name]["whole_leaves_bit_equal"]) for rk in ranks)
+                    and all({"fwd_bwd", "reduce", "optimizer", "tp_comm"}
+                            <= set(rk[name]["spans_ms"]) for rk in ranks)):
+                raise AssertionError(f"tp families {arch} {name}: losses {got} vs TP = 1 "
+                                     f"{want} (loss0 {ref['loss0']}), ranks {ranks}")
+        arch_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+        if grad_err > TP_GRAD_F32_TOL or loss0_err > TP_GRAD_F32_TOL \
+                or any(rk["alloc_retries"] for rk in ranks) or any(arch_launches.values()) \
+                or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
+            raise AssertionError(f"tp families {arch}: f32 grad err {grad_err}, loss0 err "
+                                 f"{loss0_err} (tolerance {TP_GRAD_F32_TOL}), retries "
+                                 f"{[rk['alloc_retries'] for rk in ranks]}, launches "
+                                 f"{arch_launches}")
+        launches = arch_launches if launches is None else {
+            k: launches[k] + v for k, v in arch_launches.items()}
+        print(f"tp families {arch}: {json.dumps({'ranks': 2, 'mesh': {'data': 1, 'model': 2}, 'layers': spec['layers'], 'reference': spec['reference'], 'first_step_f32_grad_max_rel_err': grad_err, 'first_step_f32_loss_diff': loss0_err, 'f32_tolerance': TP_GRAD_F32_TOL, 'routing_flips': [c['routing_flips'] for c in checks], 'routed_tokens': checks[0]['routed_tokens'], 'bf16_first_step_routed_as_tp1': routed, 'max_loss_diff_vs_tp1': errors, 'loss_tolerance': loss_tol, 'reference_peak_memory_gb': ref['peak_memory_gb'], 'state_memory_gb': [max(rk[n]['state_memory_gb'] for n in spec['runs']) for rk in ranks], 'step_peak_memory_gb': [max(rk[n]['step_peak_memory_gb'] for n in spec['runs']) for rk in ranks], 'median_step_s': {n: max(rk[n]['median_step_s'] for rk in ranks) for n in spec['runs']}, 'phase_wall_s': round(wall, 2), 'launches': arch_launches})}", flush=True)
+    return {"train_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2734,6 +3031,7 @@ def main() -> int:
     cell_phase()
     dist = dist_phase()
     tp = tp_phase()
+    tp_families = tp_families_phase()
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
@@ -2751,7 +3049,8 @@ def main() -> int:
                    "ep_train": ep_train["train_launches"][name],
                    "dist_train": dist["train_launches"][name],
                    "ep_dist_train": dist["ep_launches"][name],
-                   "tp_train": tp["train_launches"][name]}
+                   "tp_train": tp["train_launches"][name],
+                   "tp_families_train": tp_families["train_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

@@ -26,11 +26,16 @@ its own, so the executor hands NCCL the device tensors themselves:
    and its groups, the Torrent reduce, int8 + EF, a checkpoint through
    rank 0 and a restart after an injected failure) at smoke size; then
    the same with ``--tp 2`` (a ``(data=world/2, model=2)`` mesh, the
-   checkpoint holding the logical leaves).
+   checkpoint holding the logical leaves), for yi-6b, deepseek-moe-16b
+   and mamba2-2.7b (``TRAIN_RUNS``).
 4. ``tp`` (4 ranks): tensor parallelism, one rank per card. yi-6b at
    full width and full depth (32 layers) on ``(data=1, model=4)``, then
    at 8 layers on ``(data=2, model=2)`` with the Torrent reduce over
-   ``data``; 4 x 512 tokens a step, 3 steps, through the process-form
+   ``data``; mamba2-2.7b at full width and full depth (64 layers) and
+   jamba-v0.1-52b at full width, 5 of 32 layers (its attention layer
+   and two MoE layers), on ``(1, 4)``; deepseek-v2-lite-16b (MLA + MoE)
+   at 8 of 27 layers on ``(2, 2)`` (``TP_RUNS``; ``--tp-runs`` picks
+   some); 4 x 512 tokens a step, 3 steps, through the process-form
    ``Trainer``: losses, step walls and spans (``fwd_bwd``, ``tp_comm``,
    ``reduce``, ``optimizer``), the model group's payload bytes against
    ``parallel.tp.modeled_tp_bytes``, the DP wire bytes against
@@ -124,14 +129,21 @@ def all_reduce_rank(rank, world, device, n, iters):
     return out
 
 
-# the tp part's runs: (label, data, model, layers; None = the config's);
-# 4 x 512 tokens a step, 3 steps
-TP_RUNS = [("1x4_full_depth", 1, 4, None), ("2x2_8_layers", 2, 2, 8)]
-TP_TRAIN = dict(arch="yi-6b", steps=3, global_batch=4, seq_len=512, peak_lr=5e-4,
-                warmup_steps=2, collectives="torrent", num_chains=1, loss_chunks=8, seed=0)
+# the tp part's runs: (label, arch, data, model, layers; None = the
+# config's); 4 x 512 tokens a step, 3 steps. deepseek-v2-lite-16b's 8 of 27
+# layers leave a quarter of the card free at the step peak (its full depth
+# at TP = 4 would be ~63 GB of state a rank)
+TP_RUNS = [("1x4_full_depth", "yi-6b", 1, 4, None), ("2x2_8_layers", "yi-6b", 2, 2, 8),
+           ("mamba2_1x4_full_depth", "mamba2-2.7b", 1, 4, None),
+           ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5),
+           ("dsv2lite_2x2_8_layers", "deepseek-v2-lite-16b", 2, 2, 8)]
+TP_TRAIN = dict(steps=3, global_batch=4, seq_len=512, peak_lr=5e-4, warmup_steps=2,
+                collectives="torrent", num_chains=1, loss_chunks=8, seed=0)
+# torchrun at smoke size: (arch, tp)
+TRAIN_RUNS = [("yi-6b", 1), ("yi-6b", 2), ("deepseek-moe-16b", 2), ("mamba2-2.7b", 2)]
 
 
-def tp_rank(rank, world, device, tp, layers, smoke):
+def tp_rank(rank, world, device, arch, tp, layers, smoke):
     """One rank of the tp part: the process-form ``Trainer`` at
     ``tp``, driven 3 steps, with its record."""
     import numpy as np
@@ -152,7 +164,7 @@ def tp_rank(rank, world, device, tp, layers, smoke):
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0) if cuda else 0
     spans = Spans()
     t0 = time.perf_counter()
-    kw = dict(TP_TRAIN, smoke=smoke, layers=layers)
+    kw = dict(TP_TRAIN, arch=arch, smoke=smoke, layers=layers)
     if smoke:
         kw.update(seq_len=32, layers=None)
     tr = Trainer(TrainConfig(tp=tp, **kw), device=device, spans=spans)
@@ -205,6 +217,8 @@ def main() -> int:
                     help="ranks (default: every card; required with --device cpu)")
     ap.add_argument("--parts", default="executor,all_reduce,train,tp",
                     help="comma-separated parts to run (default: all)")
+    ap.add_argument("--tp-runs", default=None,
+                    help="comma-separated labels of TP_RUNS for the tp part (default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
 
@@ -230,10 +244,11 @@ def main() -> int:
     if "all_reduce" in parts:
         ok &= all_reduce_part(args.device, world, on_card, ref_dev)
     if "train" in parts:
-        for tp in (1, 2):
-            ok &= train_part(args.device, world, tp)
+        for arch, tp in TRAIN_RUNS:
+            ok &= train_part(args.device, world, arch, tp)
     if "tp" in parts:
-        ok &= tp_part(args.device, world, on_card)
+        ok &= tp_part(args.device, world, on_card,
+                      args.tp_runs.split(",") if args.tp_runs else None)
     return 0 if ok else 1
 
 
@@ -281,30 +296,33 @@ def all_reduce_part(device, world, on_card, ref_dev) -> bool:
     return exact
 
 
-def train_part(device, world, tp: int) -> bool:
-    """Part 3: the process-form Trainer under torchrun, at ``--tp``."""
+def train_part(device, world, arch: str, tp: int) -> bool:
+    """Part 3: the process-form Trainer for ``arch`` under torchrun, at
+    ``--tp``."""
     with tempfile.TemporaryDirectory(prefix="dist_cards_") as ckpt:
         env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc-per-node", str(world), "-m", "repro_torch.launch.train",
-             "--device", device, "--smoke", "--steps", "4", "--batch", str(2 * world),
+             "--device", device, "--smoke", "--arch", arch, "--steps", "4",
+             "--batch", str(2 * world),
              "--seq", "32", "--collectives", "torrent", "--compress-grads", "--fail-at", "2",
              "--ckpt-every", "1", "--ckpt-dir", ckpt, "--tp", str(tp)],
             capture_output=True, text=True, timeout=TIMEOUT_S, env=env)
         log = proc.stdout + proc.stderr
         trained = proc.returncode == 0 and "done: 4 steps (1 restarts)" in log
         print("dist cards train", json.dumps({
-            "ranks": world, "tp": tp, "rc": proc.returncode, "ok": trained,
+            "arch": arch, "ranks": world, "tp": tp, "rc": proc.returncode, "ok": trained,
             "done": [ln for ln in log.splitlines() if ln.startswith("done:")],
             "wall_s": round(time.perf_counter() - t0, 2),
             "tail": None if trained else log[-3000:]}), flush=True)
     return trained
 
 
-def tp_part(device, world, on_card) -> bool:
-    """Part 4: tensor parallelism, one rank per card (4 ranks)."""
+def tp_part(device, world, on_card, labels=None) -> bool:
+    """Part 4: tensor parallelism, one rank per card (4 ranks); with
+    ``labels``, only those of ``TP_RUNS``."""
     import numpy as np
     from repro_torch.launch.dist import spawn
 
@@ -312,10 +330,12 @@ def tp_part(device, world, on_card) -> bool:
         print(f"dist cards tp: needs 4 ranks, got {world}", file=sys.stderr)
         return False
     ok = True
-    for label, data, model, layers in TP_RUNS:
+    for label, arch, data, model, layers in TP_RUNS:
+        if labels and label not in labels:
+            continue
         t0 = time.perf_counter()
         ranks = spawn(tp_rank, world, device=device, timeout_s=900,
-                      args=(model, layers, not on_card))
+                      args=(arch, model, layers, not on_card))
         for r, rec in enumerate(ranks):
             print(f"dist cards tp {label} rank {r}", json.dumps(rec), flush=True)
         losses = ranks[0]["losses"]
@@ -328,7 +348,7 @@ def tp_part(device, world, on_card) -> bool:
                         for i in range(world)))
         ok &= bool(good)
         print(f"dist cards tp {label}", json.dumps({
-            "ok": bool(good), "mesh": {"data": data, "model": model},
+            "ok": bool(good), "arch": arch, "mesh": {"data": data, "model": model},
             "layers": ranks[0]["layers"], "losses": losses,
             "median_step_s": max(rk["median_step_s"] for rk in ranks),
             "step_peak_memory_gb": [rk["step_peak_memory_gb"] for rk in ranks],

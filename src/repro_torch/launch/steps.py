@@ -194,7 +194,9 @@ def make_train_step(
     recompute runs them again, in the same order on every TP rank), the
     Torrent reduction runs over the DP group on the shards, and AdamW
     clips by the logical tree's norm. Microbatching is unchanged. The
-    TP form covers the dense family (``transformer.check_tp``).
+    TP form covers the dense, MoE, MLA, Mamba-2 and hybrid families
+    (``transformer.check_tp`` refuses M-RoPE with ``attn_seq_shard`` and
+    the encoder-decoder).
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(

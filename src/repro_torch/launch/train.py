@@ -22,8 +22,10 @@ own rows of every batch, and the Torrent reduction runs over
 With ``--tp N`` (process form only) the world is a ``(data, model)``
 mesh of ``world / N`` DP ranks by ``N`` TP ranks: each rank holds its
 shards of the state as ``parallel.sharding.param_pspecs`` places them
-and runs the dense family's Megatron-style forward and backward
-(``parallel.tp``); the Torrent reduction runs over the DP group:
+and runs the Megatron-style forward and backward (``parallel.tp``) of
+the dense, MoE, MLA, Mamba-2 and hybrid families (experts over
+``model``, MLA by heads, Mamba-2 by ``d_inner``); the Torrent reduction
+runs over the DP group:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --steps 20 --collectives torrent --tp 2 --device cpu

@@ -28,6 +28,11 @@ columns, so a rank may hold part of a head: K and V are gathered over
 the group and each rank takes the KV heads its query heads read. A
 ``num_heads`` that the TP size does not divide needs JAX's
 ``attn_seq_shard`` (query-sequence sharding), which is not ported.
+``mla_apply`` is split by heads too: ``wq``, ``w_uk`` and ``w_uv`` are
+column-parallel (their flattened ``(H, ·)`` columns give whole heads)
+and ``wo`` row-parallel; the compression ``w_dkv`` stays replicated,
+and ``copy_to_tp`` sits on its output, where the rank's heads begin to
+use it, so ``w_dkv`` gets its whole grad on every rank.
 """
 
 from __future__ import annotations
@@ -133,6 +138,18 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
     return q, k
 
 
+def _tp_heads_group(cfg: ModelConfig):
+    """The active TP group, over which attention is split by heads
+    (``None`` without one); a ``num_heads`` it does not divide raises."""
+    group = hints.tp_group()
+    if group is not None and cfg.num_heads % dist.get_world_size(group):
+        raise NotImplementedError(
+            f"num_heads={cfg.num_heads} at TP={dist.get_world_size(group)}: heads that the "
+            "TP size does not divide need attn_seq_shard (query-sequence sharding, ROADMAP "
+            "item 9c, entry 2)")
+    return group
+
+
 def gqa_apply(
     params: dict,
     x: torch.Tensor,  # (B, S, d)
@@ -144,14 +161,8 @@ def gqa_apply(
     """Full-sequence GQA (training / prefill), no cache; on a live TP
     group, Megatron's column- and row-parallel form (module
     docstring)."""
-    group = hints.tp_group()
-    if group is not None:
-        tp = dist.get_world_size(group)
-        if cfg.num_heads % tp:
-            raise NotImplementedError(
-                f"num_heads={cfg.num_heads} at TP={tp}: heads that the TP size does not "
-                "divide need attn_seq_shard (query-sequence sharding, ROADMAP item 9c)")
-        x = copy_to_tp(x, group)
+    group = _tp_heads_group(cfg)
+    x = copy_to_tp(x, group)
     q, k, v = _project_qkv(params, x, cfg, group)
     q, k = _rope_qk(q, k, positions, cfg)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
@@ -267,32 +278,48 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def _mla_qkv(params, x, positions, cfg: ModelConfig):
+def _mla_heads(params, cfg: ModelConfig) -> int:
+    """The query heads ``params`` holds: all of them, or this rank's
+    block where ``wq`` is split over a TP group (whole heads, since the
+    columns are laid out ``(H, dn + dr)``)."""
+    return params["wq"].shape[1] // (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
+
+
+def _mla_qkv(params, x, positions, cfg: ModelConfig, group=None):
+    """(q_nope, q_rope, c, k_rope). With a TP ``group``, this rank's
+    query heads (``x`` through ``copy_to_tp`` for ``wq``) and the
+    replicated compressed KV, through ``copy_to_tp`` before its split
+    use by the rank's heads."""
     B, S, _ = x.shape
-    H, r = cfg.num_heads, cfg.kv_lora_rank
+    H, r = _mla_heads(params, cfg), cfg.kv_lora_rank
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    q = (x @ cast(params["wq"])).reshape(B, S, H, dn + dr)
+    q = (copy_to_tp(x, group) @ cast(params["wq"])).reshape(B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
-    ckv = x @ cast(params["w_dkv"])  # (B, S, r + dr)
+    ckv = copy_to_tp(x @ cast(params["w_dkv"]), group)  # (B, S, r + dr)
     c, k_rope = ckv[..., :r], ckv[..., r:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
     return q_nope, q_rope, c, k_rope
 
 
-def _mla_out(params, out: torch.Tensor, like: torch.Tensor, cfg: ModelConfig):
-    """(B, S, H, dv) f32 heads -> the output projection, in ``like``'s dtype."""
+def _mla_out(params, out: torch.Tensor, like: torch.Tensor, cfg: ModelConfig, group=None):
+    """(B, S, H, dv) f32 heads -> the output projection, in ``like``'s
+    dtype; with a TP ``group``, row-parallel: the partial sums of this
+    rank's heads reduced over it."""
     B, S = out.shape[:2]
-    return out.reshape(B, S, cfg.num_heads * cfg.v_head_dim).to(like.dtype) @ cast(params["wo"])
+    out = out.reshape(B, S, -1).to(like.dtype) @ cast(params["wo"])
+    return reduce_from_tp(out, group)
 
 
-def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask):
+def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask, group=None):
     """Attention over recovered K/V. c: (B,T,r); k_rope: (B,T,dr);
-    q_*: (B,S,H,*). mask: (S,T) or per-row (B,S,T) boolean, or None (full)."""
+    q_*: (B,S,H,*). mask: (S,T) or per-row (B,S,T) boolean, or None
+    (full). With a TP ``group``, ``H`` is this rank's heads, recovered
+    by its columns of ``w_uk``/``w_uv``, and the output is reduced."""
     if cfg.attn_impl == "chunked" and mask is not None and mask.dim() == 2:
-        return _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg)
+        return _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg, group)
     B, T = c.shape[:2]
-    H = cfg.num_heads
+    H = _mla_heads(params, cfg)
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     # KV recovery (the paper's P3/D3 multicast workload under TP)
     k_nope = (c @ cast(params["w_uk"])).reshape(B, T, H, dn)
@@ -306,10 +333,10 @@ def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask):
         s = torch.where(m, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", p, v.float())
-    return _mla_out(params, out, q_nope, cfg)
+    return _mla_out(params, out, q_nope, cfg, group)
 
 
-def _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig):
+def _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, group=None):
     """Causal MLA attention, online softmax over T chunks: recovery
     happens per KV chunk inside the loop (JAX's ``lax.scan``), so nothing
     quadratic or proportional to T·H·dn is made. Assumes S == T with a
@@ -317,7 +344,7 @@ def _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig):
     B, T = c.shape[:2]
     S = q_nope.shape[1]
     assert S == T, (S, T)
-    H = cfg.num_heads
+    H = _mla_heads(params, cfg)
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     scale = (dn + dr) ** -0.5
     C = min(cfg.attn_chunk, T)
@@ -346,7 +373,7 @@ def _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig):
         acc = acc * alpha + torch.einsum("bhst,bthd->bhsd", p, vb.float())
         m = m_new
     l = torch.where(l == 0.0, torch.ones_like(l), l)
-    return _mla_out(params, (acc / l).transpose(1, 2), q_nope, cfg)
+    return _mla_out(params, (acc / l).transpose(1, 2), q_nope, cfg, group)
 
 
 def mla_apply(
@@ -357,11 +384,13 @@ def mla_apply(
     *,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence MLA (training / prefill), no cache."""
+    """Full-sequence MLA (training / prefill), no cache; on a live TP
+    group, split by heads (module docstring)."""
+    group = _tp_heads_group(cfg)
     S = x.shape[1]
-    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
     mask = _causal_mask(S, x.device) if causal else None
-    return _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, mask)
+    return _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, mask, group)
 
 
 def _causal_mask(S: int, device) -> torch.Tensor:

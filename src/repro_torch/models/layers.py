@@ -10,7 +10,9 @@ Tensor parallelism (Megatron-style, ``parallel.tp``): :func:`embed`,
 :func:`unembed` and :func:`swiglu` take the ``model`` group over which
 their params are split (``group=None``: whole params, no collective).
 The embedding table is split by vocab rows, the SwiGLU's ``gate``/``up``
-by columns and its ``down`` by rows; norms stay replicated.
+by columns and its ``down`` by rows; norms stay replicated, but for
+Mamba-2's :func:`gated_rmsnorm`, whose scale is split with ``d_inner``
+and whose statistic is summed over the group.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp, sum_over_tp
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -107,10 +109,18 @@ class RMSNormBF16(torch.autograd.Function):
 
 
 def gated_rmsnorm(params: dict, x: torch.Tensor, z: torch.Tensor,
-                  eps: float = 1e-5) -> torch.Tensor:
-    """Mamba-2's RMSNorm(x * silu(z)), in f32, output in ``x``'s dtype."""
+                  eps: float = 1e-5, group=None) -> torch.Tensor:
+    """Mamba-2's RMSNorm(x * silu(z)), in f32, output in ``x``'s dtype.
+    With ``group``, ``x``, ``z`` and the scale are this rank's block of
+    ``d_inner``: the norm is still over the whole ``d_inner``, so each
+    rank's sum of squares is summed over ``group`` (``sum_over_tp``)
+    before the ``rsqrt``."""
     xf = x.float() * F.silu(z.float())
-    var = (xf * xf).mean(-1, keepdim=True)
+    if group is None:
+        var = (xf * xf).mean(-1, keepdim=True)
+    else:
+        n = x.shape[-1] * dist.get_world_size(group)
+        var = sum_over_tp((xf * xf).sum(-1, keepdim=True), group) / n
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(x.dtype)
 

@@ -26,25 +26,58 @@ the backward multiplies that ``inf`` by 0 and JAX's grads are NaN. The
 port takes ``exp`` of ``where(mask, Λ_i − Λ_j, -inf)``: the same
 subtraction and ``exp`` on every kept entry, so the same forward, and an
 exact 0 on every masked one, so finite grads.
+
+Tensor parallelism (the full-sequence forward on a mesh whose ``model``
+axis is live and splits ``d_inner``, as ``param_pspecs`` does): a rank
+holds the columns of ``in_z``/``in_x``/``conv_x_*`` and the gated-norm
+scale for its heads, ``out_proj``'s rows for them (row-parallel, reduced
+over the group), and the whole ``in_BC``, ``in_dt``, ``conv_BC_*``,
+``dt_bias``, ``A_log`` and ``D``. B, C and dt are computed replicated
+and go through ``copy_to_tp`` where the rank's heads take their part
+(``A_log``/``D`` as well), so each replicated leaf gets its whole grad.
+The gated norm is over the whole ``d_inner``: its sum of squares is
+summed over the group. A split that would cut a head raises.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.parallel import hints
+from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import cast, gated_rmsnorm, matmul, normal, rmsnorm_init
 
 
-def _dims(cfg: ModelConfig):
-    d_in = cfg.d_inner
-    H = cfg.ssm_nheads
+def _dims(cfg: ModelConfig, tp: int = 1):
+    """(d_in, H, P, G, N, conv_dim); with ``tp`` > 1, this rank's block
+    of ``d_inner`` and of the heads (``G``, ``N`` and ``conv_dim`` stay
+    the whole model's: B/C are replicated)."""
+    d_in = cfg.d_inner // tp
+    H = cfg.ssm_nheads // tp
     P = cfg.ssm_headdim
     G = cfg.ssm_ngroups
     N = cfg.ssm_state
-    conv_dim = d_in + 2 * G * N
+    conv_dim = cfg.d_inner + 2 * G * N
     return d_in, H, P, G, N, conv_dim
+
+
+def _tp(cfg: ModelConfig):
+    """(group, size, rank) of the active TP group where it splits
+    ``d_inner`` (``(None, 1, 0)`` elsewhere); a split that would cut a
+    head raises."""
+    group = hints.tp_split_group(cfg.d_inner)
+    if group is None:
+        return None, 1, 0
+    tp = dist.get_world_size(group)
+    if (cfg.d_inner // tp) % cfg.ssm_headdim:
+        raise NotImplementedError(
+            f"d_inner={cfg.d_inner} at TP={tp} cuts a head of {cfg.ssm_headdim}: "
+            "param_pspecs splits d_inner there, and part of a head is not run")
+    return group, tp, dist.get_rank(group)
 
 
 def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -106,13 +139,18 @@ def mamba2_prefill(params: dict, xin: torch.Tensor,
 def _ssd_forward(params: dict, xin: torch.Tensor,
                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     B, S, _ = xin.shape
-    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    group, tp, rank = _tp(cfg)
+    d_in, H, P, G, N, conv_dim = _dims(cfg, tp)
     Q = min(cfg.ssm_chunk, S)
     pad = (-S) % Q
     Sp = S + pad
     nc = Sp // Q
 
-    z, x_raw, BC_raw, dt = _project(params, xin)
+    # z and x are this rank's columns; B, C and dt replicated (each goes
+    # through copy_to_tp where the rank's heads begin to use it)
+    xcol = copy_to_tp(xin, group)
+    z, x_raw = matmul(xcol, params["in_z"]), matmul(xcol, params["in_x"])
+    BC_raw, dt = matmul(xin, params["in_BC"]), matmul(xin, params["in_dt"])
     W = cfg.ssm_conv
     xBC_raw = torch.cat([x_raw, BC_raw], -1)  # cached for decode
     tail = xBC_raw[:, max(0, S - (W - 1)) :]
@@ -123,22 +161,29 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
     x = _causal_conv(x_raw, params["conv_x_w"], params["conv_x_b"])
     BC = _causal_conv(BC_raw, params["conv_BC_w"], params["conv_BC_b"])
     x = F.silu(x.float())
-    BC = F.silu(BC.float())
+    BC = copy_to_tp(F.silu(BC.float()), group)
     Bm, Cm = BC.split([G * N, G * N], -1)
-    dt = F.softplus(dt.float() + params["dt_bias"])  # (B,S,H)
+    dt = F.softplus(dt.float() + params["dt_bias"])  # (B,S,H), every head
+    heads = slice(rank * H, (rank + 1) * H)  # this rank's heads
+    A_log, D = params["A_log"], params["D"]
+    if group is not None:
+        dt = copy_to_tp(dt, group)[..., heads]
+        A_log, D = copy_to_tp(A_log, group)[heads], copy_to_tp(D, group)[heads]
     if pad:
         # dt = 0 on padded positions makes the state update an exact
         # identity there (decay exp(0)=1, contribution dt·Bx = 0).
         x, Bm, Cm, dt = (F.pad(t, (0, 0, 0, pad)) for t in (x, Bm, Cm, dt))
 
     # reshape to heads / groups (all f32 from here); head h reads group
-    # h // (H/G), as jnp.repeat does
+    # h // (H/G), as jnp.repeat does: the groups expanded to every head,
+    # then this rank's heads taken (under TP a rank may hold part of a
+    # group, or several)
     x = x.reshape(B, nc, Q, H, P)
-    rep = H // G
-    Bh = Bm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)  # (B,nc,Q,H,N)
-    Ch = Cm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)
+    rep = H * tp // G
+    Bh = Bm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)[:, :, :, heads]  # (B,nc,Q,H,N)
+    Ch = Cm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)[:, :, :, heads]
     dt = dt.reshape(B, nc, Q, H)
-    a = -torch.exp(params["A_log"])  # (H,)
+    a = -torch.exp(A_log)  # (H,)
     lam = torch.cumsum(dt * a, dim=2)  # Λ inclusive cumsum within chunk, (B,nc,Q,H)
 
     # ---- intra-chunk (masked attention form) -------------------------
@@ -167,10 +212,10 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
     # y_inter[i] = C_i · exp(Λ_i) h_{c-1}
     y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Ch * torch.exp(lam)[..., None], h_before)
 
-    y = y_intra + y_inter + x * params["D"][:, None]  # (B,nc,Q,H,P)
+    y = y_intra + y_inter + x * D[:, None]  # (B,nc,Q,H,P)
     y = y.reshape(B, Sp, d_in)[:, :S]
-    y = gated_rmsnorm(params["norm"], y, z.float(), cfg.norm_eps)
-    out = cast(y) @ cast(params["out_proj"])
+    y = gated_rmsnorm(params["norm"], y, z.float(), cfg.norm_eps, group)
+    out = reduce_from_tp(cast(y) @ cast(params["out_proj"]), group)
 
     # h is the final state (the prefill -> decode handoff): one step
     # past the last emitted one

@@ -42,6 +42,20 @@ grads JAX's ``shard_map`` ranks get.
 
 The aux load-balancing loss (switch-style E·Σ f_i·P_i) is returned to
 the caller and folded into the training loss.
+
+Tensor parallelism (the flat and rowwise paths on a mesh whose
+``model`` axis is live, ``parallel.hints.tp_group``): the experts are
+split over ``model`` as ``param_pspecs`` places them (``E/tp`` a rank;
+an ``E`` the TP size does not divide stays whole), and the shared
+experts' SwiGLU by columns. The tokens are replicated over ``model``,
+so every rank routes all of them, with TP = 1's capacity drops and aux
+loss, and no all-to-all is needed: a rank fills and runs only its own
+experts' slice of the buffer, reads zeros for the other ranks'
+assignments, and one f32 ``reduce_from_tp`` sums the ranks' combines
+with their shared-expert partial sums. ``copy_to_tp`` sits on the
+router weights ``top_p`` and on the split branches' input, so the
+replicated router and the layer's input get their whole grads.
+``moe_ep_dispatch`` (EP over the DP axes) is refused there.
 """
 
 from __future__ import annotations
@@ -49,9 +63,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.parallel import hints
+from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import cast, matmul, normal, swiglu, swiglu_init
@@ -197,52 +213,116 @@ def _with_shared(params, cfg: ModelConfig, xf: torch.Tensor, out: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _tp_groups(cfg: ModelConfig):
+    """The active TP group over which the routed experts are split (the
+    TP size divides ``num_experts``) and the one over which the shared
+    experts' columns are (it divides them); ``None`` where a part stays
+    whole, as ``param_pspecs`` leaves it."""
+    shared = cfg.num_shared_experts * cfg.moe_d_ff
+    return (hints.tp_split_group(cfg.num_experts),
+            hints.tp_split_group(shared) if shared else None)
+
+
+def _local_experts(flat_e: torch.Tensor, group, E: int) -> tuple[torch.Tensor, int]:
+    """Each assignment's expert among this rank's ``E/tp`` (group rank
+    ``r`` holds experts ``[r·E/tp, (r+1)·E/tp)``), and that count; an
+    assignment to another rank's expert gets the count, out of bounds,
+    so :func:`_put` drops it and :func:`_take` reads zeros. Without a
+    group: the experts and ``E`` as they are."""
+    if group is None:
+        return flat_e, E
+    n = E // dist.get_world_size(group)
+    le = flat_e - dist.get_rank(group) * n
+    return torch.where((le >= 0) & (le < n), le, n), n
+
+
+def _tp_out(params, cfg: ModelConfig, xf: torch.Tensor, xs: torch.Tensor,
+            routed: torch.Tensor, eg, sg) -> torch.Tensor:
+    """The routed experts' f32 combine ``routed`` plus the shared
+    experts (``xs``: the input of the split parts, through
+    ``copy_to_tp``), reduced once over the TP group: the parts split
+    over it (this rank's experts' share, its block of the shared
+    experts' columns) are summed in f32 and all-reduced, then the parts
+    that stay whole are added. Without a group, TP = 1's sum."""
+    shared = None
+    if cfg.num_shared_experts:
+        shared = swiglu(params["shared"], xs if sg is not None else xf).float()
+    group = eg if eg is not None else sg
+    if group is None:
+        return routed if shared is None else routed + shared
+    parts = [(routed, eg), (shared, sg)]
+    split = [t for t, g in parts if t is not None and g is not None]
+    out = reduce_from_tp(split[0] if len(split) == 1 else split[0] + split[1], group)
+    for t, g in parts:
+        if t is not None and g is None:
+            out = out + t
+    return out
+
+
 def _moe_apply_flat(params: dict, x: torch.Tensor, cfg: ModelConfig):
+    """The flat dispatch (module docstring). On a live TP group that
+    splits the experts, every rank routes every token (the tokens are
+    replicated over ``model``), so the capacity drops and the aux loss
+    are TP = 1's; it runs only its own experts' slice of the ``(E, C,
+    d)`` buffer, and the ranks' combines are summed once
+    (:func:`_tp_out`)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     T = B * S
     C = capacity(cfg, T)
     xf = x.reshape(T, d)
+    eg, sg = _tp_groups(cfg)
 
     probs, top_p, top_e = _route(xf, params["router"], k)
     aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (T * k))
 
     flat_e = top_e.reshape(-1)  # (T*k,), token-major
     pos = _positions(flat_e, E)
-    sel = xf[:, None].expand(T, k, d).reshape(T * k, d)  # the dispatch traffic
-    buf = _put((E, C), (flat_e, pos), sel)
+    # the split branches' input: each rank's grad holds only its share
+    xs = copy_to_tp(xf, eg if eg is not None else sg)
+    le, E_loc = _local_experts(flat_e, eg, E)
+    xe = xs if eg is not None else xf
+    sel = xe[:, None].expand(T, k, d).reshape(T * k, d)  # the dispatch traffic
+    buf = _put((E_loc, C), (le, pos), sel)
     out_buf = _experts(buf, params["wg"], params["wu"], params["wd"])
-    gathered = _take(out_buf, (flat_e, pos)).reshape(T, k, d)  # dropped -> 0
+    gathered = _take(out_buf, (le, pos)).reshape(T, k, d)  # dropped, or not ours -> 0
+    top_p = copy_to_tp(top_p, eg)
     # the bf16 wire keeps the combine operands in the activation dtype;
     # f32 only in the top-k accumulation
     w = top_p.to(gathered.dtype) if cfg.moe_bf16_wire else top_p
-    out = _with_shared(params, cfg, xf, _combine(gathered, w))
+    out = _tp_out(params, cfg, xf, xs, _combine(gathered, w), eg, sg)
     return out.to(x.dtype).reshape(B, S, d), aux
 
 
 def moe_apply_rowwise(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """Row-wise (per-batch-row) dispatch: every position and capacity is
     row-local (C_row from S tokens), the combine runs on a bf16 wire.
-    Same routing and aux loss as the flat path."""
+    Same routing and aux loss as the flat path, and the same TP split
+    (:func:`_moe_apply_flat`)."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     C = capacity(cfg, S)
+    xf = x.reshape(B * S, d)
+    eg, sg = _tp_groups(cfg)
 
-    probs, top_p, top_e = _route(x.reshape(B * S, d), params["router"], k)
+    probs, top_p, top_e = _route(xf, params["router"], k)
     aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (B * S * k))
 
     flat_e = top_e.reshape(B, S * k)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, S * k)
     pos = _positions((rows * E + flat_e).reshape(-1), B * E).reshape(B, S * k)
-    xk = x[:, :, None].expand(B, S, k, d).reshape(B, S * k, d)
+    xs = copy_to_tp(xf, eg if eg is not None else sg)
+    le, E_loc = _local_experts(flat_e, eg, E)
+    xe = (xs if eg is not None else xf).reshape(B, S, d)
+    xk = xe[:, :, None].expand(B, S, k, d).reshape(B, S * k, d)
     # laid out (E, B, C, d), so the expert products batch over E alone
     # and no weight is broadcast over the rows
-    buf = _put((E, B, C), (flat_e, rows, pos), xk)
-    out_buf = _experts(buf.reshape(E, B * C, d), params["wg"], params["wu"], params["wd"])
-    gathered = _take(out_buf.reshape(E, B, C, d), (flat_e, rows, pos)).reshape(B, S, k, d)
-    out = _combine(gathered, top_p.reshape(B, S, k).to(x.dtype))
-    xf = x.reshape(B * S, d)
-    out = _with_shared(params, cfg, xf, out.reshape(B * S, d))
+    buf = _put((E_loc, B, C), (le, rows, pos), xk)
+    out_buf = _experts(buf.reshape(E_loc, B * C, d), params["wg"], params["wu"], params["wd"])
+    gathered = _take(out_buf.reshape(E_loc, B, C, d), (le, rows, pos)).reshape(B, S, k, d)
+    w = copy_to_tp(top_p, eg).reshape(B, S, k).to(x.dtype)
+    out = _combine(gathered, w).reshape(B * S, d)
+    out = _tp_out(params, cfg, xf, xs, out, eg, sg)
     return out.to(x.dtype).reshape(B, S, d), aux
 
 
@@ -416,7 +496,8 @@ def moe_apply_ep(
 
 
 def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelConfig):
-    """Route ``cfg.moe_ep_dispatch``: with a virtual mesh named by
+    """Route ``cfg.moe_ep_dispatch`` (refused under a live ``model``
+    axis): with a virtual mesh named by
     ``parallel.hints.set_mesh`` whose DP group divides the experts and
     the batch, split the batch into that many rows, run
     :func:`moe_apply_ep` on them and merge; with a mesh whose DP axes
@@ -424,6 +505,11 @@ def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelCon
     this rank's tokens through its process form; anything else (no
     mesh, no DP axis, indivisible experts or batch) takes the
     single-device path, which per-row params (a list) cannot take."""
+
+    if hints.tp_size() > 1:
+        raise NotImplementedError(
+            f"moe_ep_dispatch at TP={hints.tp_size()}: expert parallelism over the DP axes "
+            "composed with experts over model is not ported (ROADMAP item 9c, entry 4)")
 
     def fallback():
         if isinstance(params, list):

@@ -42,12 +42,16 @@ in its decoder layers, and an ``enc`` cache leaf (B, T, d) bf16 with no
 
 Tensor parallelism: on a mesh whose ``model`` axis is live
 (``parallel.hints.set_mesh`` of a ``ProcessMesh``, as the train step
-runs), the training forward of the dense family is Megatron's: the
-embedding and the head table split by vocab rows (a dim that the TP
-size does not divide stays whole, as ``param_pspecs`` leaves it),
-attention by heads, the SwiGLU by ``d_ff``, and the loss is the
-vocab-parallel cross-entropy (``parallel.tp``). Every other family
-raises ``NotImplementedError`` there (:func:`check_tp`).
+runs), the training forward of the dense, MoE, MLA, Mamba-2 and hybrid
+families is Megatron's: the embedding and the head table split by vocab
+rows (a dim that the TP size does not divide stays whole, as
+``param_pspecs`` leaves it), GQA and MLA by heads, the SwiGLU by
+``d_ff``, the MoE by experts (``models.moe``), Mamba-2 by ``d_inner``
+(``models.mamba2``), and the loss is the vocab-parallel cross-entropy
+(``parallel.tp``). Each mixer and FFN reads the TP group off the active
+mesh. M-RoPE with ``attn_seq_shard`` (qwen2-vl) and the
+encoder-decoder (whisper) raise ``NotImplementedError`` there
+(:func:`check_tp`).
 """
 
 from __future__ import annotations
@@ -127,7 +131,7 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
         return x + h, aux
     if cfg.ffn_activation != "swiglu":
         return x + gelu_mlp(params["ffn"], h), None
-    return x + swiglu(params["ffn"], h, group=_split_group(cfg.d_ff)), None
+    return x + swiglu(params["ffn"], h, group=hints.tp_split_group(cfg.d_ff)), None
 
 
 def _cross(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
@@ -442,39 +446,30 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
     return cache
 
 
-def _split_group(n: int):
-    """The active TP group when it splits a dim of ``n`` (the TP size
-    divides it, as ``param_pspecs`` decides), else ``None``."""
-    group = hints.tp_group()
-    return group if group is not None and n % hints.tp_size() == 0 else None
-
-
 def check_tp(cfg: ModelConfig) -> None:
     """Refuse a config whose tensor-parallel form is not ported, when
-    the active mesh's ``model`` axis is live: TP covers the dense family
-    (``NotImplementedError`` names the ROADMAP item of the others)."""
+    the active mesh's ``model`` axis is live: TP covers the dense, MoE,
+    MLA, Mamba-2 and hybrid families (``NotImplementedError`` names the
+    ROADMAP 9c entry of each missing piece)."""
     if hints.tp_size() == 1:
         return
-    specs = {s for pattern, _ in cfg.layer_groups() for s in pattern}
     left_out = [
-        (cfg.is_encdec, "the encoder-decoder"),
-        (any(s.ffn == "moe" for s in specs), "MoE experts over the model axis"),
-        (any(s.mixer == "mla" for s in specs), "MLA's column-parallel recovery projections"),
-        (any(s.mixer == "mamba" for s in specs), "Mamba-2's d_inner sharding"),
-        (cfg.pos_scheme == "mrope" or cfg.attn_seq_shard, "M-RoPE with attn_seq_shard"),
+        (cfg.pos_scheme == "mrope" or cfg.attn_seq_shard, "M-RoPE with attn_seq_shard", 2),
+        (cfg.is_encdec, "the encoder-decoder", 3),
     ]
-    missing = [what for hit, what in left_out if hit]
+    missing = [f"{what} (ROADMAP item 9c, entry {n})" for hit, what, n in left_out if hit]
     if missing:
         raise NotImplementedError(
             f"{cfg.name} at TP={hints.tp_size()}: tensor parallelism for "
-            f"{' and '.join(missing)} is not ported (ROADMAP item 9c); the dense family runs")
+            f"{' and '.join(missing)} is not ported; the dense, MoE, MLA, Mamba-2 and "
+            "hybrid families run")
 
 
 def _refuse_tp_serving() -> None:
     if hints.tp_size() > 1:
         raise NotImplementedError(
             f"prefill and decode at TP={hints.tp_size()}: TP serving (the cells' "
-            "cache_pspecs) is not ported (ROADMAP item 9c)")
+            "cache_pspecs) is not ported (ROADMAP item 9c, entry 6)")
 
 
 def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -492,7 +487,7 @@ def _inputs(params: Params, cfg: ModelConfig, batch: dict, remat: str):
         positions = batch["positions"]
     else:
         tokens = batch["tokens"]
-        x = embed(params["embed"], tokens, group=_split_group(cfg.vocab_size))
+        x = embed(params["embed"], tokens, group=hints.tp_split_group(cfg.vocab_size))
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device).expand(tokens.shape)
     S = x.shape[1]
@@ -523,7 +518,7 @@ def _ce(params: Params, cfg: ModelConfig, hidden: torch.Tensor, labels: torch.Te
     sequence chunks, with f32 logits against the f32 head table; with a
     vocab-split head table, each rank's block of the logits and the
     vocab-parallel CE."""
-    group = _split_group(cfg.vocab_size)
+    group = hints.tp_split_group(cfg.vocab_size)
     labels = labels.long()
     B, S, _ = hidden.shape
     chunks = loss_chunks

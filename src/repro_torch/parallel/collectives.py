@@ -693,7 +693,7 @@ def torrent_grad_reduce(
     return _reduced(per_rank, mesh, scheduler=scheduler, hierarchical=hierarchical,
                     num_chains=num_chains, algo=algo, wire_dtype=wire_dtype,
                     error_feedback=error_feedback, bucket_bytes=bucket_bytes,
-                    topology=topology, spans=spans)
+                    topology=topology, spans=spans, reuse=group is None)
 
 
 def torrent_joint_grad_reduce(
@@ -739,19 +739,23 @@ def _rank_mean(metrics: PyTree, group, dp_size: int) -> PyTree:
     return unflatten(metrics, [(t / dp_size).to(m.dtype) for t, m in zip(total, flat)])
 
 
-def _reduced(stacked_fn, mesh, *, spans, error_feedback, **reduce_kw):
+def _reduced(stacked_fn, mesh, *, spans, error_feedback, reuse=True, **reduce_kw):
     """Wrap ``stacked_fn(params, batch, out) -> (stacked, metrics)`` so
     its stacked per-rank grads come back reduced by
-    :func:`make_stacked_reduce`; the stacked buffers are kept and handed
-    back as ``out`` on the next call."""
+    :func:`make_stacked_reduce`; with ``reuse`` the stacked buffers are
+    kept and handed back as ``out`` on the next call (the process form's
+    rows are views of the grads it just made, which would only be held
+    through the optimizer: a second copy of the grads)."""
     reduce = make_stacked_reduce(mesh, error_feedback=error_feedback, **reduce_kw)
     buf: dict[str, list[torch.Tensor] | None] = {"stacked": None}
 
     def _grads(params, batch, residual=None):
         stacked, metrics = stacked_fn(params, batch, buf["stacked"])
-        buf["stacked"] = stacked
+        if reuse:
+            buf["stacked"] = stacked
         with maybe_span(spans, "reduce", stacked[0].device):
             out = reduce(stacked, None if residual is None else leaves(residual))
+        del stacked
         return unflatten(params, out), metrics
 
     def wrapped(params, batch):

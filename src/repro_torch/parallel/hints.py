@@ -84,6 +84,14 @@ def tp_size() -> int:
     return 1 if mesh is None else mesh.shape.get(TP, 1)
 
 
+def tp_split_group(n: int):
+    """The active TP group when it splits a dim of ``n`` (the TP size
+    divides it, as ``param_pspecs`` decides), else ``None``: a dim the
+    TP size does not divide stays whole, and its layer runs unsplit."""
+    group = tp_group()
+    return group if group is not None and n % tp_size() == 0 else None
+
+
 def maybe_shard(x, *axes: AxisLike):
     """JAX's ``with_sharding_constraint`` hint: ``x`` itself (the port
     places state explicitly, by ``parallel.sharding.shard_tree``)."""

@@ -14,6 +14,11 @@ matmul needs them. Here the model code calls them on the group that
 * :func:`reduce_from_tp` — all-reduce forward, identity backward: the
   partial sums of a row-parallel matmul (the loss is replicated, so
   every rank already holds the whole grad of the sum);
+* :func:`sum_over_tp` — all-reduce forward and backward
+  (``copy_to_tp ∘ reduce_from_tp``): a statistic that every rank sums
+  over its shard and then feeds its own shard again (Mamba-2's gated
+  norm's sum of squares over the whole ``d_inner``): each rank's grad of
+  the sum holds only its shard's share;
 * :func:`gather_from_tp` — all-gather along a dim forward; backward the
   sum of every rank's grad of the gathered tensor, of which this rank
   keeps its own block (a reduce-scatter): where the ranks use different
@@ -32,8 +37,8 @@ a gloo group travels through the host, as in ``core.chainwrite_dist``.
 
 :data:`tp_counter` counts the payload bytes this process hands to the
 collectives of a TP group, forward and backward apart;
-:func:`modeled_tp_bytes` is what a dense model's train step should
-count. Inside :func:`timed` each collective is a ``tp_comm`` span.
+:func:`modeled_tp_bytes` is what a train step of the dense, MoE, MLA,
+Mamba-2 or hybrid family should count. Inside :func:`timed` each collective is a ``tp_comm`` span.
 """
 
 from __future__ import annotations
@@ -132,6 +137,17 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group, "fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "bwd"), None
+
+
 class _GatherFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
@@ -153,6 +169,13 @@ def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
 def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of every rank's ``x`` over ``group``; identity backward."""
     return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def sum_over_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``; backward, the grad
+    summed over ``group`` too. For a sum every rank then uses on its own
+    shard only, so that its grad on each rank is that shard's share."""
+    return x if group is None else _SumOverTP.apply(x, group)
 
 
 def gather_from_tp(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
@@ -188,36 +211,90 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, group,
     return (lse - gold).sum(), (lse ** 2).sum() * z_loss
 
 
+def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int) -> tuple[int, int, int]:
+    """(forward, backward, tail) payload bytes of one layer of ``spec``
+    on ``tokens`` at TP ``tp``; ``tail`` is the forward's last
+    all-reduce where nothing after it in the layer saves a tensor for
+    the backward (the recompute of a remat'd body stops before it)."""
+    act = tokens * cfg.d_model * act_bytes
+    fwd = bwd = 0
+    mixer_out = 0
+    if spec.mixer == "gqa":
+        kv_cols = cfg.num_kv_heads * cfg.resolved_head_dim
+        gather = cfg.num_kv_heads % tp != 0
+        # wo's all-reduce, the K/V gather; the input's grad, the gathered K/V's
+        fwd += act + gather * 2 * tokens * (kv_cols // tp) * act_bytes
+        bwd += act + gather * 2 * tokens * kv_cols * act_bytes
+        mixer_out = act
+    elif spec.mixer == "mla":
+        # wo's all-reduce; the grads of wq's input and of c/k_rope
+        fwd += act
+        bwd += act + tokens * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * act_bytes
+        mixer_out = act
+    elif cfg.d_inner % tp == 0:  # mamba, split by d_inner
+        H, GN = cfg.ssm_nheads, cfg.ssm_ngroups * cfg.ssm_state
+        # out_proj's all-reduce and the norm's f32 sum of squares; the
+        # grads of in_z/in_x's input, of B/C and dt (f32, replicated), of
+        # A_log and D, and of the sum of squares
+        fwd += act + tokens * 4
+        bwd += act + tokens * (2 * GN + H) * 4 + 2 * H * 4 + tokens * 4
+        mixer_out = act
+    ffn_out = 0
+    if spec.ffn == "dense" and cfg.ffn_activation == "swiglu" and cfg.d_ff % tp == 0:
+        fwd, bwd, ffn_out = fwd + act, bwd + act, act
+    elif spec.ffn == "moe":
+        experts = cfg.num_experts % tp == 0
+        shared = cfg.num_shared_experts and (cfg.num_shared_experts * cfg.moe_d_ff) % tp == 0
+        if experts or shared:
+            # the f32 combine's all-reduce; the grads of the split
+            # branches' input and of the router weights top_p
+            ffn_out = tokens * cfg.d_model * 4
+            fwd += ffn_out
+            bwd += act + experts * tokens * cfg.moe_top_k * 4
+    tail = ffn_out if spec.ffn != "none" else mixer_out
+    return fwd, bwd, tail
+
+
 def modeled_tp_bytes(cfg, tokens: int, tp: int, *, remat: bool = True) -> dict:
     """The payload bytes :data:`tp_counter` counts for one train step of
-    the dense ``cfg`` on ``tokens`` (B·S) of this rank, at TP ``tp``:
-    forward, per layer, the attention output's all-reduce, the SwiGLU's
-    (where ``d_ff`` is split) and the K/V gather (where a rank holds
-    part of a KV head); with ``remat``, the recompute once more, but for
-    the SwiGLU's all-reduce: ``torch.utils.checkpoint`` stops a layer's
-    recompute at the last tensor its backward saved, the ``down``
-    product's input, before that all-reduce; the
-    embedding's all-reduce and the CE's three per-token f32 reductions
-    (max, sum of exponentials, gold) where the vocab is split, and the
-    optimizer's one f32 norm. Backward, per layer, the all-reduce of the
-    attention and SwiGLU inputs' grads and of the gathered K/V's grad;
-    the f32 hidden's grad of the split head. Activations are in the
-    compute dtype (``models.layers.COMPUTE_DTYPE``)."""
+    ``cfg`` (the dense, MoE, MLA, Mamba-2 or hybrid family) on
+    ``tokens`` (B·S) of this rank, at TP ``tp``. Forward, per layer:
+    the mixer's output all-reduce (GQA's and MLA's ``wo``, Mamba-2's
+    ``out_proj`` where ``d_inner`` is split), GQA's K/V gather (where a
+    rank holds part of a KV head), Mamba-2's gated-norm sum of squares
+    (f32, one a token), the SwiGLU's all-reduce (where ``d_ff`` is
+    split) or the MoE's f32 combine (where the experts or the shared
+    experts are split); with ``remat``, each remat'd body (one pattern
+    application) once more, but for its last layer's final all-reduce:
+    ``torch.utils.checkpoint`` stops the recompute at the last tensor
+    the backward saved, before it; the embedding's all-reduce and the
+    CE's three per-token f32 reductions (max, sum of exponentials, gold)
+    where the vocab is split, and the optimizer's one f32 norm.
+    Backward, per layer: the grads of the column-parallel inputs
+    (attention's, MLA's ``wq``, Mamba-2's ``in_z``/``in_x``, the
+    SwiGLU's, the MoE's split branches), of the replicated tensors where
+    the split use begins (MLA's ``c``/``k_rope``, Mamba-2's B/C, dt,
+    ``A_log`` and ``D``, the MoE's ``top_p``), of the gathered K/V and
+    of the norm's sum of squares; the f32 hidden's grad of the split
+    head. Activations are in the compute dtype
+    (``models.layers.COMPUTE_DTYPE``)."""
     from repro_torch.models.layers import COMPUTE_DTYPE
 
     act_bytes = COMPUTE_DTYPE.itemsize
-    d, kv_cols = cfg.d_model, cfg.num_kv_heads * cfg.resolved_head_dim
-    act = tokens * d * act_bytes
-    ffn, vocab = cfg.d_ff % tp == 0, cfg.vocab_size % tp == 0
-    gather = cfg.num_kv_heads % tp != 0
-    fwd_layer = act + act * ffn + gather * 2 * tokens * (kv_cols // tp) * act_bytes
-    bwd_layer = act + act * ffn + gather * 2 * tokens * kv_cols * act_bytes
-    L = cfg.num_layers
-    recompute = fwd_layer - act * ffn if remat else 0
-    fwd = L * (fwd_layer + recompute) + vocab * (act + 3 * tokens * 4) + 4
-    bwd = L * bwd_layer + vocab * tokens * d * 4
+    act = tokens * cfg.d_model * act_bytes
+    vocab = cfg.vocab_size % tp == 0
+    fwd, bwd = 0, 0
+    for pattern, reps in cfg.layer_groups():
+        layers = [_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes) for spec in pattern]
+        body = sum(f for f, _, _ in layers)
+        recompute = body - layers[-1][2] if remat else 0
+        fwd += reps * (body + recompute)
+        bwd += reps * sum(b for _, b, _ in layers)
+    fwd += vocab * (act + 3 * tokens * 4) + 4
+    bwd += vocab * tokens * cfg.d_model * 4
     return {"fwd": fwd, "bwd": bwd}
 
 
 __all__ = ["TPCounter", "all_gather", "all_reduce", "copy_to_tp", "gather_from_tp",
-           "modeled_tp_bytes", "reduce_from_tp", "timed", "tp_counter", "vocab_parallel_ce"]
+           "modeled_tp_bytes", "reduce_from_tp", "sum_over_tp", "timed", "tp_counter",
+           "vocab_parallel_ce"]

@@ -19,9 +19,7 @@ ARCH = "yi-6b"  # smoke: 4 heads, 2 KV heads (TP = 4 splits a KV head)
 ARCHS = ("starcoder2-3b", "yi-6b", "h2o-danube-1.8b", "llama3-8b", "deepseek-v2-lite-16b",
          "deepseek-moe-16b", "jamba-v0.1-52b", "qwen2-vl-7b", "mamba2-2.7b", "whisper-tiny")
 # the families TP does not cover yet, each with the words its refusal names
-LEFT_OUT = {"deepseek-moe-16b": "MoE", "deepseek-v2-lite-16b": "MLA",
-            "mamba2-2.7b": "Mamba-2", "jamba-v0.1-52b": "MoE", "qwen2-vl-7b": "M-RoPE",
-            "whisper-tiny": "encoder-decoder"}
+LEFT_OUT = {"qwen2-vl-7b": "M-RoPE", "whisper-tiny": "encoder-decoder"}
 # a first AdamW step linear in the grads (eps = 1), for comparing updates
 LINEAR_ADAMW = dict(peak_lr=1e-2, warmup_steps=1, decay_steps=10, eps=1.0)
 TRAINER = dict(arch=ARCH, smoke=True, steps=6, global_batch=8, seq_len=32, peak_lr=2e-3,
@@ -189,8 +187,9 @@ def train_case(mesh, params_np, batch_np, device) -> dict:
 
 def refusals(mesh, device) -> dict:
     """The message each left-out family's training forward raises with
-    on ``mesh`` (a live ``model`` axis), and a dense config whose heads
-    the TP size does not divide."""
+    on ``mesh`` (a live ``model`` axis), a dense config whose heads the
+    TP size does not divide, and a MoE config with ``moe_ep_dispatch``
+    (EP over the DP axes composed with experts over ``model``)."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.parallel import hints
@@ -201,6 +200,8 @@ def refusals(mesh, device) -> dict:
     cases = {arch: C.get_smoke_config(arch) for arch in LEFT_OUT}
     cases["heads"] = dataclasses.replace(C.get_smoke_config(ARCH), num_heads=3,
                                          num_kv_heads=1, d_model=48)
+    cases["moe_ep"] = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"),
+                                          moe_ep_dispatch=True)
     for name, cfg in cases.items():
         full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
         params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)

@@ -971,3 +971,31 @@ def test_tp_ops_on_one_card_match_cpu(cuda):
         for a, b in zip(g["ce"][:2], w["ce"][:2]):
             assert abs(a - b) <= 1e-5 * abs(b)
         np.testing.assert_allclose(g["ce"][2], w["ce"][2], atol=1e-6, rtol=1e-5)
+
+
+def test_tp_gated_norm_and_moe_split_on_one_card(cuda):
+    """Two gloo ranks sharing the card on a ``(data=1, model=2)`` mesh:
+    Mamba-2's gated norm with its sum of squares over the model group,
+    and a MoE layer (flat and rowwise) with its experts and shared-expert
+    columns split over it, against the unsplit function on the same
+    card: outputs and grads within 1e-5 relative (f32 compute; they
+    differ by the order of f32 sums)."""
+    import _tp_family_cases as fc
+    from repro_torch.launch.dist import spawn
+
+    ranks = spawn(fc.card_world, 2, backend="gloo", device="cuda", timeout_s=300)
+    k = fc.NORM_SHAPE[-1] // 2
+    for r in ranks:
+        i = r["coord"]
+        whole = r["norm_whole"]
+        for key in ("y", "dx", "dz"):
+            np.testing.assert_allclose(r["norm"][key], whole[key][..., i * k:(i + 1) * k],
+                                       atol=1e-6, rtol=1e-5)
+        np.testing.assert_allclose(r["norm"]["dscale"], whole["dscale"][i * k:(i + 1) * k],
+                                   atol=1e-6, rtol=1e-5)
+        for path in ("flat", "rowwise"):
+            got, want = r["moe"][f"{path}/split"], r["moe"][f"{path}/whole"]
+            assert abs(got["aux"] - want["aux"]) <= 1e-6 * abs(want["aux"])
+            for key in ("y", "dx", "drouter", "dwg"):
+                scale = np.abs(want[key]).max()
+                assert np.abs(got[key] - want[key]).max() <= 1e-5 * scale, (path, key)
