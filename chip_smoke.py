@@ -205,6 +205,36 @@ Phases (any failure exits non-zero and prints no result):
    first-step grad shards within ``TP_GRAD_TOL`` of its block of the
    reference's, 3 exact (and, but for jamba, 3 int8 + EF) steps, with
    every check of phase 18. ``tp_families_train`` in the kernels line.
+20. tp serve: tensor-parallel serving on ``(data=1, model=2)``, two
+   gloo ranks sharing the card, full width, ``attn_impl="flash"``
+   (``TP_SERVE``): yi-6b (all 32 layers), mamba2-2.7b (all 64),
+   deepseek-v2-lite-16b (8 of 27) and jamba-v0.1-52b (5 of 32). Per
+   model a TP = 1 reference from the same seed in this process, with
+   the plain attention (``attn_impl="reference"``), then
+   freed: ``make_prefill_step`` on 4 x 512-token prompts, 32 greedy
+   steps, a ``make_slot_prefill_step`` admission of a 256-token prompt
+   written in with ``write_cache_slot`` before step 16 and per-slot
+   positions from there, and one ``decode_step`` for the last logits
+   (deepseek-v2-lite-16b: in both MLA decode forms). Then the two ranks,
+   each holding its shards (``param_pspecs``, cut as drawn), drive the
+   same traffic through the same step builders fed the reference's
+   tokens and routed as it routed: their greedy tokens equal the
+   reference's, or each token that differs is a near tie of its logits,
+   prefill and last logits within ``TP_SERVE_LOGIT_TOL`` (jamba's decode
+   ``TP_SERVE_DECODE_TOL``) of the reference's, both ranks' gathered
+   logits bit-equal, the gathered cache (``sharding.gather_cache``)
+   within ``TP_SERVE_CACHE_TOL`` of the reference's per leaf, the model
+   group's payload of the prefill, a decode step and the admission equal
+   to ``modeled_tp_serve_bytes``, no allocator retry, and per rank one
+   flash launch (wgmma) per attention layer in each prefill. Prints per
+   rank the state and peak memory, the prefill's and a decode step's
+   event ms and the ``tp_comm`` share of the traffic's wall;
+   ``tp_serve`` in the kernels line. The flash phase holds the kernel
+   at the ranks' prefill and admission shapes here and on four cards'
+   TP = 4. For mamba2-2.7b (f32 compute, bf16 conv window) a witness
+   (``tp_serve_witness``) shows where its decode logits part from
+   TP = 1's: the ranks' prefill cache within one bf16 step of TP = 1's,
+   and TP = 1's decode started from that cache against its own.
 
 Then one JSON line with every kernel's launches, times, bound and error,
 and, as the last line, ``{"ok": true, "device": {...}}``. In every case
@@ -498,6 +528,19 @@ def flash_phase() -> dict:
         # the vlm decode phase's (qwen2-vl-7b: 28 heads on 4 KV heads, a
         # GQA group of 7; make_prefill_step runs the batch's 4 prompts at once)
         ("qwen2vl_prefill", 4, 28, 4, 512, 128, bf16, True, None, "wgmma"),
+        # one rank's shape in the tp serve phase's prefill (4 x 512 tokens,
+        # TP = 2: half the query heads and of the KV heads), and on the four
+        # cards' TP = 4 (yi-6b: 32 heads on 4 KV heads; jamba: 32 on 8)
+        ("yi6b_tp2_rank", 4, 16, 2, 512, 128, bf16, True, None, "wgmma"),
+        ("jamba_tp2_rank", 4, 16, 4, 512, 128, bf16, True, None, "wgmma"),
+        ("yi6b_tp4_rank", 4, 8, 1, 512, 128, bf16, True, None, "wgmma"),
+        ("jamba_tp4_rank", 4, 8, 2, 512, 128, bf16, True, None, "wgmma"),
+        # the same ranks' slot admission (make_slot_prefill_step of one
+        # 256-token prompt), at TP = 2 on one card and TP = 4 on four
+        ("yi6b_tp2_slot", 1, 16, 2, 256, 128, bf16, True, None, "wgmma"),
+        ("jamba_tp2_slot", 1, 16, 4, 256, 128, bf16, True, None, "wgmma"),
+        ("yi6b_tp4_slot", 1, 8, 1, 256, 128, bf16, True, None, "wgmma"),
+        ("jamba_tp4_slot", 1, 8, 2, 256, 128, bf16, True, None, "wgmma"),
         ("f32_window", 2, 4, 2, 384, 64, f32, True, 48, "tf32x3"),
         ("f32_window_noncausal", 1, 4, 4, 200, 64, f32, False, 100, "tf32x3"),
         # h2o-danube-1.8b's head dim, padded 80 -> 128
@@ -2962,6 +3005,476 @@ def tp_families_phase() -> dict:
     return {"train_launches": launches}
 
 
+# tensor-parallel serving on the card: TP = 2 over two gloo ranks sharing
+# it, full width, attn_impl="flash". Depths (None: every layer) as deep
+# as the TP = 1 reference from the same seed fits the card beside the
+# CUDA context: yi-6b 24.2 GB of f32 params, mamba2-2.7b 11.3 GB,
+# deepseek-v2-lite-16b 8 of 27 layers ~18 GB (its 27 would be 62.8 GB),
+# jamba-v0.1-52b 5 of 32 (its attention layer and two MoE layers,
+# ~27 GB)
+TP_SERVE = {"yi-6b": None, "mamba2-2.7b": None, "deepseek-v2-lite-16b": 8,
+            "jamba-v0.1-52b": 5}
+# the traffic: B prompts of S tokens prefilled at once, then STEPS greedy
+# decode steps; before step ADMIT one (1, SLOT_LEN) prompt is prefilled
+# into row SLOT, and the steps from there run at per-slot positions
+TP_SERVE_TRAFFIC = dict(B=4, S=512, STEPS=32, ADMIT=16, SLOT=1, SLOT_LEN=256, seed=0)
+TP_SERVE_MAX_SEQ = 576
+# TP = 2 against TP = 1 in bf16, the bounds tests/test_torch_model.py
+# holds these models to against JAX in bf16: logits within 5e-2 of the
+# row's max |logit| (jamba's decode 8e-2), each cache leaf within 5e-2
+# of its scale; a greedy token may differ only where the reference's
+# top-2 margin is within the logit bound of the row's scale (a near tie)
+TP_SERVE_LOGIT_TOL = 5e-2
+TP_SERVE_DECODE_TOL = {"jamba-v0.1-52b": 8e-2}
+TP_SERVE_CACHE_TOL = 5e-2
+# models whose TP = 2 and TP = 1 runs are compared with both computing
+# in f32 (``_tp_cases.compute_dtype``), and the prefill logit bound
+# there: mamba2-2.7b's 64 SSD layers amplify the two TP sizes' bf16
+# rounding differences to 0.358 of the logit scale at prefill (measured
+# on an H100), as they amplify any bf16 difference (the ssm serve
+# phase's drift bound is 0.25); in f32 the smoke model at 64 layers
+# agrees to 1.9e-5 on the CPU, the full one to 1.1e-4 on the H100. Its
+# decode still reads the bf16 conv window of the cache, so its decode
+# logits keep the bf16 bound (2.6e-2 after 32 steps on the H100). It
+# launches no kernel, so f32 costs the phase no kernel route
+TP_SERVE_F32 = {"mamba2-2.7b"}
+TP_SERVE_F32_LOGIT_TOL = 1e-3
+BF16_STEP = 2.0 ** -7  # one bf16 rounding step, relative to the larger value
+
+
+def tp_serve_config(arch: str, layers: int | None = -1, smoke: bool = False,
+                    attn_impl: str = "flash"):
+    """``arch``'s config at full width (``smoke``: its smoke config),
+    with ``attn_impl``, cut to ``layers`` (None: every layer; by
+    default its ``TP_SERVE`` depth)."""
+    from repro_torch import configs as Cfg
+
+    cfg = Cfg.get_smoke_config(arch) if smoke else Cfg.get_config(arch)
+    layers = TP_SERVE[arch] if layers == -1 else layers
+    return dataclasses.replace(cfg, attn_impl=attn_impl,
+                               num_layers=cfg.num_layers if layers is None else layers)
+
+
+def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
+                     traffic: dict | None = None, keep_prefill_cache: bool = False,
+                     edit_cache=None) -> dict:
+    """``traffic`` (default ``TP_SERVE_TRAFFIC``; its ``B`` rows are the
+    caller's) through the step builders on ``params``: a
+    ``make_prefill_step`` of the prompts, ``make_serve_step`` steps (a
+    ``make_slot_prefill_step`` admission written in with
+    ``write_cache_slot`` before step ``ADMIT``), then one
+    ``decode_step`` for the last logits in each MLA decode form. With
+    ``reference`` (the TP = 1 run's record) each step is fed the tokens
+    the reference was fed, so the two runs stay comparable where a near
+    tie makes them pick differently; each step's own greedy tokens are
+    recorded. Without it (the reference itself) each step runs
+    ``decode_step`` and the same argmax, so that its top-2 margins are
+    recorded too. ``tp_bytes`` holds the model group's payload of the
+    prefill, of the first step and of the admission (``tp_counter``).
+    ``keep_prefill_cache`` keeps a copy of the prefill's cache
+    (``prefill_cache``); ``edit_cache(cache)`` replaces it before the
+    first step. Returns the record; ``cache`` and the logits stay on the
+    device."""
+    import torch
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_slot_prefill_step, write_cache_slot)
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel.tp import tp_counter
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import map_tree
+
+    t = traffic or TP_SERVE_TRAFFIC
+    B, S, SLOT = t["B"], t["S"], t["SLOT"]
+    gen = torch.Generator().manual_seed(t["seed"] + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)
+    prompts = prompts[t.get("rows", slice(None))]
+    B = prompts.shape[0]
+    slot = torch.randint(0, cfg.vocab_size, (1, t["SLOT_LEN"]), generator=gen,
+                         dtype=torch.int32)
+    step = make_serve_step(cfg)
+    out = {"inputs": [], "tokens": [], "margins": [], "tp_bytes": {}}
+    dev = torch.device(device)
+    spans = Spans()  # CUDA events on a card
+
+    def greedy(tok, pos, cache):
+        if reference is not None:
+            return step(params, tok, pos, cache)
+        logits, cache = Tm.decode_step(params, cfg, tok, pos, cache)
+        top2 = logits.topk(2, dim=-1).values
+        out["margins"].append(((top2[:, 0] - top2[:, 1])
+                               / logits.abs().amax(-1)).cpu())
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    with torch.no_grad():
+        tp_counter.reset()
+        with spans.span("prefill", dev):
+            logits, cache = make_prefill_step(cfg, TP_SERVE_MAX_SEQ)(
+                params, {"tokens": prompts.to(device)})
+        out["tp_bytes"]["prefill"] = dict(tp_counter.bytes)
+        out["prefill_logits"] = logits
+        if keep_prefill_cache:
+            out["prefill_cache"] = map_tree(torch.clone, cache)
+        if edit_cache is not None:
+            cache = edit_cache(cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos = torch.full((B,), S, dtype=torch.int32, device=device)
+        for i in range(t["STEPS"]):
+            if i == t["ADMIT"]:
+                tp_counter.reset()
+                first, one = make_slot_prefill_step(cfg, TP_SERVE_MAX_SEQ)(params,
+                                                                            slot.to(device))
+                out["tp_bytes"]["slot"] = dict(tp_counter.bytes)
+                write_cache_slot(cache, one, SLOT)
+                out["slot_token"] = int(first[0])
+                tok[SLOT] = first[0]
+                pos[SLOT] = t["SLOT_LEN"]
+            if reference is not None:
+                tok = reference["inputs"][i].to(device)
+            out["inputs"].append(tok.cpu())
+            p = pos if i >= t["ADMIT"] else torch.tensor(S + i, dtype=torch.int32)
+            tp_counter.reset()
+            with spans.span("step", dev):
+                tok, cache = greedy(tok, p, cache)
+            out["tp_bytes"].setdefault("decode", dict(tp_counter.bytes))
+            out["tokens"].append(tok.cpu())
+            pos += 1
+        if reference is not None:
+            tok = reference["last_input"].to(device)
+        out["last_input"] = tok.cpu()
+        out["final_logits"] = {}
+        forms = (False, True) if cfg.attention == "mla" else (cfg.mla_absorb,)
+        for absorb in forms:
+            c = dataclasses.replace(cfg, mla_absorb=absorb)
+            snapshot = map_tree(torch.clone, cache) if len(forms) > 1 else cache
+            out["final_logits"][absorb] = Tm.decode_step(params, c, tok, pos, snapshot)[0]
+        out["cache"] = cache
+    ms = spans.read()
+    out["prefill_ms"], out["step_ms"] = ms["prefill"][0], ms["step"]
+    return out
+
+
+def tp_serve_reference(arch: str, ref_dir: str, device="cuda", layers: int | None = -1,
+                       traffic: dict | None = None, smoke: bool = False) -> dict:
+    """The TP = 1 run of ``arch`` (cut to ``layers``, as
+    :func:`tp_serve_config`, with the plain attention: the ranks' flash
+    kernel is held against it) on the card from the seed the ranks use
+    (``tp_serve_traffic`` of ``traffic``), its MoE calls' routing
+    recorded: logits, tokens, margins, routing and the cache saved in
+    ``ref_dir``, and for ``TP_SERVE_F32`` its prefill's cache too; frees
+    the card before it returns. Returns its times and peak memory."""
+    import numpy as np
+    import torch
+    from _moe_routing import recorded_routing
+    from repro_torch.models import transformer as Tm
+    from repro_torch.tree import leaves
+
+    cuda = torch.device(device).type == "cuda"
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cfg = tp_serve_config(arch, layers, smoke, attn_impl="reference")
+    params = Tm.model_init(torch.Generator(device=device).manual_seed(TP_SERVE_TRAFFIC["seed"]),
+                           cfg, device)
+    reset_launches()
+    with recorded_routing() as seen, _serve_dtype(arch):
+        rec = tp_serve_traffic(cfg, params, device, traffic=traffic,
+                               keep_prefill_cache=arch in TP_SERVE_F32)
+    if arch in TP_SERVE_F32:
+        torch.save([x.cpu() for x in leaves(rec.pop("prefill_cache"))],
+                   f"{ref_dir}/{arch}_prefill_cache.pt")
+    torch.save({"prefill_logits": rec["prefill_logits"].cpu(),
+                "final_logits": {k: v.cpu() for k, v in rec["final_logits"].items()},
+                "inputs": rec["inputs"], "tokens": rec["tokens"], "margins": rec["margins"],
+                "last_input": rec["last_input"], "slot_token": rec["slot_token"],
+                "routing": [x.cpu() for x in seen]}, f"{ref_dir}/{arch}.pt")
+    torch.save([x.cpu() for x in leaves(rec["cache"])], f"{ref_dir}/{arch}_cache.pt")
+    out = {"layers": cfg.num_layers, "prefill_ms": rec["prefill_ms"],
+           "decode_step_ms": float(np.median(rec["step_ms"])),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+           "launches": read_launches(), "moe_calls": len(seen)}
+    del params, rec, seen
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _serve_dtype(arch: str):
+    """The compute dtype of ``arch``'s tp serve runs: f32 for
+    ``TP_SERVE_F32``, else the default (bf16)."""
+    import torch
+    from _tp_cases import compute_dtype
+
+    return compute_dtype(torch.float32) if arch in TP_SERVE_F32 else contextlib.nullcontext()
+
+
+def token_differences(tokens: list, ref: dict) -> list[dict]:
+    """Every (step, row) whose greedy token in ``tokens`` differs from
+    the reference's, with the reference's top-2 margin there relative to
+    its row's max |logit|. Each step is fed the reference's tokens, so
+    each difference is a choice of its own."""
+    return [{"step": i, "row": r, "reference_top2_margin_rel": float(ref["margins"][i][r])}
+            for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+            for r in (a != b).nonzero().flatten().tolist()]
+
+
+def _rel_rows(a, b) -> float:
+    """The worst row's max |a - b| over that row's max |b|."""
+    return float(((a.float() - b.float()).abs().amax(-1) / b.float().abs().amax(-1)).max())
+
+
+def tp_serve_rank(rank, world, device, ref_dir, archs):
+    """One rank of the tp serve phase (a spawned process): for each arch
+    of ``TP_SERVE``, this rank's shards (``param_pspecs`` placed as each
+    leaf is drawn, the same seed) serve ``TP_SERVE_TRAFFIC`` on a
+    ``(data=1, model=world)`` mesh, fed the reference's tokens and routed
+    as it routed (``tests/_moe_routing.py``); the record holds the
+    greedy tokens against the reference's, the gathered logits and
+    cache against its, the model group's payload of the prefill, a
+    decode step and the admission against ``modeled_tp_serve_bytes``,
+    the times, the ``tp_comm`` spans, the peak memory, allocator retries
+    and this rank's flash launches. The gathered logits go back to the
+    phase, which holds the two ranks' bit for bit."""
+    import numpy as np
+    import torch
+    from _moe_routing import routing_as
+    from repro_torch import configs as Cfg
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    mesh = make_process_mesh(model=world)
+    t = TP_SERVE_TRAFFIC
+    out = {}
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for arch in archs:
+        cfg = tp_serve_config(arch)
+        ref = torch.load(f"{ref_dir}/{arch}.pt", weights_only=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        specs = shd.logical_pspecs(cfg, world)
+        params = Tm.model_init(torch.Generator(device=device).manual_seed(t["seed"]), cfg,
+                               device, place=shd.leaf_placer(specs, mesh))
+        rec = {"init_s": time.perf_counter() - t0,
+               "state_memory_gb": torch.cuda.memory_allocated() / 1e9,
+               "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        spans = Spans()
+        t1 = time.perf_counter()
+        with hints.set_mesh(mesh), tpm.timed(spans), routing_as(ref["routing"]) as flips, \
+                _serve_dtype(arch):
+            got = tp_serve_traffic(cfg, params, device, reference=ref,
+                                   keep_prefill_cache=arch in TP_SERVE_F32)
+            model = {"prefill": tpm.modeled_tp_serve_bytes(cfg, t["B"], t["S"], world),
+                     "decode": tpm.modeled_tp_serve_bytes(cfg, t["B"], 1, world),
+                     "slot": tpm.modeled_tp_serve_bytes(cfg, 1, t["SLOT_LEN"], world)}
+        wall = time.perf_counter() - t1
+        comm = spans.read().get("tp_comm", [])
+        cspecs = shd.logical_cache_pspecs(cfg, Cfg.SHAPES["decode_32k"], t["B"],
+                                          TP_SERVE_MAX_SEQ, world)
+        if "prefill_cache" in got:  # for the witness, in JAX's layout
+            kept = shd.gather_cache(got.pop("prefill_cache"), cspecs, cfg, mesh)
+            if rank == 0:
+                torch.save([x.cpu() for x in leaves(kept)], f"{ref_dir}/{arch}_tp_prefill_cache.pt")
+            del kept
+        cache = shd.gather_cache(got["cache"], cspecs, cfg, mesh)
+        want_cache = torch.load(f"{ref_dir}/{arch}_cache.pt", weights_only=False)
+        cache_err = [float((a.float() - b.to(device).float()).abs().max()
+                           / b.float().abs().max().clamp_min(1e-30))
+                     for a, b in zip(leaves(cache), want_cache)]
+        del cache, want_cache
+        diffs = token_differences(got["tokens"], ref)
+        rec.update({
+            "layers": cfg.num_layers,
+            "tokens_equal": not diffs,
+            "differences": diffs,
+            "first_difference": diffs[0] if diffs else None,
+            "max_difference_margin_rel": max((d["reference_top2_margin_rel"] for d in diffs),
+                                             default=None),
+            "slot_token_equal": got["slot_token"] == ref["slot_token"],
+            "prefill_logits_rel": _rel_rows(got["prefill_logits"].cpu(), ref["prefill_logits"]),
+            "final_logits_rel": {str(k): _rel_rows(v.cpu(), ref["final_logits"][k])
+                                 for k, v in got["final_logits"].items()},
+            "cache_rel_max": max(cache_err),
+            "tp_bytes": got["tp_bytes"], "modeled_tp_bytes": model,
+            "tp_bytes_equal_model": got["tp_bytes"] == model,
+            "prefill_ms": got["prefill_ms"],
+            "decode_step_ms": float(np.median(got["step_ms"])),
+            "traffic_wall_s": wall,
+            "tp_comm_ms": sum(comm), "tp_comm_calls": len(comm),
+            "tp_comm_share": sum(comm) / 1e3 / wall,
+            "routing_flips": int(sum(int(f.sum()) for f in flips)),
+            "routed_tokens": int(sum(f.numel() for f in flips)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": read_launches(),
+            "logits": {"prefill": got["prefill_logits"].cpu(),
+                       **{f"final_{k}": v.cpu() for k, v in got["final_logits"].items()}}})
+        out[arch] = rec
+        del params, got
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    return out
+
+
+def tp_serve_witness(arch: str, ref_dir: str, device="cuda") -> dict:
+    """Where the TP ranks' decode logits part from the TP = 1 reference's
+    for an arch of ``TP_SERVE_F32`` (f32 compute, a bf16 ``conv`` window
+    in the cache). The ranks' gathered prefill cache against TP = 1's:
+    each bf16 leaf element by element within one bf16 rounding step of
+    the larger value plus ``TP_SERVE_F32_LOGIT_TOL`` of the leaf's scale
+    (``cache_within_one_bf16_step``), each f32 leaf's max relative
+    difference. Then TP = 1's own traffic (fed the reference's tokens)
+    replayed from three prefill caches, each one's last logits against
+    the reference's: its own (the replay's noise floor), the ranks'
+    (``tp1_from_tp_cache_rel``: what their rounding alone does), and its
+    own with the two ranks' head blocks swapped in the SSM state and the
+    ``x`` part of the window (what a wrong head split would do). Runs in
+    this process on ``device`` after the ranks have freed the card."""
+    import torch
+    from repro_torch.models import transformer as Tm
+    from repro_torch.tree import leaves, paths, unflatten
+
+    cfg = tp_serve_config(arch, attn_impl="reference")
+    ref = torch.load(f"{ref_dir}/{arch}.pt", weights_only=False)
+    own = torch.load(f"{ref_dir}/{arch}_prefill_cache.pt", weights_only=False)
+    tp = torch.load(f"{ref_dir}/{arch}_tp_prefill_cache.pt", weights_only=False)
+    keys = [p[-1] for p, _ in paths(Tm.init_cache(cfg, 1, 1, device="meta"))]
+    out = {"cache": {}, "cache_within_one_bf16_step": True}
+    for i, (key, a, b) in enumerate(zip(keys, tp, own)):
+        diff = (a.float() - b.float()).abs()
+        scale = b.float().abs().max().clamp_min(1e-30)
+        if b.dtype == torch.bfloat16:
+            bound = BF16_STEP * torch.maximum(a.float().abs(), b.float().abs())
+            worst = float((diff / (bound + TP_SERVE_F32_LOGIT_TOL * scale)).max())
+            out["cache_within_one_bf16_step"] &= worst <= 1
+            out["cache"][f"{i}/{key}"] = {"max_of_bound": worst,
+                                          "share_differing": float((diff > 0).float().mean())}
+        else:
+            out["cache"][f"{i}/{key}"] = {"max_rel": float(diff.max() / scale)}
+
+    def swapped(key, x):
+        if key == "ssm":  # (reps, B, H, ...): the two ranks' heads exchanged
+            return torch.roll(x, x.shape[2] // 2, dims=2)
+        if key == "conv":  # [x, B, C]: the two ranks' x blocks exchanged
+            d = cfg.d_inner
+            return torch.cat([torch.roll(x[..., :d], d // 2, dims=-1), x[..., d:]], -1)
+        return x
+
+    params = Tm.model_init(torch.Generator(device=device).manual_seed(TP_SERVE_TRAFFIC["seed"]),
+                           cfg, device)
+    last = next(iter(ref["final_logits"]))
+
+    def replay(start: list) -> float:
+        def edit(cache):
+            return unflatten(cache, [x.to(device=device, dtype=c.dtype)
+                                     for x, c in zip(start, leaves(cache))])
+
+        with _serve_dtype(arch):
+            rec = tp_serve_traffic(cfg, params, device, reference=ref, edit_cache=edit)
+        return _rel_rows(rec["final_logits"][last].cpu(), ref["final_logits"][last])
+
+    out["tp1_from_own_cache_rel"] = replay(own)
+    out["tp1_from_tp_cache_rel"] = replay(tp)
+    out["tp1_from_swapped_heads_rel"] = replay([swapped(k, x) for k, x in zip(keys, own)])
+    del params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_serve_phase(archs=tuple(TP_SERVE)) -> dict:
+    """Tensor-parallel serving on the card (phase 20 of the module
+    docstring), for ``archs`` of ``TP_SERVE``."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch.dist import spawn
+
+    ref_dir = tempfile.mkdtemp(prefix="tp_serve_ref_")
+    t0 = time.perf_counter()
+    try:
+        refs = {}
+        for arch in archs:
+            refs[arch] = tp_serve_reference(arch, ref_dir)
+            print(f"tp serve {arch}: TP = 1 reference {json.dumps(refs[arch])}", flush=True)
+        ranks = spawn(tp_serve_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                      args=(ref_dir, archs))
+        witness = {arch: tp_serve_witness(arch, ref_dir) for arch in archs
+                   if arch in TP_SERVE_F32}
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    launches, failed = None, []
+    for arch in archs:
+        recs = [rk[arch] for rk in ranks]
+        logits = [r.pop("logits") for r in recs]
+        same = all(torch.equal(logits[0][k], lg[k]) for lg in logits[1:] for k in logits[0])
+        for r, rec in enumerate(recs):
+            print(f"tp serve {arch} rank {r}: {json.dumps(rec)}", flush=True)
+        prefill_tol = TP_SERVE_F32_LOGIT_TOL if arch in TP_SERVE_F32 else TP_SERVE_LOGIT_TOL
+        decode_tol = TP_SERVE_DECODE_TOL.get(arch, TP_SERVE_LOGIT_TOL)
+        rec = recs[0]
+        near_tie = all(d["reference_top2_margin_rel"] <= decode_tol for r in recs
+                       for d in r["differences"])
+        arch_launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+        flash = [r["launches"]["flash_attention_wgmma"] for r in recs]
+        want_flash = 2 * sum(s.mixer == "gqa" for p, reps in tp_serve_config(arch).layer_groups()
+                             for s in p for _ in range(reps))
+        ok = (same and near_tie and all(r["slot_token_equal"] for r in recs)
+              and all(r["prefill_logits_rel"] <= prefill_tol for r in recs)
+              and all(v <= decode_tol for r in recs for v in r["final_logits_rel"].values())
+              and all(r["cache_rel_max"] <= TP_SERVE_CACHE_TOL for r in recs)
+              and all(r["tp_bytes_equal_model"] for r in recs)
+              and all(f == want_flash for f in flash)
+              and not any(rk["alloc_retries"] for rk in ranks))
+        if arch in witness:  # the decode gap is the prefill cache's rounding
+            w = witness[arch]
+            w["tp_decode_logits_rel"] = max(v for r in recs
+                                            for v in r["final_logits_rel"].values())
+            w["ratio"] = w["tp1_from_tp_cache_rel"] / w["tp_decode_logits_rel"]
+            ok = ok and w["cache_within_one_bf16_step"] and 0.25 <= w["ratio"] <= 4
+            print(f"tp serve {arch} witness: {json.dumps(w)}", flush=True)
+        summary = {"ranks": 2, "mesh": {"data": 1, "model": 2}, "layers": rec["layers"],
+                   "tokens_equal": rec["tokens_equal"], "first_difference": rec["first_difference"],
+                   "differences": len(rec["differences"]),
+                   "max_difference_margin_rel": rec["max_difference_margin_rel"],
+                   "ranks_logits_bit_equal": same,
+                   "prefill_logits_rel": [r["prefill_logits_rel"] for r in recs],
+                   "final_logits_rel": [r["final_logits_rel"] for r in recs],
+                   "compute_dtype": "float32" if arch in TP_SERVE_F32 else "bfloat16",
+                   "logit_tolerance": [prefill_tol, decode_tol],
+                   "cache_rel_max": [r["cache_rel_max"] for r in recs],
+                   "cache_tolerance": TP_SERVE_CACHE_TOL,
+                   "tp_bytes_equal_model": [r["tp_bytes_equal_model"] for r in recs],
+                   "tp_comm_share": [r["tp_comm_share"] for r in recs],
+                   "prefill_ms": [r["prefill_ms"] for r in recs],
+                   "decode_step_ms": [r["decode_step_ms"] for r in recs],
+                   "reference": refs[arch],
+                   "state_memory_gb": [r["state_memory_gb"] for r in recs],
+                   "peak_memory_gb": [r["peak_memory_gb"] for r in recs],
+                   "routing_flips": [r["routing_flips"] for r in recs],
+                   "flash_launches_per_rank": flash, "flash_launches_expected": want_flash,
+                   "alloc_retries": [rk["alloc_retries"] for rk in ranks]}
+        print(f"tp serve {arch}: {json.dumps(summary)}", flush=True)
+        if not ok:
+            failed.append(arch)
+        launches = arch_launches if launches is None else {
+            k: launches[k] + v for k, v in arch_launches.items()}
+    print(f"tp serve: {json.dumps({'phase_wall_s': round(wall, 2), 'launches': launches})}",
+          flush=True)
+    if failed:
+        raise AssertionError(f"tp serve: {failed} failed their checks (the lines above)")
+    return {"serve_launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3032,6 +3545,7 @@ def main() -> int:
     dist = dist_phase()
     tp = tp_phase()
     tp_families = tp_families_phase()
+    tp_serve = tp_serve_phase()
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",
@@ -3050,7 +3564,8 @@ def main() -> int:
                    "dist_train": dist["train_launches"][name],
                    "ep_dist_train": dist["ep_launches"][name],
                    "tp_train": tp["train_launches"][name],
-                   "tp_families_train": tp_families["train_launches"][name]}
+                   "tp_families_train": tp_families["train_launches"][name],
+                   "tp_serve": tp_serve["serve_launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -3082,6 +3597,10 @@ def main() -> int:
             flash_replaces, wgmma_rec, wgmma_rec["bound_by"],
             dsmoe_prefill=sub("dsmoe_prefill"), jamba_prefill=sub("jamba_prefill"),
             qwen2vl_prefill=sub("qwen2vl_prefill"),
+            yi6b_tp2_rank=sub("yi6b_tp2_rank"), jamba_tp2_rank=sub("jamba_tp2_rank"),
+            yi6b_tp4_rank=sub("yi6b_tp4_rank"), jamba_tp4_rank=sub("jamba_tp4_rank"),
+            yi6b_tp2_slot=sub("yi6b_tp2_slot"), jamba_tp2_slot=sub("jamba_tp2_slot"),
+            yi6b_tp4_slot=sub("yi6b_tp4_slot"), jamba_tp4_slot=sub("jamba_tp4_slot"),
             bf16_d40=sub("bf16_d40"),
             d80_gqa=sub("d80_gqa")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",

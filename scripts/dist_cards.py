@@ -43,6 +43,24 @@ its own, so the executor hands NCCL the device tensors themselves:
    the steps' peak) and allocator retries (must be 0). At smoke size on
    the CPU.
 
+5. ``serve_tp`` (4 ranks): tensor-parallel serving, one rank per card,
+   ``chip_smoke.tp_serve_traffic`` with 16 decode steps (the admission
+   before step 8): jamba-v0.1-52b at full width and full depth (32
+   layers) on ``(data=1, model=4)``, deepseek-v2-lite-16b at full depth
+   on ``(1, 4)`` and yi-6b at full depth on ``(2, 2)`` (``data`` splits
+   the prompts, ``model`` the heads), each rank's shards drawn from
+   seed 0 and cut as drawn; and jamba at its first 5 layers on
+   ``(1, 4)`` against the TP = 1 run of the same traffic on the first
+   card, run first and freed (``SERVE_TP_RUNS``; ``--serve-runs`` picks
+   some). No TP = 1 run of a full depth fits one card, so there the
+   checks are the ranks': the gathered logits finite and bit-equal
+   across each TP group, the greedy tokens equal across it, the model
+   group's payload equal to ``modeled_tp_serve_bytes``, no allocator
+   retry, and a rank's params taking the bytes their specs give it
+   (``predicted_state_gb``, from the meta device). The 5-layer run is
+   held as ``chip_smoke.tp_serve_phase`` holds its ranks. On the CPU,
+   at smoke size with a 64-token prompt.
+
 ``--parts`` picks parts by name (default: all). Prints the card's name
 and power limit, one ``dist cards PART {...}`` line per part, and exits
 non-zero if a check fails.
@@ -62,6 +80,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "src"))
 sys.path.insert(0, str(REPO / "tests"))  # _dist_cases
+sys.path.insert(0, str(REPO))  # chip_smoke's serve traffic
 
 # the timed all-reduces: (label, algo, K, wire), each payload's MiB a
 # rank on a card and on the CPU, the timed calls, and every spawn's
@@ -139,6 +158,13 @@ TP_RUNS = [("1x4_full_depth", "yi-6b", 1, 4, None), ("2x2_8_layers", "yi-6b", 2,
            ("dsv2lite_2x2_8_layers", "deepseek-v2-lite-16b", 2, 2, 8)]
 TP_TRAIN = dict(steps=3, global_batch=4, seq_len=512, peak_lr=5e-4, warmup_steps=2,
                 collectives="torrent", num_chains=1, loss_chunks=8, seed=0)
+# the serve_tp part's runs: (label, arch, data, model, layers; None = the
+# config's, against_tp1: held against a TP = 1 run on the first card)
+SERVE_TP_RUNS = [("jamba_1x4_full_depth", "jamba-v0.1-52b", 1, 4, None, False),
+                 ("dsv2lite_1x4_full_depth", "deepseek-v2-lite-16b", 1, 4, None, False),
+                 ("yi6b_2x2_full_depth", "yi-6b", 2, 2, None, False),
+                 ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5, True)]
+SERVE_TP_STEPS, SERVE_TP_ADMIT = 16, 8
 # torchrun at smoke size: (arch, tp)
 TRAIN_RUNS = [("yi-6b", 1), ("yi-6b", 2), ("deepseek-moe-16b", 2), ("mamba2-2.7b", 2)]
 
@@ -210,15 +236,187 @@ def tp_rank(rank, world, device, arch, tp, layers, smoke):
     return rec
 
 
+def serve_traffic(data: int, dp_index: int = 0, smoke: bool = False) -> dict:
+    """``chip_smoke``'s serve traffic with ``SERVE_TP_STEPS`` steps; on a
+    mesh with ``data`` > 1, DP rank ``dp_index``'s block of the prompts
+    (``smoke``: 64-token prompts and a 32-token admission)."""
+    import chip_smoke as cs
+
+    n = cs.TP_SERVE_TRAFFIC["B"] // data
+    out = dict(cs.TP_SERVE_TRAFFIC, STEPS=SERVE_TP_STEPS, ADMIT=SERVE_TP_ADMIT,
+               rows=slice(dp_index * n, (dp_index + 1) * n))
+    if smoke:
+        out.update(S=64, SLOT_LEN=32)
+    return out
+
+
+def serve_tp_rank(rank, world, device, arch, data, layers, ref_path, smoke):
+    """One rank of the serve_tp part: its shards of ``arch`` (cut to
+    ``layers``) on a ``(data, model=world/data)`` mesh serve its rows of
+    the traffic; with ``ref_path``, fed the TP = 1 run's tokens and
+    routed as it routed, and held against it."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch import configs as C
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    cuda = device.type == "cuda"
+    mesh = make_process_mesh(data=data, model=world // data)
+    tp = mesh.shape["model"]
+    cfg = cs.tp_serve_config(arch, layers, smoke)
+    traffic = serve_traffic(data, mesh.dp_index, smoke)
+    specs = shd.logical_pspecs(cfg, tp)
+    meta = T.model_init(torch.Generator(), cfg, "meta", place=shd.leaf_placer(specs, mesh))
+    predicted = sum(x.numel() * x.element_size() for x in leaves(meta)) / 1e9
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0) if cuda else 0
+    t0 = time.perf_counter()
+    params = T.model_init(torch.Generator(device=device).manual_seed(cs.TP_SERVE_TRAFFIC["seed"]),
+                          cfg, device, place=shd.leaf_placer(specs, mesh))
+    rec = {"mesh": mesh.shape, "layers": cfg.num_layers, "init_s": time.perf_counter() - t0,
+           "predicted_state_gb": predicted,
+           "state_memory_gb": torch.cuda.memory_allocated() / 1e9 if cuda else None,
+           "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ref = torch.load(ref_path, weights_only=False) if ref_path else None
+    spans = Spans()
+    t0 = time.perf_counter()
+    with hints.set_mesh(mesh), tpm.timed(spans):
+        if ref is not None:
+            from _moe_routing import routing_as
+
+            with routing_as(ref["routing"]) as flips:
+                got = cs.tp_serve_traffic(cfg, params, device, reference=ref, traffic=traffic)
+            rec["routing_flips"] = int(sum(int(f.sum()) for f in flips))
+        else:
+            got = cs.tp_serve_traffic(cfg, params, device, traffic=traffic)
+    wall = time.perf_counter() - t0
+    comm = spans.read().get("tp_comm", [])
+    n = cs.TP_SERVE_TRAFFIC["B"] // data
+    model = {"prefill": tpm.modeled_tp_serve_bytes(cfg, n, traffic["S"], tp),
+             "decode": tpm.modeled_tp_serve_bytes(cfg, n, 1, tp),
+             "slot": tpm.modeled_tp_serve_bytes(cfg, 1, traffic["SLOT_LEN"], tp)}
+    logits = {"prefill": got["prefill_logits"].cpu(),
+              **{f"final_{k}": v.cpu() for k, v in got["final_logits"].items()}}
+    rec.update({"tokens": [t.tolist() for t in got["tokens"]],
+                "finite": all(bool(torch.isfinite(v).all()) for v in logits.values()),
+                "tp_bytes_equal_model": got["tp_bytes"] == model,
+                "tp_bytes": got["tp_bytes"], "modeled_tp_bytes": model,
+                "prefill_ms": got["prefill_ms"],
+                "decode_step_ms": float(np.median(got["step_ms"])),
+                "traffic_wall_s": wall, "tp_comm_ms": sum(comm),
+                "tp_comm_share": sum(comm) / 1e3 / wall,
+                "step_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
+                "alloc_retries": (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                                  - retries0) if cuda else 0,
+                "logits": logits})
+    if ref is not None:
+        cache = shd.gather_cache(got["cache"], shd.logical_cache_pspecs(
+            cfg, C.SHAPES["decode_32k"], n, cs.TP_SERVE_MAX_SEQ, tp), cfg, mesh)
+        want = torch.load(ref_path.replace(".pt", "_cache.pt"), weights_only=False)
+        diffs = cs.token_differences(got["tokens"], ref)
+        rec.update({
+            "tokens_equal_tp1": not diffs,
+            "differences": diffs,
+            "prefill_logits_rel": cs._rel_rows(logits["prefill"], ref["prefill_logits"]),
+            "final_logits_rel": {str(k): cs._rel_rows(v.cpu(), ref["final_logits"][k])
+                                 for k, v in got["final_logits"].items()},
+            "cache_rel_max": max(float((a.float() - b.to(a.device).float()).abs().max()
+                                       / b.float().abs().max().clamp_min(1e-30))
+                                 for a, b in zip(leaves(cache), want))})
+    return rec
+
+
+def serve_tp_part(device, world, on_card, labels=None) -> bool:
+    """Part 5: tensor-parallel serving, one rank per card (4 ranks);
+    with ``labels``, only those of ``SERVE_TP_RUNS``."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.launch.dist import spawn
+
+    if world != 4:
+        print(f"dist cards serve_tp: needs 4 ranks, got {world}", file=sys.stderr)
+        return False
+    ok = True
+    for label, arch, data, model, layers, against_tp1 in SERVE_TP_RUNS:
+        if labels and label not in labels:
+            continue
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory(prefix="serve_tp_") as ref_dir:
+                ref_path, tp1 = None, None
+                if against_tp1:
+                    # the TP = 1 run on the first card, freed before the spawn
+                    tp1 = cs.tp_serve_reference(arch, ref_dir, "cuda:0" if on_card else "cpu",
+                                                layers, serve_traffic(1, smoke=not on_card),
+                                                smoke=not on_card)
+                    ref_path = f"{ref_dir}/{arch}.pt"
+                ranks = spawn(serve_tp_rank, world, device=device, timeout_s=1200,
+                              args=(arch, data, layers, ref_path, not on_card))
+        except Exception as e:  # the part fails; the next runs still report
+            print(f"dist cards serve_tp {label}", json.dumps({"ok": False, "error": repr(e)[-2000:]}),
+                  flush=True)
+            ok = False
+            continue
+        logits = [r.pop("logits") for r in ranks]
+        for r, rec in enumerate(ranks):
+            print(f"dist cards serve_tp {label} rank {r}", json.dumps(rec), flush=True)
+        # the TP ranks of one DP rank: the same logits and tokens
+        group = [list(range(i, i + model)) for i in range(0, world, model)]
+        same = all(torch.equal(logits[g[0]][k], logits[j][k]) and
+                   ranks[g[0]]["tokens"] == ranks[j]["tokens"]
+                   for g in group for j in g[1:] for k in logits[g[0]])
+        good = (same and all(r["finite"] and r["tp_bytes_equal_model"] and not r["alloc_retries"]
+                             and r["mesh"] == {"data": data, "model": model} for r in ranks))
+        if on_card:
+            good &= all(abs(r["state_memory_gb"] - r["predicted_state_gb"])
+                        <= 0.01 * r["predicted_state_gb"] for r in ranks)
+        if against_tp1:
+            tol = cs.TP_SERVE_DECODE_TOL.get(arch, cs.TP_SERVE_LOGIT_TOL)
+            good &= all(all(d["reference_top2_margin_rel"] <= tol for d in r["differences"])
+                        and r["prefill_logits_rel"] <= cs.TP_SERVE_LOGIT_TOL
+                        and all(v <= tol for v in r["final_logits_rel"].values())
+                        and r["cache_rel_max"] <= cs.TP_SERVE_CACHE_TOL for r in ranks)
+        ok &= bool(good)
+        print(f"dist cards serve_tp {label}", json.dumps({
+            "ok": bool(good), "arch": arch, "mesh": {"data": data, "model": model},
+            "layers": ranks[0]["layers"], "ranks_agree": same, "tp1_reference": tp1,
+            "tokens_equal_tp1": [r.get("tokens_equal_tp1") for r in ranks],
+            "prefill_logits_rel": [r.get("prefill_logits_rel") for r in ranks],
+            "final_logits_rel": [r.get("final_logits_rel") for r in ranks],
+            "cache_rel_max": [r.get("cache_rel_max") for r in ranks],
+            "predicted_state_gb": [r["predicted_state_gb"] for r in ranks],
+            "state_memory_gb": [r["state_memory_gb"] for r in ranks],
+            "init_peak_memory_gb": [r["init_peak_memory_gb"] for r in ranks],
+            "step_peak_memory_gb": [r["step_peak_memory_gb"] for r in ranks],
+            "prefill_ms": max(r["prefill_ms"] for r in ranks),
+            "decode_step_ms": max(r["decode_step_ms"] for r in ranks),
+            "tp_comm_share": [r["tp_comm_share"] for r in ranks],
+            "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every card; required with --device cpu)")
-    ap.add_argument("--parts", default="executor,all_reduce,train,tp",
+    ap.add_argument("--parts", default="executor,all_reduce,train,tp,serve_tp",
                     help="comma-separated parts to run (default: all)")
     ap.add_argument("--tp-runs", default=None,
                     help="comma-separated labels of TP_RUNS for the tp part (default: all)")
+    ap.add_argument("--serve-runs", default=None,
+                    help="comma-separated labels of SERVE_TP_RUNS for the serve_tp part "
+                         "(default: all)")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
 
@@ -249,6 +447,9 @@ def main() -> int:
     if "tp" in parts:
         ok &= tp_part(args.device, world, on_card,
                       args.tp_runs.split(",") if args.tp_runs else None)
+    if "serve_tp" in parts:
+        ok &= serve_tp_part(args.device, world, on_card,
+                            args.serve_runs.split(",") if args.serve_runs else None)
     return 0 if ok else 1
 
 

@@ -531,9 +531,11 @@ def build_cell(
     device="meta",
 ) -> Cell:
     """The cell of ``arch`` at ``C.SHAPES[shape_name]`` on ``mesh`` (a
-    :class:`~repro_torch.launch.mesh.VirtualMesh`), with ``variant``'s
-    overrides: ``VARIANTS`` resolves as in JAX, and a step-builder knob
-    passed explicitly against the variant's raises ``ValueError``.
+    :class:`~repro_torch.launch.mesh.VirtualMesh`, or for a prefill or
+    decode shape a :class:`~repro_torch.launch.mesh.ProcessMesh`), with
+    ``variant``'s overrides: ``VARIANTS`` resolves as in JAX, and a
+    step-builder knob passed explicitly against the variant's raises
+    ``ValueError``.
 
     On ``device="meta"`` the args are meta tensors (``model_init`` and
     ``adamw.init`` on the meta device, ``configs.shapes.input_specs``):
@@ -542,7 +544,25 @@ def build_cell(
     ``adamw.init``'s, a batch or the decode tokens come from a generator
     seeded 1 (:func:`_concrete`), the decode position is 0 and its cache
     ``init_cache``'s. ``remat`` reaches the train step (prefill keeps no
-    autograd state, so the port's takes none)."""
+    autograd state, so the port's takes none).
+
+    On a mesh whose DP axes have a process group (a ``ProcessMesh``,
+    one rank per process) the cell is one rank's, as a device's view of
+    JAX's cell: its step runs under ``hints.set_mesh(mesh)``, and its
+    args are this rank's blocks of the same draws — the params as
+    ``param_pspecs`` place them (``sharding.leaf_placer``, each leaf cut
+    as it is drawn), the batch rows or decode tokens over ``data``
+    (``batch_pspecs``), and the decode cache by ``cache_pspecs``
+    (``sharding.place_cache``; on a real device the rank's zero block,
+    ``init_cache`` under the mesh); meta tensors of those block shapes
+    on the meta device. ``in_specs``/``out_specs`` stay JAX's. What
+    that form does not build raises ``NotImplementedError`` naming its
+    ROADMAP item 9c entry (:func:`_refuse_process_cell`): a train shape
+    (its ZeRO-1 placement, entry 5), ``long_500k``, whose cache splits
+    slots over ``data`` (entry 9), an arch that ``transformer.check_tp``
+    refuses on a live ``model`` axis, and a flat-dispatch MoE arch with
+    ``data`` > 1 (entry 10): its capacity would come from each DP rank's
+    own tokens, JAX's cell takes it from the global batch."""
     cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     overrides = dict(VARIANTS.get(variant) or {})
     knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
@@ -564,14 +584,40 @@ def build_cell(
     tp = mesh.shape.get("model", 1)
     dev = resolve_device(device)
     meta = dev.type == "meta"
+    # one rank per process where the DP axes have a process group
+    process = mesh.group(hints.dp_axes(mesh.axis_names)) is not None
+    if process:
+        _refuse_process_cell(cfg, shape, mesh)
 
-    params = T.model_init(torch.Generator(device="cpu" if meta else dev).manual_seed(0),
-                          cfg, device=dev)
-    pspecs = shd.param_pspecs(params, cfg, tp=tp)
-    specs = input_specs(cfg, shape)
+    gen = torch.Generator(device="cpu" if meta else dev).manual_seed(0)
+    if process:  # each leaf cut to this rank's block as it is drawn
+        pspecs = shd.logical_pspecs(cfg, tp)
+        params = T.model_init(gen, cfg, device=dev, place=shd.leaf_placer(pspecs, mesh))
+    else:
+        params = T.model_init(gen, cfg, device=dev)
+        pspecs = shd.param_pspecs(params, cfg, tp=tp)
+    with hints.set_mesh(None):  # the logical inputs, whatever mesh the caller set
+        specs = input_specs(cfg, shape)
 
-    def batch_of(spec_batch):
-        return spec_batch if meta else _concrete(spec_batch, cfg.vocab_size, dev, 1)
+    def rows(spec_batch, spec_tree):
+        """A global input (meta, or drawn by :func:`_concrete`); on a
+        process mesh this rank's rows of it."""
+        whole = spec_batch if meta else _concrete(spec_batch, cfg.vocab_size, dev, 1)
+        if not process:
+            return whole
+        return map_tree(lambda x: x.clone(), shd.shard_tree(whole, spec_tree, mesh))
+
+    def on_mesh(fn: Callable) -> Callable:
+        """``fn``, run under ``hints.set_mesh(mesh)`` on a process mesh:
+        the model code finds its TP group there."""
+        if not process:
+            return fn
+
+        def step(*args):
+            with hints.set_mesh(mesh):
+                return fn(*args)
+
+        return step
 
     if shape.kind == "train":
         opt_state = adamw.init(params)
@@ -583,7 +629,7 @@ def build_cell(
         )
         return Cell(
             cfg=cfg, shape=shape, mesh=mesh, step_fn=step,
-            args=(params, opt_state, batch_of(specs["batch"])),
+            args=(params, opt_state, rows(specs["batch"], bspecs)),
             in_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, ospecs),
                       _sanitized(mesh, bspecs)),
             out_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, ospecs), None),
@@ -592,29 +638,59 @@ def build_cell(
         )
 
     if shape.kind == "prefill":
-        bspecs = shd.batch_pspecs(cfg, shape)
-        cache = T.init_cache(cfg, shape.global_batch, specs["max_seq"], device="meta")
-        cspecs = shd.cache_pspecs(cache, cfg, shape, tp=tp)
+        bspecs = _sanitized(mesh, shd.batch_pspecs(cfg, shape))
+        cspecs = shd.logical_cache_pspecs(cfg, shape, shape.global_batch, specs["max_seq"], tp)
         return Cell(
             cfg=cfg, shape=shape, mesh=mesh,
-            step_fn=make_prefill_step(cfg, specs["max_seq"]),
-            args=(params, batch_of(specs["batch"])),
-            in_specs=(_sanitized(mesh, pspecs), _sanitized(mesh, bspecs)),
+            step_fn=on_mesh(make_prefill_step(cfg, specs["max_seq"])),
+            args=(params, rows(specs["batch"], bspecs)),
+            in_specs=(_sanitized(mesh, pspecs), bspecs),
             out_specs=(_sanitize(P(shd.BATCH_AXES, None), mesh), _sanitized(mesh, cspecs)),
         )
 
-    # decode
+    # decode; on a process mesh the cache is placed by its specs (the
+    # Mamba-2 conv window in the rank's layout, sharding.place_cache)
     cspecs = shd.cache_pspecs(specs["cache"], cfg, shape, tp=tp)
     tok_spec = P() if shape.global_batch == 1 else _sanitize(P(shd.BATCH_AXES), mesh)
     if meta:
-        args = (params, specs["tokens"], specs["pos"], specs["cache"])
+        cache = shd.place_cache(specs["cache"], cspecs, cfg, mesh) if process else specs["cache"]
+    elif process:  # the rank's zero block
+        with hints.set_mesh(mesh):
+            cache = T.init_cache(cfg, shape.global_batch // dp_size_of(mesh), shape.seq_len,
+                                 device=dev)
     else:
-        args = (params, _concrete(specs["tokens"], cfg.vocab_size, dev, 1),
-                torch.zeros((), dtype=torch.int32, device=dev),
-                T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev))
+        cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
     return Cell(
-        cfg=cfg, shape=shape, mesh=mesh, step_fn=make_serve_step(cfg), args=args,
+        cfg=cfg, shape=shape, mesh=mesh, step_fn=on_mesh(make_serve_step(cfg)),
+        args=(params, rows(specs["tokens"], tok_spec),
+              specs["pos"] if meta else torch.zeros((), dtype=torch.int32, device=dev), cache),
         in_specs=(_sanitized(mesh, pspecs), tok_spec, P(), _sanitized(mesh, cspecs)),
         out_specs=(tok_spec, _sanitized(mesh, cspecs)),
         donate_argnums=(3,),
     )
+
+
+def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
+    """Raise for the cells :func:`build_cell` does not build on a
+    ``ProcessMesh``, each naming its ROADMAP item 9c entry."""
+    dp = dp_size_of(mesh)
+    if shape.kind == "train":
+        raise NotImplementedError(
+            f"a train cell on a ProcessMesh ({cfg.name} {shape.name}): placing the optimizer "
+            "state by its ZeRO-1 opt_pspecs over data is not ported (ROADMAP item 9c, entry 5)")
+    if shape.global_batch == 1:
+        raise NotImplementedError(
+            f"{shape.name} on a ProcessMesh ({cfg.name}): its cache_pspecs split the cache's "
+            "slots over data, a sequence-parallel decode that is not ported (ROADMAP item 9c, "
+            "entry 9)")
+    with hints.set_mesh(mesh):
+        T.check_tp(cfg)
+    moe = any(s.ffn == "moe" for pattern, _ in cfg.layer_groups() for s in pattern)
+    if dp > 1 and moe and not cfg.moe_row_dispatch:
+        raise NotImplementedError(
+            f"a MoE {shape.kind} cell of {cfg.name} on a ProcessMesh with {dp} DP ranks: JAX's "
+            "cell takes the flat dispatch's capacity and positions from the global batch, a "
+            "DP rank here from its own tokens; counting them over data is not ported (ROADMAP "
+            "item 9c, entry 10)")
+    if shape.global_batch % dp:
+        raise ValueError(f"global batch {shape.global_batch} does not split over {dp} DP ranks")

@@ -33,6 +33,18 @@ column-parallel (their flattened ``(H, ·)`` columns give whole heads)
 and ``wo`` row-parallel; the compression ``w_dkv`` stays replicated,
 and ``copy_to_tp`` sits on its output, where the rank's heads begin to
 use it, so ``w_dkv`` gets its whole grad on every rank.
+
+Serving runs the same TP forms (prefill, and decode with the cache a
+rank holds). A GQA cache holds the rank's block of the KV heads where
+``num_kv_heads`` divides by the TP size, else all of them on every rank
+(``cache_pspecs`` replicates it there): the prefill caches the gathered
+K/V before each query head's KV head is selected, and a decode step
+gathers its new row before writing it. The compressed MLA cache
+(``ckv``/``krope``) is computed on every TP rank from the replicated
+``w_dkv``, as JAX's code computes it on every shard (``cache_pspecs``
+gives it no split); it is not multicast between the ranks, whatever
+the JAX module's docstring says of a Chainwrite multicast to the
+shards.
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ from repro_torch.parallel import hints
 from repro_torch.parallel.tp import copy_to_tp, gather_from_tp, reduce_from_tp
 
 from .config import ModelConfig
-from .layers import apply_mrope, apply_rope, cast, normal
+from .layers import apply_mrope, apply_rope, cast, matmul, normal
 
 NEG_INF = -1e30
 
@@ -91,32 +103,47 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 def _project_qkv(params, x, cfg: ModelConfig, group=None):
     """Q, K, V (B, S, heads, Dh). With a TP ``group`` (``x`` already
-    through ``copy_to_tp``), this rank's query heads and the KV heads
-    they read: its own block of them when ``num_kv_heads`` divides by
-    the group size, else gathered over the group and selected."""
+    through ``copy_to_tp``), this rank's query heads, and the KV heads
+    its cache holds: its own block of them when ``num_kv_heads``
+    divides by the group size, else all of them, gathered over the
+    group (:func:`_rank_kv_index` then picks the one each query head
+    reads)."""
     B, S, _ = x.shape
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
 
     def heads(t):
         return t.reshape(B, S, -1, Dh)
 
-    if group is None:
+    if group is None or Hkv % dist.get_world_size(group) == 0:
         return tuple(heads(_proj(params, x, cfg, n)) for n in "qkv")
-    tp, r = dist.get_world_size(group), dist.get_rank(group)
-    q = heads(_proj(params, x, cfg, "q"))
-    if Hkv % tp == 0:  # this rank's block of the KV heads serves its query heads
-        return q, heads(_proj(params, x, cfg, "k")), heads(_proj(params, x, cfg, "v"))
+    tp = dist.get_world_size(group)
     if (Hkv * Dh) % tp:
         raise NotImplementedError(
             f"num_kv_heads·head_dim = {Hkv * Dh} at TP={tp}: param_pspecs leaves K/V whole, "
             "and TP over whole K/V columns is not ported (ROADMAP item 9c)")
+    q = heads(_proj(params, x, cfg, "q"))
     # a block of the K/V columns: gather both in one collective
     kv = torch.stack([_proj(params, x, cfg, n) for n in "kv"])
     k, v = gather_from_tp(kv, group, -1).reshape(2, B, S, Hkv, Dh).unbind(0)
-    # the KV head of each of this rank's query heads
-    Hl = H // tp
-    idx = torch.arange(r * Hl, (r + 1) * Hl, device=x.device) // (H // Hkv)
-    return q, k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v
+
+
+def _rank_kv_index(cfg: ModelConfig, group, device):
+    """Where a rank holds every KV head (``num_kv_heads`` does not
+    divide by the size of the TP ``group``), the index of the KV head
+    of each of its query heads; ``None`` where its KV heads are its own
+    block (or there is no group)."""
+    if group is None:
+        return None
+    tp, H, Hkv = dist.get_world_size(group), cfg.num_heads, cfg.num_kv_heads
+    if Hkv % tp == 0:
+        return None
+    Hl, r = H // tp, dist.get_rank(group)
+    return torch.arange(r * Hl, (r + 1) * Hl, device=device) // (H // Hkv)
+
+
+def _select_kv(k, v, idx):
+    return (k, v) if idx is None else (k.index_select(2, idx), v.index_select(2, idx))
 
 
 def _proj(params, x, cfg: ModelConfig, name: str):
@@ -164,6 +191,7 @@ def gqa_apply(
     group = _tp_heads_group(cfg)
     x = copy_to_tp(x, group)
     q, k, v = _project_qkv(params, x, cfg, group)
+    k, v = _select_kv(k, v, _rank_kv_index(cfg, group, x.device))
     q, k = _rope_qk(q, k, positions, cfg)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B,H,S,D)
     out = _full_attention(qt, kt, vt, cfg, causal=causal)
@@ -180,13 +208,20 @@ def gqa_prefill(
     max_seq: int,
 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence attention that also emits the decode KV cache
-    (ring-buffer layout for SWA archs)."""
+    (ring-buffer layout for SWA archs); on a live TP group, split by
+    heads as :func:`gqa_apply` is, the cache holding the KV heads
+    :func:`_project_qkv` gives the rank (all of them, identical on
+    every rank, where ``num_kv_heads`` does not divide by the TP
+    size)."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
+    group = _tp_heads_group(cfg)
+    x = copy_to_tp(x, group)
+    q, k, v = _project_qkv(params, x, cfg, group)
     q, k = _rope_qk(q, k, positions, cfg)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ka, va = _select_kv(k, v, _rank_kv_index(cfg, group, x.device))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, ka, va))
     out = _full_attention(qt, kt, vt, cfg, causal=True)
-    out = out.transpose(1, 2).reshape(B, S, -1) @ cast(params["wo"])
+    out = reduce_from_tp(out.transpose(1, 2).reshape(B, S, -1) @ cast(params["wo"]), group)
 
     slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     cache = gqa_init_cache(cfg, B, max_seq, device=x.device)
@@ -197,9 +232,17 @@ def gqa_prefill(
     return out, cache
 
 
+def _cache_kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads a decode cache holds: all of them, or this rank's
+    block where the active TP group splits them."""
+    tp = hints.tp_size()
+    Hkv = cfg.num_kv_heads
+    return Hkv // tp if hints.tp_group() is not None and Hkv % tp == 0 else Hkv
+
+
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
     slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    shape = (batch, slots, cfg.num_kv_heads, cfg.resolved_head_dim)
+    shape = (batch, slots, _cache_kv_heads(cfg), cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -220,10 +263,17 @@ def gqa_decode(
     With M-RoPE a scalar ``pos`` feeds all three position streams, and a
     per-slot one raises, as JAX's does. The new K/V rows are written
     into ``cache`` in place — the port keeps one cache instead of
-    copying it every token — and ``cache`` is returned."""
+    copying it every token — and ``cache`` is returned. On a live TP
+    group a rank runs its query heads against the KV heads its cache
+    holds (:func:`gqa_prefill`); where that is all of them, the new K/V
+    row is gathered before it is written, so the ranks' caches stay
+    equal, and each query head reads its KV head by
+    :func:`_rank_kv_index`."""
     B = x.shape[0]
-    H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q, k, v = _project_qkv(params, x, cfg)  # (B,1,*,Dh)
+    Dh = cfg.resolved_head_dim
+    group = _tp_heads_group(cfg)
+    x = copy_to_tp(x, group)
+    q, k, v = _project_qkv(params, x, cfg, group)  # (B,1,*,Dh)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_slot = pos.dim() == 1
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
@@ -241,8 +291,9 @@ def gqa_decode(
     ck[rows, slot_b] = k[:, 0].to(ck.dtype)
     cv[rows, slot_b] = v[:, 0].to(cv.dtype)
 
-    group = H // Hkv
-    qh = q[:, 0].reshape(B, Hkv, group, Dh)
+    ck, cv = _select_kv(ck, cv, _rank_kv_index(cfg, group, x.device))
+    H, Hkv = q.shape[2], ck.shape[2]  # this rank's query heads and the KV heads they read
+    qh = q[:, 0].reshape(B, Hkv, H // Hkv, Dh)
     # bf16 operands, f32 products and sums (the JAX einsum's
     # preferred_element_type=f32): upcast, since a bf16 einsum would
     # round its result to bf16.
@@ -257,7 +308,7 @@ def gqa_decode(
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", p.to(cv.dtype).float(), cv.float())
     out = out.reshape(B, 1, H * Dh).to(x.dtype)
-    return out @ cast(params["wo"]), cache
+    return reduce_from_tp(out @ cast(params["wo"]), group), cache
 
 
 # ---------------------------------------------------------------------------
@@ -322,8 +373,9 @@ def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask, group
     H = _mla_heads(params, cfg)
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     # KV recovery (the paper's P3/D3 multicast workload under TP)
-    k_nope = (c @ cast(params["w_uk"])).reshape(B, T, H, dn)
-    v = (c @ cast(params["w_uv"])).reshape(B, T, H, dv)
+    # c may be the bf16 cache under an f32 compute dtype: JAX's promotion
+    k_nope = matmul(c, params["w_uk"]).reshape(B, T, H, dn)
+    v = matmul(c, params["w_uv"]).reshape(B, T, H, dv)
     s = (
         torch.einsum("bshd,bthd->bhst", q_nope.float(), k_nope.float())
         + torch.einsum("bshd,btd->bhst", q_rope.float(), k_rope.float())
@@ -404,10 +456,13 @@ def mla_prefill(
     cfg: ModelConfig,
     max_seq: int,
 ) -> tuple[torch.Tensor, dict]:
-    """Full-sequence MLA that also emits the compressed decode cache."""
+    """Full-sequence MLA that also emits the compressed decode cache;
+    on a live TP group split by heads (:func:`mla_apply`), the cache
+    whole and equal on every rank."""
     B, S, _ = x.shape
-    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg)
-    out = _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, _causal_mask(S, x.device))
+    group = _tp_heads_group(cfg)
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
+    out = _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, _causal_mask(S, x.device), group)
     cache = mla_init_cache(cfg, B, max_seq, device=x.device)
     cache["ckv"][:, :S] = c.to(torch.bfloat16)
     cache["krope"][:, :S] = k_rope.to(torch.bfloat16)
@@ -431,35 +486,41 @@ def mla_decode(
 ) -> tuple[torch.Tensor, dict]:
     """Single-token MLA decode against the compressed cache, written in
     place and returned (as :func:`gqa_decode`); ``cfg.mla_absorb``
-    takes :func:`_mla_decode_absorbed`."""
+    takes :func:`_mla_decode_absorbed`. On a live TP group both forms
+    run this rank's heads against the whole compressed cache."""
     B = x.shape[0]
+    group = _tp_heads_group(cfg)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_slot = pos.dim() == 1
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
-    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, pos_b, cfg)
+    q_nope, q_rope, c, k_rope = _mla_qkv(params, x, pos_b, cfg, group)
     ckv, krope = cache["ckv"], cache["krope"]
     rows, at = torch.arange(B, device=x.device), pos_b[:, 0].long()
     ckv[rows, at] = c[:, 0].to(ckv.dtype)
     krope[rows, at] = k_rope[:, 0].to(krope.dtype)
     if cfg.mla_absorb:
-        return _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg), cache
+        return _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg,
+                                    group), cache
     T = ckv.shape[1]
     cols = torch.arange(T, device=x.device)
     if per_slot:
         mask = cols[None, None, :] <= pos[:, None, None]  # (B, 1, T)
     else:
         mask = (cols <= pos)[None, :]  # (1, T)
-    return _mla_attend(params, q_nope, q_rope, ckv, krope, cfg, mask), cache
+    return _mla_attend(params, q_nope, q_rope, ckv, krope, cfg, mask, group), cache
 
 
-def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConfig):
+def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConfig,
+                         group=None):
     """Weight-absorbed MLA decode (the same math): W_uk is absorbed into
     the query and W_uv into the output, so attention runs against the
     compressed ``(r + dr)``-wide cache instead of recovering
     ``2·T·H·(dn + dv)`` K/V values. bf16 operands with f32 products and
-    sums (JAX's ``preferred_element_type=f32``)."""
+    sums (JAX's ``preferred_element_type=f32``). With a TP ``group``,
+    this rank's heads (its columns of ``w_uk``/``w_uv``), and ``wo``'s
+    partial sums reduced over it."""
     B = q_nope.shape[0]
-    H, r = cfg.num_heads, cfg.kv_lora_rank
+    H, r = _mla_heads(params, cfg), cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     T = ckv.shape[1]
     w_uk = cast(params["w_uk"]).reshape(r, H, dn)
@@ -475,7 +536,7 @@ def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConf
     p = torch.softmax(s, dim=-1)
     o_c = torch.einsum("bht,btr->bhr", p.to(ckv.dtype).float(), ckv.float())  # (B,H,r)
     out = torch.einsum("bhr,rhd->bhd", o_c, w_uv.float())
-    return out.reshape(B, 1, H * dv).to(q_nope.dtype) @ cast(params["wo"])
+    return reduce_from_tp(out.reshape(B, 1, H * dv).to(q_nope.dtype) @ cast(params["wo"]), group)
 
 
 # ---------------------------------------------------------------------------

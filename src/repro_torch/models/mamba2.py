@@ -36,7 +36,11 @@ over the group), and the whole ``in_BC``, ``in_dt``, ``conv_BC_*``,
 and go through ``copy_to_tp`` where the rank's heads take their part
 (``A_log``/``D`` as well), so each replicated leaf gets its whole grad.
 The gated norm is over the whole ``d_inner``: its sum of squares is
-summed over the group. A split that would cut a head raises.
+summed over the group. A split that would cut a head raises. Prefill
+and decode run the same form; a rank's cache holds its heads' state
+and a conv window of its ``x`` columns beside the whole B/C
+(``parallel.sharding.place_cache`` says how that differs from
+``cache_pspecs``' even split of the window).
 """
 
 from __future__ import annotations
@@ -132,7 +136,8 @@ def mamba2_apply(params: dict, xin: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 def mamba2_prefill(params: dict, xin: torch.Tensor,
                    cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also returns the decode cache (final
-    SSM state + conv window tail)."""
+    SSM state + conv window tail); under TP, this rank's cache, in the
+    layout of :func:`mamba2_init_cache`."""
     return _ssd_forward(params, xin, cfg)
 
 
@@ -228,9 +233,15 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
-    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    """A zero decode cache of ``batch`` rows; under a live TP group that
+    splits ``d_inner``, this rank's: its heads of ``ssm``, and a ``conv``
+    window of its ``x`` block beside the whole B/C (``conv_dim`` =
+    ``d_inner / tp + 2·G·N``, the layout :func:`mamba2_prefill` writes
+    and :func:`mamba2_decode` reads)."""
+    _, tp, _ = _tp(cfg)
+    d_in, H, P, G, N, _ = _dims(cfg, tp)
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=torch.bfloat16,
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * G * N), dtype=torch.bfloat16,
                             device=device),
         "ssm": torch.zeros((batch, H, N, P), dtype=torch.float32, device=device),
     }
@@ -244,12 +255,17 @@ def mamba2_decode(
 ) -> tuple[torch.Tensor, dict]:
     """One token through the recurrence. Writes the new conv window and
     state into ``cache``'s tensors in place (they may be views of a
-    stacked cache) and returns ``cache``."""
+    stacked cache) and returns ``cache``. On a live TP group that
+    splits ``d_inner`` (the module docstring's form), a rank runs its
+    heads: its z/x columns, B/C/dt whole (the heads' part taken), the
+    gated norm's sum of squares over the group and ``out_proj``'s
+    partial sums reduced over it."""
     B = xin.shape[0]
-    d_in, H, P, G, N, conv_dim = _dims(cfg)
+    group, tp, rank = _tp(cfg)
+    d_in, H, P, G, N, _ = _dims(cfg, tp)
     z, x_raw, BC_raw, dt = _project(params, xin[:, 0])
 
-    xBC_t = torch.cat([x_raw, BC_raw], -1)  # (B, conv_dim)
+    xBC_t = torch.cat([x_raw, BC_raw], -1)  # (B, conv_dim): this rank's x, all of B/C
     window = torch.cat([cache["conv"], xBC_t[:, None, :]], 1)  # (B,W,conv)
     conv_w = torch.cat([params["conv_x_w"], params["conv_BC_w"]], -1)
     conv_b = torch.cat([params["conv_x_b"], params["conv_BC_b"]], -1)
@@ -257,17 +273,19 @@ def mamba2_decode(
     xBC = F.silu(conv_out)  # no rounding to bf16 before silu here
     x, Bm, Cm = xBC.split([d_in, G * N, G * N], -1)
     x = x.reshape(B, H, P)
-    rep = H // G
-    Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1)  # (B,H,N)
-    Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1)
+    # every head's groups, then this rank's heads (as _ssd_forward)
+    heads = slice(rank * H, (rank + 1) * H)
+    rep = H * tp // G
+    Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1)[:, heads]  # (B,H,N)
+    Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1)[:, heads]
 
-    dtv = F.softplus(dt.float() + params["dt_bias"])  # (B,H)
-    decay = torch.exp(dtv * -torch.exp(params["A_log"]))  # (B,H)
+    dtv = F.softplus(dt.float() + params["dt_bias"])[:, heads]  # (B,H)
+    decay = torch.exp(dtv * -torch.exp(params["A_log"][heads]))  # (B,H)
     h = cache["ssm"] * decay[..., None, None] + torch.einsum("bh,bhn,bhp->bhnp", dtv, Bh, x)
-    y = torch.einsum("bhn,bhnp->bhp", Ch, h) + x * params["D"][:, None]
+    y = torch.einsum("bhn,bhnp->bhp", Ch, h) + x * params["D"][heads][:, None]
     y = y.reshape(B, 1, d_in)
-    y = gated_rmsnorm(params["norm"], y, z[:, None, :].float(), cfg.norm_eps)
-    out = cast(y) @ cast(params["out_proj"])
+    y = gated_rmsnorm(params["norm"], y, z[:, None, :].float(), cfg.norm_eps, group)
+    out = reduce_from_tp(cast(y) @ cast(params["out_proj"]), group)
     cache["conv"].copy_(window[:, 1:])
     cache["ssm"].copy_(h)
     return out, cache

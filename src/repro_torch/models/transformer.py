@@ -49,9 +49,13 @@ rows (a dim that the TP size does not divide stays whole, as
 ``d_ff``, the MoE by experts (``models.moe``), Mamba-2 by ``d_inner``
 (``models.mamba2``), and the loss is the vocab-parallel cross-entropy
 (``parallel.tp``). Each mixer and FFN reads the TP group off the active
-mesh. M-RoPE with ``attn_seq_shard`` (qwen2-vl) and the
-encoder-decoder (whisper) raise ``NotImplementedError`` there
-(:func:`check_tp`).
+mesh. :func:`prefill` and :func:`decode_step` run the same forms on
+this rank's rows and its block of the decode cache (:func:`init_cache`;
+``parallel.sharding.place_cache``/``gather_cache`` carry a logical
+cache in and out), and gather the vocab-split logits, so every rank of
+the group returns the whole (B, V). M-RoPE with ``attn_seq_shard``
+(qwen2-vl) and the encoder-decoder (whisper) raise
+``NotImplementedError`` there, training or serving (:func:`check_tp`).
 """
 
 from __future__ import annotations
@@ -64,8 +68,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.parallel import hints
-from repro_torch.parallel.tp import vocab_parallel_ce
-from repro_torch.tree import map_with_path
+from repro_torch.parallel.tp import gather_from_tp, vocab_parallel_ce
+from repro_torch.tree import map_tree, map_with_path
 
 from . import attention as attn
 from . import mamba2 as mb
@@ -280,14 +284,20 @@ def groups_init(gen: torch.Generator, cfg: ModelConfig, device, groups=None, *,
     groups = cfg.layer_groups() if groups is None else groups
     out = []
     for g, (pattern, reps) in enumerate(groups):
-        per_pos: list[list[Params]] = [[] for _ in pattern]
-        for _ in range(reps):
+        # each layer's leaves are copied into their stacked leaf as they
+        # are drawn, so a layer is freed before the next is drawn (a list
+        # of the layers, stacked at the end, would hold the state twice)
+        stacked: list[Params | None] = [None] * len(pattern)
+        for r in range(reps):
             for pi, spec in enumerate(pattern):
                 p = layer_init(gen, spec, cfg, device)
                 if place is not None:
                     p = map_with_path(lambda path, x: place(prefix + (g, pi) + path, x), p)
-                per_pos[pi].append(p)
-        out.append([_stack(ps) for ps in per_pos])
+                if stacked[pi] is None:
+                    stacked[pi] = map_tree(lambda x: x.new_empty((reps,) + tuple(x.shape)), p)
+                map_tree(lambda buf, x, r=r: buf[r].copy_(x), stacked[pi], p)
+                del p
+        out.append(stacked)
     return out
 
 
@@ -438,6 +448,12 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    """A zero decode cache of ``batch`` rows and ``max_seq`` positions.
+    Under a mesh whose ``model`` axis is live (``hints.set_mesh``), this
+    rank's block of it, as :func:`prefill` builds it there: the KV heads
+    the rank's attention reads (its block, or all of them where the TP
+    size does not divide them), a Mamba-2 layer's heads and conv window
+    (``models.mamba2.mamba2_init_cache``); ``batch`` is the rank's rows."""
     device = resolve_device(device)
     cache: dict = {"layers": groups_init_cache(cfg, batch, max_seq, device)}
     if cfg.is_encdec:
@@ -465,15 +481,17 @@ def check_tp(cfg: ModelConfig) -> None:
             "hybrid families run")
 
 
-def _refuse_tp_serving() -> None:
-    if hints.tp_size() > 1:
-        raise NotImplementedError(
-            f"prefill and decode at TP={hints.tp_size()}: TP serving (the cells' "
-            "cache_pspecs) is not ported (ROADMAP item 9c, entry 6)")
-
-
 def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return (params["embed"] if cfg.tie_embeddings else params["lm_head"])["table"]
+
+
+def _logits(params: Params, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    """The whole f32 logits (B, V) of the last hidden rows ``h`` (B, d):
+    with a vocab-split head table, each rank's block gathered over the
+    TP group, so every rank reads the same row (JAX's prefill out spec
+    ``P(batch, None)``)."""
+    group = hints.tp_split_group(cfg.vocab_size)
+    return gather_from_tp(unembed({"table": _head_table(params, cfg)}, h, group), group, -1)
 
 
 def _inputs(params: Params, cfg: ModelConfig, batch: dict, remat: str):
@@ -625,8 +643,11 @@ def prefill(
 ) -> tuple[torch.Tensor, dict]:
     """Process the prompt (``batch["tokens"]`` (B, S), or ``embeds`` and
     ``positions``; plus ``enc_frames`` for an encoder-decoder), build
-    the decode cache, return last-token logits (B, V) in f32."""
-    _refuse_tp_serving()
+    the decode cache, return last-token logits (B, V) in f32. On a live
+    TP group the batch is this rank's rows, the cache this rank's block
+    (:func:`init_cache`) and the logits whole on every rank of the
+    group."""
+    check_tp(cfg)
     x, positions, enc = _inputs(params, cfg, batch, "none")
 
     caches: list[list[Params]] = []
@@ -639,7 +660,7 @@ def prefill(
         caches.append([_stack(cs) for cs in per_pos])
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    logits = unembed({"table": _head_table(params, cfg)}, x[:, -1])
+    logits = _logits(params, cfg, x[:, -1])
     cache: dict = {"layers": caches}
     if cfg.is_encdec:
         cache["enc"] = enc.to(torch.bfloat16)
@@ -657,17 +678,19 @@ def decode_step(
 
     With a ``(B,)`` ``pos`` every batch row advances at its own absolute
     position (continuous batching). The cache is updated in place and
-    returned; an encoder-decoder attends to its ``enc`` leaf."""
-    _refuse_tp_serving()
-    x = embed(params["embed"], tokens[:, None])  # (B, 1, d)
+    returned; an encoder-decoder attends to its ``enc`` leaf. On a live
+    TP group, as :func:`prefill`: this rank's rows and cache block, the
+    whole logits."""
+    check_tp(cfg)
+    x = embed(params["embed"], tokens[:, None],
+              group=hints.tp_split_group(cfg.vocab_size))  # (B, 1, d)
     if cfg.pos_scheme == "learned":
         # index_select: a 0-dim index would be read back to the host
         idx = torch.as_tensor(pos, device=x.device).reshape(-1)
         x = x + cast(params["pos_emb"].index_select(0, idx))[:, None, :]  # (B or 1, 1, d)
     x, _ = groups_decode(params["groups"], cache["layers"], cfg, x, pos, enc=cache.get("enc"))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, bf16=cfg.bf16_norm)
-    logits = unembed({"table": _head_table(params, cfg)}, x[:, 0])
-    return logits, cache
+    return _logits(params, cfg, x[:, 0]), cache
 
 
 __all__ = [

@@ -29,7 +29,10 @@ On a :class:`~repro_torch.launch.mesh.ProcessMesh` the specs place
 state: :func:`shard_tree` takes this rank's block of each leaf along
 every dim whose spec names a live mesh axis (what JAX's ``device_put``
 with a ``NamedSharding`` leaves on a device), and :func:`gather_tree`
-puts the blocks back together over the mesh's process groups.
+puts the blocks back together over the mesh's process groups. A decode
+cache is placed by :func:`place_cache` and gathered by
+:func:`gather_cache`: ``cache_pspecs``' blocks, but for the Mamba-2
+``conv`` window, which a rank holds in the layout its TP form reads.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from repro_torch.configs.shapes import Shape
 from repro_torch.models.config import ModelConfig
 from repro_torch.parallel.spec import P
 from repro_torch.parallel.tp import all_gather
-from repro_torch.tree import leaves, map_tree, map_with_path, unflatten
+from repro_torch.tree import leaves, map_tree, map_with_path, paths, unflatten
 
 PyTree = Any
 
@@ -269,6 +272,77 @@ def gather_tree(tree: PyTree, specs: PyTree, mesh) -> PyTree:
     return unflatten(tree, [one(x, s) for x, s in zip(leaves(tree), leaves(specs))])
 
 
+def logical_cache_pspecs(cfg: ModelConfig, shape_cfg: Shape, batch: int, max_seq: int,
+                         tp: int) -> PyTree:
+    """:func:`cache_pspecs` of ``cfg``'s whole decode cache of ``batch``
+    rows and ``max_seq`` positions (``init_cache`` on the meta device
+    with no mesh active, so the leaves are the logical ones)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import hints
+
+    with hints.set_mesh(None):
+        cache = T.init_cache(cfg, batch, max_seq, device="meta")
+    return cache_pspecs(cache, cfg, shape_cfg, tp=tp)
+
+
+def _mamba_tp(cfg: ModelConfig, mesh) -> int:
+    """The TP size over which a Mamba-2 layer of ``cfg`` splits
+    ``d_inner`` on ``mesh`` (1 where it runs whole, as ``param_pspecs``
+    leaves a ``d_inner`` the TP size does not divide)."""
+    tp = mesh.shape.get("model", 1)
+    return tp if tp > 1 and cfg.d_inner % tp == 0 else 1
+
+
+def place_cache(cache: PyTree, specs: PyTree, cfg: ModelConfig, mesh) -> PyTree:
+    """This rank's block of every leaf of the logical decode cache
+    ``cache`` (copies, so the whole leaves can be freed; meta tensors
+    will do), by ``specs`` (:func:`cache_pspecs` of the logical cache):
+    the batch over the DP axes, ``k``/``v`` by KV heads where the TP
+    size divides them, ``ssm`` by heads, ``ckv``/``krope`` whole.
+
+    One leaf departs from its spec. ``conv`` (reps, B, W-1, conv_dim)
+    is the window of the raw ``[x, B, C]`` projections, and
+    ``cache_pspecs`` splits its last dim evenly over ``model`` (JAX's
+    GSPMD may cut it anywhere). A rank of the port's Mamba-2 TP form
+    holds its block of ``x`` (``d_inner / tp`` columns) and the whole
+    B and C, so its window is ``[its x block, all of B/C]``, which is
+    what ``mamba2_decode`` reads and ``mamba2_prefill`` writes: that is
+    the block placed here wherever the layer splits ``d_inner``.
+    :func:`gather_cache` rebuilds the logical leaf."""
+    if not hasattr(mesh, "coords"):
+        return cache
+    tp = _mamba_tp(cfg, mesh)
+
+    def one(path, x, spec):
+        if path[-1] == "conv" and tp > 1:
+            x = shard_tree(x, P(*tuple(spec)[:-1]), mesh)  # the batch rows
+            d_in, r = cfg.d_inner // tp, mesh.coords["model"]
+            return torch.cat([x[..., r * d_in:(r + 1) * d_in], x[..., cfg.d_inner:]], -1)
+        return shard_tree(x, spec, mesh).clone()
+
+    return unflatten(cache, [one(p, x, s) for (p, x), s in zip(paths(cache), leaves(specs))])
+
+
+def gather_cache(cache: PyTree, specs: PyTree, cfg: ModelConfig, mesh) -> PyTree:
+    """The inverse of :func:`place_cache`: every rank gets the logical
+    leaves, JAX's ``conv`` layout included (the ranks' ``x`` blocks
+    all-gathered over the model group, then B/C, which every rank holds
+    whole)."""
+    if not hasattr(mesh, "coords"):
+        return cache
+    tp = _mamba_tp(cfg, mesh)
+
+    def one(path, x, spec):
+        if path[-1] == "conv" and tp > 1:
+            x = gather_tree(x, P(*tuple(spec)[:-1]), mesh)
+            d_in = cfg.d_inner // tp
+            xs = all_gather(x[..., :d_in], mesh.group("model"), x.dim() - 1)
+            return torch.cat([xs, x[..., d_in:]], -1)
+        return gather_tree(x, spec, mesh)
+
+    return unflatten(cache, [one(p, x, s) for (p, x), s in zip(paths(cache), leaves(specs))])
+
+
 def state_specs(pspecs: PyTree, mesh, *, ef: bool = False) -> dict:
     """Specs of a train state ``{"params", "opt", ["ef"]}`` whose params
     have specs ``pspecs``: AdamW's moments split as their params, its
@@ -290,6 +364,7 @@ def opt_pspecs(param_specs: PyTree, params: PyTree, data_size: int) -> dict:
     return zero1_specs(param_specs, params, data_size)
 
 
-__all__ = ["BATCH_AXES", "batch_axis", "batch_pspecs", "cache_pspecs", "gather_tree",
-           "is_split", "leaf_placer", "logical_pspecs", "opt_pspecs", "param_pspecs", "shard_tree",
-           "split_axes", "state_specs"]
+__all__ = ["BATCH_AXES", "batch_axis", "batch_pspecs", "cache_pspecs", "gather_cache",
+           "gather_tree", "is_split", "leaf_placer", "logical_cache_pspecs", "logical_pspecs",
+           "opt_pspecs", "param_pspecs", "place_cache", "shard_tree", "split_axes",
+           "state_specs"]

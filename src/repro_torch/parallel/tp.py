@@ -38,7 +38,8 @@ a gloo group travels through the host, as in ``core.chainwrite_dist``.
 :data:`tp_counter` counts the payload bytes this process hands to the
 collectives of a TP group, forward and backward apart;
 :func:`modeled_tp_bytes` is what a train step of the dense, MoE, MLA,
-Mamba-2 or hybrid family should count. Inside :func:`timed` each collective is a ``tp_comm`` span.
+Mamba-2 or hybrid family should count, :func:`modeled_tp_serve_bytes`
+what a prefill or a decode step should. Inside :func:`timed` each collective is a ``tp_comm`` span.
 """
 
 from __future__ import annotations
@@ -295,6 +296,29 @@ def modeled_tp_bytes(cfg, tokens: int, tp: int, *, remat: bool = True) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int) -> dict:
+    """The payload bytes :data:`tp_counter` counts for one prefill of
+    ``batch`` rows of ``seq`` tokens on this rank (``seq=1``: one decode
+    step of ``batch`` rows) of ``cfg`` at TP ``tp``: the forward alone,
+    with no remat and no CE. Per layer, what :func:`modeled_tp_bytes`
+    counts forward: the mixer's output all-reduce, GQA's K/V gather
+    where a rank holds every KV head (in a decode step, of the new
+    row), Mamba-2's gated-norm sum of squares, the SwiGLU's all-reduce
+    or the MoE's f32 combine; then, where the vocab is split, the
+    embedding's all-reduce and the gather of the f32 last-token logits
+    (each rank sends its ``batch × V/tp`` block)."""
+    from repro_torch.models.layers import COMPUTE_DTYPE
+
+    act_bytes = COMPUTE_DTYPE.itemsize
+    tokens = batch * seq
+    fwd = sum(reps * sum(_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes)[0]
+                         for spec in pattern)
+              for pattern, reps in cfg.layer_groups())
+    if cfg.vocab_size % tp == 0:
+        fwd += tokens * cfg.d_model * act_bytes + batch * (cfg.vocab_size // tp) * 4
+    return {"fwd": fwd, "bwd": 0}
+
+
 __all__ = ["TPCounter", "all_gather", "all_reduce", "copy_to_tp", "gather_from_tp",
-           "modeled_tp_bytes", "reduce_from_tp", "sum_over_tp", "timed", "tp_counter",
-           "vocab_parallel_ce"]
+           "modeled_tp_bytes", "modeled_tp_serve_bytes", "reduce_from_tp", "sum_over_tp",
+           "timed", "tp_counter", "vocab_parallel_ce"]

@@ -188,8 +188,9 @@ def train_case(mesh, params_np, batch_np, device) -> dict:
 def refusals(mesh, device) -> dict:
     """The message each left-out family's training forward raises with
     on ``mesh`` (a live ``model`` axis), a dense config whose heads the
-    TP size does not divide, and a MoE config with ``moe_ep_dispatch``
-    (EP over the DP axes composed with experts over ``model``)."""
+    TP size does not divide, a MoE config with ``moe_ep_dispatch``
+    (EP over the DP axes composed with experts over ``model``), and a
+    left-out family's prefill."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.parallel import hints
@@ -221,11 +222,13 @@ def refusals(mesh, device) -> dict:
             out[name] = None
         except NotImplementedError as e:
             out[name] = str(e)
-    # serving is not ported under TP: prefill refuses
-    cfg = C.get_smoke_config(ARCH)
+    # serving runs under TP for the covered families; the prefill of a
+    # left-out one (qwen2-vl: M-RoPE) still refuses
+    cfg = C.get_smoke_config("qwen2-vl-7b")
     try:
         with hints.set_mesh(mesh):
-            T.prefill({}, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, 8)
+            T.prefill({}, cfg, {"embeds": torch.zeros((1, 4, cfg.d_model)),
+                                "positions": torch.zeros((3, 1, 4), dtype=torch.int32)}, 8)
         out["prefill"] = None
     except NotImplementedError as e:
         out["prefill"] = str(e)

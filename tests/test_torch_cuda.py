@@ -239,6 +239,35 @@ def test_flash_wgmma_route_matches_plain(cuda, B, H, Hkv, S, D, dtype, causal, w
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# the flash kernel's shapes on one rank of a TP prefill of 4 x 512-token
+# prompts: (B, H/TP, Hkv_local, S, D), Hkv_local the rank's block of the
+# KV heads (yi-6b at TP = 2 and 4, and on (data=2, model=2) with its 2
+# rows; jamba-v0.1-52b at TP = 2 and 4), or one selected KV head per
+# query head where the TP size does not divide them (starcoder2-3b's 2
+# KV heads at TP = 4); then the same ranks' slot admission of one
+# 256-token prompt (yi-6b and jamba-v0.1-52b at TP = 2 and 4)
+TP_RANK_SHAPES = [(4, 16, 2, 512, 128), (4, 8, 1, 512, 128), (2, 16, 2, 512, 128),
+                  (4, 16, 4, 512, 128), (4, 8, 2, 512, 128), (4, 6, 6, 512, 128),
+                  (1, 16, 2, 256, 128), (1, 16, 4, 256, 128), (1, 8, 1, 256, 128),
+                  (1, 8, 2, 256, 128)]
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D", TP_RANK_SHAPES)
+def test_flash_wgmma_at_tp_rank_shapes(cuda, B, H, Hkv, S, D):
+    """The bf16 tensor-core kernel at the shapes a TP rank's prefill
+    gives it, against the plain twin; only the wgmma counter moves."""
+    q, k, v = (torch.randn((B, h, S, D), device=cuda).to(_BF16) for h in (H, Hkv, Hkv))
+    by_route = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, causal=True)
+    want = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    by_route["wgmma"] += 1
+    assert FA.flash_attention.launches_by_route == by_route
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    atol, rtol = TOL[_BF16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("S,causal,window", [(160, True, None), (333, True, 48),
                                              (449, False, None)])
 @pytest.mark.parametrize("dtype", [_BF16, torch.float16])

@@ -457,11 +457,13 @@ def test_tp_payload_bytes_match_their_model(spawned, mesh):
 def test_left_out_families_raise_naming_their_item(spawned, name):
     """Under a live model axis, each family TP does not cover yet, a
     dense config whose heads the TP size does not divide, a MoE config
-    with ``moe_ep_dispatch`` and serving (prefill) raise
-    ``NotImplementedError`` naming ROADMAP item 9c and the entry there."""
+    with ``moe_ep_dispatch`` and a left-out family's serving (qwen2-vl's
+    prefill; the covered families serve, ``tests/test_torch_tp_serve.py``)
+    raise ``NotImplementedError`` naming ROADMAP item 9c and the entry
+    there."""
     world4, (world2, _) = spawned
-    word = {"heads": "attn_seq_shard", "moe_ep": "moe_ep_dispatch", "prefill": "cache_pspecs"}
-    entry = {"qwen2-vl-7b": 2, "whisper-tiny": 3, "heads": 2, "moe_ep": 4, "prefill": 6}
+    word = {"heads": "attn_seq_shard", "moe_ep": "moe_ep_dispatch", "prefill": "M-RoPE"}
+    entry = {"qwen2-vl-7b": 2, "whisper-tiny": 3, "heads": 2, "moe_ep": 4, "prefill": 2}
     for r in world2:
         msg = r["refusals"][name]
         assert msg is not None and "9c" in msg and f"entry {entry[name]}" in msg
