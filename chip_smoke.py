@@ -160,12 +160,18 @@ Phases (any failure exits non-zero and prints no result):
    through the process-form ``Trainer`` on 2 ranks x 4 x 512 tokens
    (rs_ag, K = 1, 25 MiB buckets): the first step's reduced grads leaf by
    leaf bit for bit the stacked reduction of the two ranks' grads
-   (all-gathered by the executor), then 3 exact and 3 int8 + EF steps
-   whose losses must equal a stacked ``Trainer``'s (``dp=2``, run in
-   this process before the spawn) within ``DIST_LOSS_TOL``; per rank
-   the step walls, the spans, the transport, the wire bytes against the
-   model, peak memory and allocator retries (must be 0); no kernel
-   launch. Then expert parallelism across the processes:
+   (all-gathered by the executor), then 3 exact, 3 int8 + EF and 3
+   ``collectives="xla"`` steps (the backend's all-reduce) whose losses
+   must equal a stacked ``Trainer``'s (``dp=2``, run in this process
+   before the spawn) within ``DIST_LOSS_TOL``. Each rank holds AdamW's
+   moments as its ZeRO-1 blocks over ``data = 2``: their bytes half the
+   whole moments', the param all-gather's bytes a step equal to their
+   count, and the exact and xla runs' params after the steps bit for bit
+   the stacked run's (blake2b digests of every leaf). Per rank the step
+   walls, the spans (``param_gather`` inside ``optimizer``), the
+   transport, the wire bytes against the model, peak memory and
+   allocator retries (must be 0); no kernel launch. Then expert
+   parallelism across the processes:
    deepseek-moe-16b at full width, 2 of 28 layers, ``moe_ep_dispatch``
    (the MoE layer's dispatch and return as all-to-alls over the group,
    its backward the transposed exchange, the remat'd recompute's
@@ -236,8 +242,10 @@ Phases (any failure exits non-zero and prints no result):
    TP = 1's: the ranks' prefill cache within one bf16 step of TP = 1's,
    and TP = 1's decode started from that cache against its own.
 
-Then one JSON line with every kernel's launches, times, bound and error,
-and, as the last line, ``{"ok": true, "device": {...}}``. In every case
+Then ``phase walls s: {...}`` (each phase's wall seconds, against the
+script's time limit), one JSON line with every kernel's launches,
+times, bound and error, and, as the last line, ``{"ok": true,
+"device": {...}}``. In every case
 of phases 2 and 3 the event times of the kernel and of its library call
 (``ms``, ``library_ms``) are medians of 9 readings taken in turns
 (``paired_ms``).
@@ -2257,11 +2265,12 @@ def cell_phase() -> dict:
     return {"smoke": smoke, "variants": variants, "train": trains}
 
 # the losses of the process form against the stacked Trainer's on the
-# card: exact wire (the same per-rank grads and a bit-exact reduction:
-# expect 0) and int8 + EF (each process keeps its own reduced row, where
-# the stacked form hands every rank row 0; 3e-4 on the CPU after 2
-# steps, tests/test_torch_dist.py)
-DIST_LOSS_TOL = {"exact": 1e-5, "int8_ef": 2e-3}
+# card: exact wire and xla (the same per-rank grads and a bit-exact
+# reduction, two ranks' sum being one rounding in either order: expect
+# 0, and the params bit for bit) and int8 + EF (each process updates its
+# ZeRO-1 block from its own reduced row, where the stacked form hands
+# every rank row 0; 3e-4 on the CPU after 2 steps, tests/test_torch_dist.py)
+DIST_LOSS_TOL = {"exact": 1e-5, "int8_ef": 2e-3, "xla": 1e-5}
 DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=4, steps=3, global_batch=8, seq_len=512,
                   peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
                   bucket_bytes=25 << 20, loss_chunks=8, seed=0)
@@ -2277,10 +2286,35 @@ def dist_executor_rank(rank, world, device, case_list):
             "cases": dc.executor_rank(rank, world, device, case_list)}
 
 
-def dist_train_rank(rank, world, device):
+# the dist phase's Trainer runs: (name, compress_grads, collectives);
+# the xla run reduces with the backend's all-reduce and has no buckets
+DIST_RUNS = (("exact", False, "torrent"), ("int8_ef", True, "torrent"), ("xla", False, "xla"))
+
+
+def dist_run_config(name: str, compress: bool, collectives: str) -> dict:
+    """``DIST_TRAIN`` for one of ``DIST_RUNS``."""
+    return dict(DIST_TRAIN, compress_grads=compress, collectives=collectives,
+                bucket_bytes=DIST_TRAIN["bucket_bytes"] if collectives == "torrent" else None)
+
+
+def leaf_digests(tree) -> list[str]:
+    """A blake2b digest of every leaf's bytes (equal digests: equal bits)."""
+    import hashlib
+    import torch
+    from repro_torch.tree import leaves
+
+    return [hashlib.blake2b(t.detach().contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+            for t in leaves(tree)]
+
+
+def dist_train_rank(rank, world, device, stacked_digests):
     """One rank of the process-form training (a spawned process): the
-    first step's reduced grads checked leaf by leaf, then 3 exact and 3
-    int8 + EF steps through the process-form ``Trainer``."""
+    first step's reduced grads checked leaf by leaf, then 3 steps of
+    each of ``DIST_RUNS`` through the process-form ``Trainer``, with
+    ZeRO-1 over ``data = 2``: the rank's moment bytes against the whole
+    moments', the param gather's bytes against their count, and (exact
+    and xla) the params' digests after the steps against the stacked
+    ``Trainer``'s (``stacked_digests``)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2289,6 +2323,7 @@ def dist_train_rank(rank, world, device):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_grad_fn
     from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.optim import adamw
     from repro_torch.parallel import collectives as col
     from repro_torch.runtime.spans import Spans
     from repro_torch.tree import leaves
@@ -2296,37 +2331,46 @@ def dist_train_rank(rank, world, device):
     reset_launches()
     out = {"transport": cwd.transport(dist.group.WORLD, device)}
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
-    for name, compress in (("exact", False), ("int8_ef", True)):
+    for name, compress, collectives in DIST_RUNS:
         t0 = time.perf_counter()
         spans = Spans()
-        tr = Trainer(TrainConfig(compress_grads=compress, **DIST_TRAIN), device=device,
+        tr = Trainer(TrainConfig(**dist_run_config(name, compress, collectives)), device=device,
                      spans=spans)
         group = tr.mesh.group("data")
         init_s = time.perf_counter() - t0
         if name == "exact":
-            # the first step's grads: this process's reduction against the
-            # stacked reduction of the two ranks' grads, leaf by leaf
+            # the first step's grads: the stacked reduction of the two
+            # ranks' grads (all-gathered by the executor) leaf by leaf,
+            # against this process's bucketed reduction, which writes
+            # the mean into the grads' own buffers
             raw, _ = make_grad_fn(tr.cfg, loss_chunks=DIST_TRAIN["loss_chunks"])(
                 tr.state["params"], tr._device_batch(0))
             raw = leaves(raw)
+            stacked_reduce = col.make_stacked_reduce(make_host_mesh(data=world), num_chains=1)
+            want = []
+            for g in raw:
+                both = cw.chain_all_gather(g, group=group)
+                want.append(stacked_reduce([both])[0])
+                del both
             reduced = col.make_stacked_reduce(tr.mesh, num_chains=1,
                                               bucket_bytes=DIST_TRAIN["bucket_bytes"])(
                 [g.unsqueeze(0) for g in raw])
-            stacked_reduce = col.make_stacked_reduce(make_host_mesh(data=world), num_chains=1)
-            unequal = []
-            for i in range(len(raw)):
-                both = cw.chain_all_gather(raw[i], group=group)
-                if not torch.equal(stacked_reduce([both])[0], reduced[i]):
-                    unequal.append(i)
-                del both
+            unequal = [i for i, (a, b) in enumerate(zip(want, reduced)) if not torch.equal(a, b)]
             out["grad_check"] = {"leaves": len(raw), "unequal": unequal,
                                  "params": sum(g.numel() for g in raw)}
-            del raw, reduced
+            del raw, reduced, want
             torch.cuda.empty_cache()
+        params = leaves(tr.state["params"])
+        param_bytes = sum(p.numel() * p.element_size() for p in params)
+        moment_bytes = sum(m.numel() * m.element_size() for key in ("mu", "nu")
+                           for m in leaves(tr.state["opt"][key]))
+        split_bytes = sum(p.numel() * p.element_size() for p, m in
+                          zip(params, leaves(tr.state["opt"]["mu"])) if m.shape != p.shape)
         torch.cuda.reset_peak_memory_stats()
-        losses, walls, span_ms, wire = [], [], [], []
+        losses, walls, span_ms, wire, gathered = [], [], [], [], []
         for i in range(DIST_TRAIN["steps"]):
             cwd.wire_counter.reset()
+            adamw.gather_counter.reset()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             losses.append(float(trainer_step(tr, i)["loss"]))
@@ -2335,14 +2379,27 @@ def dist_train_rank(rank, world, device):
             span_ms.append({k: [round(v, 3) for v in vs] for k, vs in spans.read().items()})
             wire.append((cwd.wire_counter.bytes, cwd.wire_counter.modeled_bytes(),
                          cwd.wire_counter.program_bytes()))
-        out[name] = {"losses": losses, "step_wall_s": walls, "init_s": init_s,
-                     "median_step_s": float(np.median(walls)), "spans_ms": span_ms[-1],
-                     "wire_bytes_per_step": wire[-1][0],
-                     "modeled_wire_bytes_per_step": wire[-1][1],
-                     "program_wire_bytes_per_step": wire[-1][2],
-                     "wire_equal_model": all(a == b == c for a, b, c in wire),
-                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        del tr
+            gathered.append(adamw.gather_counter.bytes)
+        rec = {"collectives": collectives, "losses": losses, "step_wall_s": walls,
+               "init_s": init_s, "median_step_s": float(np.median(walls)),
+               "spans_ms": span_ms[-1],
+               "param_bytes": param_bytes, "moment_bytes": moment_bytes,
+               "moment_share_of_whole": moment_bytes / (2 * param_bytes),
+               "gather_bytes_per_step": gathered[-1],
+               "gather_bytes_count": split_bytes * (world - 1) // world,
+               "gather_equal_count": all(b == split_bytes * (world - 1) // world
+                                         for b in gathered),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if collectives == "torrent":
+            rec.update({"wire_bytes_per_step": wire[-1][0],
+                        "modeled_wire_bytes_per_step": wire[-1][1],
+                        "program_wire_bytes_per_step": wire[-1][2],
+                        "wire_equal_model": all(a == b == c for a, b, c in wire)})
+        if name in stacked_digests:
+            rec["params_bit_equal_stacked"] = leaf_digests(tr.state["params"]) == \
+                stacked_digests[name]
+        out[name] = rec
+        del tr, params
         gc.collect()
         torch.cuda.empty_cache()
     out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
@@ -2386,6 +2443,7 @@ def dist_ep_rank(rank, world, device):
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
     from repro_torch.tree import leaves
 
     cfg = dataclasses.replace(C.get_config(DIST_EP["arch"]), moe_ep_dispatch=True,
@@ -2401,12 +2459,14 @@ def dist_ep_rank(rank, world, device):
                                mesh=mesh, loss_chunks=DIST_EP["loss_chunks"],
                                num_chains=DIST_EP["num_chains"], remat=DIST_EP["remat"])
 
-    def run(step, batch):
+    def run(step, batch, mesh):
         p = init()
         p0 = [t.cpu() for t in leaves(p)]
+        # the process form's moments are its ZeRO-1 blocks (whole on the stacked view)
+        opt = adamw.init(p, specs=shd.train_state_specs(cfg, mesh)["opt"], mesh=mesh)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new_p, _, m = step(p, adamw.init(p), batch)
+        new_p, _, m = step(p, opt, batch)
         loss = float(m["loss"])
         wall = time.perf_counter() - t0
         return leaves(new_p), p0, loss, wall
@@ -2414,7 +2474,8 @@ def dist_ep_rank(rank, world, device):
     out = {"transport": cwd.transport(dist.group.WORLD, device)}
     ref = None
     if rank == 0:
-        new_p, p0, loss, wall = run(step_on(make_host_mesh(data=world)), place(source.batch(0)))
+        stacked = make_host_mesh(data=world)
+        new_p, p0, loss, wall = run(step_on(stacked), place(source.batch(0)), stacked)
         ref = {"loss": loss, "update": [(a - b.to(device)).cpu() for a, b in zip(new_p, p0)]}
         out["stacked"] = {"loss": loss, "step_wall_s": wall,
                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -2430,7 +2491,7 @@ def dist_ep_rank(rank, world, device):
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     reset_launches()
     cwd.wire_counter.reset()
-    new_p, p0, loss, wall = run(step, batch)
+    new_p, p0, loss, wall = run(step, batch, mesh)
     launches = read_launches()
     ep_bytes = sum(n * cwd.sent_wire_bytes(p, size, frames, r)
                    for (p, size, frames, r), n in cwd.wire_counter.runs.items()
@@ -2492,10 +2553,13 @@ def dist_phase() -> dict:
     # ~40 GB and two ranks' ~30 GB each do not fit one card together
     gc.collect()
     torch.cuda.empty_cache()
-    want = {}
-    for name, compress in (("exact", False), ("int8_ef", True)):
-        tr = Trainer(TrainConfig(dp=2, compress_grads=compress, **DIST_TRAIN), device="cuda")
+    want, digests = {}, {}
+    for name, compress, collectives in DIST_RUNS:
+        tr = Trainer(TrainConfig(dp=2, **dist_run_config(name, compress, collectives)),
+                     device="cuda")
         want[name] = [float(trainer_step(tr, i)["loss"]) for i in range(DIST_TRAIN["steps"])]
+        if not compress:  # the ranks' params must match these bit for bit
+            digests[name] = leaf_digests(tr.state["params"])
         del tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -2505,25 +2569,37 @@ def dist_phase() -> dict:
     if free < 0.75 * total:
         raise AssertionError(f"dist train: only {free / 1e9:.2f} GB free before the spawn")
     t0 = time.perf_counter()
-    ranks = spawn(dist_train_rank, 2, backend="gloo", device="cuda", timeout_s=900)
+    ranks = spawn(dist_train_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                  args=(digests,))
     wall = time.perf_counter() - t0
     for r, rec in enumerate(ranks):
         print(f"dist train rank {r}: {json.dumps(rec)}", flush=True)
-    errors = {}
+    errors, zero1 = {}, {}
     for name in want:
         got = ranks[0][name]["losses"]
         errors[name] = max(abs(a - b) for a, b in zip(got, want[name]))
+        recs = [rk[name] for rk in ranks]
+        # ZeRO-1 over data = 2: half the whole moments a rank, the gather
+        # as counted, the params bit for bit the stacked run's
+        zero1[name] = {"moment_share_of_whole": [r_["moment_share_of_whole"] for r_ in recs],
+                       "gather_bytes_per_step": recs[0]["gather_bytes_per_step"],
+                       "params_bit_equal_stacked": [r_.get("params_bit_equal_stacked")
+                                                    for r_ in recs]}
         if not (all(rk[name]["losses"] == got for rk in ranks) and errors[name] <= DIST_LOSS_TOL[name]
-                and all(rk[name]["wire_equal_model"] for rk in ranks)
+                and all(r_.get("wire_equal_model", True) for r_ in recs)
+                and all(r_["moment_share_of_whole"] == 0.5 and r_["gather_equal_count"]
+                        for r_ in recs)
+                and all(r_.get("params_bit_equal_stacked", True) for r_ in recs)
                 and np.isfinite(got).all()):
-            raise AssertionError(f"dist train {name}: losses {got} vs stacked {want[name]}")
+            raise AssertionError(f"dist train {name}: losses {got} vs stacked {want[name]}, "
+                                 f"ZeRO-1 {zero1[name]}")
     launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
     checks = [rk["grad_check"] for rk in ranks]
     if any(c["unequal"] for c in checks) or any(rk["alloc_retries"] for rk in ranks) \
             or any(launches.values()) or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
         raise AssertionError(f"dist train: grad checks {checks}, retries "
                              f"{[rk['alloc_retries'] for rk in ranks]}, launches {launches}")
-    print(f"dist train: {json.dumps({'ranks': 2, 'first_step_leaves_bit_exact': checks[0]['leaves'], 'params': checks[0]['params'], 'max_loss_diff_vs_stacked': errors, 'tolerance': DIST_LOSS_TOL, 'phase_wall_s': round(wall, 2), 'launches': launches})}", flush=True)
+    print(f"dist train: {json.dumps({'ranks': 2, 'first_step_leaves_bit_exact': checks[0]['leaves'], 'params': checks[0]['params'], 'max_loss_diff_vs_stacked': errors, 'tolerance': DIST_LOSS_TOL, 'zero1': zero1, 'phase_wall_s': round(wall, 2), 'launches': launches})}", flush=True)
 
     # 3. expert parallelism across the processes, against the stacked
     # joint step that rank 0 runs first
@@ -3522,30 +3598,39 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    relayout_rec = relayout_phase()
-    flash_recs = flash_phase()
-    f32_routes = f32_attention_path()
+    walls = {}  # each phase's wall seconds, for the script's time budget
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t, 2)
+        return out
+
+    relayout_rec = timed("relayout", relayout_phase)
+    flash_recs = timed("flash", flash_phase)
+    f32_routes = timed("f32 path", f32_attention_path)
     launches = {"flash_attention_tf32x3": f32_routes["tf32x3"]}
-    moe_layer_phase()
-    launches.update(serve_phase("serve"))
-    moe = serve_phase("moe serve")
-    mla = serve_phase("mla serve")
-    ssm = serve_phase("ssm serve")
-    hybrid = serve_phase("hybrid serve")
-    vlm = vlm_decode_phase()
-    audio = audio_decode_phase()
-    audio_train = audio_train_phase()
+    timed("moe layer", moe_layer_phase)
+    launches.update(timed("serve", serve_phase, "serve"))
+    moe = timed("moe serve", serve_phase, "moe serve")
+    mla = timed("mla serve", serve_phase, "mla serve")
+    ssm = timed("ssm serve", serve_phase, "ssm serve")
+    hybrid = timed("hybrid serve", serve_phase, "hybrid serve")
+    vlm = timed("vlm decode", vlm_decode_phase)
+    audio = timed("audio decode", audio_decode_phase)
+    audio_train = timed("audio train", audio_train_phase)
     print(f"kv multicast per position: mla serve F {mla['kv']['F']} ({mla['kv']['F_per_layer']} "
           f"a layer), {mla['kv']['payload_bytes']} B; moe serve F {moe['kv']['F']} "
           f"({moe['kv']['F_per_layer']} a layer), {moe['kv']['payload_bytes']} B; ratio "
           f"{moe['kv']['F'] / mla['kv']['F']:.3f}", flush=True)
-    train = train_phase()
-    ep_train = ep_train_phase()
-    cell_phase()
-    dist = dist_phase()
-    tp = tp_phase()
-    tp_families = tp_families_phase()
-    tp_serve = tp_serve_phase()
+    train = timed("train", train_phase)
+    ep_train = timed("ep train", ep_train_phase)
+    timed("cells", cell_phase)
+    dist = timed("dist", dist_phase)
+    tp = timed("tp", tp_phase)
+    tp_families = timed("tp families", tp_families_phase)
+    tp_serve = timed("tp serve", tp_serve_phase)
+    print(f"phase walls s: {json.dumps(walls)}", flush=True)
 
     def path_launches(rec):
         return {k: rec.get(k, 0) for k in ("relayout", "flash_attention_wgmma",

@@ -61,7 +61,14 @@ its own, so the executor hands NCCL the device tensors themselves:
    held as ``chip_smoke.tp_serve_phase`` holds its ranks. On the CPU,
    at smoke size with a 64-token prompt.
 
-``--parts`` picks parts by name (default: all). Prints the card's name
+6. ``bf16_gap`` (one card, asked for by name): mamba2-2.7b at TP = 1 in
+   bf16 compute, all 64 layers, through ``chip_smoke.tp_serve_traffic``
+   and replayed from its own prefill cache with the bf16 ``conv`` window
+   (and the SSM state) moved by one bf16 step (``BF16_GAP_VARIANTS``):
+   the last logits' gap,
+   beside TP = 2's 0.358 of the logit scale in bf16.
+
+``--parts`` picks parts by name (default: 1-5). Prints the card's name
 and power limit, one ``dist cards PART {...}`` line per part, and exits
 non-zero if a check fails.
 """
@@ -70,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -151,8 +159,11 @@ def all_reduce_rank(rank, world, device, n, iters):
 # the tp part's runs: (label, arch, data, model, layers; None = the
 # config's); 4 x 512 tokens a step, 3 steps. deepseek-v2-lite-16b's 8 of 27
 # layers leave a quarter of the card free at the step peak (its full depth
-# at TP = 4 would be ~63 GB of state a rank)
-TP_RUNS = [("1x4_full_depth", "yi-6b", 1, 4, None), ("2x2_8_layers", "yi-6b", 2, 2, 8),
+# at TP = 4 would be ~63 GB of state a rank). "4x1_full_depth" is pure DP
+# with ZeRO-1: yi-6b's 6.06 B f32 params whole on every rank, its AdamW
+# moments a quarter each (without ZeRO-1 ~97 GB a rank: no card holds it)
+TP_RUNS = [("4x1_full_depth", "yi-6b", 4, 1, None),
+           ("1x4_full_depth", "yi-6b", 1, 4, None), ("2x2_8_layers", "yi-6b", 2, 2, 8),
            ("mamba2_1x4_full_depth", "mamba2-2.7b", 1, 4, None),
            ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5),
            ("dsv2lite_2x2_8_layers", "deepseek-v2-lite-16b", 2, 2, 8)]
@@ -169,14 +180,61 @@ SERVE_TP_STEPS, SERVE_TP_ADMIT = 16, 8
 TRAIN_RUNS = [("yi-6b", 1), ("yi-6b", 2), ("deepseek-moe-16b", 2), ("mamba2-2.7b", 2)]
 
 
+def bit_checksum(tree) -> int:
+    """The sum of every leaf's 32-bit words as integers (exact, on the
+    leaf's device, a chunk at a time): equal bits give equal sums."""
+    import torch
+    from repro_torch.tree import leaves
+
+    total = 0
+    for t in leaves(tree):
+        words = t.detach().contiguous().view(-1).view(torch.int32)
+        for chunk in words.split(1 << 26):
+            total += int(chunk.to(torch.int64).sum())
+    return total
+
+
+def state_bytes(cfg, mesh) -> dict:
+    """The bytes of a rank's train state on ``mesh`` from the meta device:
+    its params as ``param_pspecs`` place them and its AdamW moments as
+    ZeRO-1's ``opt_pspecs`` place them, beside the moments whole (the
+    same params without ZeRO-1)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves
+
+    specs = shd.train_state_specs(cfg, mesh)
+    meta = T.model_init(torch.Generator(), cfg, "meta",
+                        place=shd.leaf_placer(specs["params"], mesh))
+    opt = adamw.init(meta, specs=specs["opt"], mesh=mesh)
+
+    def size(tree):
+        return sum(x.numel() * x.element_size() for x in leaves(tree))
+
+    params = size(meta)
+    return {"params": params, "moments": size(opt), "moments_whole": 2 * params + 4,
+            "split": sum(p.numel() * p.element_size()
+                         for p, m in zip(leaves(meta), leaves(opt["mu"])) if m.shape != p.shape)}
+
+
 def tp_rank(rank, world, device, arch, tp, layers, smoke):
     """One rank of the tp part: the process-form ``Trainer`` at
-    ``tp``, driven 3 steps, with its record."""
+    ``tp``, driven 3 steps, with its record. With ``data`` > 1 the
+    rank's moments are its ZeRO-1 blocks: its state against the meta
+    device's count (``predicted_state_gb``) beside the state without
+    ZeRO-1 (``no_zero1_state_gb``, the moments whole) and the peak that
+    would take (``no_zero1_step_peak_gb``: the measured step peak over
+    the state, added to it), the param gather's bytes a step against
+    ``(data - 1) / data`` of the split params', and a checksum of the
+    params' bits after the steps."""
     import numpy as np
     import torch
     import torch.distributed as dist
     from repro_torch.core import chainwrite_dist as cwd
     from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.optim import adamw
     from repro_torch.parallel import tp as tpm
     from repro_torch.runtime.spans import Spans
 
@@ -194,19 +252,26 @@ def tp_rank(rank, world, device, arch, tp, layers, smoke):
     if smoke:
         kw.update(seq_len=32, layers=None)
     tr = Trainer(TrainConfig(tp=tp, **kw), device=device, spans=spans)
+    data = tr.mesh.shape["data"]
+    count = state_bytes(tr.cfg, tr.mesh)
     rec = {"mesh": tr.mesh.shape, "layers": tr.cfg.num_layers,
            "init_s": time.perf_counter() - t0,
            "state_memory_gb": mem(torch.cuda.memory_allocated),
+           "predicted_state_gb": (count["params"] + count["moments"]) / 1e9,
+           "no_zero1_state_gb": (count["params"] + count["moments_whole"]) / 1e9,
+           "params_gb": count["params"] / 1e9,
            "init_peak_memory_gb": mem(torch.cuda.max_memory_allocated),
-           "transport": cwd.transport(tr.mesh.group("model"), device)}
+           "transport": cwd.transport(tr.mesh.group("model" if tp > 1 else "data"), device)}
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     tokens = kw["global_batch"] * kw["seq_len"] // tr.mesh.shape["data"]
-    model = tpm.modeled_tp_bytes(tr.cfg, tokens, tp)
-    losses, walls, span_ms, tp_bytes, wire = [], [], [], [], []
+    # no model group at TP = 1: no TP payload
+    model = tpm.modeled_tp_bytes(tr.cfg, tokens, tp) if tp > 1 else {"fwd": 0, "bwd": 0}
+    losses, walls, span_ms, tp_bytes, wire, gathered = [], [], [], [], [], []
     for i in range(kw["steps"]):
         tpm.tp_counter.reset()
         cwd.wire_counter.reset()
+        adamw.gather_counter.reset()
         batch = tr.place(tr.source.batch(i))
         if cuda:
             torch.cuda.synchronize()
@@ -224,13 +289,22 @@ def tp_rank(rank, world, device, arch, tp, layers, smoke):
         span_ms[-1]["tp_comm_calls"] = len(ms.get("tp_comm", []))
         tp_bytes.append(dict(tpm.tp_counter.bytes))
         wire.append((cwd.wire_counter.bytes, cwd.wire_counter.program_bytes()))
-    rec.update({"losses": losses, "step_wall_s": walls, "median_step_s": float(np.median(walls)),
+        gathered.append(adamw.gather_counter.bytes)
+    gather_count = count["split"] * (data - 1) // data
+    peak = mem(torch.cuda.max_memory_allocated)
+    rec.update({
+                "gather_bytes_per_step": gathered[-1], "gather_bytes_count": gather_count,
+                "gather_equal_count": all(b == gather_count for b in gathered),
+                "no_zero1_step_peak_gb": (None if peak is None else
+                                          peak - rec["predicted_state_gb"]
+                                          + rec["no_zero1_state_gb"]),
+                "params_checksum": bit_checksum(tr.state["params"]),"losses": losses, "step_wall_s": walls, "median_step_s": float(np.median(walls)),
                 "spans_ms": span_ms[-1], "tp_bytes_per_step": tp_bytes[-1],
                 "modeled_tp_bytes_per_step": model,
                 "tp_bytes_equal_model": all(b == model for b in tp_bytes),
                 "dp_wire_bytes_per_step": wire[-1][0],
                 "dp_wire_equal_program_bytes": all(a == b for a, b in wire),
-                "step_peak_memory_gb": mem(torch.cuda.max_memory_allocated),
+                "step_peak_memory_gb": peak,
                 "alloc_retries": (torch.cuda.memory_stats().get("num_alloc_retries", 0)
                                   - retries0) if cuda else 0})
     return rec
@@ -405,13 +479,96 @@ def serve_tp_part(device, world, on_card, labels=None) -> bool:
     return ok
 
 
+# the bf16_gap part: mamba2-2.7b at TP = 1 in bf16 compute, all 64 layers,
+# against itself replayed from its prefill cache moved by one bf16 step:
+# the bf16 conv window in the share of elements where TP = 2's cache
+# differed from TP = 1's (2.66%, measured by chip_smoke.tp_serve_witness),
+# then in every element, then with the f32 SSM state also moved by a
+# bf16 step (2^-7 of each element, either way); TP = 2 in bf16
+# read 0.358 of the logit scale there. (variant: (conv share, ssm share))
+BF16_GAP_VARIANTS = {"conv_2.66%": (0.0266, 0.0), "conv_all": (1.0, 0.0),
+                     "conv_and_ssm_all": (1.0, 1.0)}
+
+
+def bf16_step(x, share: float, seed: int):
+    """``x`` (bf16) with a ``share`` of its elements (drawn from
+    ``seed``) moved to a neighbouring bf16 value, up or down at random:
+    one bit of the 16-bit pattern, away from or towards zero."""
+    import torch
+
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    pick = torch.rand(x.shape, generator=gen, device=x.device) < share
+    sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device, dtype=torch.int16) * 2 - 1
+    bits = x.contiguous().view(torch.int16)
+    sign = torch.where(bits & 0x7FFF == 0, 1, sign).to(torch.int16)  # ±0: a subnormal, not NaN
+    return torch.where(pick, bits + sign, bits).view(torch.bfloat16)
+
+
+def bf16_gap_part(device, on_card) -> bool:
+    """The open mamba2-2.7b bf16 question: ``chip_smoke.tp_serve_traffic``
+    at TP = 1 in bf16 (the plain attention; all 64 layers at full width on
+    a card, the smoke config on the CPU), then replayed, fed its own
+    tokens, from its own prefill cache (the noise floor) and from that
+    cache moved by one bf16 step (``BF16_GAP_VARIANTS``): the last
+    logits' gap relative to
+    the row's scale, beside TP = 2's 0.358. Rounding amplified over depth
+    should give a gap of that size."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, paths, unflatten
+
+    t0 = time.perf_counter()
+    arch = "mamba2-2.7b"
+    cfg = cs.tp_serve_config(arch, None, not on_card, attn_impl="reference")
+    params = T.model_init(torch.Generator(device=device).manual_seed(cs.TP_SERVE_TRAFFIC["seed"]),
+                          cfg, device)
+    traffic = serve_traffic(1, smoke=not on_card)
+    ref = cs.tp_serve_traffic(cfg, params, device, traffic=traffic, keep_prefill_cache=True)
+    start = [x.clone() for x in leaves(ref.pop("prefill_cache"))]
+    keys = [p[-1] for p, _ in paths(ref["cache"])]
+    last = next(iter(ref["final_logits"]))
+    want = ref["final_logits"][last].float().cpu()
+
+    def replay(cache_leaves) -> float:
+        def edit(cache):
+            return unflatten(cache, [x.clone() for x in cache_leaves])
+
+        got = cs.tp_serve_traffic(cfg, params, device, reference=ref, traffic=traffic,
+                                  edit_cache=edit)
+        return cs._rel_rows(got["final_logits"][last].float().cpu(), want)
+
+    rec = {"arch": arch, "layers": cfg.num_layers, "compute": "bfloat16",
+           "own_cache_rel": replay(start), "moved_rel": {}}
+    for name, (conv, ssm) in BF16_GAP_VARIANTS.items():
+        moved = []
+        for i, (k, x) in enumerate(zip(keys, start)):
+            if k == "conv":
+                x = bf16_step(x, conv, i)
+            elif k == "ssm" and ssm:
+                gen = torch.Generator(device=x.device).manual_seed(i)
+                x = x * (1 + 2.0 ** -7 * (torch.randint(0, 2, x.shape, generator=gen,
+                                                        device=x.device) * 2 - 1))
+            moved.append(x)
+        rec["moved_rel"][name] = replay(moved)
+    rec["tp2_bf16_rel"] = 0.358
+    rec["wall_s"] = round(time.perf_counter() - t0, 2)
+    # a replay from its own cache is deterministic: 0
+    ok = rec["own_cache_rel"] == 0 and all(math.isfinite(v) for v in rec["moved_rel"].values())
+    rec["ok"] = bool(ok)
+    print("dist cards bf16_gap", json.dumps(rec), flush=True)
+    del params, ref
+    return bool(ok)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--world", type=int, default=None,
                     help="ranks (default: every card; required with --device cpu)")
     ap.add_argument("--parts", default="executor,all_reduce,train,tp,serve_tp",
-                    help="comma-separated parts to run (default: all)")
+                    help="comma-separated parts to run (default: every multi-rank part; "
+                         "bf16_gap runs on the first card)")
     ap.add_argument("--tp-runs", default=None,
                     help="comma-separated labels of TP_RUNS for the tp part (default: all)")
     ap.add_argument("--serve-runs", default=None,
@@ -431,11 +588,14 @@ def main() -> int:
                               "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip().splitlines()[0])
     world = args.world or (torch.cuda.device_count() if on_card else 0)
-    if world < 2:
-        print(f"dist_cards: needs 2 or more ranks, got {world}", file=sys.stderr)
-        return 1
     ref_dev = "cuda:0" if on_card else "cpu"
     ok = True
+    if "bf16_gap" in parts:  # one card
+        ok &= bf16_gap_part(ref_dev, on_card)
+        parts.discard("bf16_gap")
+    if parts and world < 2:
+        print(f"dist_cards: needs 2 or more ranks, got {world}", file=sys.stderr)
+        return 1
 
     if "executor" in parts:
         ok &= executor_part(args.device, world, on_card, ref_dev)
@@ -543,10 +703,17 @@ def tp_part(device, world, on_card, labels=None) -> bool:
         good = (all(np.isfinite(rk["losses"]).all() for rk in ranks)
                 and all(rk["mesh"] == {"data": data, "model": model} for rk in ranks)
                 and all(rk["tp_bytes_equal_model"] and rk["dp_wire_equal_program_bytes"]
-                        and not rk["alloc_retries"] for rk in ranks)
+                        and rk["gather_equal_count"] and not rk["alloc_retries"]
+                        for rk in ranks)
                 # the TP ranks of one DP rank hold the same loss
                 and all(ranks[i]["losses"] == ranks[i - i % model]["losses"]
+                        for i in range(world))
+                # the DP replicas of one TP rank hold the same params (ZeRO-1's gather)
+                and all(ranks[i]["params_checksum"] == ranks[i % model]["params_checksum"]
                         for i in range(world)))
+        if on_card:
+            good &= all(abs(rk["state_memory_gb"] - rk["predicted_state_gb"])
+                        <= 0.01 * rk["predicted_state_gb"] for rk in ranks)
         ok &= bool(good)
         print(f"dist cards tp {label}", json.dumps({
             "ok": bool(good), "arch": arch, "mesh": {"data": data, "model": model},
@@ -555,6 +722,13 @@ def tp_part(device, world, on_card, labels=None) -> bool:
             "step_peak_memory_gb": [rk["step_peak_memory_gb"] for rk in ranks],
             "init_peak_memory_gb": [rk["init_peak_memory_gb"] for rk in ranks],
             "state_memory_gb": [rk["state_memory_gb"] for rk in ranks],
+            "predicted_state_gb": ranks[0]["predicted_state_gb"],
+            "no_zero1_state_gb": ranks[0]["no_zero1_state_gb"],
+            "no_zero1_step_peak_gb": [rk["no_zero1_step_peak_gb"] for rk in ranks],
+            "params_gb": ranks[0]["params_gb"],
+            "gather_bytes_per_step": [rk["gather_bytes_per_step"] for rk in ranks],
+            "gather_bytes_count": ranks[0]["gather_bytes_count"],
+            "params_checksums": [rk["params_checksum"] for rk in ranks],
             "spans_ms_rank0": ranks[0]["spans_ms"],
             "transport": sorted({rk["transport"] for rk in ranks}),
             "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)

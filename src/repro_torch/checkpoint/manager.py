@@ -30,15 +30,19 @@ Design points for the 1000+-node posture:
   *shape)`` row) are gathered to rank 0 on save as the ``(dp, *shape)``
   leaf the stacked form writes, and each rank restores its own row of
   it. A checkpoint written by either form restores in the other.
-* **Tensor parallelism.** With a ``mesh`` whose ``model`` axis is live
-  and the state's ``specs`` (``parallel.sharding.state_specs``), each
-  leaf a rank holds is its shard: save gathers every split leaf to its
-  logical shape over the ``model`` group (one leaf at a time, straight
-  to the host) before rank 0 writes it, so the files are the same at
-  any TP size; ``restore(..., specs=, mesh=)`` (JAX's ``shardings=``
-  role) gives each rank its own shards. A checkpoint written at TP = 2
-  restores at TP = 1, in the stacked form and in the JAX package, and
-  the reverse.
+* **Placed state: tensor parallelism and ZeRO-1.** With a process
+  ``mesh`` and the state's ``specs`` (``parallel.sharding.state_specs``),
+  each leaf a rank holds is its block of the logical leaf: a TP shard
+  of a param split over ``model``, a ZeRO-1 block of an AdamW moment
+  split over ``data`` as well. Save gathers every leaf over every live
+  axis its spec names (one leaf at a time, straight to the host) before
+  rank 0 writes it; only the per-rank EF rows are gathered over
+  ``model`` alone and then as rows. So the files are the logical leaves
+  at any mesh; ``restore(..., specs=, mesh=)`` (JAX's ``shardings=``
+  role) gives each rank its own blocks. A checkpoint written at TP = 2,
+  or with ZeRO-1 on ``(data=2, model=2)``, restores on any other mesh
+  (``(4, 1)``, ``(1, 1)``), in the stacked form and in the JAX package,
+  and the reverse.
 """
 
 from __future__ import annotations
@@ -95,8 +99,8 @@ class CheckpointManager:
     """``group``: the ``torch.distributed`` group of the process form's
     data-parallel ranks (world rank 0 writes; see the module docstring),
     or None for one process. ``mesh`` and ``specs``: the process mesh
-    and the specs of the state's leaves, where a live ``model`` axis
-    splits them (tensor parallelism)."""
+    and the specs of the state's leaves, which place each rank's block
+    of them (tensor parallelism over ``model``, ZeRO-1 over ``data``)."""
 
     def __init__(self, root: str, keep_last_k: int = 3, *, group=None, mesh=None,
                  specs=None):
@@ -122,9 +126,10 @@ class CheckpointManager:
             specs = leaves(self.specs) if self.specs is not None else [None] * len(paths(tree))
             flat = {}
             for (path, leaf), spec in zip(paths(tree), specs):
-                if spec is not None:  # TP: the logical leaf, over the model group
-                    leaf = gather_tree(leaf, keep_axes(spec, ("model",)), self.mesh)
-                if _per_rank(path):
+                if spec is not None:  # the logical leaf, over every live axis of its spec
+                    leaf = gather_tree(leaf, keep_axes(spec, ("model",)) if _per_rank(path)
+                                       else spec, self.mesh)
+                if _per_rank(path):  # the DP rows, point to point to rank 0
                     leaf = gather_rows(leaf[0], self.group)
                 if self.rank == 0:
                     flat[_key(path)] = _host(leaf)  # host snapshot now

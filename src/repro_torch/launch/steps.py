@@ -16,6 +16,7 @@ import functools
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as C
 from repro_torch.configs.shapes import SHAPES, Shape, input_specs
@@ -29,6 +30,7 @@ from repro_torch.parallel import sharding as shd
 from repro_torch.parallel import tp as tp_mod
 from repro_torch.parallel.spec import P, keep_axes
 from repro_torch.parallel.collectives import (
+    _rank_mean,
     dp_size_of,
     split_batch,
     torrent_grad_reduce,
@@ -127,6 +129,15 @@ def _ep_joint(cfg: ModelConfig, dp_size: int) -> bool:
                 and cfg.num_experts % dp_size == 0)
 
 
+def _mean_over(g: torch.Tensor, group, n: int) -> torch.Tensor:
+    """``g`` summed over ``group`` by the backend's all-reduce, in place
+    (gloo stages a CUDA tensor through pinned host memory itself), and
+    divided by ``n``; a tensor divisor keeps the divide a true division
+    on CUDA."""
+    dist.all_reduce(g, group=group)
+    return g.div_(torch.tensor(float(n), dtype=g.dtype, device=g.device))
+
+
 def make_train_step(
     cfg: ModelConfig,
     opt_cfg: adamw.OptConfig,
@@ -177,19 +188,31 @@ def make_train_step(
     On a :class:`~repro_torch.launch.mesh.ProcessMesh` the step is one
     rank's, as a JAX ``shard_map`` device's: ``batch`` is this rank's
     rows, its grads are reduced over the mesh's process groups by the
-    Torrent reduction (``ef_state`` is this rank's ``(1, *shape)`` rows),
-    AdamW runs on this rank's copy, and ``microbatches > 1`` accumulates
+    Torrent reduction (``ef_state`` is this rank's ``(1, *shape)`` rows;
+    each leaf's mean is written into the rank's own grad buffer), AdamW
+    runs on this rank's copy (its ZeRO-1 blocks where ``data`` is live,
+    below), and ``microbatches > 1`` accumulates
     the rank's microbatch grads locally before the one reduction (the
     stacked step reduces each microbatch). With ``cfg.moe_ep_dispatch``
     (experts the ranks divide) each rank's MoE layers exchange its tokens
     with the other ranks' over the mesh's DP group, and its backward
     gives it the grads JAX's ``shard_map`` rank gets.
-    ``collectives="xla"`` is not ported to this form.
+    ``collectives="xla"`` sums the rank's grads over the DP group with
+    the backend's all-reduce and divides by the DP size (JAX's xla step:
+    the mean the fabric gives; the stacked step's mean up to the f32
+    rounding of the sum's order). Where the ``data`` axis is live the
+    optimizer is ZeRO-1's (``adamw.update_zero1``): ``opt_state``'s
+    moments are this rank's blocks by ``opt_pspecs``
+    (``parallel.sharding.train_state_specs``; ``adamw.init(params,
+    specs=, mesh=)`` builds them), the rank updates its block of each
+    param and all-gathers the blocks over ``data`` (a ``param_gather``
+    span inside ``optimizer``).
 
     With a ``model`` axis > 1 (a ``ProcessMesh`` only) the params, the
-    optimizer state, the grads and the EF residual are this rank's
-    shards (``parallel.sharding.param_pspecs`` placed by
-    ``shard_tree``): the forward and backward run Megatron's
+    optimizer state (split over a live ``data`` axis as well, above),
+    the grads and the EF residual are this rank's shards
+    (``parallel.sharding.param_pspecs`` placed by ``shard_tree``): the
+    forward and backward run Megatron's
     collectives over the model group (``parallel.tp``; the remat'd
     recompute runs them again, in the same order on every TP rank), the
     Torrent reduction runs over the DP group on the shards, and AdamW
@@ -233,11 +256,8 @@ def make_train_step(
     wire_dtype = "int8" if compress_grads else None
     dp_size = dp_size_of(mesh)
     joint = _ep_joint(cfg, dp_size)
-    process = mesh.group(hints.dp_axes(mesh.axis_names)) is not None
-    if process and collectives != "torrent":
-        raise NotImplementedError(
-            f'collectives={collectives!r} on a ProcessMesh: the process form reduces with '
-            'collectives="torrent"')
+    dp_group = mesh.group(hints.dp_axes(mesh.axis_names))
+    process = dp_group is not None
     if batch_specs is None:  # the specs depend on the shape's kind only
         batch_specs = shd.batch_pspecs(cfg, SHAPES["train_4k"])
 
@@ -262,6 +282,17 @@ def make_train_step(
                 return grad_fn_own(params, batch)
     grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
                     if joint and not process else None)
+
+    def grad_fn_xla_process(params, batch):
+        """This rank's grads (its microbatches accumulated first), summed
+        over the DP group by the backend's all-reduce and divided by the
+        DP size: the plain mean JAX's xla step takes from the fabric."""
+        device = leaves(params)[0].device
+        with maybe_span(spans, "fwd_bwd", device):
+            grads, metrics = accumulated(grad_fn_local)(params, batch)
+        with maybe_span(spans, "reduce", device):
+            grads = map_tree(lambda g: _mean_over(g, dp_group, dp_size), grads)
+        return grads, _rank_mean(metrics, dp_group, dp_size)
 
     def grad_fn_xla(params, batch):
         """Plain mean of the ranks' grads (the fabric's all-reduce)."""
@@ -288,9 +319,22 @@ def make_train_step(
         norm_kw = dict(group=mesh.group("model"), split=map_tree(
             lambda s: shd.is_split(s, mesh), shd.logical_pspecs(cfg, tp)))
 
+    # ZeRO-1 where the process form's data axis is live: each rank holds
+    # its block of the moments (opt_pspecs), updates its block of each
+    # param and all-gathers the blocks over data, as JAX's GSPMD step does
+    if process and mesh.shape.get("data", 1) > 1:
+        mu_specs = shd.train_state_specs(cfg, mesh)["opt"]["mu"]
+
+        def update(grads, opt_state, params):
+            return adamw.update_zero1(opt_cfg, grads, opt_state, params, specs=mu_specs,
+                                      mesh=mesh, spans=spans, **norm_kw)
+    else:
+        def update(grads, opt_state, params):
+            return adamw.update(opt_cfg, grads, opt_state, params, **norm_kw)
+
     def optimizer(grads, opt_state, params):
         with maybe_span(spans, "optimizer", leaves(params)[0].device):
-            return adamw.update(opt_cfg, grads, opt_state, params, **norm_kw)
+            return update(grads, opt_state, params)
 
     def accumulated(fn):
         """``fn``'s grads accumulated over ``microbatches`` slices of the
@@ -322,6 +366,8 @@ def make_train_step(
 
     if collectives == "torrent":
         grad_fn = reducer(mesh, **reduce_kw)
+    elif process:
+        grad_fn = grad_fn_xla_process
     else:
         grad_fn = grad_fn_xla
 
@@ -531,8 +577,8 @@ def build_cell(
     device="meta",
 ) -> Cell:
     """The cell of ``arch`` at ``C.SHAPES[shape_name]`` on ``mesh`` (a
-    :class:`~repro_torch.launch.mesh.VirtualMesh`, or for a prefill or
-    decode shape a :class:`~repro_torch.launch.mesh.ProcessMesh`), with
+    :class:`~repro_torch.launch.mesh.VirtualMesh` or a
+    :class:`~repro_torch.launch.mesh.ProcessMesh`), with
     ``variant``'s overrides: ``VARIANTS`` resolves as in JAX, and a
     step-builder knob passed explicitly against the variant's raises
     ``ValueError``.
@@ -551,18 +597,27 @@ def build_cell(
     JAX's cell: its step runs under ``hints.set_mesh(mesh)``, and its
     args are this rank's blocks of the same draws — the params as
     ``param_pspecs`` place them (``sharding.leaf_placer``, each leaf cut
-    as it is drawn), the batch rows or decode tokens over ``data``
-    (``batch_pspecs``), and the decode cache by ``cache_pspecs``
-    (``sharding.place_cache``; on a real device the rank's zero block,
-    ``init_cache`` under the mesh); meta tensors of those block shapes
-    on the meta device. ``in_specs``/``out_specs`` stay JAX's. What
-    that form does not build raises ``NotImplementedError`` naming its
-    ROADMAP item 9c entry (:func:`_refuse_process_cell`): a train shape
-    (its ZeRO-1 placement, entry 5), ``long_500k``, whose cache splits
-    slots over ``data`` (entry 9), an arch that ``transformer.check_tp``
-    refuses on a live ``model`` axis, and a flat-dispatch MoE arch with
-    ``data`` > 1 (entry 10): its capacity would come from each DP rank's
-    own tokens, JAX's cell takes it from the global batch."""
+    as it is drawn), a train cell's AdamW moments as ZeRO-1's
+    ``opt_pspecs`` place them (``adamw.init`` at the block shapes: the
+    step is ``make_train_step``'s process form, which updates the
+    rank's block and all-gathers the params over ``data``), the batch
+    rows or decode tokens over ``data`` (``batch_pspecs``), and the
+    decode cache by ``cache_pspecs`` (``sharding.place_cache``; on a
+    real device the rank's zero block, ``init_cache`` under the mesh);
+    meta tensors of those block shapes on the meta device.
+    ``in_specs``/``out_specs`` stay JAX's. Train, prefill and decode
+    cells build for every arch ``transformer.check_tp`` runs on the
+    mesh (a TP family, or any arch where ``model`` is 1). What that
+    form does not build raises ``NotImplementedError`` naming its
+    ROADMAP item 9c entry (:func:`_refuse_process_cell`):
+    ``long_500k``, whose cache splits slots over ``data`` (entry 9), an
+    arch that ``check_tp`` refuses on a live ``model`` axis (qwen2-vl,
+    entry 2; whisper, entry 3), and a flat-dispatch MoE arch's prefill
+    or decode cell with ``data`` > 1 (entry 10): its capacity would come
+    from each DP rank's own tokens, JAX's cell takes it from the global
+    batch. A MoE train cell builds there: its step reduces each rank's
+    own grads, as JAX's Torrent step's ``shard_map`` ranks compute
+    them."""
     cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     overrides = dict(VARIANTS.get(variant) or {})
     knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
@@ -590,12 +645,11 @@ def build_cell(
         _refuse_process_cell(cfg, shape, mesh)
 
     gen = torch.Generator(device="cpu" if meta else dev).manual_seed(0)
-    if process:  # each leaf cut to this rank's block as it is drawn
-        pspecs = shd.logical_pspecs(cfg, tp)
-        params = T.model_init(gen, cfg, device=dev, place=shd.leaf_placer(pspecs, mesh))
-    else:
-        params = T.model_init(gen, cfg, device=dev)
-        pspecs = shd.param_pspecs(params, cfg, tp=tp)
+    logical = shd.logical_params(cfg)
+    pspecs = shd.param_pspecs(logical, cfg, tp=tp)
+    # on a process mesh each leaf is cut to this rank's block as it is drawn
+    params = T.model_init(gen, cfg, device=dev,
+                          place=shd.leaf_placer(pspecs, mesh) if process else None)
     with hints.set_mesh(None):  # the logical inputs, whatever mesh the caller set
         specs = input_specs(cfg, shape)
 
@@ -620,8 +674,9 @@ def build_cell(
         return step
 
     if shape.kind == "train":
-        opt_state = adamw.init(params)
-        ospecs = shd.opt_pspecs(pspecs, params, data_size=mesh.shape.get("data", 1))
+        ospecs = shd.opt_pspecs(pspecs, logical, data_size=mesh.shape.get("data", 1))
+        # a process rank's ZeRO-1 blocks of the moments (whole on the stacked view)
+        opt_state = adamw.init(params, specs=ospecs, mesh=mesh)
         bspecs = shd.batch_pspecs(cfg, shape)
         step = make_train_step(
             cfg, adamw.OptConfig(), remat=remat, collectives=collectives,
@@ -674,10 +729,6 @@ def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
     """Raise for the cells :func:`build_cell` does not build on a
     ``ProcessMesh``, each naming its ROADMAP item 9c entry."""
     dp = dp_size_of(mesh)
-    if shape.kind == "train":
-        raise NotImplementedError(
-            f"a train cell on a ProcessMesh ({cfg.name} {shape.name}): placing the optimizer "
-            "state by its ZeRO-1 opt_pspecs over data is not ported (ROADMAP item 9c, entry 5)")
     if shape.global_batch == 1:
         raise NotImplementedError(
             f"{shape.name} on a ProcessMesh ({cfg.name}): its cache_pspecs split the cache's "
@@ -686,7 +737,7 @@ def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
     with hints.set_mesh(mesh):
         T.check_tp(cfg)
     moe = any(s.ffn == "moe" for pattern, _ in cfg.layer_groups() for s in pattern)
-    if dp > 1 and moe and not cfg.moe_row_dispatch:
+    if shape.kind != "train" and dp > 1 and moe and not cfg.moe_row_dispatch:
         raise NotImplementedError(
             f"a MoE {shape.kind} cell of {cfg.name} on a ProcessMesh with {dp} DP ranks: JAX's "
             "cell takes the flat dispatch's capacity and positions from the global batch, a "

@@ -19,6 +19,13 @@ own rows of every batch, and the Torrent reduction runs over
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --steps 20 --collectives torrent --device cpu
 
+There ``--collectives xla`` (the default, as JAX's) reduces the grads
+with the backend's own all-reduce instead. With more than one DP rank
+each rank holds AdamW's moments as its ZeRO-1 blocks (split over
+``data`` as ``parallel.sharding.opt_pspecs`` places them, as JAX's
+``Trainer`` does): it updates its block of each param and all-gathers
+the params over ``data``.
+
 With ``--tp N`` (process form only) the world is a ``(data, model)``
 mesh of ``world / N`` DP ranks by ``N`` TP ranks: each rank holds its
 shards of the state as ``parallel.sharding.param_pspecs`` places them
@@ -62,9 +69,8 @@ from repro_torch.parallel.hints import dp_axes
 from repro_torch.parallel.sharding import (
     BATCH_AXES,
     leaf_placer,
-    logical_pspecs,
     shard_tree,
-    state_specs,
+    train_state_specs,
 )
 from repro_torch.parallel.spec import P
 from repro_torch.runtime.failure import FaultInjector, resilient_loop
@@ -123,15 +129,20 @@ class Trainer:
     the world with ``model = tc.tp`` (``tc.dp`` must be 1 or the world
     size over ``tc.tp``), its placer cuts this rank's rows of each batch
     by its DP coordinate (the TP ranks of one group share them), it
-    holds its own copy of the state (its EF residual is its ``(1,
-    *shape)`` row) and checkpoints through rank 0 in the stacked form's
-    format. With ``tc.tp`` > 1 that state is this rank's shards: the
-    whole model is drawn from the seed leaf by leaf, each leaf cut to
-    this rank's block as it is drawn (``parallel.sharding.leaf_placer``,
-    by ``param_pspecs``; carried params are cut by ``shard_tree``), so
-    every TP size starts from the same logical params; AdamW and the
-    EF residual are built on the shards, and checkpoints hold the
-    logical leaves."""
+    holds its state placed by ``parallel.sharding.train_state_specs``
+    (its EF residual is its ``(1, *shape)`` row) and checkpoints through
+    rank 0 in the stacked form's format, the logical leaves. With
+    ``tc.tp`` > 1 the params are this rank's shards: the whole model is
+    drawn from the seed leaf by leaf, each leaf cut to this rank's block
+    as it is drawn (``parallel.sharding.leaf_placer``, by
+    ``param_pspecs``; carried params are cut by ``shard_tree``), so
+    every TP size starts from the same logical params, and the EF
+    residual is built on the shards. With more than one DP rank, at any
+    TP size, AdamW's moments are this rank's ZeRO-1 blocks of its
+    params (``opt_pspecs``, as JAX's ``Trainer`` places them), allocated
+    at that size; the step updates the rank's block and all-gathers the
+    params over ``data``. ``tc.collectives`` may be ``"torrent"`` or
+    ``"xla"`` (JAX's default: the backend's all-reduce)."""
 
     def __init__(self, tc: TrainConfig, *, device="cuda", params=None, spans=None,
                  model_cfg: ModelConfig | None = None):
@@ -175,8 +186,12 @@ class Trainer:
     # -- state / step ----------------------------------------------------
     def _build(self, params):
         tc, cfg = self.tc, self.cfg
-        # the specs that place this rank's shards (None: it holds every leaf)
-        pspecs = logical_pspecs(cfg, tc.tp) if tc.tp > 1 else None
+        # the process form places its state by specs (the stacked view
+        # holds every leaf whole): the params by param_pspecs, AdamW's
+        # moments by ZeRO-1's opt_pspecs where data is live
+        self.specs = (None if self.group is None else
+                      train_state_specs(cfg, self.mesh, ef=tc.compress_grads))
+        pspecs = None if self.specs is None else self.specs["params"]
         if params is None:  # the whole model's draws; a TP rank keeps its blocks
             gen = torch.Generator(device=self.device).manual_seed(tc.seed)
             params = T.model_init(gen, cfg, self.device, place=None if pspecs is None
@@ -187,9 +202,8 @@ class Trainer:
             if pspecs is not None:
                 params = shard_tree(params, pspecs, self.mesh)
             params = map_tree(lambda t: t.to(self.device, copy=True), params)
-        self.specs = (None if pspecs is None else
-                      state_specs(pspecs, self.mesh, ef=tc.compress_grads))
-        self.state = {"params": params, "opt": adamw.init(params)}
+        self.state = {"params": params, "opt": adamw.init(
+            params, specs=None if self.specs is None else self.specs["opt"], mesh=self.mesh)}
         if tc.compress_grads:
             # the EF residual rides in the state, so it survives
             # checkpoint/restart like the optimizer moments do
@@ -218,8 +232,7 @@ class Trainer:
     def run(self) -> dict[str, Any]:
         tc = self.tc
         ckpt = CheckpointManager(tc.ckpt_dir, keep_last_k=tc.keep_last_k, group=self.group,
-                                 mesh=self.mesh if self.specs is not None else None,
-                                 specs=self.specs)
+                                 mesh=self.mesh, specs=self.specs)
         injector = FaultInjector(tc.fail_at)
         losses: list[float] = []
 

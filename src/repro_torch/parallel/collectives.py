@@ -501,7 +501,8 @@ def make_stacked_reduce(
     per input (rank 0's row divided by the DP size). On a
     :class:`~repro_torch.launch.mesh.ProcessMesh` each leaf is this
     rank's ``(1, *shape)`` row, reduced over the mesh's process groups,
-    and the result is this rank's. With ``error_feedback`` pass the
+    and the result is this rank's, written into the row's buffer (the
+    rank's grads are consumed). With ``error_feedback`` pass the
     residual leaves (of the same rows): the new residual is written into
     them, and ``stacked`` is used as scratch."""
     wire_dtype = _check_knobs(num_chains, algo, wire_dtype, error_feedback, bucket_bytes)
@@ -553,6 +554,10 @@ def make_stacked_reduce(
     def _divide(flat: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
         # a tensor divisor keeps the divide a true division on CUDA too
         div = torch.tensor(float(dp_size), dtype=flat.dtype, device=flat.device)
+        if process and flat.dtype == like.dtype:
+            # the rank's row is its own grad: the mean goes into its buffer,
+            # so the step never holds the grads twice
+            return torch.div(flat[0].reshape(like.shape[1:]), div, out=like[0])
         return (flat[0] / div).reshape(like.shape[1:]).to(like.dtype)
 
     def _ef(flat: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

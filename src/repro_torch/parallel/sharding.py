@@ -17,7 +17,9 @@ Scheme (Megatron-style):
 * MoE: experts sharded over ``model`` (EP);
 * mamba2: d_inner (head) dim column-parallel, B/C/dt projections
   replicated;
-* optimizer state: params' spec + extra ``data`` sharding (ZeRO-1);
+* optimizer state: params' spec + extra ``data`` sharding (ZeRO-1;
+  placed on a process mesh by :func:`state_specs`, updated by
+  ``optim.adamw.update_zero1``);
 * decode caches: batch over ``(pod, data)``, heads over ``model``; the
   ``long_500k`` cells instead shard KV slots over ``data`` (SP).
 
@@ -181,9 +183,7 @@ def cache_pspecs(cache: PyTree, cfg: ModelConfig, shape_cfg: Shape, tp: int = 16
 def logical_pspecs(cfg: ModelConfig, tp: int) -> PyTree:
     """:func:`param_pspecs` of ``cfg``'s whole (unsharded) params, from
     ``model_init`` on the meta device: nothing is allocated."""
-    from repro_torch.models import transformer as T
-
-    return param_pspecs(T.model_init(torch.Generator(device="cpu"), cfg, "meta"), cfg, tp=tp)
+    return param_pspecs(logical_params(cfg), cfg, tp=tp)
 
 
 def split_axes(entry, mesh) -> tuple[str, ...]:
@@ -343,19 +343,49 @@ def gather_cache(cache: PyTree, specs: PyTree, cfg: ModelConfig, mesh) -> PyTree
     return unflatten(cache, [one(p, x, s) for (p, x), s in zip(paths(cache), leaves(specs))])
 
 
-def state_specs(pspecs: PyTree, mesh, *, ef: bool = False) -> dict:
+def state_specs(pspecs: PyTree, mesh, *, ef: bool = False, params: PyTree | None = None) -> dict:
     """Specs of a train state ``{"params", "opt", ["ef"]}`` whose params
-    have specs ``pspecs``: AdamW's moments split as their params, its
-    ``step`` whole; the error-feedback residual (``(dp, *shape)``,
-    ``collectives.ef_residual_init``) split over the DP axes along dim 0
-    and as its param after it."""
+    have specs ``pspecs``. Where ``mesh``'s ``data`` axis is live,
+    AdamW's moments take :func:`opt_pspecs` (ZeRO-1: each also split over
+    ``data`` along the first unsplit dim that ``data`` divides, which
+    needs the logical ``params``' shapes: meta tensors will do); else
+    they are split as their params. AdamW's ``step`` stays whole; the
+    error-feedback residual (``(dp, *shape)``,
+    ``collectives.ef_residual_init``) is split over the DP axes along dim
+    0 and as its param after it. On the stacked view ``shard_tree`` is
+    the identity, so its moments stay whole whatever the specs say."""
     from repro_torch.parallel.hints import dp_axes
 
-    out = {"params": pspecs, "opt": {"mu": pspecs, "nu": pspecs, "step": P()}}
+    data = mesh.shape.get("data", 1)
+    if data > 1:
+        if params is None:
+            raise ValueError("ZeRO-1 specs over a live data axis need the logical params' "
+                             "shapes: pass params= (meta tensors will do)")
+        opt = opt_pspecs(pspecs, params, data)
+    else:
+        opt = {"mu": pspecs, "nu": pspecs, "step": P()}
+    out = {"params": pspecs, "opt": opt}
     if ef:
         dp = dp_axes(mesh.axis_names)
         out["ef"] = map_tree(lambda s: P(dp, *s), pspecs)
     return out
+
+
+def logical_params(cfg: ModelConfig) -> PyTree:
+    """``cfg``'s whole params as meta tensors (``model_init`` on the meta
+    device): their shapes, nothing allocated."""
+    from repro_torch.models import transformer as T
+
+    return T.model_init(torch.Generator(device="cpu"), cfg, "meta")
+
+
+def train_state_specs(cfg: ModelConfig, mesh, *, ef: bool = False) -> dict:
+    """:func:`state_specs` of ``cfg``'s train state on ``mesh``: the
+    params by ``param_pspecs`` at the mesh's TP size, the moments by
+    ZeRO-1's ``opt_pspecs`` where ``data`` is live."""
+    params = logical_params(cfg)
+    pspecs = param_pspecs(params, cfg, tp=mesh.shape.get("model", 1))
+    return state_specs(pspecs, mesh, ef=ef, params=params)
 
 
 def opt_pspecs(param_specs: PyTree, params: PyTree, data_size: int) -> dict:
@@ -365,6 +395,6 @@ def opt_pspecs(param_specs: PyTree, params: PyTree, data_size: int) -> dict:
 
 
 __all__ = ["BATCH_AXES", "batch_axis", "batch_pspecs", "cache_pspecs", "gather_cache",
-           "gather_tree", "is_split", "leaf_placer", "logical_cache_pspecs", "logical_pspecs",
-           "opt_pspecs", "param_pspecs", "place_cache", "shard_tree", "split_axes",
-           "state_specs"]
+           "gather_tree", "is_split", "leaf_placer", "logical_cache_pspecs", "logical_params",
+           "logical_pspecs", "opt_pspecs", "param_pspecs", "place_cache", "shard_tree",
+           "split_axes", "state_specs", "train_state_specs"]

@@ -332,9 +332,10 @@ def world4_rank(rank: int, world: int, device: torch.device, params_np, root: st
                 batch_np: dict, moe_np) -> dict:
     """This rank of the process form: the ``Trainer`` (exact, and int8 +
     EF) from carried params, a stacked-form checkpoint restored into its
-    rows, one microbatched train step, the spans of a step, and one
+    rows, one microbatched train step, the spans of a Torrent and of an
+    xla step, the ``Trainer`` with ``collectives="xla"``, and one
     expert-parallel train step of the smoke deepseek-moe-16b model from
-    ``moe_np``."""
+    ``moe_np``; AdamW's moments are ZeRO-1 blocks over ``data``."""
     import dataclasses
     import os
 
@@ -346,8 +347,10 @@ def world4_rank(rank: int, world: int, device: torch.device, params_np, root: st
     from repro_torch.launch.train import TrainConfig, Trainer
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.collectives import ef_residual_init
     from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves as _leaves
 
     out = {}
     for name, compress in (("exact", False), ("int8", True)):
@@ -371,16 +374,31 @@ def world4_rank(rank: int, world: int, device: torch.device, params_np, root: st
 
     local = {k: torch.from_numpy(np.ascontiguousarray(v[rank_slice(8, world, rank)])).to(device)
              for k, v in batch_np.items()}
+    # the process form's moments are this rank's ZeRO-1 blocks over data
+    ospecs = shd.train_state_specs(cfg, mesh)["opt"]
     step = make_train_step(cfg, adamw.OptConfig(**LINEAR_ADAMW), collectives="torrent",
                            mesh=mesh, loss_chunks=2, microbatches=2)
-    new_p, _, m = step(params_from_numpy(params_np, device), adamw.init(params), local)
+    new_p, _, m = step(params_from_numpy(params_np, device),
+                       adamw.init(params, specs=ospecs, mesh=mesh), local)
     out["microbatched"] = {"params": _np(new_p), "loss": float(m["loss"])}
 
-    spans = Spans()
-    step = make_train_step(cfg, adamw.OptConfig(), collectives="torrent", mesh=mesh,
-                           loss_chunks=2, spans=spans)
-    step(params_from_numpy(params_np, device), adamw.init(params), local)
-    out["spans"] = {k: len(v) for k, v in spans.read().items()}
+    for collectives in ("torrent", "xla"):
+        spans = Spans()
+        step = make_train_step(cfg, adamw.OptConfig(), collectives=collectives, mesh=mesh,
+                               loss_chunks=2, spans=spans)
+        step(params_from_numpy(params_np, device), adamw.init(params, specs=ospecs, mesh=mesh),
+             local)
+        out["spans" if collectives == "torrent" else "xla_spans"] = {
+            k: len(v) for k, v in spans.read().items()}
+
+    # the Trainer with collectives="xla" (JAX's default): the backend's
+    # all-reduce of the ranks' grads
+    tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, "proc_xla"),
+                             **dict(TRAINER, collectives="xla")),
+                 device=device, params=params_np)
+    res = tr.run()
+    out["xla"] = {"losses": res["losses"], "params": _np(tr.state["params"]),
+                  "moment_shapes": [tuple(x.shape) for x in _leaves(tr.state["opt"]["mu"])]}
 
     # expert parallelism inside the train step, across the processes
     moe = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"), moe_ep_dispatch=True)
@@ -388,7 +406,8 @@ def world4_rank(rank: int, world: int, device: torch.device, params_np, root: st
     spans = Spans()
     step = make_train_step(moe, adamw.OptConfig(**LINEAR_ADAMW), collectives="torrent",
                            mesh=mesh, loss_chunks=2, num_chains=2, spans=spans)
-    new_p, _, m = step(moe_p, adamw.init(moe_p), local)
+    new_p, _, m = step(moe_p, adamw.init(moe_p, specs=shd.train_state_specs(moe, mesh)["opt"],
+                                         mesh=mesh), local)
     out["ep_step"] = {"params": _np(new_p), "loss": float(m["loss"]),
                       "spans": {k: len(v) for k, v in spans.read().items()}}
 

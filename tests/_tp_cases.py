@@ -169,7 +169,7 @@ def train_case(mesh, params_np, batch_np, device) -> dict:
 
     step = make_train_step(cfg, adamw.OptConfig(**LINEAR_ADAMW), collectives="torrent",
                            mesh=mesh, loss_chunks=2)
-    opt = adamw.init(params)
+    opt = adamw.init(params, specs=shd.train_state_specs(cfg, mesh)["opt"], mesh=mesh)
     cwd.wire_counter.reset()
     tp_counter.reset()
     params, opt, m1 = step(params, opt, local)
@@ -183,6 +183,180 @@ def train_case(mesh, params_np, batch_np, device) -> dict:
     out["local"] = _np(params)
     out["split"] = leaves(split)
     return out
+
+
+def zero1_case(mesh, params_np, batch_np, device) -> dict:
+    """ZeRO-1 on ``mesh`` (a live ``data`` axis) from the carried logical
+    params: the bytes of the rank's moments (its blocks by
+    ``opt_pspecs``) beside the whole moments of its params; one reduced
+    grad applied by ``adamw.update`` to whole moments and by
+    ``adamw.update_zero1`` to the blocks (params, and the moments' blocks,
+    compared bit for bit); then two train steps from the carried params
+    with the Torrent reduce and with ``collectives="xla"``: losses,
+    grad norms, the gathered params, the rank's moment blocks, the
+    param gather's bytes a step and the spans' names."""
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import make_device_placer
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.collectives import torrent_grad_reduce
+    from repro_torch.parallel.spec import P
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves, map_tree
+
+    cfg = C.get_smoke_config(ARCH)
+    tp = mesh.shape["model"]
+    st = shd.train_state_specs(cfg, mesh)
+    local = make_device_placer(mesh, P(shd.BATCH_AXES, None), device=device)(batch_np)
+    first = params_from_numpy(params_np, device, specs=st["params"], mesh=mesh)
+    opt = adamw.init(first, specs=st["opt"], mesh=mesh)
+    out = {"moment_shapes": [tuple(m.shape) for m in leaves(opt["mu"])],
+           "moment_bytes": sum(m.numel() * m.element_size() for k in ("mu", "nu")
+                               for m in leaves(opt[k])),
+           "whole_moment_bytes": 2 * sum(p.numel() * 4 for p in leaves(first)),
+           "param_bytes": sum(p.numel() * p.element_size() for p in leaves(first)),
+           "split_param_bytes": sum(p.numel() * p.element_size() for p, m in
+                                    zip(leaves(first), leaves(opt["mu"]))
+                                    if m.shape != p.shape)}
+
+    # the block update against the whole update of the same reduced grads
+    norm_kw = {}
+    if tp > 1:
+        norm_kw = dict(group=mesh.group("model"), split=map_tree(
+            lambda s: shd.is_split(s, mesh), st["params"]))
+    opt_cfg = adamw.OptConfig(**LINEAR_ADAMW)
+    with hints.set_mesh(mesh):
+        grads, _ = torrent_grad_reduce(make_grad_fn(cfg, loss_chunks=2), mesh)(
+            map_tree(torch.clone, first), local)
+    whole_p = map_tree(torch.clone, first)
+    whole_o = adamw.init(whole_p)
+    adamw.update(opt_cfg, grads, whole_o, whole_p, **norm_kw)
+    block_p = map_tree(torch.clone, first)
+    block_o = adamw.init(block_p, specs=st["opt"], mesh=mesh)
+    adamw.update_zero1(opt_cfg, grads, block_o, block_p, specs=st["opt"]["mu"], mesh=mesh,
+                       **norm_kw)
+    out["block_update_bit_equal"] = {
+        "params": all(torch.equal(a, b) for a, b in zip(leaves(whole_p), leaves(block_p))),
+        **{k: all(torch.equal(adamw.zero1_block(w, s, mesh), b) for w, b, s in
+                  zip(leaves(whole_o[k]), leaves(block_o[k]), leaves(st["opt"][k])))
+           for k in ("mu", "nu")}}
+
+    for collectives in ("torrent", "xla"):
+        spans = Spans()
+        step = make_train_step(cfg, opt_cfg, collectives=collectives, mesh=mesh, loss_chunks=2,
+                               spans=spans)
+        params = map_tree(torch.clone, first)
+        opt = adamw.init(params, specs=st["opt"], mesh=mesh)
+        adamw.gather_counter.reset()
+        params, opt, m1 = step(params, opt, local)
+        gathered = adamw.gather_counter.bytes
+        params, opt, m2 = step(params, opt, local)
+        out[collectives] = {"losses": [float(m1["loss"]), float(m2["loss"])],
+                            "grad_norms": [float(m1["grad_norm"]), float(m2["grad_norm"])],
+                            "params": _np(shd.gather_tree(params, st["params"], mesh)),
+                            "mu": _np(opt["mu"]), "nu": _np(opt["nu"]),
+                            "step": int(opt["step"]), "gather_bytes": gathered,
+                            "spans": sorted(spans.read())}
+    return out
+
+
+# the train cells every TP family builds on a process mesh, at full size
+# on the meta device
+CELL_ARCHS = ("starcoder2-3b", "yi-6b", "h2o-danube-1.8b", "llama3-8b", "deepseek-v2-lite-16b",
+              "deepseek-moe-16b", "jamba-v0.1-52b", "mamba2-2.7b")
+# the smoke train cells run one step against JAX's cell: (arch, mesh,
+# collectives); the MoE cell takes the Torrent reduce, whose ranks route
+# their own tokens as JAX's shard_map ranks do
+SMOKE_TRAIN_CELLS = {"yi-6b": ("2x2", "xla"), "deepseek-moe-16b": ("2x2", "torrent"),
+                     "qwen2-vl-7b": ("2x1", "xla")}
+SMOKE_TRAIN = ("train_smoke", "train", 32, 4)  # JAX's smoke train shape
+
+
+def meta_train_cells(mesh, archs) -> dict:
+    """``build_cell(arch, "train_4k", mesh)`` on the meta device for each
+    of ``archs``: every arg's leaf shapes, whether every arg is a meta
+    tensor, the in and out specs."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import leaves
+
+    out = {}
+    for arch in archs:
+        cell = build_cell(arch, "train_4k", mesh)
+        out[arch] = {"args": [[tuple(x.shape) for x in leaves(a)] for a in cell.args],
+                     "meta": all(x.device.type == "meta" for x in leaves(cell.args)),
+                     "in_specs": [[None if s is None else tuple(s) for s in leaves(t)]
+                                  for t in cell.in_specs],
+                     "out_specs": [None if t is None else
+                                   [None if s is None else tuple(s) for s in leaves(t)]
+                                   for t in cell.out_specs]}
+    return out
+
+
+def smoke_train_cell(arch: str, mesh, collectives: str, device) -> dict:
+    """One step of ``arch``'s smoke train cell on ``mesh`` in f32
+    compute, from the cell's own args (seed 0 params, seed 1 batch):
+    the loss, the grad norm, the rank's ``mu`` blocks, the params
+    gathered and whether every param leaf moved."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves
+
+    C.SHAPES[SMOKE_TRAIN[0]] = Shape(*SMOKE_TRAIN)
+    cell = build_cell(arch, SMOKE_TRAIN[0], mesh, smoke=True, device=device,
+                      collectives=collectives)
+    params, opt, batch = cell.args
+    before = [p.clone() for p in leaves(params)]
+    with compute_dtype(torch.float32):
+        params, opt, m = cell.step_fn(params, opt, batch)
+    pspecs = shd.logical_pspecs(cell.cfg, mesh.shape["model"])
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "mu": _np(opt["mu"]), "step": int(opt["step"]),
+            "moved": all(not torch.equal(a, b) for a, b in zip(before, leaves(params))),
+            "params": _np(shd.gather_tree(params, pspecs, mesh))}
+
+
+def zero1_trainer(mesh, params_np, root: str, device) -> dict:
+    """The ``Trainer`` on ``mesh`` (``TRAINER`` with ``TRAINER_RUNS``'
+    exact run: f32 compute, a failure at step 3 and a restart from the
+    step-2 checkpoint), its state placed by ``train_state_specs``: the
+    losses, the restarts and the gathered state (its checkpoints in
+    ``root``)."""
+    from repro_torch.launch.train import TrainConfig, Trainer
+    from repro_torch.parallel import sharding as shd
+
+    tp = mesh.shape["model"]
+    tr = Trainer(TrainConfig(ckpt_dir=root, tp=tp, **TRAINER, **TRAINER_RUNS["exact"]),
+                 device=device, params=params_np)
+    with compute_dtype(torch.float32):
+        res = tr.run()
+    return {"losses": res["losses"], "restarts": res["restarts"],
+            "moment_shapes": [tuple(m.shape) for m in _leaves(tr.state["opt"]["mu"])],
+            "state": _np(shd.gather_tree(tr.state, tr.specs, mesh))}
+
+
+def restore_placed(ckpt_dir: str, mesh, device) -> list[np.ndarray]:
+    """The latest checkpoint in ``ckpt_dir`` (params and AdamW state)
+    restored on ``mesh``: this rank's blocks by ``train_state_specs``."""
+    from repro_torch import configs as C
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+
+    cfg = C.get_smoke_config(ARCH)
+    st = shd.train_state_specs(cfg, mesh)
+    p = T.model_init(torch.Generator().manual_seed(5), cfg, device,
+                     place=shd.leaf_placer(st["params"], mesh))
+    like = {"params": p, "opt": adamw.init(p, specs=st["opt"], mesh=mesh)}
+    ckpt = CheckpointManager(ckpt_dir, group=mesh.group(("data",)), mesh=mesh, specs=st)
+    got = ckpt.restore(ckpt.latest_step(), like)
+    ckpt.close()
+    return _np(got)
 
 
 def refusals(mesh, device) -> dict:
@@ -248,17 +422,35 @@ def mesh_info(mesh) -> dict:
     return info
 
 
-def world4_rank(rank: int, world: int, device, params_np, batch_np) -> dict:
-    """(data=1, model=4) and (data=2, model=2) on 4 ranks: the meshes'
-    groups, the shard round trip at TP = 4, the conjugate ops over both
-    model groups, and the train case on both meshes."""
+def world4_rank(rank: int, world: int, device, params_np, batch_np, root: str,
+                stacked_ckpt: str, jax_ckpt: str) -> dict:
+    """(data=1, model=4), (data=2, model=2) and (data=4, model=1) on 4
+    ranks: the TP meshes' groups, the shard round trip at TP = 4, the
+    conjugate ops over both model groups, and the train case on both;
+    ZeRO-1 on (2, 2) and (4, 1) (:func:`zero1_case`), the train cells
+    there (:func:`meta_train_cells`, :func:`smoke_train_cell`), the
+    ``Trainer`` on (2, 2) with its checkpoints in ``root``, restored on
+    (4, 1), and the stacked ``Trainer``'s checkpoint (``stacked_ckpt``)
+    restored on both, the JAX package's (``jax_ckpt``) on (2, 2)."""
     from repro_torch.launch.mesh import make_process_mesh
 
     meshes = {"1x4": make_process_mesh(model=4), "2x2": make_process_mesh(data=2, model=2)}
+    dp4 = make_process_mesh(data=4)
     out = {"mesh": {k: mesh_info(m) for k, m in meshes.items()},
            "round_trip": round_trip(meshes["1x4"], 4)}
     out["ops"] = {k: ops_rank(m.group("model"), device) for k, m in meshes.items()}
     out["train"] = {k: train_case(m, params_np, batch_np, device) for k, m in meshes.items()}
+    zmeshes = {"2x2": meshes["2x2"], "4x1": dp4}
+    out["zero1"] = {k: zero1_case(m, params_np, batch_np, device) for k, m in zmeshes.items()}
+    out["meta_cells"] = {k: meta_train_cells(m, CELL_ARCHS) for k, m in zmeshes.items()}
+    out["smoke_cells"] = {arch: smoke_train_cell(arch, zmeshes[m], coll, device)
+                          for arch, (m, coll) in SMOKE_TRAIN_CELLS.items() if m in zmeshes}
+    d = os.path.join(root, "zero1_2x2")
+    out["trainer"] = zero1_trainer(meshes["2x2"], params_np, d, device)
+    out["restore"] = {"2x2_at_4x1": restore_placed(d, dp4, device),
+                      "stacked_at_2x2": restore_placed(stacked_ckpt, meshes["2x2"], device),
+                      "stacked_at_4x1": restore_placed(stacked_ckpt, dp4, device),
+                      "jax_at_2x2": restore_placed(jax_ckpt, meshes["2x2"], device)}
     return out
 
 
@@ -283,6 +475,12 @@ def world2_rank(rank: int, world: int, device, params_np, batch_np, root: str,
            "ops": ops_rank(mesh.group("model"), device),
            "train": train_case(mesh, params_np, batch_np, device),
            "refusals": refusals(mesh, device)}
+    # (data=2, model=1): ZeRO-1 on two ranks, the qwen2-vl and whisper train cells
+    dp2 = make_process_mesh(data=2)
+    out["zero1"] = {"2x1": zero1_case(dp2, params_np, batch_np, device)}
+    out["meta_cells"] = {"2x1": meta_train_cells(dp2, ("qwen2-vl-7b", "whisper-tiny"))}
+    out["smoke_cells"] = {arch: smoke_train_cell(arch, dp2, coll, device)
+                          for arch, (m, coll) in SMOKE_TRAIN_CELLS.items() if m == "2x1"}
     for name, kw in TRAINER_RUNS.items():
         tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, f"tp2_{name}"), tp=2,
                                  **TRAINER, **kw), device=device, params=params_np)

@@ -119,7 +119,7 @@ def family_case(mesh, cfg, params_np, device, steps: bool = True) -> dict:
     first = map_tree(torch.clone, params)
     for dtype in (torch.float32, torch.bfloat16):
         params = map_tree(torch.clone, first)  # the step updates its state in place
-        opt = adamw.init(params)
+        opt = adamw.init(params, specs=shd.train_state_specs(cfg, mesh)["opt"], mesh=mesh)
         tp_counter.reset()
         with compute_dtype(dtype):
             params, opt, m1 = step(params, opt, local)
@@ -133,7 +133,7 @@ def family_case(mesh, cfg, params_np, device, steps: bool = True) -> dict:
                 out["params_f32"] = gathered
     out.update(losses=losses, tp_bytes=tp_bytes, local=_np({"params": params, "opt": opt}))
     out["split"] = leaves(map_tree(lambda s: shd.is_split(s, mesh),
-                                   shd.state_specs(specs, mesh)))
+                                   shd.train_state_specs(cfg, mesh)))
     return out
 
 

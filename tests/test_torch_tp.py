@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import os
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -37,8 +38,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
+from jax.sharding import NamedSharding  # noqa: E402
 
 from repro import configs as JC  # noqa: E402
+from repro.launch import steps as JS  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro.parallel import sharding as jshd  # noqa: E402
 
@@ -55,6 +58,7 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel import sharding as shd  # noqa: E402
 from repro_torch.parallel.collectives import resolve_ring_chains  # noqa: E402
+from repro_torch.parallel.spec import P  # noqa: E402
 from repro_torch.parallel.tp import modeled_tp_bytes  # noqa: E402
 from repro_torch.tree import leaves, map_tree  # noqa: E402
 
@@ -77,7 +81,9 @@ def inputs():
 _JAX_TP = """
 from jax.sharding import NamedSharding
 from repro import configs as C
+from repro.launch import steps as S
 from repro.launch.steps import make_train_step
+from repro.models import layers as L
 from repro.models import transformer as T
 from repro.optim import adamw
 from repro.parallel import sharding as shd
@@ -88,51 +94,143 @@ params = T.model_init(jax.random.PRNGKey(0), cfg)
 batch = {{k: d[k] for k in ("tokens", "labels")}}
 opt_cfg = adamw.OptConfig(**{adamw!r})
 out = {{}}
-for shape in ((2, 2), (1, 4)):
-    name = f"{{shape[0]}}x{{shape[1]}}"
-    mesh = jax.make_mesh(shape, ("data", "model"),
+
+def named(mesh, specs):
+    return jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                        is_leaf=lambda x: isinstance(x, P))
+
+def mesh_of(shape):
+    return jax.make_mesh(shape, ("data", "model"), devices=jax.devices()[:shape[0] * shape[1]],
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
-    pspecs = shd.param_pspecs(jax.eval_shape(lambda: params), cfg, tp=shape[1])
-    psh = jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs,
-                       is_leaf=lambda x: isinstance(x, P))
-    bsh = NamedSharding(mesh, P("data", None))
-    p = jax.tree.map(jax.device_put, params, psh)
-    b = {{k: jax.device_put(v, bsh) for k, v in batch.items()}}
-    step = make_train_step(cfg, opt_cfg, collectives="torrent", mesh=mesh,
+
+# the Torrent step on every mesh, the xla step where data is live; params
+# placed by param_pspecs, AdamW's moments by opt_pspecs (ZeRO-1), as
+# JAX's Trainer places them
+RUNS = [((2, 2), "torrent"), ((1, 4), "torrent"), ((4, 1), "torrent"), ((2, 2), "xla"),
+        ((4, 1), "xla")]
+compiled = {{}}
+
+def compile_run(shape, coll):
+    mesh = mesh_of(shape)
+    shapes = jax.eval_shape(lambda: params)
+    pspecs = shd.param_pspecs(shapes, cfg, tp=shape[1])
+    ospecs = shd.opt_pspecs(pspecs, shapes, data_size=shape[0])
+    step = make_train_step(cfg, opt_cfg, collectives=coll, mesh=mesh,
                            batch_specs={{k: P("data", None) for k in batch}}, loss_chunks=2)
+    bsh = {{k: NamedSharding(mesh, P("data", None)) for k in batch}}
     with jax.set_mesh(mesh):
-        grads = jax.jit(jax.grad(lambda p: T.loss_fn(p, cfg, b, loss_chunks=2)[0]))(p)
-        for i, g in enumerate(jax.tree.leaves(grads)):
-            out[f"{{name}}/grad{{i}}"] = np.asarray(g, np.float32)
-        o = adamw.init(p)
-        f = jax.jit(step)
+        f = jax.jit(step, in_shardings=(named(mesh, pspecs), named(mesh, ospecs), bsh),
+                    out_shardings=(named(mesh, pspecs), named(mesh, ospecs), None))
+        args = (jax.tree.map(jax.device_put, params, named(mesh, pspecs)),
+                jax.jit(lambda: adamw.init(params), out_shardings=named(mesh, ospecs))(),
+                {{k: jax.device_put(v, bsh[k]) for k, v in batch.items()}})
+        compiled[shape, coll] = (mesh, f.lower(*args).compile(), args, pspecs)
+
+for shape, coll in RUNS:
+    compile_run(shape, coll)
+for shape, coll in RUNS:
+    name = f"{{shape[0]}}x{{shape[1]}}/{{coll}}"
+    mesh, f, (p, o, b), pspecs = compiled[shape, coll]
+    with jax.set_mesh(mesh):
+        if coll == "torrent" and shape[0] < 4:  # the whole batch's grads
+            grads = jax.jit(jax.grad(lambda p: T.loss_fn(p, cfg, b, loss_chunks=2)[0]))(p)
+            for i, g in enumerate(jax.tree.leaves(grads)):
+                out[f"{{name}}/grad{{i}}"] = np.asarray(g, np.float32)
         for s in range(2):
             p, o, m = f(p, o, b)
             out[f"{{name}}/loss{{s}}"] = np.asarray(m["loss"])
             out[f"{{name}}/norm{{s}}"] = np.asarray(m["grad_norm"])
     for i, x in enumerate(jax.tree.leaves(p)):
         out[f"{{name}}/param{{i}}"] = np.asarray(x, np.float32)
+    for k in ("mu", "nu"):
+        for i, x in enumerate(jax.tree.leaves(o[k])):
+            out[f"{{name}}/{{k}}{{i}}"] = np.asarray(x, np.float32)
+
+# the smoke train cells, in f32 compute, from the port's params and batch
+L.COMPUTE_DTYPE = jnp.float32
+cells = {cells!r}
+C.SHAPES[{smoke_train!r}[0]] = C.Shape(*{smoke_train!r})
+for arch, (mesh_name, coll) in cells.items():
+    dp, tp = (int(n) for n in mesh_name.split("x"))
+    mesh = mesh_of((dp, tp))
+    cell = S.build_cell(arch, {smoke_train!r}[0], mesh, smoke=True, collectives=coll)
+    shapes = cell.args[0]
+    p = jax.tree.unflatten(jax.tree.structure(shapes),
+                           [d[f"cell/{{arch}}/param{{i}}"] for i in range(len(jax.tree.leaves(shapes)))])
+    b = {{k: jnp.asarray(d[f"cell/{{arch}}/batch/{{k}}"], x.dtype) for k, x in cell.args[2].items()}}
+    with jax.set_mesh(mesh):
+        args = (jax.tree.map(jax.device_put, p, cell.in_shardings[0]),
+                jax.jit(lambda: adamw.init(p), out_shardings=cell.in_shardings[1])(),
+                {{k: jax.device_put(v, cell.in_shardings[2][k]) for k, v in b.items()}})
+        p, o, m = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
+                          out_shardings=cell.out_shardings)(*args)
+    out[f"cell/{{arch}}/loss"] = np.asarray(m["loss"])
+    out[f"cell/{{arch}}/norm"] = np.asarray(m["grad_norm"])
+    for i, x in enumerate(jax.tree.leaves(p)):
+        out[f"cell/{{arch}}/param{{i}}"] = np.asarray(x, np.float32)
+    for i, x in enumerate(jax.tree.leaves(o["mu"])):
+        out[f"cell/{{arch}}/mu{{i}}"] = np.asarray(x, np.float32)
 np.savez({out!r}, **out)
 """
 
 
-@pytest.fixture(scope="module")
-def jax_tp(run_multidevice, inputs, tmp_path_factory):
-    """JAX's Torrent train step on (2, 2) and (1, 4) meshes: the whole
-    batch's grads, two steps' losses and grad norms, the params after."""
-    root = tmp_path_factory.mktemp("jax_tp")
-    np.savez(root / "in.npz", **inputs[1])
+def smoke_cell_inputs() -> dict:
+    """The logical params (seed 0) and the whole batch (seed 1) that
+    ``build_cell`` draws for each smoke train cell of
+    ``tc.SMOKE_TRAIN_CELLS``, as numpy, keyed as ``_JAX_TP`` reads them."""
+    from repro_torch.configs.shapes import Shape, input_specs
+    from repro_torch.launch.steps import _concrete
+
+    out = {}
+    shape = Shape(*tc.SMOKE_TRAIN)
+    for arch in tc.SMOKE_TRAIN_CELLS:
+        cfg = C.get_smoke_config(arch)
+        p = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+        for i, x in enumerate(leaves(p)):
+            out[f"cell/{arch}/param{i}"] = x.numpy()
+        batch = _concrete(input_specs(cfg, shape)["batch"], cfg.vocab_size,
+                          torch.device("cpu"), 1)
+        for k, v in batch.items():
+            # bf16 embeds go as f32 (exact); the JAX side casts them back
+            out[f"cell/{arch}/batch/{k}"] = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    return out
+
+
+def _jax_tp(run_multidevice, inputs, root):
+    """JAX's Torrent train step on (2, 2), (1, 4) and (4, 1) meshes and
+    its xla step on (2, 2) and (4, 1), params placed by ``param_pspecs``
+    and AdamW's moments by ``opt_pspecs``: the whole batch's grads (at
+    DP < 4), two steps' losses and grad norms, the params and moments
+    after; and one step of each smoke train cell of
+    ``tc.SMOKE_TRAIN_CELLS`` from the port's draws."""
+    root.mkdir(parents=True)
+    np.savez(root / "in.npz", **inputs[1], **smoke_cell_inputs())
     run_multidevice(_JAX_TP.format(inputs=str(root / "in.npz"), out=str(root / "out.npz"),
-                                   arch=tc.ARCH, adamw=tc.LINEAR_ADAMW), devices=4)
+                                   arch=tc.ARCH, adamw=tc.LINEAR_ADAMW,
+                                   cells=tc.SMOKE_TRAIN_CELLS, smoke_train=tc.SMOKE_TRAIN),
+                    devices=4)
     got = dict(np.load(root / "out.npz"))
     n = len(jax.tree.leaves(inputs[0]))
     ref = {}
-    for name in ("2x2", "1x4"):
-        ref[name] = {"grads": [got[f"{name}/grad{i}"] for i in range(n)],
-                     "params": [got[f"{name}/param{i}"] for i in range(n)],
-                     "losses": [float(got[f"{name}/loss{s}"]) for s in range(2)],
-                     "norms": [float(got[f"{name}/norm{s}"]) for s in range(2)]}
+    for name in ("2x2", "1x4", "4x1"):
+        for coll in ("torrent", "xla"):
+            if f"{name}/{coll}/loss0" not in got:
+                continue
+            key = name if coll == "torrent" else f"{name}/xla"
+            ref[key] = {"grads": [got.get(f"{name}/{coll}/grad{i}") for i in range(n)],
+                        "params": [got[f"{name}/{coll}/param{i}"] for i in range(n)],
+                        "mu": [got[f"{name}/{coll}/mu{i}"] for i in range(n)],
+                        "nu": [got[f"{name}/{coll}/nu{i}"] for i in range(n)],
+                        "losses": [float(got[f"{name}/{coll}/loss{s}"]) for s in range(2)],
+                        "norms": [float(got[f"{name}/{coll}/norm{s}"]) for s in range(2)]}
     ref["1x2"] = ref["2x2"]
+    ref["cells"] = {}
+    for arch in tc.SMOKE_TRAIN_CELLS:
+        k = len([x for x in got if x.startswith(f"cell/{arch}/param")])
+        ref["cells"][arch] = {"loss": float(got[f"cell/{arch}/loss"]),
+                              "grad_norm": float(got[f"cell/{arch}/norm"]),
+                              "params": [got[f"cell/{arch}/param{i}"] for i in range(k)],
+                              "mu": [got[f"cell/{arch}/mu{i}"] for i in range(k)]}
     return ref
 
 
@@ -141,43 +239,51 @@ def _rows(batch: dict, dp: int, i: int) -> dict:
     return {k: torch.from_numpy(v[i * n:(i + 1) * n]) for k, v in batch.items()}
 
 
-@pytest.fixture(scope="module")
-def tp1(inputs):
+def _tp1(inputs) -> dict:
     """The port at TP = 1 (stacked view): each DP rank's first-step
-    grads (bf16 and f32 compute), and two steps at DP = 1 and 2."""
+    grads (bf16 and f32 compute) at DP = 1 and 2, and two steps of the
+    Torrent step at DP = 1, 2 and 4 and of the xla step at DP = 2 and 4
+    (whole moments: losses, grad norms, params, moments)."""
     params_np, batch = inputs
     cfg = C.get_smoke_config(tc.ARCH)
     grad_fn = make_grad_fn(cfg, loss_chunks=2)
     out = {}
-    for dp in (1, 2):
+    for dp in (1, 2, 4):
         params = params_from_numpy(params_np, "cpu")
         rec = {"grads": [], "grads_f32": [], "loss0": []}
-        for i in range(dp):
+        for i in range(dp if dp < 4 else 0):
             g, m = grad_fn(params, _rows(batch, dp, i))
             rec["grads"].append([x.numpy() for x in leaves(g)])
             rec["loss0"].append(float(m["loss"]))
             with tc.compute_dtype(torch.float32):
                 rec["grads_f32"].append([x.numpy() for x in leaves(grad_fn(params, _rows(
                     batch, dp, i))[0])])
-        step = make_train_step(cfg, adamw.OptConfig(**tc.LINEAR_ADAMW), collectives="torrent",
-                               mesh=make_host_mesh(data=dp), loss_chunks=2)
-        opt = adamw.init(params)
-        losses, norms = [], []
-        for _ in range(2):
-            params, opt, m = step(params, opt, _rows(batch, 1, 0))
-            losses.append(float(m["loss"]))
-            norms.append(float(m["grad_norm"]))
-        rec.update(losses=losses, norms=norms, params=[x.numpy() for x in leaves(params)])
+        for coll in ("torrent", "xla") if dp > 1 else ("torrent",):
+            step = make_train_step(cfg, adamw.OptConfig(**tc.LINEAR_ADAMW), collectives=coll,
+                                   mesh=make_host_mesh(data=dp), loss_chunks=2)
+            p = params_from_numpy(params_np, "cpu")
+            opt = adamw.init(p)
+            losses, norms = [], []
+            for _ in range(2):
+                p, opt, m = step(p, opt, _rows(batch, 1, 0))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            run = dict(losses=losses, norms=norms, params=[x.numpy() for x in leaves(p)],
+                       mu=[x.numpy() for x in leaves(opt["mu"])],
+                       nu=[x.numpy() for x in leaves(opt["nu"])])
+            if coll == "torrent":
+                rec.update(run)
+            else:
+                rec["xla"] = run
         out[dp] = rec
     return out
 
 
-@pytest.fixture(scope="module")
-def stacked_trainers(inputs, tmp_path_factory):
+def _stacked_trainers(inputs, root) -> dict:
     """The stacked ``Trainer`` (TP = 1) in the configs the TP = 2 one
-    runs: exact with a failure at step 3, and int8 + EF (its checkpoint
-    is restored at TP = 2)."""
-    root = tmp_path_factory.mktemp("stacked_tr")
+    runs: exact with a failure at step 3 (its checkpoint is restored on
+    ``(2, 2)`` and ``(4, 1)``), and int8 + EF (its checkpoint is restored
+    at TP = 2)."""
     out = {}
     for name, kw in tc.TRAINER_RUNS.items():
         tr = Trainer(TrainConfig(ckpt_dir=str(root / name), **tc.TRAINER, **kw),
@@ -188,11 +294,6 @@ def stacked_trainers(inputs, tmp_path_factory):
                      "state": [x.detach().numpy().copy() for x in leaves(tr.state)],
                      "dir": str(root / name)}
     return out
-
-
-@pytest.fixture(scope="module")
-def world4(inputs):
-    return tdist.spawn(tc.world4_rank, 4, device="cpu", timeout_s=300, args=inputs)
 
 
 @pytest.fixture(scope="module")
@@ -213,11 +314,42 @@ def jax_ckpt(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def world2(inputs, stacked_trainers, jax_ckpt, tmp_path_factory):
-    root = str(tmp_path_factory.mktemp("tp2"))
-    out = tdist.spawn(tc.world2_rank, 2, device="cpu", timeout_s=300,
-                      args=(*inputs, root, stacked_trainers["int8"]["dir"], jax_ckpt[0]))
-    return out, root
+def runs(run_multidevice, inputs, jax_ckpt, tmp_path_factory):
+    """Everything the module compares, started at once so that its wall
+    time is that of its longest part: the stacked ``Trainer`` runs
+    first (the spawns restore its checkpoints), then JAX's subprocess,
+    the 4-rank and the 2-rank spawn run beside the port's TP = 1
+    references (:func:`_tp1`)."""
+    root = tmp_path_factory.mktemp("tp")
+    stacked = _stacked_trainers(inputs, root / "stacked")
+    with ThreadPoolExecutor(3) as ex:
+        jax_run = ex.submit(_jax_tp, run_multidevice, inputs, root / "jax")
+        world4 = ex.submit(tdist.spawn, tc.world4_rank, 4, device="cpu", timeout_s=600,
+                           args=(*inputs, str(root / "w4"), stacked["exact"]["dir"],
+                                 jax_ckpt[0]))
+        world2 = ex.submit(tdist.spawn, tc.world2_rank, 2, device="cpu", timeout_s=600,
+                           args=(*inputs, str(root / "tp2"), stacked["int8"]["dir"],
+                                 jax_ckpt[0]))
+        tp1 = _tp1(inputs)
+        return types.SimpleNamespace(jax=jax_run.result(), tp1=tp1, stacked=stacked,
+                                     world4=world4.result(),
+                                     world2=(world2.result(), str(root / "tp2")),
+                                     w4_root=str(root / "w4"))
+
+
+@pytest.fixture(scope="module")
+def jax_tp(runs):
+    return runs.jax
+
+
+@pytest.fixture(scope="module")
+def tp1(runs):
+    return runs.tp1
+
+
+@pytest.fixture(scope="module")
+def stacked_trainers(runs):
+    return runs.stacked
 
 
 def _ranks(world4, world2, mesh: str) -> list[dict]:
@@ -228,8 +360,8 @@ def _ranks(world4, world2, mesh: str) -> list[dict]:
 
 
 @pytest.fixture(scope="module")
-def spawned(world4, world2):
-    return world4, world2
+def spawned(runs):
+    return runs.world4, runs.world2
 
 
 def _max_rel(a: np.ndarray, b: np.ndarray) -> float:
@@ -583,3 +715,296 @@ def test_stacked_view_refuses_a_model_axis():
         make_host_mesh(data=1, model=2)
     with pytest.raises(NotImplementedError, match="ProcessMesh"):
         Trainer(TrainConfig(tp=2, steps=1), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 in the process form: AdamW's moments placed over data by opt_pspecs
+# ---------------------------------------------------------------------------
+
+ZMESHES = {"2x1": (2, 1), "2x2": (2, 2), "4x1": (4, 1)}
+# the xla step in the process form against the stacked xla step: the
+# ranks' grads summed by the backend's all-reduce, in another order than
+# the stacked step's running sum (two ranks: one rounding either way, so
+# bit for bit); within f32 rounding of sums in another order, as
+# tests/test_torch_dist.py holds its microbatched step (measured on
+# (4, 1): 3.7e-9 after two steps)
+XLA_RTOL, XLA_ATOL = 1e-5, 1e-6
+# moments against JAX's after two bf16 steps: mu is linear in the grads,
+# held as bf16 grads are (GRAD_TOL of each leaf's max); nu is quadratic,
+# twice that
+MU_TOL, NU_TOL = GRAD_TOL, 2 * GRAD_TOL
+# the smoke train cells against JAX's cell, both in f32 compute: the
+# bounds of tests/test_torch_cell.py's train cells (loss 1e-3, grad norm
+# 1e-2 relative, mu within 5% of each leaf's max at cosine >= 0.999),
+# params within PARAM_TOL
+CELL_GRAD_NORM_REL, CELL_MU_REL, CELL_MU_COS = 1e-2, 5e-2, 0.999
+
+
+def _coords(mesh: str, rank: int):
+    dp, tp = ZMESHES[mesh]
+    return types.SimpleNamespace(shape={"data": dp, "model": tp},
+                                 coords={"data": rank // tp, "model": rank % tp})
+
+
+def _zranks(spawned, mesh: str) -> list[dict]:
+    world4, (world2, _) = spawned
+    return [r["zero1"][mesh] for r in (world2 if mesh == "2x1" else world4)]
+
+
+def _jax_opt_specs(inputs, tp: int, dp: int):
+    cfg = JC.get_smoke_config(tc.ARCH)
+    shapes = jax.eval_shape(lambda: inputs[0])
+    pspecs = jshd.param_pspecs(shapes, cfg, tp=tp)
+    return jax.tree.leaves(jshd.opt_pspecs(pspecs, shapes, data_size=dp)["mu"],
+                           is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+
+
+def _block(x: np.ndarray, spec, mesh) -> np.ndarray:
+    """``x``'s block on ``mesh``'s rank by ``spec`` (a port, a JAX or a
+    tuple spec)."""
+    return np.asarray(shd.shard_tree(x, P(*spec), mesh))
+
+
+@pytest.mark.parametrize("mesh", list(ZMESHES))
+def test_zero1_moments_are_the_blocks_of_opt_pspecs(spawned, inputs, mesh):
+    """On a process mesh with a live ``data`` axis each rank's ``mu`` and
+    ``nu`` have the block shapes JAX's ``opt_pspecs`` leave on a device
+    of the mesh, and are allocated at that size: on ``(2, 1)`` and
+    ``(4, 1)`` (TP = 1) a rank's moment bytes are the whole moments'
+    over the DP size, never the whole."""
+    dp, tp = ZMESHES[mesh]
+    specs = _jax_opt_specs(inputs, tp, dp)
+    for r, got in enumerate(_zranks(spawned, mesh)):
+        m = _coords(mesh, r)
+        want = [_block(np.empty(x.shape, np.uint8), s, m).shape
+                for x, s in zip(jax.tree.leaves(inputs[0]), specs)]
+        assert got["moment_shapes"] == want
+        assert got["moment_bytes"] < got["whole_moment_bytes"]
+        if tp == 1:
+            assert got["moment_bytes"] * dp == got["whole_moment_bytes"]
+
+
+@pytest.mark.parametrize("mesh", list(ZMESHES))
+def test_zero1_block_update_is_the_whole_updates_slice(spawned, mesh):
+    """``adamw.update_zero1`` on a rank's moment blocks against
+    ``adamw.update`` on whole moments, from the same reduced grads: the
+    params (the blocks all-gathered over ``data``) and each moment block
+    equal to that slice of the whole update, bit for bit."""
+    for got in _zranks(spawned, mesh):
+        assert got["block_update_bit_equal"] == {"params": True, "mu": True, "nu": True}
+
+
+@pytest.mark.parametrize("mesh", list(ZMESHES))
+def test_zero1_gather_moves_the_other_ranks_blocks(spawned, mesh):
+    """The param all-gather moves a rank ``(dp - 1) / dp`` of its param
+    bytes a step (every leaf of the smoke model splits over ``data``),
+    and the step records it as a ``param_gather`` span beside
+    ``fwd_bwd``, ``reduce`` and ``optimizer``."""
+    dp = ZMESHES[mesh][0]
+    for got in _zranks(spawned, mesh):
+        assert got["split_param_bytes"] == got["param_bytes"]
+        for coll in ("torrent", "xla"):
+            assert got[coll]["gather_bytes"] * dp == got["param_bytes"] * (dp - 1)
+            assert {"fwd_bwd", "reduce", "optimizer", "param_gather"} <= set(got[coll]["spans"])
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "4x1"])
+def test_zero1_steps_match_the_stacked_step_bit_for_bit(spawned, tp1, mesh):
+    """Two Torrent steps with ZeRO-1 (TP = 1) against the stacked step's
+    (whole moments, virtual ranks) from the same params and batch: the
+    params, and each rank's moment blocks against that slice of the
+    stacked moments, bit for bit."""
+    dp = ZMESHES[mesh][0]
+    cfg = C.get_smoke_config(tc.ARCH)
+    specs = leaves(shd.opt_pspecs(shd.logical_pspecs(cfg, 1), shd.logical_params(cfg), dp)["mu"])
+    want = tp1[dp]
+    for r, got in enumerate(_zranks(spawned, mesh)):
+        run, m = got["torrent"], _coords(mesh, r)
+        assert np.allclose(run["losses"], want["losses"], rtol=XLA_RTOL, atol=0)
+        assert all(np.array_equal(a, b) for a, b in zip(run["params"], want["params"]))
+        for k in ("mu", "nu"):
+            assert all(np.array_equal(a, _block(b, s, m))
+                       for a, b, s in zip(run[k], want[k], specs))
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "4x1"])
+def test_xla_process_step_matches_the_stacked_xla_step(spawned, tp1, mesh):
+    """``collectives="xla"`` in the process form (the backend's
+    all-reduce of the ranks' grads, divided by the DP size) against the
+    stacked xla step: bit for bit on two ranks, within ``XLA_RTOL`` /
+    ``XLA_ATOL`` on four (the sums' order)."""
+    dp = ZMESHES[mesh][0]
+    want = tp1[dp]["xla"]
+    for got in _zranks(spawned, mesh):
+        run = got["xla"]
+        for a, b in zip(run["params"], want["params"]):
+            if dp == 2:
+                assert np.array_equal(a, b)
+            np.testing.assert_allclose(a, b, rtol=XLA_RTOL, atol=XLA_ATOL)
+        assert np.allclose(run["losses"], want["losses"], rtol=XLA_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("coll", ["torrent", "xla"])
+@pytest.mark.parametrize("mesh", ["2x2", "4x1"])
+def test_zero1_steps_match_jax_sharded_step(spawned, jax_tp, inputs, mesh, coll):
+    """Two steps on ``(2, 2)`` and ``(4, 1)`` against JAX's step jitted
+    on the same mesh with params placed by ``param_pspecs`` and moments
+    by ``opt_pspecs``: losses within 1e-3, params within atol = rtol =
+    2e-3 (the eps = 1 first step), and each rank's ``mu``/``nu`` blocks
+    against ``shard_tree`` of JAX's gathered moments by the rank's
+    ``opt_pspecs`` (same shapes; within ``MU_TOL``/``NU_TOL`` of each
+    leaf's max)."""
+    dp, tp = ZMESHES[mesh]
+    ref = jax_tp[mesh if coll == "torrent" else f"{mesh}/xla"]
+    specs = _jax_opt_specs(inputs, tp, dp)
+    for r, got in enumerate(_zranks(spawned, mesh)):
+        run, m = got[coll], _coords(mesh, r)
+        assert np.allclose(run["losses"], ref["losses"], atol=LOSS_TOL, rtol=0)
+        for a, b in zip(run["params"], ref["params"]):
+            np.testing.assert_allclose(a, b, atol=PARAM_TOL, rtol=PARAM_TOL)
+        for k, tol in (("mu", MU_TOL), ("nu", NU_TOL)):
+            for a, b, s in zip(run[k], ref[k], specs):
+                want = _block(b, s, m)
+                assert a.shape == want.shape
+                assert np.abs(a - want).max() <= tol * max(np.abs(b).max(), 1e-30)
+
+
+def test_zero1_trainer_matches_stacked_trainer(spawned, stacked_trainers):
+    """The ``Trainer`` on ``(2, 2)`` (TP = 2 and ZeRO-1 over ``data``)
+    against the stacked ``Trainer`` from the same params, six exact
+    steps in f32 compute across a failure and a restart from its
+    ZeRO-1 checkpoint: losses within 1e-3 a step, the gathered state
+    within 2e-3, the moments held as blocks."""
+    world4, _ = spawned
+    ref = stacked_trainers["exact"]
+    for r in world4:
+        got = r["trainer"]
+        assert got["restarts"] == ref["restarts"] == 1
+        assert np.allclose(got["losses"], ref["losses"], atol=LOSS_TOL, rtol=0)
+        for a, b in zip(got["state"], ref["state"]):
+            np.testing.assert_allclose(a, b, atol=PARAM_TOL, rtol=PARAM_TOL)
+    assert world4[0]["trainer"]["moment_shapes"] == world4[0]["zero1"]["2x2"]["moment_shapes"]
+
+
+@pytest.mark.parametrize("where", ["4x1", "1x1", "stacked", "jax"])
+def test_zero1_checkpoint_restores_anywhere(spawned, runs, where):
+    """The ``(2, 2)`` Trainer's last checkpoint (written from ZeRO-1
+    blocks) holds the logical leaves: restored on ``(4, 1)`` each rank
+    gets its blocks of the gathered state; in one process (``(1, 1)``),
+    in the stacked ``Trainer``'s tree and in the JAX package, the
+    gathered state itself; bit for bit."""
+    from repro.checkpoint.manager import CheckpointManager as JCkpt
+    from repro.optim import adamw as jadamw
+
+    world4, _ = spawned
+    want = world4[0]["trainer"]["state"]
+    d = os.path.join(runs.w4_root, "zero1_2x2")
+    cfg = C.get_smoke_config(tc.ARCH)
+    if where == "4x1":
+        specs = leaves(shd.train_state_specs(cfg, types.SimpleNamespace(
+            shape={"data": 4, "model": 1})))
+        for r, out in enumerate(world4):
+            m = _coords("4x1", r)
+            assert all(np.array_equal(a, _block(b, s, m)) for a, b, s in
+                       zip(out["restore"]["2x2_at_4x1"], want, specs))
+        return
+    if where == "jax":
+        jp = JT.model_init(jax.random.PRNGKey(1), JC.get_smoke_config(tc.ARCH))
+        jck = JCkpt(d)
+        got = [np.asarray(x) for x in jax.tree.leaves(
+            jck.restore(jck.latest_step(), {"params": jp, "opt": jadamw.init(jp)}))]
+    else:
+        p = T.model_init(torch.Generator().manual_seed(1), cfg, "cpu")
+        if where == "stacked":
+            tr = Trainer(TrainConfig(ckpt_dir=d, dp=2, **tc.TRAINER), device="cpu")
+            like = tr.state
+        else:
+            like = {"params": p, "opt": adamw.init(p)}
+        ckpt = CheckpointManager(d)
+        got = [x.numpy() for x in leaves(ckpt.restore(ckpt.latest_step(), like))]
+        ckpt.close()
+    assert len(got) == len(want) and all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("writer,mesh", [("stacked", "2x2"), ("stacked", "4x1"),
+                                         ("jax", "2x2")])
+def test_stacked_checkpoint_restores_as_zero1_blocks(spawned, stacked_trainers, jax_ckpt,
+                                                     writer, mesh):
+    """The stacked ``Trainer``'s checkpoint (whole moments) restored on
+    ``(2, 2)`` and ``(4, 1)``, and the JAX package's on ``(2, 2)``: each
+    rank's TP shards of the params and ZeRO-1 blocks of the moments, bit
+    for bit."""
+    world4, _ = spawned
+    cfg = C.get_smoke_config(tc.ARCH)
+    dp, tp = ZMESHES[mesh]
+    specs = leaves(shd.train_state_specs(cfg, types.SimpleNamespace(
+        shape={"data": dp, "model": tp})))
+    want = stacked_trainers["exact"]["state"] if writer == "stacked" else jax_ckpt[1]
+    for r, out in enumerate(world4):
+        m = _coords(mesh, r)
+        got = out["restore"][f"{writer}_at_{mesh}"]
+        assert len(got) == len(want)
+        assert all(np.array_equal(a, _block(b, s, m)) for a, b, s in zip(got, want, specs))
+
+
+TRAIN_CELL_MESHES = {"2x2": tc.CELL_ARCHS, "4x1": tc.CELL_ARCHS,
+                     "2x1": ("qwen2-vl-7b", "whisper-tiny")}
+
+
+@pytest.mark.parametrize("mesh,arch", [(m, a) for m, archs in TRAIN_CELL_MESHES.items()
+                                       for a in archs])
+def test_train_cells_build_on_process_meshes(spawned, mesh, arch):
+    """``build_cell(arch, "train_4k", ProcessMesh)`` at full width builds
+    on the meta device for every TP family on ``(2, 2)`` and ``(4, 1)``,
+    and for qwen2-vl-7b and whisper-tiny on ``(2, 1)``: the args are
+    the rank's param shards, its ZeRO-1 moment blocks and its batch
+    rows, as JAX's ``in_specs`` place the logical args of JAX's cell on
+    the rank's device; ``in_specs``/``out_specs`` are JAX's."""
+    world4, (world2, _) = spawned
+    dp, tp = ZMESHES[mesh]
+    jmesh = jax.sharding.AbstractMesh((dp, tp), ("data", "model"))
+    want = JS.build_cell(arch, "train_4k", jmesh)
+    jspecs = [[tuple(s.spec) for s in jax.tree.leaves(
+        t, is_leaf=lambda x: isinstance(x, NamedSharding))] for t in want.in_shardings]
+    jargs = [jax.tree.leaves(a) for a in want.args]
+    for r, out in enumerate(world2 if mesh == "2x1" else world4):
+        got = out["meta_cells"][mesh][arch]
+        assert got["meta"]
+        assert got["in_specs"] == jspecs
+        assert got["out_specs"][:2] == jspecs[:2] and got["out_specs"][2] is None
+        m = _coords(mesh, r)
+        for shapes, xs, specs in zip(got["args"], jargs, jspecs):
+            assert shapes == [_block(np.empty(x.shape, np.uint8), s, m).shape
+                              for x, s in zip(xs, specs)]
+
+
+@pytest.mark.parametrize("arch", list(tc.SMOKE_TRAIN_CELLS))
+def test_smoke_train_cells_match_jax_cell(spawned, jax_tp, arch):
+    """One step of the smoke train cell on its process mesh (yi-6b and
+    deepseek-moe-16b on ``(2, 2)``, qwen2-vl-7b on ``(2, 1)``) against
+    JAX's cell jitted on the same mesh from the same draws, both in f32
+    compute: the loss, the grad norm, each rank's ``mu`` blocks against
+    its slice of JAX's, the gathered params, every param moved."""
+    world4, (world2, _) = spawned
+    mesh = tc.SMOKE_TRAIN_CELLS[arch][0]
+    dp, tp = ZMESHES[mesh]
+    ref = jax_tp["cells"][arch]
+    cfg = JC.get_smoke_config(arch)
+    like = jax.eval_shape(lambda: JT.model_init(jax.random.PRNGKey(0), cfg))
+    pspecs = jshd.param_pspecs(like, cfg, tp=tp)
+    specs = jax.tree.leaves(jshd.opt_pspecs(pspecs, like, data_size=dp)["mu"],
+                            is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    for r, out in enumerate(world2 if mesh == "2x1" else world4):
+        got, m = out["smoke_cells"][arch], _coords(mesh, r)
+        assert got["step"] == 1 and got["moved"]
+        assert abs(got["loss"] - ref["loss"]) < LOSS_TOL
+        assert abs(got["grad_norm"] / ref["grad_norm"] - 1) < CELL_GRAD_NORM_REL
+        for a, b, s in zip(got["mu"], ref["mu"], specs):
+            w = _block(b, s, m).astype(np.float64)
+            g = a.astype(np.float64)
+            assert g.shape == w.shape and np.isfinite(g).all()
+            assert np.abs(g - w).max() <= CELL_MU_REL * max(np.abs(w).max(), 1e-30)
+            if np.abs(w).max() > 0:
+                assert (g * w).sum() / np.sqrt((g * g).sum() * (w * w).sum()) >= CELL_MU_COS
+        for a, b in zip(got["params"], ref["params"]):
+            np.testing.assert_allclose(a, b, atol=PARAM_TOL, rtol=PARAM_TOL)

@@ -15,7 +15,7 @@ and a ``d_inner`` of 126 (whole at TP = 4, 9 heads a rank at TP = 2).
 What runs where, so that the file's wall time is that of its longest
 part: a module fixture starts JAX's Torrent step on ``(2, 2)`` and
 ``(1, 4)`` meshes for the four archs in one ``run_multidevice``
-subprocess (the eight compiles in threads), a 4-rank spawn (``(1, 4)``
+subprocess (the eight steps one after another), a 4-rank spawn (``(1, 4)``
 and ``(2, 2)``) and a 2-rank spawn (``(1, 2)``, and each arch's
 ``Trainer`` at TP = 2) and two ``torchrun --tp 2`` runs, all at once;
 the port's TP = 1 references run meanwhile. The ranks run
@@ -78,7 +78,6 @@ TORCHRUN_ARCHS = ("deepseek-v2-lite-16b", "jamba-v0.1-52b")  # MLA + MoE; Mamba 
 
 _JAX_STEPS = """
 import dataclasses
-from concurrent.futures import ThreadPoolExecutor
 from jax.sharding import NamedSharding
 from repro import configs as C
 from repro.launch.steps import make_train_step
@@ -125,11 +124,13 @@ def run(job):
     return out
 
 
+# one job after another: with the eight compiles in concurrent threads this
+# subprocess once ran past its 900 s timeout during a parallel test run
+# (about a minute alone)
 jobs = [(a, s) for a in {archs!r} for s in ((2, 2), (1, 4))]
 out = {{}}
-with ThreadPoolExecutor(len(jobs)) as ex:
-    for o in ex.map(run, jobs):
-        out.update(o)
+for o in map(run, jobs):
+    out.update(o)
 np.savez({out!r}, **out)
 """
 

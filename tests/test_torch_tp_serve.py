@@ -532,14 +532,16 @@ def _assert_moe_refused(msg) -> None:
 
 @pytest.mark.parametrize("name", list(sc.CELL_REFUSALS))
 def test_unported_cells_raise_naming_their_entry(runs, name):
-    """On a ``ProcessMesh`` with a live ``model`` axis, a train cell (its
-    ZeRO-1 placement, 9c entry 5), ``long_500k`` (its slots split over
-    ``data``, entry 9), the qwen2-vl-7b and whisper-tiny serve cells
-    (entries 2 and 3), and on ``(2, 2)`` a flat-dispatch MoE arch's
-    serve cell (its capacity from the global batch, entry 10) raise
-    ``NotImplementedError`` naming ROADMAP item 9c and the entry."""
+    """On a ``ProcessMesh`` with a live ``model`` axis, a train cell of
+    an arch TP does not cover (qwen2-vl-7b: M-RoPE, 9c entry 2; train
+    cells are built since ZeRO-1's placement, entry 5, was ported),
+    ``long_500k`` (its slots split over ``data``, entry 9), the
+    qwen2-vl-7b and whisper-tiny serve cells (entries 2 and 3), and on
+    ``(2, 2)`` a flat-dispatch MoE arch's serve cell (its capacity from
+    the global batch, entry 10) raise ``NotImplementedError`` naming
+    ROADMAP item 9c and the entry."""
     entry, mesh = sc.CELL_REFUSALS[name][2:]
-    words = {"train": "ZeRO-1", "long_500k": "slots", "qwen2-vl-7b": "M-RoPE",
+    words = {"train": "M-RoPE", "long_500k": "slots", "qwen2-vl-7b": "M-RoPE",
              "whisper-tiny": "encoder-decoder", "moe_over_data": "global batch"}
     for r in runs.world2 if mesh == "1x2" else runs.world4:
         msg = r["refusals"][name]

@@ -1,6 +1,9 @@
 """The port's training path against the JAX package: the chunked loss
 and its grads, AdamW, the data sources, checkpoints (each package
-restores the other's), the resilient loop, and whole Trainer runs.
+restores the other's), the resilient loop, and whole Trainer runs
+(the int8 + EF run across a restart is
+``tests/test_torch_train_restart.py``'s, split so that a parallel run
+can spread the two files).
 
 Tolerances. The models compute in bf16, and PyTorch rounds after every
 op where XLA keeps f32 between fused ops, so the loss agrees within
@@ -302,26 +305,6 @@ def test_trainer_matches_jax_trainer(run_multidevice, tmp_path):
         got = trainer.run()["losses"]
         assert len(got) == steps == len(jl[name])
         assert max(abs(a - b) for a, b in zip(got, jl[name])) < 5e-3, (got, jl[name])
-
-
-def test_trainer_int8_ef_with_restart(tmp_path):
-    """The port's version of the JAX int8 + EF end-to-end test: the EF
-    residual is checkpointed and restored across an injected failure,
-    and the run tracks the exact-wire run within 0.15."""
-    base = dict(arch=ARCH, smoke=True, steps=25, global_batch=8, seq_len=32,
-                peak_lr=2e-3, warmup_steps=5, ckpt_every=10, loss_chunks=2,
-                log_every=100, collectives="torrent", dp=4)
-    out_f32 = TTrain.Trainer(TTrain.TrainConfig(ckpt_dir=str(tmp_path / "f32"), **base),
-                             device="cpu").run()
-    tr = TTrain.Trainer(TTrain.TrainConfig(ckpt_dir=str(tmp_path / "int8"),
-                                           compress_grads=True, fail_at=(13,), **base),
-                        device="cpu")
-    out_int8 = tr.run()
-    assert out_int8["final_step"] == 25 and out_int8["restarts"] == 1
-    assert np.isfinite(out_int8["losses"]).all()
-    assert out_int8["last_loss"] < out_int8["first_loss"]
-    assert abs(out_int8["last_loss"] - out_f32["last_loss"]) < 0.15
-    assert any(float(r.abs().max()) > 0 for r in leaves(tr.state["ef"]))
 
 
 def test_train_step_knob_validation_matches_jax():
