@@ -156,7 +156,7 @@ Phases (any failure exits non-zero and prints no result):
    wires): each rank's result equal to the stacked executor's row on the
    card bit for bit, each rank's bytes equal to their model (a ring
    rank's to ``program_wire_bytes``; a broadcast's ranks' sum to the
-   members times the payload). Then yi-6b at full width, 4 of 32 layers,
+   members times the payload). Then yi-6b at full width, 2 of 32 layers,
    through the process-form ``Trainer`` on 2 ranks x 4 x 512 tokens
    (rs_ag, K = 1, 25 MiB buckets): the first step's reduced grads leaf by
    leaf bit for bit the stacked reduction of the two ranks' grads
@@ -182,7 +182,7 @@ Phases (any failure exits non-zero and prints no result):
    equal bit for bit, the EP bytes nonzero and the wire bytes equal to
    the model, no allocator retry, no kernel launch. A failing rank
    fails the phase;
-18. tp: tensor parallelism in the process form. yi-6b at full width, 4
+18. tp: tensor parallelism in the process form. yi-6b at full width, 2
    of 32 layers, through the process-form ``Trainer`` at ``tp=2`` on a
    ``(data=1, model=2)`` mesh of two gloo ranks sharing the card (each
    rank holds its shards; Megatron's all-reduces over the model group
@@ -199,7 +199,7 @@ Phases (any failure exits non-zero and prints no result):
    kernels line). A failing rank fails the phase.
 19. tp families: the same on ``(data=1, model=2)`` for the MoE, MLA,
    Mamba-2 and hybrid families at full width: deepseek-v2-lite-16b (4
-   of 27 layers: one dense, three MoE), mamba2-2.7b (8 of 64) and
+   of 27 layers: one dense, three MoE), mamba2-2.7b (4 of 64) and
    jamba-v0.1-52b (2 of 32: Mamba with a dense FFN, Mamba with a MoE).
    Per model (``TP_FAMILIES``): a TP = 1 reference from the same seed in
    this process, then freed — the stacked ``Trainer`` (its first step's
@@ -210,11 +210,21 @@ Phases (any failure exits non-zero and prints no result):
    flips near-tie top-k choices). Then the two ranks: each rank's
    first-step grad shards within ``TP_GRAD_TOL`` of its block of the
    reference's, 3 exact (and, but for jamba, 3 int8 + EF) steps, with
-   every check of phase 18. ``tp_families_train`` in the kernels line.
+   every check of phase 18. Then qwen2-vl-7b (4 of 28 layers: M-RoPE on
+   each rank's 14 heads) and whisper-tiny (full size: encoder,
+   cross-attention and GeLU FFNs split) through ``make_train_step`` on
+   their own batches (``TP_FAMILIES_FIXED``: embeddings at the vlm
+   phase's M-RoPE positions; tokens with encoder frames), held the same
+   way against TP = 1's first-step f32 grads and 3 bf16 steps' losses.
+   ``tp_families_train`` in the kernels line.
 20. tp serve: tensor-parallel serving on ``(data=1, model=2)``, two
    gloo ranks sharing the card, full width, ``attn_impl="flash"``
-   (``TP_SERVE``): yi-6b (all 32 layers), mamba2-2.7b (all 64),
-   deepseek-v2-lite-16b (8 of 27) and jamba-v0.1-52b (5 of 32). Per
+   (``TP_SERVE``): yi-6b (8 of 32 layers), mamba2-2.7b (all 64),
+   deepseek-v2-lite-16b (4 of 27), jamba-v0.1-52b (5 of 32), qwen2-vl-7b
+   (4 of 28: the vlm phase's embeddings and positions, flash on each
+   rank's 14 heads) and whisper-tiny (tokens with encoder frames, the
+   plain attention); these two decode at one position for every row,
+   with no admission. Per
    model a TP = 1 reference from the same seed in this process, with
    the plain attention (``attn_impl="reference"``), then
    freed: ``make_prefill_step`` on 4 x 512-token prompts, 32 greedy
@@ -240,7 +250,18 @@ Phases (any failure exits non-zero and prints no result):
    TP = 4. For mamba2-2.7b (f32 compute, bf16 conv window) a witness
    (``tp_serve_witness``) shows where its decode logits part from
    TP = 1's: the ranks' prefill cache within one bf16 step of TP = 1's,
-   and TP = 1's decode started from that cache against its own.
+   and TP = 1's decode started from that cache against its own. Last,
+   deepseek-moe-16b (4 of 28 layers, ``TP_SERVE_DP``) on ``(data=2,
+   model=1)``: each rank prefills its 2 of the 4 prompts and decodes 8
+   steps, its flat MoE dispatch taking the global batch's capacity and
+   positions (the ranks exchange their per-expert counts), routed as the
+   whole-batch TP = 1 reference routed those rows; its logits, tokens
+   and cache against the reference's rows, the exchange's bytes against
+   ``modeled_tp_serve_bytes(dp=2)``. Its witness: the prefill again at
+   a capacity factor of 0.5 (``TP_SERVE_DP_WITNESS_CF``), where the
+   global rule must meet the whole batch's prefill, the per-rank rule
+   (the data axis Manual) must miss it, and the two rules must keep a
+   nonzero number of assignments differently.
 
 Then ``phase walls s: {...}`` (each phase's wall seconds, against the
 script's time limit), one JSON line with every kernel's launches,
@@ -258,6 +279,7 @@ import dataclasses
 import gc
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -543,6 +565,10 @@ def flash_phase() -> dict:
         ("jamba_tp2_rank", 4, 16, 4, 512, 128, bf16, True, None, "wgmma"),
         ("yi6b_tp4_rank", 4, 8, 1, 512, 128, bf16, True, None, "wgmma"),
         ("jamba_tp4_rank", 4, 8, 2, 512, 128, bf16, True, None, "wgmma"),
+        # qwen2-vl-7b's TP ranks: 14 heads on 2 KV heads at TP = 2 (the tp
+        # serve phase's prefill), 7 on 1 at TP = 4 (the four cards')
+        ("qwen2vl_tp2_rank", 4, 14, 2, 512, 128, bf16, True, None, "wgmma"),
+        ("qwen2vl_tp4_rank", 4, 7, 1, 512, 128, bf16, True, None, "wgmma"),
         # the same ranks' slot admission (make_slot_prefill_step of one
         # 256-token prompt), at TP = 2 on one card and TP = 4 on four
         ("yi6b_tp2_slot", 1, 16, 2, 256, 128, bf16, True, None, "wgmma"),
@@ -2271,7 +2297,7 @@ def cell_phase() -> dict:
 # ZeRO-1 block from its own reduced row, where the stacked form hands
 # every rank row 0; 3e-4 on the CPU after 2 steps, tests/test_torch_dist.py)
 DIST_LOSS_TOL = {"exact": 1e-5, "int8_ef": 2e-3, "xla": 1e-5}
-DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=4, steps=3, global_batch=8, seq_len=512,
+DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=3, global_batch=8, seq_len=512,
                   peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
                   bucket_bytes=25 << 20, loss_chunks=8, seed=0)
 
@@ -2629,9 +2655,9 @@ def dist_phase() -> dict:
 
 
 
-# tensor parallelism on the card: yi-6b at full width, 4 of 32 layers,
+# tensor parallelism on the card: yi-6b at full width, 2 of 32 layers,
 # TP = 2 over two gloo ranks sharing the card, 4 x 512 tokens a step
-TP_TRAIN = dict(arch="yi-6b", smoke=False, layers=4, steps=3, global_batch=4, seq_len=512,
+TP_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=3, global_batch=4, seq_len=512,
                 peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
                 loss_chunks=8, seed=0)
 # TP = 2 against the stacked TP = 1 Trainer from the same seed: a rank
@@ -2807,7 +2833,7 @@ def tp_phase() -> dict:
 # its activations, would pass the card)
 TP_FAMILIES = {
     "deepseek-v2-lite-16b": dict(layers=4, runs=("exact", "int8_ef"), reference="trainer"),
-    "mamba2-2.7b": dict(layers=8, runs=("exact", "int8_ef"), reference="trainer"),
+    "mamba2-2.7b": dict(layers=4, runs=("exact", "int8_ef"), reference="trainer"),
     "jamba-v0.1-52b": dict(layers=2, runs=("exact",), reference="grads"),
 }
 TP_FAMILY_TRAIN = dict(smoke=False, steps=3, global_batch=4, seq_len=512, peak_lr=5e-4,
@@ -3011,27 +3037,216 @@ def tp_family_reference(arch: str, ref_dir: str) -> dict:
     return out
 
 
-def tp_families_phase() -> dict:
-    """Tensor parallelism for the MoE, MLA, Mamba-2 and hybrid families
-    on the card (phase 19 of the module docstring)."""
+# qwen2-vl-7b (full width, 4 of 28 layers: M-RoPE on each rank's 14
+# heads, qkv biases) and whisper-tiny (full size: its encoder,
+# cross-attention and GeLU FFNs split by heads and columns, its 51,865-row
+# table whole) through make_train_step at TP = 2, on batches the
+# Trainer's token source cannot make: qwen2-vl's embeddings at
+# image-then-text M-RoPE positions, whisper's tokens with encoder frames
+TP_FAMILIES_FIXED = {"qwen2-vl-7b": 4, "whisper-tiny": None}
+# their bf16 losses against TP = 1 over the 3 steps: qwen2-vl's loss falls
+# from 12.66 to 9.23 and 3.98 (the first AdamW steps, sign-like, move
+# every weight by about the learning rate), so a rank's bf16 rounding of
+# its partial sums moves the later losses more than yi-6b's (whose losses
+# hardly move): 2.1-2.6e-3 measured on an H100, where the first-step f32
+# grads agree to 5e-6 of each leaf's scale (the TP function is TP = 1's)
+TP_FIXED_LOSS_TOL = 5e-3
+
+
+def tp_fixed_family_config(arch: str, variant="baseline"):
+    """``arch``'s config at ``TP_FAMILIES_FIXED``' depth with ``variant``'s
+    overrides."""
+    from repro_torch import configs as Cfg
+    from repro_torch.launch.steps import VARIANTS
+
+    cfg = Cfg.get_config(arch)
+    return dataclasses.replace(cfg, num_layers=TP_FAMILIES_FIXED[arch] or cfg.num_layers,
+                               **VARIANTS[variant])
+
+
+def tp_fixed_family_setup(arch: str, device, mesh=None, spans=None, variant="baseline"):
+    """``arch``'s config (at ``TP_FAMILIES_FIXED``' depth, with
+    ``variant``'s overrides), its params from ``TP_FAMILY_TRAIN``'s seed
+    (on a process ``mesh``, this rank's blocks as they are drawn), its
+    batch (the same draws on every process) and a Torrent train step."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as Tm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as shd
+
+    kw = TP_FAMILY_TRAIN
+    cfg = tp_fixed_family_config(arch, variant)
+    st = None if mesh is None else shd.train_state_specs(cfg, mesh)
+    gen = torch.Generator(device=device).manual_seed(kw["seed"])
+    params = Tm.model_init(gen, cfg, device, place=None if mesh is None
+                           else shd.leaf_placer(st["params"], mesh))
+    B, S = kw["global_batch"], kw["seq_len"]
+    bgen = torch.Generator(device=device).manual_seed(kw["seed"] + 1)
+    batch = {"labels": torch.randint(0, cfg.vocab_size, (B, S), generator=bgen, device=device,
+                                     dtype=torch.int32)}
+    if cfg.family == "vlm":
+        batch["positions"] = vlm_positions(B, VLM_GRID, S - VLM_GRID[0] * VLM_GRID[1], device)
+        batch["embeds"] = (torch.randn((B, S, cfg.d_model), generator=bgen, device=device)
+                           * 0.02).to(torch.bfloat16)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (B, S), generator=bgen,
+                                        device=device, dtype=torch.int32)
+        batch["enc_frames"] = audio_frames(bgen, B, cfg)
+    opt_cfg = adamw.OptConfig(peak_lr=kw["peak_lr"], warmup_steps=kw["warmup_steps"],
+                              decay_steps=kw["steps"] + 1)
+    step = make_train_step(cfg, opt_cfg, collectives="torrent",
+                           mesh=make_host_mesh() if mesh is None else mesh,
+                           loss_chunks=kw["loss_chunks"], spans=spans)
+    opt = adamw.init(params, specs=None if st is None else st["opt"],
+                     mesh=make_host_mesh() if mesh is None else mesh)
+    return cfg, params, opt, batch, step, st
+
+
+def tp_fixed_family_reference(arch: str, ref_dir: str, variant="baseline",
+                              device="cuda") -> dict:
+    """The TP = 1 run of ``arch`` (:func:`tp_fixed_family_setup`): the
+    first step's f32 grads saved leaf by leaf in ``ref_dir`` and its
+    loss, the bf16 losses of ``TP_FAMILY_TRAIN``'s steps; frees the card
+    before it returns."""
+    import torch
+    from _tp_cases import compute_dtype
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, opt, batch, step, _ = tp_fixed_family_setup(arch, device, variant=variant)
+    with compute_dtype(torch.float32):
+        grads, m = make_grad_fn(cfg, loss_chunks=TP_FAMILY_TRAIN["loss_chunks"])(params, batch)
+    for i, g in enumerate(leaves(grads)):
+        torch.save(g.cpu(), f"{ref_dir}/{i}.pt")
+    out = {"layers": cfg.num_layers, "loss0": float(m["loss"])}
+    del grads
+    losses = []
+    for _ in range(TP_FAMILY_TRAIN["steps"]):
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    out.update(losses={"exact": losses}, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_fixed_family_rank(rank, world, device, arch, ref_dir, variant="baseline"):
+    """One rank of the tp families phase for an arch of
+    ``TP_FAMILIES_FIXED`` (with ``variant``'s overrides): its f32
+    first-step grads against its block of the reference's leaves, then
+    ``TP_FAMILY_TRAIN``'s bf16 Torrent steps on a ``(data=1,
+    model=world)`` mesh with the records and checks of
+    :func:`tp_family_rank`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from _tp_cases import compute_dtype
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    mesh = make_process_mesh(model=world)
+    group = mesh.group("model")
+    reset_launches()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    out = {"transport": cwd.transport(dist.group.WORLD, device)}
+    torch.cuda.reset_peak_memory_stats()
+    spans = Spans()
+    cfg, params, opt, batch, step, st = tp_fixed_family_setup(arch, device, mesh, spans,
+                                                              variant)
+    kw = TP_FAMILY_TRAIN
+    batch_bytes = sum(x.nbytes for x in batch.values())
+    rec = {"state_memory_gb": (torch.cuda.memory_allocated() - batch_bytes) / 1e9,
+           "init_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    with hints.set_mesh(mesh), compute_dtype(torch.float32):
+        grads, m = make_grad_fn(cfg, loss_chunks=kw["loss_chunks"])(params, batch)
+    errs = []
+    for i, (g, sp) in enumerate(zip(leaves(grads), leaves(st["params"]))):
+        want = shd.shard_tree(torch.load(f"{ref_dir}/{i}.pt"), sp, mesh).to(device)
+        errs.append((float((g - want).abs().max()), float(want.abs().max())))
+        del want
+    rec["grad_check"] = {"leaves": len(errs), "err_and_scale": errs, "loss": float(m["loss"]),
+                         "routing_flips": 0, "routed_tokens": 0}
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = kw["global_batch"], kw["seq_len"]
+    model = tpm.modeled_tp_bytes(cfg, B * S, world, enc_tokens=B * cfg.encoder_seq_len)
+    whole = [not shd.is_split(sp, mesh) for sp in leaves(st)]
+    losses, walls, span_ms, tp_bytes, equal = [], [], [], [], []
+    for _ in range(kw["steps"]):
+        tpm.tp_counter.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        tp_bytes.append(dict(tpm.tp_counter.bytes))
+        ms = spans.read()
+        span_ms.append({k: round(sum(v), 3) if k == "tp_comm" else [round(x, 3) for x in v]
+                        for k, v in ms.items()})
+        span_ms[-1]["tp_comm_calls"] = len(ms.get("tp_comm", []))
+        same = True
+        for x, w in zip(leaves({"params": params, "opt": opt}), whole):
+            if w:  # device tensors: NCCL takes no other, gloo stages them
+                flat = x.detach().reshape(-1).contiguous()
+                parts = [torch.empty_like(flat) for _ in range(world)]
+                dist.all_gather(parts, flat, group=group)
+                same &= all(torch.equal(parts[0], q) for q in parts[1:])
+        equal.append(bool(same))
+    rec.update({"losses": losses, "step_wall_s": walls, "median_step_s": float(np.median(walls)),
+                "spans_ms": span_ms[-1], "tp_bytes_per_step": tp_bytes[-1],
+                "modeled_tp_bytes_per_step": model,
+                "tp_bytes_equal_model": all(b == model for b in tp_bytes),
+                "whole_leaves_bit_equal": equal,
+                "step_peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    out["exact"] = rec
+    out["alloc_retries"] = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    out["launches"] = read_launches()
+    return out
+
+
+def tp_families_phase(archs=None) -> dict:
+    """Tensor parallelism for the MoE, MLA, Mamba-2, hybrid, vlm and
+    audio families on the card (phase 19 of the module docstring), for
+    ``archs`` of ``TP_FAMILIES`` and ``TP_FAMILIES_FIXED`` (default:
+    all)."""
     import tempfile
 
     import numpy as np
     from repro_torch.launch.dist import spawn
 
-    launches = None
+    launches, failed = None, []
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    for arch, spec in TP_FAMILIES.items():
+    fixed = {arch: dict(layers=layers, runs=("exact",), reference="steps")
+             for arch, layers in TP_FAMILIES_FIXED.items()}
+    for arch, spec in {**TP_FAMILIES, **fixed}.items():
+        if archs is not None and arch not in archs:
+            continue
         ref_dir = tempfile.mkdtemp(prefix="tp_family_ref_")
         t0 = time.perf_counter()
+        reference, rank_fn = ((tp_fixed_family_reference, tp_fixed_family_rank)
+                              if arch in fixed else (tp_family_reference, tp_family_rank))
         try:
-            ref = tp_family_reference(arch, ref_dir)
+            ref = reference(arch, ref_dir)
             print(f"tp families {arch}: TP = 1 reference {json.dumps(ref)}", flush=True)
             # two jamba ranks hold ~36 GB each at the optimizer's peak: the
             # ranks' allocators map memory as they grow, so that what one
             # rank has reserved and not used cannot starve the other
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-            ranks = spawn(tp_family_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+            ranks = spawn(rank_fn, 2, backend="gloo", device="cuda", timeout_s=900,
                           args=(arch, ref_dir))
         finally:
             if alloc_conf is None:
@@ -3048,7 +3263,8 @@ def tp_families_phase() -> dict:
                        / max(max(c["err_and_scale"][i][1] for c in checks), 1e-30)
                        for i in range(checks[0]["leaves"]))
         loss0_err = abs(checks[0]["loss"] - ref["loss0"])
-        loss_tol = TP_MOE_LOSS_TOL if "bf16_routed_as_tp1" in ranks[0]["exact"] else TP_LOSS_TOL
+        loss_tol = (TP_MOE_LOSS_TOL if "bf16_routed_as_tp1" in ranks[0]["exact"]
+                    else TP_FIXED_LOSS_TOL if arch in fixed else TP_LOSS_TOL)
         routed = ranks[0]["exact"].get("bf16_routed_as_tp1")
         if routed is not None:
             routed["loss0_diff"] = abs(routed["loss0"] - ref["loss0_bf16"])
@@ -3065,31 +3281,55 @@ def tp_families_phase() -> dict:
                     and all(all(rk[name]["whole_leaves_bit_equal"]) for rk in ranks)
                     and all({"fwd_bwd", "reduce", "optimizer", "tp_comm"}
                             <= set(rk[name]["spans_ms"]) for rk in ranks)):
-                raise AssertionError(f"tp families {arch} {name}: losses {got} vs TP = 1 "
-                                     f"{want} (loss0 {ref['loss0']}), ranks {ranks}")
+                failed.append(f"{arch} {name}")
+                print(f"tp families {arch} {name}: FAILED losses {got} vs TP = 1 {want} "
+                      f"(loss0 {ref['loss0']})", flush=True)
         arch_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
         if grad_err > TP_GRAD_F32_TOL or loss0_err > TP_GRAD_F32_TOL \
                 or any(rk["alloc_retries"] for rk in ranks) or any(arch_launches.values()) \
                 or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
-            raise AssertionError(f"tp families {arch}: f32 grad err {grad_err}, loss0 err "
-                                 f"{loss0_err} (tolerance {TP_GRAD_F32_TOL}), retries "
-                                 f"{[rk['alloc_retries'] for rk in ranks]}, launches "
-                                 f"{arch_launches}")
+            failed.append(arch)
+            print(f"tp families {arch}: FAILED f32 grad err {grad_err}, loss0 err "
+                  f"{loss0_err} (tolerance {TP_GRAD_F32_TOL}), retries "
+                  f"{[rk['alloc_retries'] for rk in ranks]}, launches {arch_launches}",
+                  flush=True)
         launches = arch_launches if launches is None else {
             k: launches[k] + v for k, v in arch_launches.items()}
         print(f"tp families {arch}: {json.dumps({'ranks': 2, 'mesh': {'data': 1, 'model': 2}, 'layers': spec['layers'], 'reference': spec['reference'], 'first_step_f32_grad_max_rel_err': grad_err, 'first_step_f32_loss_diff': loss0_err, 'f32_tolerance': TP_GRAD_F32_TOL, 'routing_flips': [c['routing_flips'] for c in checks], 'routed_tokens': checks[0]['routed_tokens'], 'bf16_first_step_routed_as_tp1': routed, 'max_loss_diff_vs_tp1': errors, 'loss_tolerance': loss_tol, 'reference_peak_memory_gb': ref['peak_memory_gb'], 'state_memory_gb': [max(rk[n]['state_memory_gb'] for n in spec['runs']) for rk in ranks], 'step_peak_memory_gb': [max(rk[n]['step_peak_memory_gb'] for n in spec['runs']) for rk in ranks], 'median_step_s': {n: max(rk[n]['median_step_s'] for rk in ranks) for n in spec['runs']}, 'phase_wall_s': round(wall, 2), 'launches': arch_launches})}", flush=True)
+    if failed:
+        raise AssertionError(f"tp families: {failed} failed their checks (the lines above)")
     return {"train_launches": launches}
 
 
 # tensor-parallel serving on the card: TP = 2 over two gloo ranks sharing
-# it, full width, attn_impl="flash". Depths (None: every layer) as deep
-# as the TP = 1 reference from the same seed fits the card beside the
-# CUDA context: yi-6b 24.2 GB of f32 params, mamba2-2.7b 11.3 GB,
-# deepseek-v2-lite-16b 8 of 27 layers ~18 GB (its 27 would be 62.8 GB),
-# jamba-v0.1-52b 5 of 32 (its attention layer and two MoE layers,
-# ~27 GB)
-TP_SERVE = {"yi-6b": None, "mamba2-2.7b": None, "deepseek-v2-lite-16b": 8,
-            "jamba-v0.1-52b": 5}
+# it, full width, attn_impl="flash". Depths (None: every layer): mamba2-2.7b
+# all 64 (11.3 GB of f32 params), jamba-v0.1-52b 5 of 32 (its attention
+# layer and two MoE layers, ~27 GB); yi-6b (all 32 fit: 24.2 GB) and
+# deepseek-v2-lite-16b (8 fit) cut to 8 and 4 layers, and qwen2-vl-7b to
+# 4, so that the script stays within its time
+TP_SERVE = {"yi-6b": 8, "mamba2-2.7b": None, "deepseek-v2-lite-16b": 4,
+            "jamba-v0.1-52b": 5, "qwen2-vl-7b": 4, "whisper-tiny": None}
+# qwen2-vl's prompts are the vlm phase's (random embeddings at an image
+# grid's M-RoPE positions, then text), whisper's the audio phase's
+# (tokens with encoder frames); both decode at one position for every row
+# (neither package decodes M-RoPE per slot, and write_cache_slot refuses
+# whisper's enc leaf), so their traffic has no admission. whisper runs the
+# plain attention: the flash wrapper refuses its 1500 encoder frames
+TP_SERVE_FIXED = {"qwen2-vl-7b", "whisper-tiny"}
+TP_SERVE_ATTN = {"whisper-tiny": "reference"}
+# a flat-dispatch MoE served over data: (data=2, model=1), each rank's 2
+# rows against one process's run of the whole batch, the ranks taking the
+# global batch's capacity by exchanging their per-expert counts; 8 steps
+# at one position, no admission
+TP_SERVE_DP = {"deepseek-moe-16b": 4}
+# the capacity rule's witness: the same prefill at this capacity factor,
+# where a rank's own capacity (48 slots an expert for its 1,024 tokens)
+# and the global batch's (96 for 2,048) keep many assignments differently:
+# the ranks under the global rule must meet the whole batch's prefill,
+# under the per-rank rule (the data axis Manual) they must not. The
+# count of assignments the rules keep differently and the per-rank rule's
+# prefill at the model's own 1.25 are printed beside it
+TP_SERVE_DP_WITNESS_CF = 0.5
 # the traffic: B prompts of S tokens prefilled at once, then STEPS greedy
 # decode steps; before step ADMIT one (1, SLOT_LEN) prompt is prefilled
 # into row SLOT, and the steps from there run at per-slot positions
@@ -3126,9 +3366,33 @@ def tp_serve_config(arch: str, layers: int | None = -1, smoke: bool = False,
     from repro_torch import configs as Cfg
 
     cfg = Cfg.get_smoke_config(arch) if smoke else Cfg.get_config(arch)
-    layers = TP_SERVE[arch] if layers == -1 else layers
-    return dataclasses.replace(cfg, attn_impl=attn_impl,
+    layers = {**TP_SERVE, **TP_SERVE_DP}[arch] if layers == -1 else layers
+    return dataclasses.replace(cfg, attn_impl=TP_SERVE_ATTN.get(arch, attn_impl),
                                num_layers=cfg.num_layers if layers is None else layers)
+
+
+def tp_serve_prompts(cfg, t: dict, gen, device) -> dict:
+    """The prefill batch of ``t``'s ``B`` prompts of ``S`` tokens from
+    ``gen`` (a CPU generator): token ids; a vlm's bf16 embeddings at the
+    vlm phase's image-then-text M-RoPE positions; an encoder-decoder's
+    tokens with bf16 encoder frames. Then the rows ``t["rows"]``."""
+    import torch
+
+    B, S = t["B"], t["S"]
+    if cfg.family == "vlm":  # the vlm phase's 16 x 16 grid, or a square half of S
+        side = min(VLM_GRID[0], math.isqrt(S // 2))
+        pos = vlm_positions(B, (side, side), S - side * side, "cpu")
+        batch = {"embeds": (torch.randn((B, S, cfg.d_model), generator=gen) * 0.02).to(
+            torch.bfloat16), "positions": pos}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                         dtype=torch.int32)}
+        if cfg.is_encdec:
+            batch["enc_frames"] = torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                                              generator=gen).to(torch.bfloat16)
+    rows = t.get("rows", slice(None))
+    return {k: (v[:, rows] if k == "positions" else v[rows]).contiguous().to(device)
+            for k, v in batch.items()}
 
 
 def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
@@ -3136,9 +3400,11 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
                      edit_cache=None) -> dict:
     """``traffic`` (default ``TP_SERVE_TRAFFIC``; its ``B`` rows are the
     caller's) through the step builders on ``params``: a
-    ``make_prefill_step`` of the prompts, ``make_serve_step`` steps (a
-    ``make_slot_prefill_step`` admission written in with
-    ``write_cache_slot`` before step ``ADMIT``), then one
+    ``make_prefill_step`` of the prompts (:func:`tp_serve_prompts`),
+    ``make_serve_step`` steps (a ``make_slot_prefill_step`` admission
+    written in with ``write_cache_slot`` before step ``ADMIT``, where it
+    falls within the steps and the family decodes per slot: not a vlm
+    or an encoder-decoder, which decode at one position), then one
     ``decode_step`` for the last logits in each MLA decode form. With
     ``reference`` (the TP = 1 run's record) each step is fed the tokens
     the reference was fed, so the two runs stay comparable where a near
@@ -3160,13 +3426,15 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
     from repro_torch.tree import map_tree
 
     t = traffic or TP_SERVE_TRAFFIC
-    B, S, SLOT = t["B"], t["S"], t["SLOT"]
+    S, SLOT = t["S"], t["SLOT"]
     gen = torch.Generator().manual_seed(t["seed"] + 1)
-    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, dtype=torch.int32)
-    prompts = prompts[t.get("rows", slice(None))]
-    B = prompts.shape[0]
+    batch = tp_serve_prompts(cfg, t, gen, device)
+    B = batch["tokens"].shape[0] if "tokens" in batch else batch["embeds"].shape[0]
     slot = torch.randint(0, cfg.vocab_size, (1, t["SLOT_LEN"]), generator=gen,
                          dtype=torch.int32)
+    # the per-slot admission, where the family decodes per slot
+    admit = t["ADMIT"] if t["ADMIT"] < t["STEPS"] and cfg.family not in ("vlm", "audio") \
+        else None
     step = make_serve_step(cfg)
     out = {"inputs": [], "tokens": [], "margins": [], "tp_bytes": {}}
     dev = torch.device(device)
@@ -3184,8 +3452,7 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
     with torch.no_grad():
         tp_counter.reset()
         with spans.span("prefill", dev):
-            logits, cache = make_prefill_step(cfg, TP_SERVE_MAX_SEQ)(
-                params, {"tokens": prompts.to(device)})
+            logits, cache = make_prefill_step(cfg, TP_SERVE_MAX_SEQ)(params, batch)
         out["tp_bytes"]["prefill"] = dict(tp_counter.bytes)
         out["prefill_logits"] = logits
         if keep_prefill_cache:
@@ -3194,8 +3461,9 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
             cache = edit_cache(cache)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         pos = torch.full((B,), S, dtype=torch.int32, device=device)
+        out["slot_token"] = None
         for i in range(t["STEPS"]):
-            if i == t["ADMIT"]:
+            if i == admit:
                 tp_counter.reset()
                 first, one = make_slot_prefill_step(cfg, TP_SERVE_MAX_SEQ)(params,
                                                                             slot.to(device))
@@ -3207,7 +3475,8 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
             if reference is not None:
                 tok = reference["inputs"][i].to(device)
             out["inputs"].append(tok.cpu())
-            p = pos if i >= t["ADMIT"] else torch.tensor(S + i, dtype=torch.int32)
+            p = pos if admit is not None and i >= admit else torch.tensor(S + i,
+                                                                          dtype=torch.int32)
             tp_counter.reset()
             with spans.span("step", dev):
                 tok, cache = greedy(tok, p, cache)
@@ -3222,7 +3491,8 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
         for absorb in forms:
             c = dataclasses.replace(cfg, mla_absorb=absorb)
             snapshot = map_tree(torch.clone, cache) if len(forms) > 1 else cache
-            out["final_logits"][absorb] = Tm.decode_step(params, c, tok, pos, snapshot)[0]
+            p = pos if admit is not None else torch.tensor(S + t["STEPS"], dtype=torch.int32)
+            out["final_logits"][absorb] = Tm.decode_step(params, c, tok, p, snapshot)[0]
         out["cache"] = cache
     ms = spans.read()
     out["prefill_ms"], out["step_ms"] = ms["prefill"][0], ms["step"]
@@ -3230,14 +3500,17 @@ def tp_serve_traffic(cfg, params, device, *, reference: dict | None = None,
 
 
 def tp_serve_reference(arch: str, ref_dir: str, device="cuda", layers: int | None = -1,
-                       traffic: dict | None = None, smoke: bool = False) -> dict:
+                       traffic: dict | None = None, smoke: bool = False,
+                       witness_cf: float | None = None) -> dict:
     """The TP = 1 run of ``arch`` (cut to ``layers``, as
     :func:`tp_serve_config`, with the plain attention: the ranks' flash
     kernel is held against it) on the card from the seed the ranks use
     (``tp_serve_traffic`` of ``traffic``), its MoE calls' routing
     recorded: logits, tokens, margins, routing and the cache saved in
-    ``ref_dir``, and for ``TP_SERVE_F32`` its prefill's cache too; frees
-    the card before it returns. Returns its times and peak memory."""
+    ``ref_dir``, and for ``TP_SERVE_F32`` its prefill's cache too; with
+    ``witness_cf`` also the prefill's logits and routing at that capacity
+    factor (``{arch}_witness.pt``); frees the card before it returns.
+    Returns its times and peak memory."""
     import numpy as np
     import torch
     from _moe_routing import recorded_routing
@@ -3265,6 +3538,17 @@ def tp_serve_reference(arch: str, ref_dir: str, device="cuda", layers: int | Non
                 "last_input": rec["last_input"], "slot_token": rec["slot_token"],
                 "routing": [x.cpu() for x in seen]}, f"{ref_dir}/{arch}.pt")
     torch.save([x.cpu() for x in leaves(rec["cache"])], f"{ref_dir}/{arch}_cache.pt")
+    if witness_cf is not None:
+        from repro_torch.launch.steps import make_prefill_step
+
+        wcfg = dataclasses.replace(cfg, capacity_factor=witness_cf)
+        t = traffic or TP_SERVE_TRAFFIC
+        batch = tp_serve_prompts(wcfg, t, torch.Generator().manual_seed(t["seed"] + 1), device)
+        with torch.no_grad(), recorded_routing() as wseen, _serve_dtype(arch):
+            wlogits, _ = make_prefill_step(wcfg, TP_SERVE_MAX_SEQ)(params, batch)
+        torch.save({"prefill_logits": wlogits.cpu(), "routing": [x.cpu() for x in wseen]},
+                   f"{ref_dir}/{arch}_witness.pt")
+        del batch, wlogits
     out = {"layers": cfg.num_layers, "prefill_ms": rec["prefill_ms"],
            "decode_step_ms": float(np.median(rec["step_ms"])),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if cuda else None,
@@ -3349,9 +3633,10 @@ def tp_serve_rank(rank, world, device, ref_dir, archs):
                 _serve_dtype(arch):
             got = tp_serve_traffic(cfg, params, device, reference=ref,
                                    keep_prefill_cache=arch in TP_SERVE_F32)
-            model = {"prefill": tpm.modeled_tp_serve_bytes(cfg, t["B"], t["S"], world),
-                     "decode": tpm.modeled_tp_serve_bytes(cfg, t["B"], 1, world),
-                     "slot": tpm.modeled_tp_serve_bytes(cfg, 1, t["SLOT_LEN"], world)}
+            sizes = {"prefill": (t["B"], t["S"]), "decode": (t["B"], 1),
+                     "slot": (1, t["SLOT_LEN"])}
+            model = {k: tpm.modeled_tp_serve_bytes(cfg, *sizes[k], world)
+                     for k in got["tp_bytes"]}
         wall = time.perf_counter() - t1
         comm = spans.read().get("tp_comm", [])
         cspecs = shd.logical_cache_pspecs(cfg, Cfg.SHAPES["decode_32k"], t["B"],
@@ -3466,9 +3751,140 @@ def tp_serve_witness(arch: str, ref_dir: str, device="cuda") -> dict:
     return out
 
 
-def tp_serve_phase(archs=tuple(TP_SERVE)) -> dict:
+TP_SERVE_DP_TRAFFIC = dict(TP_SERVE_TRAFFIC, STEPS=8, ADMIT=8)
+
+
+def capacity_rule_differences(routing: list, cfg, world: int) -> int:
+    """How many of the expert assignments in ``routing`` (one top-k
+    tensor per prefill MoE call, the whole batch's tokens in order, rank
+    0's block first) a rank's own capacity keeps and the global batch's
+    drops, or the reverse: an assignment's position among its expert's
+    assignments counted within its rank's block against
+    ``capacity(cfg, T)``, and counted over the whole stream against
+    ``capacity(cfg, T · world)``."""
+    import torch
+    from repro_torch.models.moe import capacity
+
+    total = 0
+    for top_e in routing:
+        flat = top_e.reshape(-1).long()
+        n, t = flat.numel(), top_e.shape[0] // world
+        onehot = torch.nn.functional.one_hot(flat, cfg.num_experts)
+        at = flat[:, None]
+        pos_global = (onehot.cumsum(0) - 1).gather(1, at)[:, 0]
+        pos_rank = (onehot.reshape(world, n // world, -1).cumsum(1) - 1).reshape(n, -1).gather(
+            1, at)[:, 0]
+        total += int(((pos_rank < capacity(cfg, t))
+                      != (pos_global < capacity(cfg, t * world))).sum())
+    return total
+
+
+def tp_serve_dp_rank(rank, world, device, ref_dir, arch):
+    """One rank of the tp serve phase's MoE over data (``TP_SERVE_DP``):
+    its rows of ``TP_SERVE_DP_TRAFFIC`` on a ``(data=world, model=1)``
+    mesh, fed the reference's tokens and routed as the reference routed
+    its rows: prefill and final logits, tokens, its cache against the
+    reference's rows, and the payload the ranks exchange (the per-expert
+    counts) against ``modeled_tp_serve_bytes(dp=world)``. Then the
+    capacity rule's witness (``TP_SERVE_DP_WITNESS_CF``): the prefill at
+    that capacity factor and at the model's, routed as the reference's,
+    under the global rule and under the per-rank rule
+    (``hints.manual_axes``), each against the reference's rows and timed
+    on the host's clock around a synchronize (the global rule's expert
+    buffer holds up to ``world`` times the per-rank rule's slots), and
+    the assignments the two rules keep differently
+    (:func:`capacity_rule_differences`)."""
+    import numpy as np
+    import torch
+    from _moe_routing import routing_as
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.runtime.spans import Spans
+    from repro_torch.tree import leaves
+
+    mesh = make_process_mesh(data=world)
+    t = dict(TP_SERVE_DP_TRAFFIC)
+    n = t["B"] // world
+    rows = slice(rank * n, (rank + 1) * n)
+    t["rows"] = rows
+    cfg = tp_serve_config(arch)
+    full = torch.load(f"{ref_dir}/{arch}.pt", weights_only=False)
+
+    def mine(x):  # this rank's block of a whole-batch tensor (token-major)
+        k = x.shape[0] // world
+        return x[rank * k:(rank + 1) * k]
+
+    ref = {**full, "inputs": [x[rows] for x in full["inputs"]],
+           "tokens": [x[rows] for x in full["tokens"]],
+           "margins": [x[rows] for x in full["margins"]], "last_input": full["last_input"][rows],
+           "routing": [mine(x) for x in full["routing"]]}
+    torch.cuda.reset_peak_memory_stats()
+    params = Tm.model_init(torch.Generator(device=device).manual_seed(t["seed"]), cfg, device)
+    reset_launches()
+    spans = Spans()
+    with hints.set_mesh(mesh), tpm.timed(spans), routing_as(ref["routing"]) as flips:
+        got = tp_serve_traffic(cfg, params, device, reference=ref, traffic=t)
+        model = {"prefill": tpm.modeled_tp_serve_bytes(cfg, n, t["S"], 1, dp=world),
+                 "decode": tpm.modeled_tp_serve_bytes(cfg, n, 1, 1, dp=world)}
+    launches = read_launches()  # the main path's; the witness's prefills are not counted
+    from repro_torch.launch.steps import make_prefill_step
+
+    wref = torch.load(f"{ref_dir}/{arch}_witness.pt", weights_only=False)
+    wcfg = dataclasses.replace(cfg, capacity_factor=TP_SERVE_DP_WITNESS_CF)
+    prompt_tokens = t["B"] * t["S"]
+    routing = [x for x in full["routing"] if x.shape[0] == prompt_tokens]  # the prefill's
+    batch = tp_serve_prompts(cfg, t, torch.Generator().manual_seed(t["seed"] + 1), device)
+    witness = {"capacity_factor": TP_SERVE_DP_WITNESS_CF}
+    main = {"routing": routing, "prefill_logits": full["prefill_logits"]}
+    runs = (("global_rule", wcfg, (), wref), ("per_rank_rule", wcfg, ("data",), wref),
+            ("global_rule_at_model_cf", cfg, (), main),
+            ("per_rank_rule_at_model_cf", cfg, ("data",), main))
+    with torch.no_grad(), hints.set_mesh(mesh):
+        for name, c, manual, want in runs:
+            with hints.manual_axes(manual), routing_as([mine(x) for x in want["routing"]]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, _ = make_prefill_step(c, TP_SERVE_MAX_SEQ)(params, batch)
+                torch.cuda.synchronize()
+            witness[f"{name}_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            witness[f"{name}_prefill_logits_rel"] = _rel_rows(
+                lg.cpu(), want["prefill_logits"][rows])
+    witness["assignments_kept_differently"] = capacity_rule_differences(
+        wref["routing"], wcfg, world)
+    witness["assignments_kept_differently_at_model_cf"] = capacity_rule_differences(
+        routing, cfg, world)
+    witness["prefill_assignments"] = sum(x.numel() for x in routing)
+    del batch, lg
+    want_cache = torch.load(f"{ref_dir}/{arch}_cache.pt", weights_only=False)
+    cache_err = [float((a.float() - b[:, rows].to(device).float()).abs().max()
+                       / b[:, rows].float().abs().max().clamp_min(1e-30))
+                 for a, b in zip(leaves(got["cache"]), want_cache)]
+    diffs = token_differences(got["tokens"], ref)
+    comm = spans.read().get("tp_comm", [])
+    return {"rows": [rows.start, rows.stop], "layers": cfg.num_layers,
+            "differences": diffs,
+            "prefill_logits_rel": _rel_rows(got["prefill_logits"].cpu(),
+                                            full["prefill_logits"][rows]),
+            "final_logits_rel": {str(k): _rel_rows(v.cpu(), full["final_logits"][k][rows])
+                                 for k, v in got["final_logits"].items()},
+            "cache_rel_max": max(cache_err),
+            "exchange_bytes": got["tp_bytes"], "modeled_exchange_bytes": model,
+            "exchange_bytes_equal_model": got["tp_bytes"] == model,
+            "exchange_calls": len(comm), "exchange_ms": sum(comm),
+            "prefill_ms": got["prefill_ms"], "decode_step_ms": float(np.median(got["step_ms"])),
+            "routing_flips": int(sum(int(f.sum()) for f in flips)),
+            "routed_tokens": int(sum(f.numel() for f in flips)),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "alloc_retries": torch.cuda.memory_stats().get("num_alloc_retries", 0),
+            "capacity_witness": witness, "launches": launches}
+
+
+def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
     """Tensor-parallel serving on the card (phase 20 of the module
-    docstring), for ``archs`` of ``TP_SERVE``."""
+    docstring), for ``archs`` of ``TP_SERVE``, then the MoE over data
+    for ``dp_archs`` of ``TP_SERVE_DP``."""
     import tempfile
 
     import torch
@@ -3482,9 +3898,17 @@ def tp_serve_phase(archs=tuple(TP_SERVE)) -> dict:
             refs[arch] = tp_serve_reference(arch, ref_dir)
             print(f"tp serve {arch}: TP = 1 reference {json.dumps(refs[arch])}", flush=True)
         ranks = spawn(tp_serve_rank, 2, backend="gloo", device="cuda", timeout_s=900,
-                      args=(ref_dir, archs))
+                      args=(ref_dir, archs)) if archs else []
         witness = {arch: tp_serve_witness(arch, ref_dir) for arch in archs
                    if arch in TP_SERVE_F32}
+        dp_ranks = {}
+        for arch in dp_archs:
+            refs[arch] = tp_serve_reference(arch, ref_dir, traffic=TP_SERVE_DP_TRAFFIC,
+                                            witness_cf=TP_SERVE_DP_WITNESS_CF)
+            print(f"tp serve {arch} over data: TP = 1 reference {json.dumps(refs[arch])}",
+                  flush=True)
+            dp_ranks[arch] = spawn(tp_serve_dp_rank, 2, backend="gloo", device="cuda",
+                                   timeout_s=900, args=(ref_dir, arch))
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -3502,8 +3926,10 @@ def tp_serve_phase(archs=tuple(TP_SERVE)) -> dict:
                        for d in r["differences"])
         arch_launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
         flash = [r["launches"]["flash_attention_wgmma"] for r in recs]
-        want_flash = 2 * sum(s.mixer == "gqa" for p, reps in tp_serve_config(arch).layer_groups()
-                             for s in p for _ in range(reps))
+        cfg = tp_serve_config(arch)
+        prefills = 1 + ("slot" in rec["tp_bytes"])  # the prompts', the admission's
+        want_flash = (cfg.attn_impl == "flash") * prefills * sum(
+            s.mixer == "gqa" for p, reps in cfg.layer_groups() for s in p for _ in range(reps))
         ok = (same and near_tie and all(r["slot_token_equal"] for r in recs)
               and all(r["prefill_logits_rel"] <= prefill_tol for r in recs)
               and all(v <= decode_tol for r in recs for v in r["final_logits_rel"].values())
@@ -3544,6 +3970,41 @@ def tp_serve_phase(archs=tuple(TP_SERVE)) -> dict:
             failed.append(arch)
         launches = arch_launches if launches is None else {
             k: launches[k] + v for k, v in arch_launches.items()}
+    for arch, recs in dp_ranks.items():
+        for r, rec in enumerate(recs):
+            print(f"tp serve {arch} over data rank {r}: {json.dumps(rec)}", flush=True)
+        ok = (all(d["reference_top2_margin_rel"] <= TP_SERVE_LOGIT_TOL for r in recs
+                  for d in r["differences"])
+              and all(r["prefill_logits_rel"] <= TP_SERVE_LOGIT_TOL for r in recs)
+              and all(v <= TP_SERVE_LOGIT_TOL for r in recs for v in r["final_logits_rel"].values())
+              and all(r["cache_rel_max"] <= TP_SERVE_CACHE_TOL for r in recs)
+              and all(r["exchange_bytes_equal_model"] for r in recs)
+              and all(r["launches"]["flash_attention_wgmma"] == r["layers"] for r in recs)
+              and not any(r["alloc_retries"] for r in recs)
+              and all(w["global_rule_prefill_logits_rel"] <= TP_SERVE_LOGIT_TOL
+                      and w["per_rank_rule_prefill_logits_rel"] > TP_SERVE_LOGIT_TOL
+                      and w["assignments_kept_differently"] > 0
+                      for w in (r["capacity_witness"] for r in recs)))
+        summary = {"ranks": 2, "mesh": {"data": 2, "model": 1}, "layers": recs[0]["layers"],
+                   "differences": [len(r["differences"]) for r in recs],
+                   "prefill_logits_rel": [r["prefill_logits_rel"] for r in recs],
+                   "final_logits_rel": [r["final_logits_rel"] for r in recs],
+                   "logit_tolerance": TP_SERVE_LOGIT_TOL,
+                   "cache_rel_max": [r["cache_rel_max"] for r in recs],
+                   "exchange_bytes": recs[0]["exchange_bytes"],
+                   "modeled_exchange_bytes": recs[0]["modeled_exchange_bytes"],
+                   "exchange_bytes_equal_model": [r["exchange_bytes_equal_model"] for r in recs],
+                   "routing_flips": [r["routing_flips"] for r in recs],
+                   "prefill_ms": [r["prefill_ms"] for r in recs],
+                   "decode_step_ms": [r["decode_step_ms"] for r in recs],
+                   "reference": refs[arch],
+                   "capacity_witness": [r["capacity_witness"] for r in recs],
+                   "peak_memory_gb": [r["peak_memory_gb"] for r in recs]}
+        print(f"tp serve {arch} over data: {json.dumps(summary)}", flush=True)
+        if not ok:
+            failed.append(f"{arch} over data")
+        launches = {k: (launches or {}).get(k, 0) + sum(r["launches"][k] for r in recs)
+                    for k in recs[0]["launches"]}
     print(f"tp serve: {json.dumps({'phase_wall_s': round(wall, 2), 'launches': launches})}",
           flush=True)
     if failed:
@@ -3686,6 +4147,7 @@ def main() -> int:
             yi6b_tp4_rank=sub("yi6b_tp4_rank"), jamba_tp4_rank=sub("jamba_tp4_rank"),
             yi6b_tp2_slot=sub("yi6b_tp2_slot"), jamba_tp2_slot=sub("jamba_tp2_slot"),
             yi6b_tp4_slot=sub("yi6b_tp4_slot"), jamba_tp4_slot=sub("jamba_tp4_slot"),
+            qwen2vl_tp2_rank=sub("qwen2vl_tp2_rank"), qwen2vl_tp4_rank=sub("qwen2vl_tp4_rank"),
             bf16_d40=sub("bf16_d40"),
             d80_gqa=sub("d80_gqa")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",

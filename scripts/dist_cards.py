@@ -40,8 +40,15 @@ its own, so the executor hands NCCL the device tensors themselves:
    ``reduce``, ``optimizer``), the model group's payload bytes against
    ``parallel.tp.modeled_tp_bytes``, the DP wire bytes against
    ``program_wire_bytes``, a rank's memory (its state, the init's peak,
-   the steps' peak) and allocator retries (must be 0). At smoke size on
-   the CPU.
+   the steps' peak) and allocator retries (must be 0); qwen2-vl-7b at
+   full width and full depth on ``(1, 4)`` (7 heads a rank). At smoke
+   size on the CPU. On cards, then the ``opt-seq`` run
+   (``OPT_SEQ_RUNS``): whisper-tiny at full size on ``(1, 4)`` with
+   ``attn_seq_shard`` (its 6 heads do not split over 4 ranks, so each
+   rank attends for its block of the query rows), through
+   ``make_train_step`` on chip_smoke's whisper batch, held against
+   TP = 1 on the first card (the first step's f32 grads, 3 bf16 steps'
+   losses), a rank's state against the meta count.
 
 5. ``serve_tp`` (4 ranks): tensor-parallel serving, one rank per card,
    ``chip_smoke.tp_serve_traffic`` with 16 decode steps (the admission
@@ -52,13 +59,18 @@ its own, so the executor hands NCCL the device tensors themselves:
    seed 0 and cut as drawn; and jamba at its first 5 layers on
    ``(1, 4)`` against the TP = 1 run of the same traffic on the first
    card, run first and freed (``SERVE_TP_RUNS``; ``--serve-runs`` picks
-   some). No TP = 1 run of a full depth fits one card, so there the
+   some). No TP = 1 run of jamba's, deepseek-v2-lite's or yi-6b's full
+   depth is held beside these runs, so there the
    checks are the ranks': the gathered logits finite and bit-equal
    across each TP group, the greedy tokens equal across it, the model
    group's payload equal to ``modeled_tp_serve_bytes``, no allocator
    retry, and a rank's params taking the bytes their specs give it
-   (``predicted_state_gb``, from the meta device). The 5-layer run is
-   held as ``chip_smoke.tp_serve_phase`` holds its ranks. On the CPU,
+   (``predicted_state_gb``, from the meta device). qwen2-vl-7b at full
+   depth on ``(1, 4)`` serves the vlm phase's traffic (embeddings at
+   image-then-text M-RoPE positions, decoded at one position for every
+   row); its f32 params (30.5 GB) and cache fit one card, so it is held
+   against TP = 1 on the first card, as the 5-layer jamba run is. Those
+   two runs are held as ``chip_smoke.tp_serve_phase`` holds its ranks. On the CPU,
    at smoke size with a 64-token prompt.
 
 6. ``bf16_gap`` (one card, asked for by name): mamba2-2.7b at TP = 1 in
@@ -83,6 +95,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
@@ -166,7 +179,13 @@ TP_RUNS = [("4x1_full_depth", "yi-6b", 4, 1, None),
            ("1x4_full_depth", "yi-6b", 1, 4, None), ("2x2_8_layers", "yi-6b", 2, 2, 8),
            ("mamba2_1x4_full_depth", "mamba2-2.7b", 1, 4, None),
            ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5),
-           ("dsv2lite_2x2_8_layers", "deepseek-v2-lite-16b", 2, 2, 8)]
+           ("dsv2lite_2x2_8_layers", "deepseek-v2-lite-16b", 2, 2, 8),
+           ("qwen2vl_1x4_full_depth", "qwen2-vl-7b", 1, 4, None)]
+# the opt-seq runs of the tp part, on cards only: (label, arch, variant),
+# on (1, 4) at full depth with chip_smoke's qwen2-vl / whisper batches
+# (chip_smoke.tp_fixed_family_setup), each against TP = 1 on the first
+# card: whisper-tiny's 6 heads sequence-sharded over 4 ranks
+OPT_SEQ_RUNS = [("whisper_opt_seq_1x4_full_depth", "whisper-tiny", "opt-seq")]
 TP_TRAIN = dict(steps=3, global_batch=4, seq_len=512, peak_lr=5e-4, warmup_steps=2,
                 collectives="torrent", num_chains=1, loss_chunks=8, seed=0)
 # the serve_tp part's runs: (label, arch, data, model, layers; None = the
@@ -174,7 +193,8 @@ TP_TRAIN = dict(steps=3, global_batch=4, seq_len=512, peak_lr=5e-4, warmup_steps
 SERVE_TP_RUNS = [("jamba_1x4_full_depth", "jamba-v0.1-52b", 1, 4, None, False),
                  ("dsv2lite_1x4_full_depth", "deepseek-v2-lite-16b", 1, 4, None, False),
                  ("yi6b_2x2_full_depth", "yi-6b", 2, 2, None, False),
-                 ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5, True)]
+                 ("jamba_1x4_5_layers", "jamba-v0.1-52b", 1, 4, 5, True),
+                 ("qwen2vl_1x4_full_depth", "qwen2-vl-7b", 1, 4, None, True)]
 SERVE_TP_STEPS, SERVE_TP_ADMIT = 16, 8
 # torchrun at smoke size: (arch, tp)
 TRAIN_RUNS = [("yi-6b", 1), ("yi-6b", 2), ("deepseek-moe-16b", 2), ("mamba2-2.7b", 2)]
@@ -265,8 +285,10 @@ def tp_rank(rank, world, device, arch, tp, layers, smoke):
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     tokens = kw["global_batch"] * kw["seq_len"] // tr.mesh.shape["data"]
-    # no model group at TP = 1: no TP payload
-    model = tpm.modeled_tp_bytes(tr.cfg, tokens, tp) if tp > 1 else {"fwd": 0, "bwd": 0}
+    # no model group at TP = 1: no TP payload; the Trainer's batches are
+    # token ids, a vlm's too
+    model = (tpm.modeled_tp_bytes(tr.cfg, tokens, tp, embeds=False) if tp > 1
+             else {"fwd": 0, "bwd": 0})
     losses, walls, span_ms, tp_bytes, wire, gathered = [], [], [], [], [], []
     for i in range(kw["steps"]):
         tpm.tp_counter.reset()
@@ -376,9 +398,11 @@ def serve_tp_rank(rank, world, device, arch, data, layers, ref_path, smoke):
     wall = time.perf_counter() - t0
     comm = spans.read().get("tp_comm", [])
     n = cs.TP_SERVE_TRAFFIC["B"] // data
-    model = {"prefill": tpm.modeled_tp_serve_bytes(cfg, n, traffic["S"], tp),
-             "decode": tpm.modeled_tp_serve_bytes(cfg, n, 1, tp),
-             "slot": tpm.modeled_tp_serve_bytes(cfg, 1, traffic["SLOT_LEN"], tp)}
+    sizes = {"prefill": (n, traffic["S"]), "decode": (n, 1), "slot": (1, traffic["SLOT_LEN"])}
+    # a vlm's traffic has no admission; an admission is its rank's own
+    # batch, with no exchange over data
+    model = {k: tpm.modeled_tp_serve_bytes(cfg, *sizes[k], tp, dp=data if k != "slot" else 1)
+             for k in got["tp_bytes"]}
     logits = {"prefill": got["prefill_logits"].cpu(),
               **{f"final_{k}": v.cpu() for k, v in got["final_logits"].items()}}
     rec.update({"tokens": [t.tolist() for t in got["tokens"]],
@@ -570,7 +594,8 @@ def main() -> int:
                     help="comma-separated parts to run (default: every multi-rank part; "
                          "bf16_gap runs on the first card)")
     ap.add_argument("--tp-runs", default=None,
-                    help="comma-separated labels of TP_RUNS for the tp part (default: all)")
+                    help="comma-separated labels of TP_RUNS and OPT_SEQ_RUNS for the tp part "
+                         "(default: all)")
     ap.add_argument("--serve-runs", default=None,
                     help="comma-separated labels of SERVE_TP_RUNS for the serve_tp part "
                          "(default: all)")
@@ -681,9 +706,73 @@ def train_part(device, world, arch: str, tp: int) -> bool:
     return trained
 
 
+def opt_seq_part(device, world, labels=None) -> bool:
+    """The tp part's ``OPT_SEQ_RUNS`` on the cards: TP = 1 on the first
+    card (the first step's f32 grads and 3 bf16 steps, freed before the
+    spawn), then the 4 ranks (``chip_smoke.tp_fixed_family_rank``): the
+    f32 grads against each rank's block of TP = 1's, the bf16 losses
+    against TP = 1's, a rank's state against the meta count, its peak,
+    spans and payload against ``modeled_tp_bytes``."""
+    import chip_smoke as cs
+    from repro_torch.launch.dist import spawn
+
+    ok = True
+    for label, arch, variant in OPT_SEQ_RUNS:
+        if labels and label not in labels:
+            continue
+        t0 = time.perf_counter()
+        try:
+            with tempfile.TemporaryDirectory(prefix="opt_seq_") as ref_dir:
+                ref = cs.tp_fixed_family_reference(arch, ref_dir, variant, "cuda:0")
+                ranks = spawn(cs.tp_fixed_family_rank, world, device=device, timeout_s=900,
+                              args=(arch, ref_dir, variant))
+        except Exception as e:  # the part fails; the next parts still report
+            print(f"dist cards tp {label}", json.dumps({"ok": False, "error": repr(e)[-2000:]}),
+                  flush=True)
+            ok = False
+            continue
+        for r, rec in enumerate(ranks):
+            print(f"dist cards tp {label} rank {r}", json.dumps(rec), flush=True)
+        checks = [rk["exact"]["grad_check"] for rk in ranks]
+        grad_err = max(max(c["err_and_scale"][i][0] for c in checks)
+                       / max(max(c["err_and_scale"][i][1] for c in checks), 1e-30)
+                       for i in range(checks[0]["leaves"]))
+        loss_diff = max(abs(a - b) for a, b in zip(ranks[0]["exact"]["losses"],
+                                                   ref["losses"]["exact"]))
+        cfg = cs.tp_fixed_family_config(arch, variant)
+        count = state_bytes(cfg, types.SimpleNamespace(shape={"data": 1, "model": world},
+                                                       coords={"data": 0, "model": 0}))
+        predicted = (count["params"] + count["moments"]) / 1e9
+        good = (grad_err <= cs.TP_GRAD_F32_TOL and loss_diff <= cs.TP_LOSS_TOL
+                and all(rk["exact"]["losses"] == ranks[0]["exact"]["losses"] for rk in ranks)
+                and all(rk["exact"]["tp_bytes_equal_model"] for rk in ranks)
+                and all(all(rk["exact"]["whole_leaves_bit_equal"]) for rk in ranks)
+                and not any(rk["alloc_retries"] for rk in ranks)
+                and all(abs(rk["exact"]["state_memory_gb"] - predicted) <= 0.01 * predicted
+                        for rk in ranks))
+        ok &= bool(good)
+        print(f"dist cards tp {label}", json.dumps({
+            "ok": bool(good), "arch": arch, "variant": variant,
+            "mesh": {"data": 1, "model": world}, "layers": ref["layers"],
+            "first_step_f32_grad_max_rel_err": grad_err, "f32_tolerance": cs.TP_GRAD_F32_TOL,
+            "losses": ranks[0]["exact"]["losses"], "tp1_losses": ref["losses"]["exact"],
+            "max_loss_diff_vs_tp1": loss_diff, "loss_tolerance": cs.TP_LOSS_TOL,
+            "predicted_state_gb": predicted,
+            "state_memory_gb": [rk["exact"]["state_memory_gb"] for rk in ranks],
+            "step_peak_memory_gb": [rk["exact"]["step_peak_memory_gb"] for rk in ranks],
+            "tp1_peak_memory_gb": ref["peak_memory_gb"],
+            "median_step_s": max(rk["exact"]["median_step_s"] for rk in ranks),
+            "tp_bytes_per_step": ranks[0]["exact"]["tp_bytes_per_step"],
+            "tp_bytes_equal_model": [rk["exact"]["tp_bytes_equal_model"] for rk in ranks],
+            "spans_ms_rank0": ranks[0]["exact"]["spans_ms"],
+            "transport": sorted({rk["transport"] for rk in ranks}),
+            "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    return ok
+
+
 def tp_part(device, world, on_card, labels=None) -> bool:
     """Part 4: tensor parallelism, one rank per card (4 ranks); with
-    ``labels``, only those of ``TP_RUNS``."""
+    ``labels``, only those of ``TP_RUNS`` and ``OPT_SEQ_RUNS``."""
     import numpy as np
     from repro_torch.launch.dist import spawn
 
@@ -732,6 +821,8 @@ def tp_part(device, world, on_card, labels=None) -> bool:
             "spans_ms_rank0": ranks[0]["spans_ms"],
             "transport": sorted({rk["transport"] for rk in ranks}),
             "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    if on_card:  # chip_smoke's batches and TP = 1 reference live on the card
+        ok &= opt_seq_part(device, world, labels)
     return ok
 
 

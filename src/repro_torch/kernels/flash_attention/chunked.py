@@ -23,23 +23,27 @@ def attention_chunked(
     window: int | None = None,
     scale: float | None = None,
     chunk: int = 1024,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """``q_offset``: the queries are rows ``q_offset ..`` of the keys'
+    sequence (K/V may be longer than Q), as ``attention_ref`` takes it."""
     B, H, S, D = q.shape
+    T = k.shape[2]
     Hkv = k.shape[1]
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
     group = H // Hkv
     scale = D ** -0.5 if scale is None else scale
 
-    C = min(chunk, S)
-    pad = (-S) % C
-    nc = (S + pad) // C
+    C = min(chunk, T)
+    pad = (-T) % C
+    nc = (T + pad) // C
     if pad:  # pad K/V with masked-out slots
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
 
     qg = (q.float() * scale).reshape(B, Hkv, group, S, D)
-    rows = torch.arange(S, device=q.device)[:, None]  # (S, 1)
+    rows = q_offset + torch.arange(S, device=q.device)[:, None]  # (S, 1)
     m = torch.full((B, Hkv, group, S, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, Hkv, group, S, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, Hkv, group, S, D), dtype=torch.float32, device=q.device)
@@ -49,7 +53,7 @@ def attention_chunked(
         vb = v[:, :, start : start + C].float()
         s = torch.einsum("bhgsd,bhcd->bhgsc", qg, kb)  # (B,Hkv,g,S,C)
         cols = start + torch.arange(C, device=q.device)[None, :]  # (1, C)
-        mask = cols < S  # padding
+        mask = cols < T  # padding
         if causal:
             mask = mask & (cols <= rows)
         if window is not None:

@@ -21,8 +21,13 @@ def attention_ref(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """``q_offset``: the queries are rows ``q_offset ..`` of the keys'
+    sequence (a block of a longer query sequence; K/V may then be longer
+    than Q), which the causal and window masks read."""
     B, H, S, D = q.shape
+    T = k.shape[2]
     Hkv = k.shape[1]
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
@@ -31,9 +36,9 @@ def attention_ref(
     kx = k.repeat_interleave(group, dim=1)
     vx = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx.float()) * scale
-    rows = torch.arange(S, device=q.device)[:, None]
-    cols = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    rows = q_offset + torch.arange(S, device=q.device)[:, None]
+    cols = torch.arange(T, device=q.device)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
     if causal:
         mask &= cols <= rows
     if window is not None:

@@ -8,11 +8,13 @@
   for it. The backend follows the device: NCCL on a card, gloo on the
   CPU.
 * :func:`spawn` runs a function in ``world`` fresh processes joined by a
-  ``file://`` rendezvous, and returns what each rank returned. Every
-  rank has a hard timeout, in ``init_process_group`` (so a collective or
-  a receive that never completes raises) and on the join (the children
-  are killed when it expires), so a mismatched send and receive fails in
-  seconds instead of hanging.
+  ``file://`` rendezvous, and returns what each rank returned. The ranks
+  have a hard timeout from the moment all of them have joined the
+  process group: the children are killed when it expires, so a
+  mismatched send and receive fails in seconds instead of hanging.
+  Starting the ranks (each imports torch and the caller's module, which
+  took up to 108 s for 8 ranks on a loaded 8-core host) has a limit of
+  its own, ``STARTUP_TIMEOUT_S``.
 
 Several ranks may share one card (``device="cuda"`` with fewer cards
 than ranks): NCCL refuses two ranks on one device, so such a world
@@ -68,14 +70,23 @@ def init_from_env(device="cuda") -> torch.device:
     return dev
 
 
+# how long the ranks of a spawn may take to start and join their process
+# group; the caller's timeout runs from there
+STARTUP_TIMEOUT_S = 600.0
+
+
 def _child(rank: int, fn, world: int, backend, device, timeout_s: float, tmp: str, args):
     torch.set_num_threads(1)
     dev = rank_device(device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    # the rendezvous waits for the slowest rank to start; the parent kills
+    # the ranks timeout_s after they have all joined
     dist.init_process_group(backend or _backend(dev), init_method=f"file://{tmp}/rendezvous",
                             rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=max(timeout_s,
+                                                                   STARTUP_TIMEOUT_S)))
+    open(os.path.join(tmp, f"joined{rank}"), "w").close()
     try:
         out = fn(rank, world, dev, *args)
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
@@ -93,18 +104,25 @@ def spawn(fn: Callable[..., Any], world: int, *, backend: str | None = None, dev
     caller asks for the CPU; without a card it raises here, before any
     process starts. ``backend`` defaults to the device's (see
     :func:`init_from_env`). A rank that raises fails the call with its
-    traceback; a world that has not finished within ``timeout_s`` is
-    killed and raises :class:`TimeoutError`."""
+    traceback; a world that has not finished ``timeout_s`` after all its
+    ranks joined their process group (or has not joined within
+    ``STARTUP_TIMEOUT_S``) is killed and raises :class:`TimeoutError`."""
     rank_device(device, 0)
     with tempfile.TemporaryDirectory(prefix="repro_torch_spawn_") as tmp:
         ctx = mp.start_processes(_child, args=(fn, world, backend, device, timeout_s, tmp,
                                                tuple(args)),
                                  nprocs=world, join=False, start_method="spawn")
-        deadline = time.monotonic() + timeout_s
+        deadline, joined = time.monotonic() + STARTUP_TIMEOUT_S, False
         try:
             while not ctx.join(timeout=max(0.05, min(1.0, deadline - time.monotonic()))):
+                if not joined and all(os.path.exists(os.path.join(tmp, f"joined{r}"))
+                                      for r in range(world)):
+                    deadline, joined = time.monotonic() + timeout_s, True
                 if time.monotonic() >= deadline:
-                    raise TimeoutError(f"{world} spawned ranks did not finish in {timeout_s} s")
+                    raise TimeoutError(
+                        f"{world} spawned ranks did not finish in {timeout_s} s after joining"
+                        if joined else f"{world} spawned ranks did not join their process "
+                        f"group in {STARTUP_TIMEOUT_S} s")
         finally:
             for p in ctx.processes:
                 if p.is_alive():

@@ -217,9 +217,18 @@ def make_train_step(
     recompute runs them again, in the same order on every TP rank), the
     Torrent reduction runs over the DP group on the shards, and AdamW
     clips by the logical tree's norm. Microbatching is unchanged. The
-    TP form covers the dense, MoE, MLA, Mamba-2 and hybrid families
-    (``transformer.check_tp`` refuses M-RoPE with ``attn_seq_shard`` and
-    the encoder-decoder).
+    TP form covers every family (``transformer.check_tp`` refuses heads
+    the TP size does not divide without ``attn_seq_shard``).
+
+    A flat-dispatch MoE layer on a ``ProcessMesh`` with live DP axes
+    takes its capacity, positions and aux loss from the global batch in
+    the ``collectives="xla"`` step (JAX's GSPMD step), and from the
+    rank's own tokens in the Torrent step, whose grad function runs
+    with the DP axes Manual (``hints.manual_axes``), as JAX's
+    ``shard_map`` rank does. The stacked view's xla step (a
+    ``VirtualMesh``) runs each DP rank's rows alone, so a flat MoE there
+    keeps each rank's own capacity and aux loss: a deviation from JAX's
+    xla step (ROADMAP §3).
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(
@@ -263,23 +272,25 @@ def make_train_step(
 
     tp = mesh.shape.get("model", 1)
     grad_fn_local = make_grad_fn(cfg, remat=remat, loss_chunks=loss_chunks)
-    if tp > 1:
-        grad_fn_tp = grad_fn_local
+    if tp > 1 or process:
+        grad_fn_rank = grad_fn_local
 
         def grad_fn_local(params, batch):
-            """This rank's grads of its shards: the model code finds the
-            TP group on the mesh (the remat'd recompute runs inside it
-            too); each TP collective is a ``tp_comm`` span."""
+            """This rank's grads of its shards and rows: the model code
+            finds the TP group, the expert-parallel group and the global
+            batch's DP group on the mesh (the remat'd recompute runs
+            inside it too); each TP collective is a ``tp_comm`` span."""
             with hints.set_mesh(mesh), tp_mod.timed(spans):
-                return grad_fn_tp(params, batch)
-    if process and joint:
-        grad_fn_own = grad_fn_local
+                return grad_fn_rank(params, batch)
+    if process:
+        grad_fn_global = grad_fn_local
 
-        def grad_fn_local(params, batch):
-            """This rank's grads; its MoE layers find the mesh (the remat'd
-            recompute of the backward runs inside it too)."""
-            with hints.set_mesh(mesh):
-                return grad_fn_own(params, batch)
+        def grad_fn_shard_map(params, batch):
+            """This rank's grads as a JAX ``shard_map`` rank computes
+            them, the DP axes Manual: a MoE layer's capacity from the
+            rank's own tokens (the Torrent reduce's ranks)."""
+            with hints.manual_axes(hints.dp_axes(mesh.axis_names)):
+                return grad_fn_global(params, batch)
     grad_fn_mean = (make_mean_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks)
                     if joint and not process else None)
 
@@ -359,7 +370,7 @@ def make_train_step(
             torrent_joint_grad_reduce,
             make_joint_grad_fn(cfg, mesh, remat=remat, loss_chunks=loss_chunks))
     elif process:  # this rank's microbatches accumulate before the one reduction
-        reducer = functools.partial(torrent_grad_reduce, accumulated(grad_fn_local))
+        reducer = functools.partial(torrent_grad_reduce, accumulated(grad_fn_shard_map))
     else:
         reducer = functools.partial(torrent_grad_reduce, grad_fn_local,
                                     batch_specs=batch_specs)
@@ -418,10 +429,17 @@ def make_slot_prefill_step(cfg: ModelConfig, max_seq: int):
     """Per-slot prefill for continuous batching: one (1, S) prompt in,
     (first greedy token (1,), single-row cache) out. It never touches
     the other slots' state — the serve loop writes the returned cache
-    row into the live batch cache with :func:`write_cache_slot`."""
+    row into the live batch cache with :func:`write_cache_slot`. On a
+    ``ProcessMesh`` each DP rank admits its own prompt, so the step runs
+    with the DP axes Manual (``hints.manual_axes``): the prompt is its
+    own batch, as JAX's slot prefill is a function of that one prompt (a
+    flat MoE's capacity ``capacity(S)``, no exchange with other ranks)."""
 
     def slot_prefill_step(params, tokens):
-        logits, cache = T.prefill(params, cfg, {"tokens": tokens}, max_seq)
+        mesh = hints.concrete_mesh()
+        manual = hints.dp_axes(mesh.axis_names) if mesh is not None else ()
+        with hints.manual_axes(manual):
+            logits, cache = T.prefill(params, cfg, {"tokens": tokens}, max_seq)
         return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
     return slot_prefill_step
@@ -606,18 +624,17 @@ def build_cell(
     real device the rank's zero block, ``init_cache`` under the mesh);
     meta tensors of those block shapes on the meta device.
     ``in_specs``/``out_specs`` stay JAX's. Train, prefill and decode
-    cells build for every arch ``transformer.check_tp`` runs on the
-    mesh (a TP family, or any arch where ``model`` is 1). What that
-    form does not build raises ``NotImplementedError`` naming its
-    ROADMAP item 9c entry (:func:`_refuse_process_cell`):
-    ``long_500k``, whose cache splits slots over ``data`` (entry 9), an
-    arch that ``check_tp`` refuses on a live ``model`` axis (qwen2-vl,
-    entry 2; whisper, entry 3), and a flat-dispatch MoE arch's prefill
-    or decode cell with ``data`` > 1 (entry 10): its capacity would come
-    from each DP rank's own tokens, JAX's cell takes it from the global
-    batch. A MoE train cell builds there: its step reduces each rank's
-    own grads, as JAX's Torrent step's ``shard_map`` ranks compute
-    them."""
+    cells build for all ten architectures. A flat-dispatch MoE cell over
+    a live ``data`` axis takes the global batch's capacity where JAX's
+    cell is a GSPMD function of it (prefill, decode, the xla train step;
+    the ranks exchange their per-expert counts), and each rank's own in
+    the Torrent train step, whose reduce JAX runs per ``shard_map`` rank
+    (``models.moe``). What the process form does not build raises
+    ``NotImplementedError`` (:func:`_refuse_process_cell`):
+    ``long_500k``, whose cache splits slots over ``data`` (ROADMAP item
+    9c, entry 9), and heads the TP size does not divide without
+    ``attn_seq_shard`` (the ``opt-seq`` variant sets it; whisper-tiny's
+    6 heads at TP = 4)."""
     cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     overrides = dict(VARIANTS.get(variant) or {})
     knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
@@ -727,7 +744,9 @@ def build_cell(
 
 def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
     """Raise for the cells :func:`build_cell` does not build on a
-    ``ProcessMesh``, each naming its ROADMAP item 9c entry."""
+    ``ProcessMesh``: ``long_500k`` (naming its ROADMAP item 9c entry),
+    and an attention that ``transformer.check_tp`` refuses at the mesh's
+    TP size (heads it does not divide without ``attn_seq_shard``)."""
     dp = dp_size_of(mesh)
     if shape.global_batch == 1:
         raise NotImplementedError(
@@ -736,12 +755,5 @@ def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
             "entry 9)")
     with hints.set_mesh(mesh):
         T.check_tp(cfg)
-    moe = any(s.ffn == "moe" for pattern, _ in cfg.layer_groups() for s in pattern)
-    if shape.kind != "train" and dp > 1 and moe and not cfg.moe_row_dispatch:
-        raise NotImplementedError(
-            f"a MoE {shape.kind} cell of {cfg.name} on a ProcessMesh with {dp} DP ranks: JAX's "
-            "cell takes the flat dispatch's capacity and positions from the global batch, a "
-            "DP rank here from its own tokens; counting them over data is not ported (ROADMAP "
-            "item 9c, entry 10)")
     if shape.global_batch % dp:
         raise ValueError(f"global batch {shape.global_batch} does not split over {dp} DP ranks")

@@ -17,7 +17,10 @@ absorbs the up-projections into the query and output at decode.
 
 Cross-attention (whisper's decoder) attends to the encoder output by
 f32 einsums with no mask; decode recomputes its K/V from all encoder
-rows every step (there is no cross-KV cache in either package).
+rows every step (there is no cross-KV cache in either package). Under
+TP it splits by heads as GQA does, the replicated encoder output
+through ``copy_to_tp``, or with ``attn_seq_shard`` by decoder rows.
+
 Tensor parallelism (``gqa_apply`` on a mesh whose ``model`` axis is
 live, ``parallel.hints.tp_group``): ``wq``/``wk``/``wv`` (and their
 biases) are column-parallel, so a rank computes its block of the query
@@ -25,9 +28,17 @@ heads, and ``wo`` is row-parallel, its partial sums reduced over the
 group. Where ``num_kv_heads`` does not divide by the TP size but
 ``num_kv_heads·head_dim`` does, ``param_pspecs`` still splits the K/V
 columns, so a rank may hold part of a head: K and V are gathered over
-the group and each rank takes the KV heads its query heads read. A
-``num_heads`` that the TP size does not divide needs JAX's
-``attn_seq_shard`` (query-sequence sharding), which is not ported.
+the group and each rank takes the KV heads its query heads read. With
+``attn_seq_shard`` (JAX's ``opt-seq`` variant; the layout for a
+``num_heads`` the TP size does not divide, which runs only so) the
+query sequence is split instead: each rank attends for its block of
+the query rows with every head against K/V of the whole sequence, the
+causal mask offset by the block's start, on weights gathered whole
+(their grads reduce-scattered back to the blocks ``param_pspecs``
+gives), and the rows' output projections are summed over the group; a
+one-row decode runs every head on every rank. The flash kernel takes
+no query offset, so that form runs the chunked or the reference
+attention.
 ``mla_apply`` is split by heads too: ``wq``, ``w_uk`` and ``w_uv`` are
 column-parallel (their flattened ``(H, ·)`` columns give whole heads)
 and ``wo`` row-parallel; the compression ``w_dkv`` stays replicated,
@@ -65,11 +76,15 @@ from .layers import apply_mrope, apply_rope, cast, matmul, normal
 NEG_INF = -1e30
 
 
-def _full_attention(qt, kt, vt, cfg: ModelConfig, *, causal: bool):
+def _full_attention(qt, kt, vt, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
     """Dispatch on cfg.attn_impl: 'reference' (materialized S² scores),
     'chunked' (online-softmax loop over KV chunks), or 'flash' (the CUDA
-    kernel; its plain twin on CPU tensors)."""
+    kernel; its plain twin on CPU tensors). ``q_offset``: the queries
+    are rows ``q_offset ..`` of the keys' sequence (a block of the query
+    sequence under ``attn_seq_shard``); the kernel takes none."""
     if cfg.attn_impl == "flash":
+        if q_offset:
+            raise NotImplementedError("the flash kernel takes no query offset")
         return flash_attention(
             qt.contiguous(), kt.contiguous(), vt.contiguous(),
             causal=causal, window=cfg.sliding_window,
@@ -77,9 +92,10 @@ def _full_attention(qt, kt, vt, cfg: ModelConfig, *, causal: bool):
     if cfg.attn_impl == "chunked":
         return attention_chunked(
             qt, kt, vt, causal=causal, window=cfg.sliding_window,
-            chunk=cfg.attn_chunk,
+            chunk=cfg.attn_chunk, q_offset=q_offset,
         )
-    return attention_ref(qt, kt, vt, causal=causal, window=cfg.sliding_window)
+    return attention_ref(qt, kt, vt, causal=causal, window=cfg.sliding_window,
+                         q_offset=q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -154,27 +170,123 @@ def _proj(params, x, cfg: ModelConfig, name: str):
     return t
 
 
-def _rope_qk(q, k, positions, cfg: ModelConfig):
+def _rope(t, positions, cfg: ModelConfig):
     if cfg.pos_scheme == "mrope":
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.pos_scheme == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    # 'learned' / 'none': positions handled at the embedding level.
-    return q, k
+        return apply_mrope(t, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.pos_scheme == "rope":
+        return apply_rope(t, positions, cfg.rope_theta)
+    return t  # 'learned' / 'none': positions handled at the embedding level.
 
 
-def _tp_heads_group(cfg: ModelConfig):
+def _rope_qk(q, k, positions, cfg: ModelConfig):
+    return _rope(q, positions, cfg), _rope(k, positions, cfg)
+
+
+def heads_refusal(cfg: ModelConfig, tp: int, mla: bool = False) -> str | None:
+    """Why attention of ``cfg`` does not run at TP ``tp`` (``None``
+    where it runs): heads the TP size does not divide, without
+    ``attn_seq_shard`` (or in MLA, which has no sequence-sharded form);
+    ``attn_seq_shard`` with the flash kernel, which takes no query
+    offset."""
+    if tp == 1:
+        return None
+    if cfg.attn_seq_shard and cfg.attn_impl == "flash" and not mla:
+        return (f"attn_seq_shard with attn_impl='flash' at TP={tp}: the flash kernel takes no "
+                "query offset; the sequence-sharded form runs the chunked or the reference "
+                "attention (JAX's opt-seq variant sets 'chunked')")
+    if cfg.num_heads % tp and (mla or not cfg.attn_seq_shard):
+        where = "in GQA, " if mla else ""
+        return (f"num_heads={cfg.num_heads} at TP={tp}: heads that the TP size does not "
+                f"divide run only {where}with attn_seq_shard (query-sequence sharding, as "
+                "JAX's opt-seq variant sets it)")
+    return None
+
+
+def _tp_heads_group(cfg: ModelConfig, mla: bool = False):
     """The active TP group, over which attention is split by heads
-    (``None`` without one); a ``num_heads`` it does not divide raises."""
+    (``None`` without one); what :func:`heads_refusal` names raises."""
     group = hints.tp_group()
-    if group is not None and cfg.num_heads % dist.get_world_size(group):
-        raise NotImplementedError(
-            f"num_heads={cfg.num_heads} at TP={dist.get_world_size(group)}: heads that the "
-            "TP size does not divide need attn_seq_shard (query-sequence sharding, ROADMAP "
-            "item 9c, entry 2)")
+    if group is not None:
+        why = heads_refusal(cfg, dist.get_world_size(group), mla)
+        if why:
+            raise NotImplementedError(why)
     return group
+
+
+def _seq_group(cfg: ModelConfig):
+    """The active TP group where attention is sharded over the query
+    sequence (``attn_seq_shard``), else ``None``."""
+    group = _tp_heads_group(cfg)
+    return group if cfg.attn_seq_shard else None
+
+
+def _whole_weights(params, cfg: ModelConfig, names, group, kv_heads: int | None = None) -> dict:
+    """Each of ``names``' weights whole on every rank, in the compute
+    dtype: a block that ``param_pspecs`` split is all-gathered (its
+    grad, summed over the group, comes back as this rank's block), a
+    whole one passes ``copy_to_tp`` (its grad summed over the group).
+    For a form in which every rank computes a share of the rows of one
+    layer: each rank's grad of a weight is its rows' share. ``kv_heads``:
+    the heads of ``wk``/``wv`` (default ``num_kv_heads``)."""
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    Hkv = cfg.num_kv_heads if kv_heads is None else kv_heads
+    full = {"q": H * Dh, "k": Hkv * Dh, "v": Hkv * Dh, "o": H * Dh}
+    out = {}
+    for name in names:
+        w = params[name]
+        dim = 0 if name == "wo" or name.startswith("b") else 1
+        if w.shape[dim] < full[name[1]]:
+            out[name] = gather_from_tp(cast(w), group, dim)
+        else:
+            out[name] = copy_to_tp(cast(w), group)
+    return out
+
+
+def _row_block(S: int, group) -> tuple[int, int]:
+    """This rank's block ``[start, stop)`` of ``S`` query rows: blocks of
+    ``ceil(S / tp)`` in group rank order, the last ones shorter (or
+    empty) where ``tp`` does not divide ``S``."""
+    tp, r = dist.get_world_size(group), dist.get_rank(group)
+    n = -(-S // tp)
+    start = min(S, r * n)
+    return start, min(S, start + n)
+
+
+def _rows_out(y: torch.Tensor, start: int, S: int, group) -> torch.Tensor:
+    """A rank's output rows ``y`` (B, stop - start, d) placed in the
+    whole sequence and summed over the group: every rank gets every
+    rank's rows (identity backward: each rank's rows take their own part
+    of the replicated grad)."""
+    return reduce_from_tp(F.pad(y, (0, 0, start, S - start - y.shape[1])), group)
+
+
+def _gqa_seq_shard(params, x, positions, cfg: ModelConfig, group, *, causal: bool):
+    """GQA with the query sequence sharded over ``group``
+    (``attn_seq_shard``, JAX's layout for heads the TP size does not
+    divide): each rank attends for its block of query rows
+    (:func:`_row_block`) with every head, against K/V of the whole
+    sequence, the causal mask offset by the block's start; the weights
+    are whole on every rank (:func:`_whole_weights`), and the rows'
+    output projections are summed over the group (:func:`_rows_out`).
+    Returns (out, (k, v) of the whole sequence, every KV head)."""
+    B, S, _ = x.shape
+    Dh = cfg.resolved_head_dim
+    names = ("wq", "wk", "wv", "wo") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
+    w = _whole_weights(params, cfg, names, group)
+    x = copy_to_tp(x, group)
+    start, stop = _row_block(S, group)
+
+    def proj(t, n):
+        t = t @ w["w" + n]
+        t = t + w["b" + n] if cfg.qkv_bias else t
+        return t.reshape(B, t.shape[1], t.shape[2] // Dh, Dh)
+
+    q = _rope(proj(x[:, start:stop], "q"), positions[..., start:stop], cfg)
+    k, v = _rope(proj(x, "k"), positions, cfg), proj(x, "v")
+    out = _full_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), cfg,
+                          causal=causal, q_offset=start)
+    out = out.transpose(1, 2).reshape(B, stop - start, cfg.num_heads * Dh) @ w["wo"]
+    return _rows_out(out, start, S, group), (k, v)
 
 
 def gqa_apply(
@@ -186,8 +298,11 @@ def gqa_apply(
     causal: bool = True,
 ) -> torch.Tensor:
     """Full-sequence GQA (training / prefill), no cache; on a live TP
-    group, Megatron's column- and row-parallel form (module
-    docstring)."""
+    group, Megatron's column- and row-parallel form, or with
+    ``attn_seq_shard`` the query sequence sharded (module docstring)."""
+    seq = _seq_group(cfg)
+    if seq is not None:
+        return _gqa_seq_shard(params, x, positions, cfg, seq, causal=causal)[0]
     group = _tp_heads_group(cfg)
     x = copy_to_tp(x, group)
     q, k, v = _project_qkv(params, x, cfg, group)
@@ -214,14 +329,22 @@ def gqa_prefill(
     every rank, where ``num_kv_heads`` does not divide by the TP
     size)."""
     B, S, _ = x.shape
-    group = _tp_heads_group(cfg)
-    x = copy_to_tp(x, group)
-    q, k, v = _project_qkv(params, x, cfg, group)
-    q, k = _rope_qk(q, k, positions, cfg)
-    ka, va = _select_kv(k, v, _rank_kv_index(cfg, group, x.device))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, ka, va))
-    out = _full_attention(qt, kt, vt, cfg, causal=True)
-    out = reduce_from_tp(out.transpose(1, 2).reshape(B, S, -1) @ cast(params["wo"]), group)
+    seq = _seq_group(cfg)
+    if seq is not None:
+        out, (k, v) = _gqa_seq_shard(params, x, positions, cfg, seq, causal=True)
+        Hc = _cache_kv_heads(cfg)  # the rank's block of the KV heads, or all of them
+        r = dist.get_rank(seq) if Hc < cfg.num_kv_heads else 0
+        k, v = k[:, :, r * Hc:(r + 1) * Hc], v[:, :, r * Hc:(r + 1) * Hc]
+    else:
+        group = _tp_heads_group(cfg)
+        x = copy_to_tp(x, group)
+        q, k, v = _project_qkv(params, x, cfg, group)
+        q, k = _rope_qk(q, k, positions, cfg)
+        ka, va = _select_kv(k, v, _rank_kv_index(cfg, group, x.device))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, ka, va))
+        out = _full_attention(qt, kt, vt, cfg, causal=True)
+        out = reduce_from_tp(out.transpose(1, 2).reshape(B, S, -1) @ cast(params["wo"]),
+                             group)
 
     slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
     cache = gqa_init_cache(cfg, B, max_seq, device=x.device)
@@ -272,6 +395,10 @@ def gqa_decode(
     B = x.shape[0]
     Dh = cfg.resolved_head_dim
     group = _tp_heads_group(cfg)
+    if group is not None and cfg.num_heads % dist.get_world_size(group):
+        # attn_seq_shard's one query row: every rank runs every head with
+        # the weights gathered whole, against its whole cache
+        params, group = _whole_weights(params, cfg, tuple(params), group), None
     x = copy_to_tp(x, group)
     q, k, v = _project_qkv(params, x, cfg, group)  # (B,1,*,Dh)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -438,7 +565,7 @@ def mla_apply(
 ) -> torch.Tensor:
     """Full-sequence MLA (training / prefill), no cache; on a live TP
     group, split by heads (module docstring)."""
-    group = _tp_heads_group(cfg)
+    group = _tp_heads_group(cfg, mla=True)
     S = x.shape[1]
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
     mask = _causal_mask(S, x.device) if causal else None
@@ -460,7 +587,7 @@ def mla_prefill(
     on a live TP group split by heads (:func:`mla_apply`), the cache
     whole and equal on every rank."""
     B, S, _ = x.shape
-    group = _tp_heads_group(cfg)
+    group = _tp_heads_group(cfg, mla=True)
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
     out = _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, _causal_mask(S, x.device), group)
     cache = mla_init_cache(cfg, B, max_seq, device=x.device)
@@ -489,7 +616,7 @@ def mla_decode(
     takes :func:`_mla_decode_absorbed`. On a live TP group both forms
     run this rank's heads against the whole compressed cache."""
     B = x.shape[0]
-    group = _tp_heads_group(cfg)
+    group = _tp_heads_group(cfg, mla=True)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     per_slot = pos.dim() == 1
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
@@ -562,14 +689,30 @@ def cross_attn_apply(
 ) -> torch.Tensor:
     """Every decoder position attends to every encoder row (no mask),
     scores and softmax in f32; the output is cast back to ``x``'s dtype
-    before ``wo``."""
+    before ``wo``. On a live TP group split by heads (``wq``/``wk``/``wv``
+    column blocks, ``wo`` a row block whose partial sums are reduced;
+    ``x`` and the replicated encoder output through ``copy_to_tp``), or
+    with ``attn_seq_shard`` by decoder rows, each rank attending for its
+    block of them with every head and the weights whole, as
+    :func:`gqa_apply`'s sequence-sharded form."""
     B, S, _ = x.shape
     T = enc.shape[1]
-    H, Dh = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ cast(params["wq"])).reshape(B, S, H, Dh)
-    k = (enc @ cast(params["wk"])).reshape(B, T, H, Dh)
-    v = (enc @ cast(params["wv"])).reshape(B, T, H, Dh)
+    Dh = cfg.resolved_head_dim
+    seq = _seq_group(cfg)
+    group = _tp_heads_group(cfg) if seq is None else seq
+    start, stop = (0, S) if seq is None else _row_block(S, seq)
+    w = params
+    if seq is not None:
+        w = _whole_weights(params, cfg, ("wq", "wk", "wv", "wo"), seq, kv_heads=cfg.num_heads)
+    x = copy_to_tp(x, group)[:, start:stop]
+    enc = copy_to_tp(enc, group)
+    # a decode step's encoder output is the bf16 cache leaf: JAX's promotion
+    H = w["wq"].shape[1] // Dh  # this rank's heads, or all of them
+    q = matmul(x, w["wq"]).reshape(B, stop - start, H, Dh)
+    k = matmul(enc, w["wk"]).reshape(B, T, H, Dh)
+    v = matmul(enc, w["wv"]).reshape(B, T, H, Dh)
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * (Dh ** -0.5)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhst,bthd->bshd", p, v.float())
-    return out.reshape(B, S, H * Dh).to(x.dtype) @ cast(params["wo"])
+    out = out.reshape(B, stop - start, H * Dh).to(x.dtype) @ cast(w["wo"])
+    return reduce_from_tp(out, group) if seq is None else _rows_out(out, start, S, seq)

@@ -213,11 +213,15 @@ def gelu_mlp_init(gen: torch.Generator, d: int, ff: int, device) -> dict:
     }
 
 
-def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+def gelu_mlp(params: dict, x: torch.Tensor, group=None) -> torch.Tensor:
     """Whisper's FFN. ``jax.nn.gelu`` defaults to the tanh form, so this
-    one uses it too (``F.gelu``'s default is the exact erf)."""
+    one uses it too (``F.gelu``'s default is the exact erf). With
+    ``group``, column-parallel ``fc1``/``b1`` and row-parallel ``fc2``,
+    whose partial sums are reduced over it before the whole ``b2`` is
+    added once."""
+    x = copy_to_tp(x, group)
     h = F.gelu(matmul(x, params["fc1"]) + cast(params["b1"]), approximate="tanh")
-    return matmul(h, params["fc2"]) + cast(params["b2"])
+    return reduce_from_tp(matmul(h, params["fc2"]), group) + cast(params["b2"])
 
 
 # ---------------------------------------------------------------------------

@@ -56,6 +56,15 @@ with their shared-expert partial sums. ``copy_to_tp`` sits on the
 router weights ``top_p`` and on the split branches' input, so the
 replicated router and the layer's input get their whole grads.
 ``moe_ep_dispatch`` (EP over the DP axes) is refused there.
+
+On a ``ProcessMesh`` whose DP axes are live, a rank holds its own rows.
+The flat dispatch then takes the capacity, the positions and the aux
+loss of the global batch where JAX's counterpart is a GSPMD function of
+it (``hints.global_dp_group``: prefill, decode, the ``collectives="xla"``
+train step), the ranks exchanging their per-expert counts, and each
+rank's own inside JAX's ``shard_map`` (``hints.manual_axes``: the
+Torrent train step). The rowwise dispatch and ``moe_apply_ep`` keep
+their per-row and per-pair capacities.
 """
 
 from __future__ import annotations
@@ -67,7 +76,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.parallel import hints
-from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.tp import copy_to_tp, gather_from_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import cast, matmul, normal, swiglu, swiglu_init
@@ -259,25 +268,59 @@ def _tp_out(params, cfg: ModelConfig, xf: torch.Tensor, xs: torch.Tensor,
     return out
 
 
+def _global_slots(probs, top_e, flat_e, pos, T: int, cfg: ModelConfig, group):
+    """The capacity, positions and aux loss of the global batch, whose
+    ``T``-token blocks the ranks of the DP ``group`` hold in group rank
+    order (JAX's flattened token stream, token-major): every rank's
+    per-expert assignment counts and router probability sums, gathered
+    in one (2, E) f32 exchange (counts exact below 2**24). A rank's
+    position of an assignment is its local one plus the counts of the
+    lower ranks; an assignment at or past ``capacity(cfg, T · n)`` is
+    dropped. The rank's buffer is indexed by the local position and
+    holds ``min(C, T)`` slots an expert (a token reaches an expert at
+    most once, so no kept local position reaches either), not C: the
+    returned size, and a dropped assignment's position is that size (out
+    of bounds). The backward of the gather sums the ranks' grads of the
+    probability sums, so the mean of the ranks' grads is the global aux
+    loss's."""
+    E, k = cfg.num_experts, cfg.moe_top_k
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    stats = gather_from_tp(torch.stack([_counts(top_e, E), probs.sum(0)])[None], group, 0)
+    total = stats.sum(0)
+    C = capacity(cfg, T * n)
+    slots = min(C, T)
+    seen = stats[:r, 0].sum(0).long()[flat_e]  # the lower ranks' assignments to each expert
+    pos = torch.where(pos + seen < C, pos, slots)
+    return slots, pos, _aux(cfg, total[1] / (T * n), total[0] / (T * n * k))
+
+
 def _moe_apply_flat(params: dict, x: torch.Tensor, cfg: ModelConfig):
     """The flat dispatch (module docstring). On a live TP group that
     splits the experts, every rank routes every token (the tokens are
     replicated over ``model``), so the capacity drops and the aux loss
     are TP = 1's; it runs only its own experts' slice of the ``(E, C,
     d)`` buffer, and the ranks' combines are summed once
-    (:func:`_tp_out`)."""
+    (:func:`_tp_out`). Where the active mesh's DP axes are live and not
+    Manual (``hints.global_dp_group``: JAX's GSPMD function of the whole
+    batch, as its prefill, decode and xla train step are), the capacity,
+    the drops and the aux loss are the global batch's
+    (:func:`_global_slots`); inside ``hints.manual_axes`` (JAX's
+    ``shard_map`` rank, as the Torrent train step's) each rank's own."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.moe_top_k
     T = B * S
-    C = capacity(cfg, T)
     xf = x.reshape(T, d)
     eg, sg = _tp_groups(cfg)
 
     probs, top_p, top_e = _route(xf, params["router"], k)
-    aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (T * k))
-
     flat_e = top_e.reshape(-1)  # (T*k,), token-major
     pos = _positions(flat_e, E)
+    dg = hints.global_dp_group()
+    if dg is None:
+        C = capacity(cfg, T)
+        aux = _aux(cfg, probs.mean(0), _counts(top_e, E) / (T * k))
+    else:
+        C, pos, aux = _global_slots(probs, top_e, flat_e, pos, T, cfg, dg)
     # the split branches' input: each rank's grad holds only its share
     xs = copy_to_tp(xf, eg if eg is not None else sg)
     le, E_loc = _local_experts(flat_e, eg, E)

@@ -42,8 +42,7 @@ in its decoder layers, and an ``enc`` cache leaf (B, T, d) bf16 with no
 
 Tensor parallelism: on a mesh whose ``model`` axis is live
 (``parallel.hints.set_mesh`` of a ``ProcessMesh``, as the train step
-runs), the training forward of the dense, MoE, MLA, Mamba-2 and hybrid
-families is Megatron's: the embedding and the head table split by vocab
+runs), the training forward of every family is Megatron's: the embedding and the head table split by vocab
 rows (a dim that the TP size does not divide stays whole, as
 ``param_pspecs`` leaves it), GQA and MLA by heads, the SwiGLU by
 ``d_ff``, the MoE by experts (``models.moe``), Mamba-2 by ``d_inner``
@@ -53,9 +52,13 @@ mesh. :func:`prefill` and :func:`decode_step` run the same forms on
 this rank's rows and its block of the decode cache (:func:`init_cache`;
 ``parallel.sharding.place_cache``/``gather_cache`` carry a logical
 cache in and out), and gather the vocab-split logits, so every rank of
-the group returns the whole (B, V). M-RoPE with ``attn_seq_shard``
-(qwen2-vl) and the encoder-decoder (whisper) raise
-``NotImplementedError`` there, training or serving (:func:`check_tp`).
+the group returns the whole (B, V). qwen2-vl's M-RoPE runs on each
+rank's heads (its ``(3, B, S)`` positions split over ``data`` on axis
+1); whisper's encoder, its cross-attention (the replicated encoder
+output through ``copy_to_tp``) and its GeLU FFNs split by heads and
+columns, its 51,865-row table and ``pos_emb`` whole. Heads the TP size
+does not divide run with ``attn_seq_shard`` (``models.attention``: the
+query sequence sharded), and :func:`check_tp` refuses them without it.
 """
 
 from __future__ import annotations
@@ -133,9 +136,8 @@ def _ffn(params: Params, spec: LayerSpec, cfg: ModelConfig,
     if spec.ffn == "moe":
         h, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
         return x + h, aux
-    if cfg.ffn_activation != "swiglu":
-        return x + gelu_mlp(params["ffn"], h), None
-    return x + swiglu(params["ffn"], h, group=hints.tp_split_group(cfg.d_ff)), None
+    ffn = gelu_mlp if cfg.ffn_activation != "swiglu" else swiglu
+    return x + ffn(params["ffn"], h, group=hints.tp_split_group(cfg.d_ff)), None
 
 
 def _cross(params: Params, spec: LayerSpec, cfg: ModelConfig, x: torch.Tensor,
@@ -319,7 +321,7 @@ def groups_apply(
         raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
     groups = cfg.layer_groups() if groups is None else groups
     aux_total = x.new_zeros((), dtype=torch.float32)
-    mesh = hints.concrete_mesh()
+    restore = hints.snapshot()
     for (pattern, reps), stacked in zip(groups, gparams):
         for r in range(reps):
             layer_params = [_index(p, r) for p in stacked]
@@ -333,10 +335,10 @@ def groups_apply(
 
             if remat != "none" and torch.is_grad_enabled():
                 # the recompute runs on the autograd engine's thread for a
-                # CUDA device: give it the mesh of the forward (a
-                # ProcessMesh's MoE layers exchange tokens across processes)
+                # CUDA device: give it the mesh and Manual axes of the
+                # forward (a ProcessMesh's layers run collectives)
                 x, aux = checkpoint(body, x, use_reentrant=False, context_fn=lambda: (
-                    contextlib.nullcontext(), hints.set_mesh(mesh)))
+                    contextlib.nullcontext(), restore()))
             else:
                 x, aux = body(x)
             aux_total = aux_total + aux
@@ -463,22 +465,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
 
 
 def check_tp(cfg: ModelConfig) -> None:
-    """Refuse a config whose tensor-parallel form is not ported, when
-    the active mesh's ``model`` axis is live: TP covers the dense, MoE,
-    MLA, Mamba-2 and hybrid families (``NotImplementedError`` names the
-    ROADMAP 9c entry of each missing piece)."""
-    if hints.tp_size() == 1:
-        return
-    left_out = [
-        (cfg.pos_scheme == "mrope" or cfg.attn_seq_shard, "M-RoPE with attn_seq_shard", 2),
-        (cfg.is_encdec, "the encoder-decoder", 3),
-    ]
-    missing = [f"{what} (ROADMAP item 9c, entry {n})" for hit, what, n in left_out if hit]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name} at TP={hints.tp_size()}: tensor parallelism for "
-            f"{' and '.join(missing)} is not ported; the dense, MoE, MLA, Mamba-2 and "
-            "hybrid families run")
+    """Refuse, when the active mesh's ``model`` axis is live, an
+    attention that does not run at its TP size
+    (``attention.heads_refusal``): heads the TP size does not divide
+    without ``attn_seq_shard``, and ``attn_seq_shard`` with the flash
+    kernel. Every family runs under TP, each of the ten architectures at
+    TP = 2 (``NotImplementedError`` otherwise, before any collective)."""
+    tp = hints.tp_size()
+    mixers = {s.mixer for pattern, _ in cfg.layer_groups() for s in pattern}
+    if cfg.is_encdec:
+        mixers.add("gqa")  # the encoder's and the cross-attention
+    for mixer in mixers & {"gqa", "mla"}:
+        why = attn.heads_refusal(cfg, tp, mla=mixer == "mla")
+        if why:
+            raise NotImplementedError(f"{cfg.name}: {why}")
 
 
 def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -604,7 +604,7 @@ def loss_fn_ranks(
         tokens.shape[1], S)
     xs = [embed(p["embed"], t) for p, t in zip(rank_params, tokens)]
     aux = xs[0].new_zeros((), dtype=torch.float32)
-    mesh = hints.concrete_mesh()
+    restore = hints.snapshot()
     groups = cfg.layer_groups()
     for g, (pattern, reps) in enumerate(groups):
         for r in range(reps):
@@ -623,7 +623,7 @@ def loss_fn_ranks(
                 # engine's thread for a CUDA device: give it the mesh
                 # that names the expert-parallel group here
                 *xs, a = checkpoint(body, *xs, use_reentrant=False, context_fn=lambda: (
-                    contextlib.nullcontext(), hints.set_mesh(mesh)))
+                    contextlib.nullcontext(), restore()))
             else:
                 *xs, a = body(*xs)
             aux = aux + a

@@ -15,6 +15,15 @@ axis, the port's model code asks :func:`tp_group` and :func:`tp_size`
 for the active mesh's TP group and runs ``parallel.tp``'s collectives on
 it (``None`` and 1 without a ``model`` axis > 1).
 
+JAX runs a function either over the global batch (GSPMD: the prefill
+and serve cells, the ``collectives="xla"`` train step) or per device
+inside a ``shard_map`` whose axes are Manual (the Torrent train step's
+DP reduce). A process rank holds only its own rows either way; where a
+function of the whole batch is needed (the flat MoE dispatch's capacity,
+positions and aux statistics), :func:`global_dp_group` names the group
+to reduce it over, and :func:`manual_axes` marks a block as a
+``shard_map`` body, where each rank keeps its own.
+
 Logical axis vocabulary:
 * ``BATCH``  -> ``("pod", "data")``  (data parallel, pods included)
 * ``TP``     -> ``"model"``          (tensor / expert parallel)
@@ -36,6 +45,7 @@ SEQ = "data"
 AxisLike = str | tuple[str, ...] | None
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
+_MANUAL: contextvars.ContextVar = contextvars.ContextVar("repro_torch_manual", default=())
 
 
 def dp_axes(axis_names) -> tuple[str, ...]:
@@ -98,6 +108,54 @@ def maybe_shard(x, *axes: AxisLike):
     return x
 
 
+@contextlib.contextmanager
+def manual_axes(axes: tuple[str, ...]):
+    """JAX's ``shard_map`` over ``axes``: inside the block those mesh
+    axes are Manual, so each rank computes on its own block as a
+    ``shard_map`` device does, and :func:`global_dp_group` does not reach
+    over them."""
+    token = _MANUAL.set(tuple(_MANUAL.get()) + tuple(axes))
+    try:
+        yield
+    finally:
+        _MANUAL.reset(token)
+
+
 def manual_axis_names() -> tuple[str, ...]:
-    """Axis names currently in Manual (``shard_map``) mode: none."""
-    return ()
+    """Axis names currently in Manual (``shard_map``) mode
+    (:func:`manual_axes`)."""
+    return _MANUAL.get()
+
+
+def global_dp_group():
+    """The process group over the active mesh's live DP axes where none
+    of them is Manual: the group over which a statistic of the global
+    batch is reduced, since JAX's GSPMD function sees the whole batch
+    where this rank holds its rows. ``None`` without a mesh, on the
+    stacked view (which holds every row), with no live DP axis, or
+    inside :func:`manual_axes` of one."""
+    mesh = concrete_mesh()
+    if mesh is None:
+        return None
+    live = tuple(a for a in dp_axes(mesh.axis_names) if mesh.shape.get(a, 1) > 1)
+    if not live or set(live) & set(_MANUAL.get()):
+        return None
+    return mesh.group(live)
+
+
+def snapshot():
+    """A context-manager factory that re-enters the active mesh and
+    Manual axes: for a remat'd recompute, which runs on the autograd
+    engine's thread for a CUDA device."""
+    mesh, manual = _MESH.get(), _MANUAL.get()
+
+    @contextlib.contextmanager
+    def enter():
+        t1, t2 = _MESH.set(mesh), _MANUAL.set(manual)
+        try:
+            yield
+        finally:
+            _MANUAL.reset(t2)
+            _MESH.reset(t1)
+
+    return enter

@@ -36,10 +36,11 @@ on every TP rank by the group size. Each function here is the identity
 a gloo group travels through the host, as in ``core.chainwrite_dist``.
 
 :data:`tp_counter` counts the payload bytes this process hands to the
-collectives of a TP group, forward and backward apart;
-:func:`modeled_tp_bytes` is what a train step of the dense, MoE, MLA,
-Mamba-2 or hybrid family should count, :func:`modeled_tp_serve_bytes`
-what a prefill or a decode step should. Inside :func:`timed` each collective is a ``tp_comm`` span.
+collectives of a TP group (and the flat MoE dispatch's exchange of its
+per-expert counts over ``data``), forward and backward apart;
+:func:`modeled_tp_bytes` is what a train step of any family should
+count, :func:`modeled_tp_serve_bytes` what a prefill or a decode step
+should. Inside :func:`timed` each collective is a ``tp_comm`` span.
 """
 
 from __future__ import annotations
@@ -212,15 +213,50 @@ def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, group,
     return (lse - gold).sum(), (lse ** 2).sum() * z_loss
 
 
-def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int) -> tuple[int, int, int]:
+def _seq_attn_bytes(cfg, tokens: int, tp: int, act_bytes: int, *, kv_heads: int,
+                    kv_tokens: int = 0, decode: bool = False) -> tuple[int, int]:
+    """(forward, backward) payload of an attention with the query
+    sequence sharded (``attn_seq_shard``; ``models.attention``): forward,
+    the rank's block of each weight that ``param_pspecs`` splits,
+    gathered (in the compute dtype), and the all-reduce of the rows'
+    output; backward, every weight's grad (split or whole) all-reduced,
+    the input's grad and, for a cross-attention, the encoder output's
+    (``kv_tokens`` rows). ``decode``: GQA's one-row decode, every rank
+    running every head on the gathered weights, with no all-reduce."""
+    H, Dh, d = cfg.num_heads, cfg.resolved_head_dim, cfg.d_model
+    cols = {"q": H * Dh, "k": kv_heads * Dh, "v": kv_heads * Dh, "o": H * Dh}
+    sizes = [(cols[n] * d, cols[n]) for n in "qkvo"]  # (numel, the dim param_pspecs splits)
+    if cfg.qkv_bias and not kv_tokens:
+        sizes += [(cols[n], cols[n]) for n in "qkv"]
+    gathered = sum(n // tp for n, dim in sizes if dim % tp == 0) * act_bytes
+    act = tokens * d * act_bytes
+    if decode:
+        return gathered, 0
+    return (gathered + act,
+            sum(n for n, _ in sizes) * act_bytes + act + kv_tokens * d * act_bytes)
+
+
+def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int, *, enc_tokens: int = 0,
+                    dp: int = 1, decode: bool = False) -> tuple[int, int, int]:
     """(forward, backward, tail) payload bytes of one layer of ``spec``
     on ``tokens`` at TP ``tp``; ``tail`` is the forward's last
     all-reduce where nothing after it in the layer saves a tensor for
-    the backward (the recompute of a remat'd body stops before it)."""
+    the backward (the recompute of a remat'd body stops before it).
+    ``enc_tokens``: the encoder output's rows a cross-attention reads;
+    ``dp``: the DP ranks whose per-expert counts a flat MoE dispatch
+    exchanges (the global batch's capacity); ``decode``: a one-row
+    decode step."""
     act = tokens * cfg.d_model * act_bytes
     fwd = bwd = 0
     mixer_out = 0
-    if spec.mixer == "gqa":
+    seq = tp > 1 and cfg.attn_seq_shard
+    if tp == 1:
+        pass
+    elif spec.mixer == "gqa" and seq and (not decode or cfg.num_heads % tp):
+        f, b = _seq_attn_bytes(cfg, tokens, tp, act_bytes, kv_heads=cfg.num_kv_heads,
+                               decode=decode)
+        fwd, bwd, mixer_out = fwd + f, bwd + b, 0 if decode else act
+    elif spec.mixer == "gqa":
         kv_cols = cfg.num_kv_heads * cfg.resolved_head_dim
         gather = cfg.num_kv_heads % tp != 0
         # wo's all-reduce, the K/V gather; the input's grad, the gathered K/V's
@@ -240,82 +276,135 @@ def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int) -> tuple[in
         fwd += act + tokens * 4
         bwd += act + tokens * (2 * GN + H) * 4 + 2 * H * 4 + tokens * 4
         mixer_out = act
+    if spec.cross_attention and tp > 1:
+        if seq:
+            f, b = _seq_attn_bytes(cfg, tokens, tp, act_bytes, kv_heads=cfg.num_heads,
+                                   kv_tokens=enc_tokens)
+        else:  # wo's all-reduce; the grads of the decoder rows and of the encoder output
+            f, b = act, act + enc_tokens * cfg.d_model * act_bytes
+        fwd, bwd, mixer_out = fwd + f, bwd + b, act
     ffn_out = 0
-    if spec.ffn == "dense" and cfg.ffn_activation == "swiglu" and cfg.d_ff % tp == 0:
+    if spec.ffn == "dense" and cfg.d_ff % tp == 0 and tp > 1:  # SwiGLU or GeLU
         fwd, bwd, ffn_out = fwd + act, bwd + act, act
     elif spec.ffn == "moe":
         experts = cfg.num_experts % tp == 0
         shared = cfg.num_shared_experts and (cfg.num_shared_experts * cfg.moe_d_ff) % tp == 0
-        if experts or shared:
+        if tp > 1 and (experts or shared):
             # the f32 combine's all-reduce; the grads of the split
             # branches' input and of the router weights top_p
             ffn_out = tokens * cfg.d_model * 4
             fwd += ffn_out
             bwd += act + experts * tokens * cfg.moe_top_k * 4
+        if dp > 1 and not (cfg.moe_row_dispatch or cfg.moe_ep_dispatch):
+            # the flat dispatch's (2, E) f32 counts and probability sums,
+            # gathered over data; the gathered (dp, 2, E)'s grad summed
+            fwd += 2 * cfg.num_experts * 4
+            bwd += dp * 2 * cfg.num_experts * 4
     tail = ffn_out if spec.ffn != "none" else mixer_out
     return fwd, bwd, tail
 
 
-def modeled_tp_bytes(cfg, tokens: int, tp: int, *, remat: bool = True) -> dict:
+def _stack_tp_bytes(cfg, groups, tokens: int, tp: int, act_bytes: int, remat: bool,
+                    **kw) -> tuple[int, int]:
+    fwd = bwd = 0
+    for pattern, reps in groups:
+        layers = [_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes, **kw) for spec in pattern]
+        body = sum(f for f, _, _ in layers)
+        recompute = body - layers[-1][2] if remat else 0
+        fwd += reps * (body + recompute)
+        bwd += reps * sum(b for _, b, _ in layers)
+    return fwd, bwd
+
+
+def modeled_tp_bytes(cfg, tokens: int, tp: int, *, remat: bool = True, enc_tokens: int = 0,
+                     dp: int = 1, embeds: bool | None = None) -> dict:
     """The payload bytes :data:`tp_counter` counts for one train step of
-    ``cfg`` (the dense, MoE, MLA, Mamba-2 or hybrid family) on
-    ``tokens`` (B·S) of this rank, at TP ``tp``. Forward, per layer:
-    the mixer's output all-reduce (GQA's and MLA's ``wo``, Mamba-2's
-    ``out_proj`` where ``d_inner`` is split), GQA's K/V gather (where a
-    rank holds part of a KV head), Mamba-2's gated-norm sum of squares
-    (f32, one a token), the SwiGLU's all-reduce (where ``d_ff`` is
-    split) or the MoE's f32 combine (where the experts or the shared
-    experts are split); with ``remat``, each remat'd body (one pattern
-    application) once more, but for its last layer's final all-reduce:
-    ``torch.utils.checkpoint`` stops the recompute at the last tensor
-    the backward saved, before it; the embedding's all-reduce and the
-    CE's three per-token f32 reductions (max, sum of exponentials, gold)
-    where the vocab is split, and the optimizer's one f32 norm.
-    Backward, per layer: the grads of the column-parallel inputs
-    (attention's, MLA's ``wq``, Mamba-2's ``in_z``/``in_x``, the
-    SwiGLU's, the MoE's split branches), of the replicated tensors where
-    the split use begins (MLA's ``c``/``k_rope``, Mamba-2's B/C, dt,
-    ``A_log`` and ``D``, the MoE's ``top_p``), of the gathered K/V and
-    of the norm's sum of squares; the f32 hidden's grad of the split
-    head. Activations are in the compute dtype
+    ``cfg`` on ``tokens`` (B·S) of this rank, at TP ``tp``. Forward, per
+    layer: the mixer's output all-reduce (GQA's and MLA's ``wo``,
+    Mamba-2's ``out_proj`` where ``d_inner`` is split), GQA's K/V gather
+    (where a rank holds part of a KV head), Mamba-2's gated-norm sum of
+    squares (f32, one a token), the cross-attention's ``wo``, the
+    SwiGLU's or GeLU's all-reduce (where ``d_ff`` is split) or the MoE's
+    f32 combine (where the experts or the shared experts are split); under
+    ``attn_seq_shard`` an attention's gathered weight blocks and its
+    rows' all-reduce instead (:func:`_seq_attn_bytes`); with ``dp`` > 1
+    (the xla step's global batch), a flat MoE dispatch's (2, E) f32
+    exchange over ``data``; with ``remat``, each remat'd body (one
+    pattern application) once more, but for its last layer's final
+    all-reduce: ``torch.utils.checkpoint`` stops the recompute at the
+    last tensor the backward saved, before it; an encoder-decoder's
+    encoder layers on ``enc_tokens`` (B·T) rows the same way; the
+    embedding's all-reduce (not for precomputed embeddings: ``embeds``,
+    by default a vlm's batch) and the CE's three per-token f32
+    reductions (max, sum of exponentials, gold) where the vocab is
+    split, and the
+    optimizer's one f32 norm. Backward, per layer: the grads of the
+    column-parallel inputs (attention's, MLA's ``wq``, Mamba-2's
+    ``in_z``/``in_x``, the FFN's, the MoE's split branches), of the
+    replicated tensors where the split use begins (MLA's ``c``/``k_rope``,
+    Mamba-2's B/C, dt, ``A_log`` and ``D``, the MoE's ``top_p``, the
+    encoder output of each cross-attention), of the gathered K/V, of the
+    norm's sum of squares, of a sequence-sharded attention's weights and
+    of the MoE exchange; the f32 hidden's grad of the split head.
+    Activations are in the compute dtype
     (``models.layers.COMPUTE_DTYPE``)."""
     from repro_torch.models.layers import COMPUTE_DTYPE
 
     act_bytes = COMPUTE_DTYPE.itemsize
     act = tokens * cfg.d_model * act_bytes
-    vocab = cfg.vocab_size % tp == 0
-    fwd, bwd = 0, 0
-    for pattern, reps in cfg.layer_groups():
-        layers = [_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes) for spec in pattern]
-        body = sum(f for f, _, _ in layers)
-        recompute = body - layers[-1][2] if remat else 0
-        fwd += reps * (body + recompute)
-        bwd += reps * sum(b for _, b, _ in layers)
-    fwd += vocab * (act + 3 * tokens * 4) + 4
+    vocab = tp > 1 and cfg.vocab_size % tp == 0
+    fwd, bwd = _stack_tp_bytes(cfg, cfg.layer_groups(), tokens, tp, act_bytes, remat,
+                               enc_tokens=enc_tokens, dp=dp)
+    if cfg.is_encdec:
+        f, b = _stack_tp_bytes(cfg, _encoder_groups(cfg), enc_tokens, tp, act_bytes, remat)
+        fwd, bwd = fwd + f, bwd + b
+    if embeds is None:  # precomputed embeddings: no table lookup
+        embeds = cfg.family == "vlm"
+    fwd += vocab * ((not embeds) * act + 3 * tokens * 4) + 4 * (tp > 1)
     bwd += vocab * tokens * cfg.d_model * 4
     return {"fwd": fwd, "bwd": bwd}
 
 
-def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int) -> dict:
+def _encoder_groups(cfg):
+    from repro_torch.models.transformer import encoder_config
+
+    return encoder_config(cfg).layer_groups()
+
+
+def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1) -> dict:
     """The payload bytes :data:`tp_counter` counts for one prefill of
     ``batch`` rows of ``seq`` tokens on this rank (``seq=1``: one decode
     step of ``batch`` rows) of ``cfg`` at TP ``tp``: the forward alone,
     with no remat and no CE. Per layer, what :func:`modeled_tp_bytes`
     counts forward: the mixer's output all-reduce, GQA's K/V gather
     where a rank holds every KV head (in a decode step, of the new
-    row), Mamba-2's gated-norm sum of squares, the SwiGLU's all-reduce
-    or the MoE's f32 combine; then, where the vocab is split, the
-    embedding's all-reduce and the gather of the f32 last-token logits
-    (each rank sends its ``batch × V/tp`` block)."""
+    row), Mamba-2's sum of squares, the cross-attention's all-reduce,
+    the FFN's all-reduce or the MoE's f32 combine, a sequence-sharded
+    attention's gathered weights (in a decode step whose heads the TP
+    size does not divide, those alone) and, with ``dp`` > 1, a flat MoE
+    dispatch's exchange over ``data``; a prefill of an encoder-decoder
+    its encoder layers on ``batch × encoder_seq_len`` rows; then, where
+    the vocab is split, the embedding's all-reduce (not for a vlm
+    prompt's precomputed embeddings) and the gather of the
+    f32 last-token logits (each rank sends its ``batch × V/tp``
+    block)."""
     from repro_torch.models.layers import COMPUTE_DTYPE
 
     act_bytes = COMPUTE_DTYPE.itemsize
     tokens = batch * seq
-    fwd = sum(reps * sum(_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes)[0]
+    enc_tokens = batch * cfg.encoder_seq_len if cfg.is_encdec else 0
+    kw = dict(enc_tokens=enc_tokens, dp=dp, decode=seq == 1)
+    fwd = sum(reps * sum(_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes, **kw)[0]
                          for spec in pattern)
               for pattern, reps in cfg.layer_groups())
-    if cfg.vocab_size % tp == 0:
-        fwd += tokens * cfg.d_model * act_bytes + batch * (cfg.vocab_size // tp) * 4
+    if cfg.is_encdec and seq > 1:
+        fwd += sum(reps * sum(_layer_tp_bytes(spec, cfg, enc_tokens, tp, act_bytes)[0]
+                              for spec in pattern)
+                   for pattern, reps in _encoder_groups(cfg))
+    if tp > 1 and cfg.vocab_size % tp == 0:
+        embeds = cfg.family == "vlm" and seq > 1  # a vlm prompt comes as embeddings
+        fwd += (not embeds) * tokens * cfg.d_model * act_bytes
+        fwd += batch * (cfg.vocab_size // tp) * 4
     return {"fwd": fwd, "bwd": 0}
 
 

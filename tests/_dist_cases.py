@@ -442,3 +442,7 @@ def stalled_rank(rank: int, world: int, device: torch.device) -> None:
 def failing_rank(rank: int, world: int, device: torch.device) -> None:
     if rank == 1:
         raise RuntimeError("rank 1 failed on purpose")
+
+
+def rank_of(rank: int, world: int, device: torch.device) -> int:
+    return rank

@@ -18,7 +18,8 @@ import torch
 ARCH = "yi-6b"  # smoke: 4 heads, 2 KV heads (TP = 4 splits a KV head)
 ARCHS = ("starcoder2-3b", "yi-6b", "h2o-danube-1.8b", "llama3-8b", "deepseek-v2-lite-16b",
          "deepseek-moe-16b", "jamba-v0.1-52b", "qwen2-vl-7b", "mamba2-2.7b", "whisper-tiny")
-# the families TP does not cover yet, each with the words its refusal names
+# the two families TP covered last (M-RoPE; the encoder-decoder): they
+# train and serve at TP = 2, where their refusals once stood
 LEFT_OUT = {"qwen2-vl-7b": "M-RoPE", "whisper-tiny": "encoder-decoder"}
 # a first AdamW step linear in the grads (eps = 1), for comparing updates
 LINEAR_ADAMW = dict(peak_lr=1e-2, warmup_steps=1, decay_steps=10, eps=1.0)
@@ -263,28 +264,37 @@ def zero1_case(mesh, params_np, batch_np, device) -> dict:
     return out
 
 
-# the train cells every TP family builds on a process mesh, at full size
-# on the meta device
+# the train cells every arch builds on a process mesh, at full size on
+# the meta device (whisper-tiny's 6 heads at TP = 4 only as opt-seq)
 CELL_ARCHS = ("starcoder2-3b", "yi-6b", "h2o-danube-1.8b", "llama3-8b", "deepseek-v2-lite-16b",
-              "deepseek-moe-16b", "jamba-v0.1-52b", "mamba2-2.7b")
-# the smoke train cells run one step against JAX's cell: (arch, mesh,
-# collectives); the MoE cell takes the Torrent reduce, whose ranks route
-# their own tokens as JAX's shard_map ranks do
-SMOKE_TRAIN_CELLS = {"yi-6b": ("2x2", "xla"), "deepseek-moe-16b": ("2x2", "torrent"),
-                     "qwen2-vl-7b": ("2x1", "xla")}
+              "deepseek-moe-16b", "jamba-v0.1-52b", "mamba2-2.7b", "qwen2-vl-7b", "whisper-tiny")
+SERVE_SHAPES = ("prefill_32k", "decode_32k")
+# the smoke train cells run one step against JAX's cell: name -> (arch,
+# mesh, collectives). The MoE cell's Torrent reduce takes each rank's
+# own capacity, as JAX's shard_map ranks do; its xla step the global
+# batch's, as JAX's GSPMD step does
+SMOKE_TRAIN_CELLS = {"yi-6b": ("yi-6b", "2x2", "xla"),
+                     "deepseek-moe-16b": ("deepseek-moe-16b", "2x2", "torrent"),
+                     "deepseek-moe-16b/xla": ("deepseek-moe-16b", "2x2", "xla"),
+                     "qwen2-vl-7b": ("qwen2-vl-7b", "2x2", "xla"),
+                     "whisper-tiny": ("whisper-tiny", "2x2", "xla")}
 SMOKE_TRAIN = ("train_smoke", "train", 32, 4)  # JAX's smoke train shape
 
 
-def meta_train_cells(mesh, archs) -> dict:
-    """``build_cell(arch, "train_4k", mesh)`` on the meta device for each
-    of ``archs``: every arg's leaf shapes, whether every arg is a meta
-    tensor, the in and out specs."""
+def meta_train_cells(mesh, archs, variant: str = "baseline", shape: str = "train_4k") -> dict:
+    """``build_cell(arch, shape, mesh, variant=)`` on the meta device for
+    each of ``archs``: every arg's leaf shapes, whether every arg is a
+    meta tensor, the in and out specs; or the message of a refusal."""
     from repro_torch.launch.steps import build_cell
     from repro_torch.tree import leaves
 
     out = {}
     for arch in archs:
-        cell = build_cell(arch, "train_4k", mesh)
+        try:
+            cell = build_cell(arch, shape, mesh, variant=variant)
+        except NotImplementedError as e:
+            out[arch] = {"refused": str(e)}
+            continue
         out[arch] = {"args": [[tuple(x.shape) for x in leaves(a)] for a in cell.args],
                      "meta": all(x.device.type == "meta" for x in leaves(cell.args)),
                      "in_specs": [[None if s is None else tuple(s) for s in leaves(t)]
@@ -295,26 +305,31 @@ def meta_train_cells(mesh, archs) -> dict:
     return out
 
 
-def smoke_train_cell(arch: str, mesh, collectives: str, device) -> dict:
+def smoke_train_cell(name: str, mesh, device) -> dict:
     """One step of ``arch``'s smoke train cell on ``mesh`` in f32
     compute, from the cell's own args (seed 0 params, seed 1 batch):
-    the loss, the grad norm, the rank's ``mu`` blocks, the params
+    the loss, the grad norm, the payload this process handed the model
+    group and the MoE exchange, the rank's ``mu`` blocks, the params
     gathered and whether every param leaf moved."""
     from repro_torch import configs as C
     from repro_torch.configs.shapes import Shape
     from repro_torch.launch.steps import build_cell
     from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.tp import tp_counter
     from repro_torch.tree import leaves
 
+    arch, _, collectives = SMOKE_TRAIN_CELLS[name]
     C.SHAPES[SMOKE_TRAIN[0]] = Shape(*SMOKE_TRAIN)
     cell = build_cell(arch, SMOKE_TRAIN[0], mesh, smoke=True, device=device,
                       collectives=collectives)
     params, opt, batch = cell.args
     before = [p.clone() for p in leaves(params)]
+    tp_counter.reset()
     with compute_dtype(torch.float32):
         params, opt, m = cell.step_fn(params, opt, batch)
     pspecs = shd.logical_pspecs(cell.cfg, mesh.shape["model"])
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "tp_bytes": dict(tp_counter.bytes),
             "mu": _np(opt["mu"]), "step": int(opt["step"]),
             "moved": all(not torch.equal(a, b) for a, b in zip(before, leaves(params))),
             "params": _np(shd.gather_tree(params, pspecs, mesh))}
@@ -360,11 +375,13 @@ def restore_placed(ckpt_dir: str, mesh, device) -> list[np.ndarray]:
 
 
 def refusals(mesh, device) -> dict:
-    """The message each left-out family's training forward raises with
-    on ``mesh`` (a live ``model`` axis), a dense config whose heads the
-    TP size does not divide, a MoE config with ``moe_ep_dispatch``
-    (EP over the DP axes composed with experts over ``model``), and a
-    left-out family's prefill."""
+    """The message the training forward of each of :data:`LEFT_OUT`, of a
+    dense config whose heads the TP size does not divide (no
+    ``attn_seq_shard``) and of a MoE config with ``moe_ep_dispatch``
+    (EP over the DP axes composed with experts over ``model``), and
+    qwen2-vl's prefill, raise with on ``mesh`` (a live ``model`` axis);
+    ``None`` where it runs; and ``attn_seq_shard`` with the flash
+    kernel (``seq_flash``)."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.parallel import hints
@@ -377,6 +394,8 @@ def refusals(mesh, device) -> dict:
                                          num_kv_heads=1, d_model=48)
     cases["moe_ep"] = dataclasses.replace(C.get_smoke_config("deepseek-moe-16b"),
                                           moe_ep_dispatch=True)
+    cases["seq_flash"] = dataclasses.replace(C.get_smoke_config(ARCH), attn_seq_shard=True,
+                                             attn_impl="flash")
     for name, cfg in cases.items():
         full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
         params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)
@@ -396,13 +415,15 @@ def refusals(mesh, device) -> dict:
             out[name] = None
         except NotImplementedError as e:
             out[name] = str(e)
-    # serving runs under TP for the covered families; the prefill of a
-    # left-out one (qwen2-vl: M-RoPE) still refuses
+    # qwen2-vl's prefill on the rank's shards
     cfg = C.get_smoke_config("qwen2-vl-7b")
+    full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
+    params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)
     try:
-        with hints.set_mesh(mesh):
-            T.prefill({}, cfg, {"embeds": torch.zeros((1, 4, cfg.d_model)),
-                                "positions": torch.zeros((3, 1, 4), dtype=torch.int32)}, 8)
+        with torch.no_grad(), hints.set_mesh(mesh):
+            T.prefill(params, cfg, {"embeds": torch.zeros((1, 4, cfg.d_model), device=device),
+                                    "positions": torch.zeros((3, 1, 4), dtype=torch.int32,
+                                                             device=device)}, 8)
         out["prefill"] = None
     except NotImplementedError as e:
         out["prefill"] = str(e)
@@ -442,9 +463,14 @@ def world4_rank(rank: int, world: int, device, params_np, batch_np, root: str,
     out["train"] = {k: train_case(m, params_np, batch_np, device) for k, m in meshes.items()}
     zmeshes = {"2x2": meshes["2x2"], "4x1": dp4}
     out["zero1"] = {k: zero1_case(m, params_np, batch_np, device) for k, m in zmeshes.items()}
-    out["meta_cells"] = {k: meta_train_cells(m, CELL_ARCHS) for k, m in zmeshes.items()}
-    out["smoke_cells"] = {arch: smoke_train_cell(arch, zmeshes[m], coll, device)
-                          for arch, (m, coll) in SMOKE_TRAIN_CELLS.items() if m in zmeshes}
+    out["meta_cells"] = {k: meta_train_cells(m, CELL_ARCHS) for k, m in
+                         {**zmeshes, "1x4": meshes["1x4"]}.items()}
+    out["meta_cells"]["1x4/opt-seq"] = meta_train_cells(meshes["1x4"], ("whisper-tiny",),
+                                                        "opt-seq")
+    for shape in SERVE_SHAPES:  # the serve cells over data alone
+        out["meta_cells"][f"4x1/{shape}"] = meta_train_cells(dp4, CELL_ARCHS, shape=shape)
+    out["smoke_cells"] = {name: smoke_train_cell(name, zmeshes[m], device)
+                          for name, (_, m, _) in SMOKE_TRAIN_CELLS.items() if m in zmeshes}
     d = os.path.join(root, "zero1_2x2")
     out["trainer"] = zero1_trainer(meshes["2x2"], params_np, d, device)
     out["restore"] = {"2x2_at_4x1": restore_placed(d, dp4, device),
@@ -479,8 +505,8 @@ def world2_rank(rank: int, world: int, device, params_np, batch_np, root: str,
     dp2 = make_process_mesh(data=2)
     out["zero1"] = {"2x1": zero1_case(dp2, params_np, batch_np, device)}
     out["meta_cells"] = {"2x1": meta_train_cells(dp2, ("qwen2-vl-7b", "whisper-tiny"))}
-    out["smoke_cells"] = {arch: smoke_train_cell(arch, dp2, coll, device)
-                          for arch, (m, coll) in SMOKE_TRAIN_CELLS.items() if m == "2x1"}
+    out["smoke_cells"] = {name: smoke_train_cell(name, dp2, device)
+                          for name, (_, m, _) in SMOKE_TRAIN_CELLS.items() if m == "2x1"}
     for name, kw in TRAINER_RUNS.items():
         tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, f"tp2_{name}"), tp=2,
                                  **TRAINER, **kw), device=device, params=params_np)

@@ -36,6 +36,15 @@ EDGES = {
     "experts_6": ("deepseek-moe-16b", dict(num_experts=6)),
     "d_inner_126": ("mamba2-2.7b", dict(d_model=63, ssm_headdim=7)),
 }
+# qwen2-vl (embeddings at M-RoPE positions, qkv biases) and whisper (its
+# encoder, cross-attention and GeLU FFNs; the smoke vocab of 256 splits,
+# whisper-tiny's 51,865 does not), and whisper with 6 heads under JAX's
+# opt-seq variant, whose query sequence is sharded at every TP size (1.5
+# heads a rank at TP = 4); each with its JAX reference's step
+FIXED = ("qwen2-vl-7b", "whisper-tiny", "whisper_6_heads_opt_seq")
+FIXED_EDGES = {"whisper_6_heads_opt_seq": ("whisper-tiny", "opt-seq",
+                                           dict(num_heads=6, num_kv_heads=6))}
+JAX_COLLECTIVES = {"whisper_6_heads_opt_seq": "xla"}  # JAX's opt-seq cell's step
 # the Trainer at TP = 2 against the stacked one (f32 compute, exact)
 TRAINER = dict(smoke=True, steps=4, global_batch=B, seq_len=S, peak_lr=2e-3, warmup_steps=2,
                ckpt_every=2, loss_chunks=LOSS_CHUNKS, log_every=100, collectives="torrent")
@@ -43,9 +52,14 @@ NORM_SHAPE = (2, 5, 24)  # (B, S, d_inner) of the gated norm's direct check
 
 
 def config(arch: str):
-    """The smoke config of ``arch``, cut to ``LAYERS``."""
+    """The smoke config of ``arch``, cut to ``LAYERS`` (a :data:`FIXED`
+    edge: its variant's overrides, then its own)."""
     from repro_torch import configs as C
+    from repro_torch.launch.steps import VARIANTS
 
+    if arch in FIXED_EDGES:
+        base, variant, changes = FIXED_EDGES[arch]
+        return dataclasses.replace(C.get_smoke_config(base), **VARIANTS[variant], **changes)
     cfg = C.get_smoke_config(arch)
     return dataclasses.replace(cfg, num_layers=LAYERS.get(arch, cfg.num_layers))
 
@@ -66,10 +80,30 @@ def edge_config(name: str):
     return dataclasses.replace(C.get_smoke_config(arch), **changes)
 
 
-def batch(vocab: int) -> dict:
+def batch(vocab: int, cfg=None) -> dict:
+    """The global batch: tokens and labels; a vlm's embeddings and
+    (3, B, S) M-RoPE positions instead of tokens, an encoder-decoder's
+    frames besides them (``cfg``)."""
     rng = np.random.default_rng(1)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    out = {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, vocab, (B, S)).astype(np.int32)}
+    if cfg is not None and cfg.family == "vlm":
+        del out["tokens"]
+        out["embeds"] = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+        out["positions"] = rng.integers(0, 3 * S, (3, B, S)).astype(np.int32)
+    if cfg is not None and cfg.is_encdec:
+        out["enc_frames"] = rng.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)).astype(
+            np.float32)
+    return out
+
+
+def rank_rows(batch_np: dict, dp: int, i: int, device) -> dict:
+    """DP rank ``i``'s rows of ``batch_np`` (the batch axis of each leaf by
+    ``batch_pspecs``: axis 1 of M-RoPE positions), as tensors."""
+    n = B // dp
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v[:, i * n:(i + 1) * n] if k == "positions" else v[i * n:(i + 1) * n])).to(device)
+        for k, v in batch_np.items()}
 
 
 def norm_inputs() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -104,11 +138,16 @@ def family_case(mesh, cfg, params_np, device, steps: bool = True) -> dict:
 
     tp = mesh.shape["model"]
     specs = shd.logical_pspecs(cfg, tp)
-    local = make_device_placer(mesh, P(shd.BATCH_AXES, None), device=device)(
-        batch(cfg.vocab_size))
+    if cfg.family in ("vlm", "audio"):
+        local = rank_rows(batch(cfg.vocab_size, cfg), mesh.shape["data"], mesh.dp_index, device)
+    else:
+        local = make_device_placer(mesh, P(shd.BATCH_AXES, None), device=device)(
+            batch(cfg.vocab_size))
     params = params_from_numpy(params_np, device, specs=specs, mesh=mesh)
     out = {"dp_index": mesh.dp_index, "shard_shapes": [tuple(p.shape) for p in leaves(params)]}
-    with hints.set_mesh(mesh), compute_dtype(torch.float32):
+    # the rank's own grads, as the Torrent step's shard_map rank takes them
+    # (a MoE's capacity from its own tokens)
+    with hints.set_mesh(mesh), hints.manual_axes(("data",)), compute_dtype(torch.float32):
         grads, m = make_grad_fn(cfg, loss_chunks=LOSS_CHUNKS)(params, local)
         out["loss0_f32"] = float(m["loss"])
         out["grads_f32"] = _np(shd.gather_tree(grads, specs, mesh))
@@ -231,10 +270,12 @@ def refusals(mesh, device) -> dict:
         return {"cut_head": str(e)}
 
 
-def _cases(mesh, params_np: dict, device) -> dict:
+def _cases(mesh, params_np: dict, device, fixed: bool = True) -> dict:
     """Every arch's and every edge config's :func:`family_case` on
-    ``mesh`` (the edges' first-step grads only)."""
-    out = {arch: family_case(mesh, config(arch), params_np[arch], device) for arch in ARCHS}
+    ``mesh`` (the edges' first-step grads only), with ``fixed`` those of
+    :data:`FIXED` too."""
+    out = {arch: family_case(mesh, config(arch), params_np[arch], device)
+           for arch in ARCHS + (FIXED if fixed else ())}
     for name in EDGES:
         cfg = edge_config(name)
         out[name] = family_case(mesh, cfg, init_params(cfg), device, steps=False)
@@ -265,7 +306,8 @@ def world2_rank(rank: int, world: int, device, params_np: dict, root: str) -> di
 
     mesh = make_process_mesh(model=2)
     out = {"mesh": mesh_info(mesh), "norm": {"1x2": norm_case(mesh.group("model"))},
-           "refusals": refusals(mesh, device), "cases": {"1x2": _cases(mesh, params_np, device)}}
+           "refusals": refusals(mesh, device),
+           "cases": {"1x2": _cases(mesh, params_np, device, fixed=False)}}
     out["trainer"] = {}
     for arch in ARCHS:
         tr = Trainer(TrainConfig(arch=arch, ckpt_dir=os.path.join(root, arch), tp=2,

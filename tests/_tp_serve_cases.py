@@ -28,34 +28,64 @@ LAYERS = {"jamba-v0.1-52b": 5}
 EDGES = {"h2o_window_18": ("h2o-danube-1.8b", dict(sliding_window=18)),
          "mla_absorb": ("deepseek-v2-lite-16b", dict(mla_absorb=True))}
 NAMES = ARCHS + tuple(EDGES)
-# the archs with flat-dispatch MoE layers, whose cells build_cell refuses
-# on a mesh with data > 1 (ROADMAP 9c, entry 10)
+# the archs with flat-dispatch MoE layers: over a live data axis their
+# capacity is the global batch's, so a DP rank's TP = 1 reference is the
+# whole batch's run, cut to the rank's rows
 MOE_ARCHS = ("deepseek-moe-16b", "deepseek-v2-lite-16b", "jamba-v0.1-52b")
+# the (data=2, model=1) mesh of the world2 spawn serves the MoE arch alone
+DP_NAMES = ("deepseek-moe-16b",)
+# qwen2-vl (embeds at M-RoPE positions) and whisper (tokens and encoder
+# frames), served at scalar positions (no admission: neither package
+# decodes M-RoPE per slot, and write_cache_slot refuses whisper's enc
+# leaf), and whisper with 6 heads (H·Dh = 96) under JAX's opt-seq
+# variant: 1.5 heads a rank at TP = 4, sequence-sharded
+FIXED = ("qwen2-vl-7b", "whisper-tiny", "whisper_6_heads_opt_seq")
+FIXED_EDGES = {"whisper_6_heads_opt_seq": ("whisper-tiny", "opt-seq",
+                                           dict(num_heads=6, num_kv_heads=6))}
+FIXED_MESHES = ("1x4", "2x2")  # the 4-rank spawn's meshes, JAX's
 B, S = 4, 16  # the global batch of prompts
 STEPS = 4  # greedy decode steps at each kind of position
 SLOT, SLOT_LEN = 1, 8  # the admission: a DP rank's local slot, its prompt's length
 MAX_SEQ = 32  # S + 2·STEPS + 2 decode positions fit
-# the cells on a ProcessMesh: the assigned shapes, and one family each at
-# smoke size
-CELL_ARCHS = ARCHS
+# the cells on a ProcessMesh: the assigned shapes for all ten archs, and
+# one family each at smoke size
+CELL_ARCHS = ARCHS + ("qwen2-vl-7b", "whisper-tiny")
 CELL_SHAPES = ("prefill_32k", "decode_32k")
+# the archs whose opt-seq cells (attn_seq_shard) build on (1, 4): every
+# GQA arch
+OPT_SEQ_ARCHS = ("yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deepseek-moe-16b",
+                 "jamba-v0.1-52b", "qwen2-vl-7b", "whisper-tiny")
 SMOKE_CELL_ARCHS = ("yi-6b", "deepseek-moe-16b", "deepseek-v2-lite-16b", "mamba2-2.7b",
                     "jamba-v0.1-52b")
 SMOKE_SHAPES = {"prefill_smoke": ("prefill", 16, 2), "decode_smoke": ("decode", 16, 2)}
-# what still raises on a ProcessMesh with a live model axis: the arch,
-# the shape, the ROADMAP 9c entry it names and the mesh it is asked on
-CELL_REFUSALS = {"train": ("qwen2-vl-7b", "train_4k", 2, "1x2"),
-                 "long_500k": ("mamba2-2.7b", "long_500k", 9, "1x2"),
-                 "qwen2-vl-7b": ("qwen2-vl-7b", "prefill_32k", 2, "1x2"),
-                 "whisper-tiny": ("whisper-tiny", "decode_32k", 3, "1x2"),
-                 "moe_over_data": ("deepseek-moe-16b", "decode_32k", 10, "2x2")}
+# cells once refused on a ProcessMesh and what each does now: the arch,
+# the shape, the mesh it is asked on, and the words of its refusal
+# (None: it builds)
+CELL_REFUSALS = {"train": ("qwen2-vl-7b", "train_4k", "1x2", None),
+                 "long_500k": ("mamba2-2.7b", "long_500k", "1x2", ("9c", "entry 9", "slots")),
+                 "qwen2-vl-7b": ("qwen2-vl-7b", "prefill_32k", "1x2", None),
+                 "whisper-tiny": ("whisper-tiny", "decode_32k", "1x4",
+                                  ("num_heads=6", "attn_seq_shard")),
+                 "moe_over_data": ("deepseek-moe-16b", "decode_32k", "2x2", None)}
+
+
+def flat_moe(cfg) -> bool:
+    """Whether ``cfg`` has MoE layers on the flat dispatch (whose capacity
+    over a live ``data`` axis is the global batch's)."""
+    return (any(s.ffn == "moe" for pattern, _ in cfg.layer_groups() for s in pattern)
+            and not (cfg.moe_row_dispatch or cfg.moe_ep_dispatch))
 
 
 def config(name: str):
-    """The smoke config of an arch of :data:`ARCHS` (cut to ``LAYERS``)
-    or of an edge config."""
+    """The smoke config of an arch of :data:`ARCHS` or :data:`FIXED`
+    (cut to ``LAYERS``) or of an edge config (a variant's overrides,
+    then the edge's)."""
     from repro_torch import configs as C
+    from repro_torch.launch.steps import VARIANTS
 
+    if name in FIXED_EDGES:
+        arch, variant, changes = FIXED_EDGES[name]
+        return dataclasses.replace(C.get_smoke_config(arch), **VARIANTS[variant], **changes)
     if name in EDGES:
         arch, changes = EDGES[name]
         return dataclasses.replace(C.get_smoke_config(arch), **changes)
@@ -94,11 +124,13 @@ def _leaves_np(tree) -> list[np.ndarray]:
 
 
 def serve(cfg, params, rows: np.ndarray, slot: np.ndarray, device, mesh=None,
-          given: dict | None = None) -> dict:
+          given: dict | None = None, slot_rows: tuple[int, ...] = (SLOT,)) -> dict:
     """The traffic of one DP rank's rows in f32 compute: a prefill of
     ``rows``, STEPS greedy ``make_serve_step`` steps at scalar positions,
-    one ``decode_step`` for its logits, an admission of ``slot`` into
-    local slot SLOT (``make_slot_prefill_step``, ``write_cache_slot``),
+    one ``decode_step`` for its logits, an admission of ``slot`` (one
+    prompt a row, each prefilled as its own batch, as a rank admits its
+    own) into local slots ``slot_rows`` (``make_slot_prefill_step``,
+    ``write_cache_slot``),
     STEPS steps at per-slot positions and one more ``decode_step``. On
     ``mesh`` (a ``ProcessMesh``) the rank's shards serve its rows under
     ``set_mesh``; the caches come back gathered (``gather_cache``).
@@ -123,11 +155,11 @@ def serve(cfg, params, rows: np.ndarray, slot: np.ndarray, device, mesh=None,
     from repro_torch.parallel.spec import keep_axes
     from repro_torch.tree import leaves, map_tree, paths, unflatten
 
-    n = rows.shape[0]
+    n, k = rows.shape[0], slot.shape[0]
     tp = 1 if mesh is None else mesh.shape["model"]
     # the specs of this DP rank's cache: its rows are the whole batch here
     specs = {b: map_tree(lambda sp: keep_axes(sp, ("model",)), shd.logical_cache_pspecs(
-        cfg, C.SHAPES["decode_32k"], b, MAX_SEQ, tp)) for b in (n, 1)}
+        cfg, C.SHAPES["decode_32k"], b, MAX_SEQ, tp)) for b in {n, k}}
 
     def whole(cache, b=n):
         return _leaves_np(cache if mesh is None else shd.gather_cache(cache, specs[b], cfg, mesh))
@@ -169,15 +201,20 @@ def serve(cfg, params, rows: np.ndarray, slot: np.ndarray, device, mesh=None,
 
         # an admission into local slot SLOT, then per-slot positions
         tp_counter.reset()
-        first, one = make_slot_prefill_step(cfg, MAX_SEQ)(params, torch.from_numpy(slot).to(
-            device))
+        # each admitted prompt is its own batch (one rank's admission)
+        admitted = [make_slot_prefill_step(cfg, MAX_SEQ)(params, torch.from_numpy(
+            slot[j:j + 1]).to(device)) for j in range(k)]
+        first = torch.cat([a[0] for a in admitted])
+        one = map_tree(lambda *xs: torch.cat(xs, 1), *[a[1] for a in admitted])
         out["slot_bytes"] = dict(tp_counter.bytes)
-        out["slot_token"] = int(first[0])
-        out["slot_cache"] = whole(one, 1)
-        write_cache_slot(cache, placed(one, "slot_cache", 1), SLOT)
-        tok[SLOT] = first[0]
+        out["slot_token"] = first.cpu().numpy().copy()
+        out["slot_cache"] = whole(one, k)
+        one = placed(one, "slot_cache", k)
         pos = torch.full((n,), S + STEPS + 1, dtype=torch.int32)
-        pos[SLOT] = SLOT_LEN
+        for j, row in enumerate(slot_rows):
+            write_cache_slot(cache, map_tree(lambda x, j=j: x[:, j:j + 1], one), row)
+            tok[row] = first[j]
+            pos[row] = SLOT_LEN
         slot_toks = []
         for i in range(STEPS):
             tok, cache = step(params, tok, (pos + i).to(device), cache)
@@ -192,6 +229,124 @@ def serve(cfg, params, rows: np.ndarray, slot: np.ndarray, device, mesh=None,
         out["cache_keys"] = [p[-1] for p, _ in paths(cache)]
         if mesh is not None:
             out["cache_replicated"] = replicated_leaves(cfg, specs[n], mesh)
+    return out
+
+
+def fixed_batch(cfg) -> dict:
+    """The global prompt batch of a :data:`FIXED` config: a vlm's random
+    embeddings at image-then-text M-RoPE positions (a 2 x 4 grid, then
+    text), whisper's tokens and random encoder frames."""
+    rng = np.random.default_rng(2)
+    if cfg.family == "vlm":
+        i = np.arange(8)
+        pos = np.concatenate([np.stack([0 * i, i // 4, i % 4]),
+                              np.broadcast_to(4 + np.arange(S - 8), (3, S - 8))], 1)
+        return {"embeds": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32),
+                "positions": np.ascontiguousarray(
+                    np.broadcast_to(pos[:, None], (3, B, S))).astype(np.int32)}
+    return {"tokens": prompts(cfg.vocab_size),
+            "enc_frames": rng.standard_normal((B, cfg.encoder_seq_len, cfg.d_model)).astype(
+                np.float32)}
+
+
+def rank_rows(batch: dict, dp: int, i: int) -> dict:
+    """DP rank ``i``'s rows of a batch (M-RoPE positions on axis 1)."""
+    n = B // dp
+    return {k: v[:, i * n:(i + 1) * n] if k == "positions" else v[i * n:(i + 1) * n]
+            for k, v in batch.items()}
+
+
+def serve_fixed(cfg, params, rows: dict, device, mesh=None, given: dict | None = None) -> dict:
+    """The traffic of one DP rank's ``rows`` of a :data:`FIXED` config in
+    f32 compute: a prefill, STEPS greedy steps at scalar positions and
+    one ``decode_step`` for its logits; on ``mesh`` under ``set_mesh``,
+    the caches gathered; with ``given`` (the TP = 1 record) the decode
+    starts from its prefill cache and the last ``decode_step`` from its
+    steps' cache, placed on the rank (as :func:`serve`). Then one
+    ``decode_step`` in bf16 compute from the prefill's own cache
+    (``bf16_decode_logits``: JAX's scalar decode writes its bf16 cache
+    only in bf16 compute). Returns logits, tokens, caches and the model
+    group's payload of the prefill and the first step."""
+    from repro_torch import configs as C
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.spec import keep_axes
+    from repro_torch.parallel.tp import tp_counter
+    from repro_torch.tree import leaves, map_tree, paths, unflatten
+
+    n = rows["embeds"].shape[0] if "embeds" in rows else rows["tokens"].shape[0]
+    tp = 1 if mesh is None else mesh.shape["model"]
+    specs = map_tree(lambda sp: keep_axes(sp, ("model",)), shd.logical_cache_pspecs(
+        cfg, C.SHAPES["decode_32k"], n, MAX_SEQ, tp))
+
+    def whole(cache):
+        return _leaves_np(cache if mesh is None else shd.gather_cache(cache, specs, cfg, mesh))
+
+    def placed(cache, key):
+        if given is None:
+            return cache
+        with hints.set_mesh(None):
+            like = T.init_cache(cfg, n, MAX_SEQ, device="meta")
+        logical = unflatten(like, [torch.from_numpy(a).to(device=device, dtype=x.dtype)
+                                   for a, x in zip(given[key], leaves(like))])
+        return shd.place_cache(logical, specs, cfg, mesh) if mesh is not None else logical
+
+    batch = {k: torch.from_numpy(v).to(device) for k, v in rows.items()}
+    step = make_serve_step(cfg)
+    out: dict = {}
+    with torch.no_grad(), hints.set_mesh(mesh):
+        with compute_dtype(torch.float32):
+            tp_counter.reset()
+            logits, cache = make_prefill_step(cfg, MAX_SEQ)(params, batch)
+            out["prefill_bytes"] = dict(tp_counter.bytes)
+            out["prefill_logits"] = _np(logits)
+            out["prefill_cache"] = whole(cache)
+            first = torch.argmax(logits, -1).to(torch.int32)
+            cache = placed(cache, "prefill_cache")
+            fresh = map_tree(torch.clone, cache)
+            tok, toks = first, []
+            for i in range(STEPS):
+                tp_counter.reset()
+                tok, cache = step(params, tok, torch.tensor(S + i, dtype=torch.int32), cache)
+                if i == 0:
+                    out["decode_bytes"] = dict(tp_counter.bytes)
+                toks.append(tok.cpu().numpy().copy())
+            out["tokens"] = toks
+            out["decode_cache"] = whole(cache)
+            cache = placed(cache, "decode_cache")
+            logits, cache = T.decode_step(params, cfg, tok, torch.tensor(S + STEPS), cache)
+            out["decode_logits"] = _np(logits)
+            out["final_cache"] = whole(cache)
+            out["local_cache"] = _leaves_np(cache)
+        logits, fresh = T.decode_step(params, cfg, first, torch.tensor(S), fresh)
+        out["bf16_decode_logits"] = _np(logits)
+    out["cache_keys"] = [p[-1] for p, _ in paths(cache)]
+    if mesh is not None:
+        out["cache_replicated"] = replicated_leaves(cfg, specs, mesh)
+    return out
+
+
+def fixed_case(mesh, name: str, params_np: dict, device) -> dict:
+    """:func:`serve_fixed` of config ``name`` on ``mesh``: the port at
+    TP = 1 on this rank's DP rows first (``ref``), then the same on its
+    shards given that run's caches; plus the modeled payload bytes."""
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.tp import modeled_tp_serve_bytes
+
+    cfg = config(name)
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    rows = rank_rows(fixed_batch(cfg), dp, mesh.dp_index)
+    ref = serve_fixed(cfg, params_from_numpy(params_np, device), rows, device)
+    params = params_from_numpy(params_np, device, specs=shd.logical_pspecs(cfg, tp), mesh=mesh)
+    out = serve_fixed(cfg, params, rows, device, mesh, given=ref)
+    out["ref"] = {k: v for k, v in ref.items() if not k.endswith("bytes")}
+    with compute_dtype(torch.float32):
+        out["modeled"] = {"prefill": modeled_tp_serve_bytes(cfg, B // dp, S, tp),
+                          "decode": modeled_tp_serve_bytes(cfg, B // dp, 1, tp)}
+    out["dp_index"] = mesh.dp_index
     return out
 
 
@@ -236,29 +391,62 @@ def replicated_leaves(cfg, specs, mesh) -> list[bool]:
             for p, s in paths(specs)]
 
 
+def _cut(rec: dict, rows: slice, i: int) -> dict:
+    """A TP = 1 record of the whole batch (every DP rank's rows and
+    admissions) cut to DP rank ``i``'s: its ``rows``, its admission
+    ``i``."""
+    out = {}
+    for key, v in rec.items():
+        if key in ("tokens", "slot_tokens"):
+            out[key] = [t[rows] for t in v]
+        elif key == "slot_token":
+            out[key] = v[i:i + 1]
+        elif key == "slot_cache":
+            out[key] = [x[:, i:i + 1] for x in v]
+        elif key.endswith("cache"):
+            out[key] = [x[:, rows] for x in v]
+        elif key.endswith("logits"):
+            out[key] = v[rows]
+        else:
+            out[key] = v
+    return out
+
+
 def serve_case(mesh, name: str, params_np: dict, device) -> dict:
     """:func:`serve` of config ``name`` on ``mesh`` from the logical
     ``params_np``: first the port at TP = 1 on this rank's DP rows of
     :func:`prompts` and its admission (``ref``), then the same on this
     rank's shards (``param_pspecs`` placed by ``params_from_numpy``),
-    given that run's caches; plus the modeled payload bytes."""
+    given that run's caches; plus the modeled payload bytes. A MoE arch
+    over a live ``data`` axis takes the global batch's capacity in its
+    prefill and decode, so its reference is the TP = 1 run of the whole
+    batch, with every DP rank's admission prefilled alone (a slot
+    prefill's capacity is its one prompt's), cut to this rank's
+    (:func:`_cut`)."""
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.tp import modeled_tp_serve_bytes
 
     cfg = config(name)
     tp, dp = mesh.shape["model"], mesh.shape["data"]
-    n = B // dp
-    rows = prompts(cfg.vocab_size)[mesh.dp_index * n:(mesh.dp_index + 1) * n]
-    slot = slot_prompt(cfg.vocab_size, mesh.dp_index)
-    ref = serve(cfg, params_from_numpy(params_np, device), rows, slot, device)
+    n, i = B // dp, mesh.dp_index
+    rows = prompts(cfg.vocab_size)[i * n:(i + 1) * n]
+    slot = slot_prompt(cfg.vocab_size, i)
+    whole_params = params_from_numpy(params_np, device)
+    if dp > 1 and flat_moe(cfg):
+        slots = np.concatenate([slot_prompt(cfg.vocab_size, j) for j in range(dp)])
+        ref = _cut(serve(cfg, whole_params, prompts(cfg.vocab_size), slots, device,
+                         slot_rows=tuple(j * n + SLOT for j in range(dp))),
+                   slice(i * n, (i + 1) * n), i)
+    else:
+        ref = serve(cfg, whole_params, rows, slot, device)
     params = params_from_numpy(params_np, device, specs=shd.logical_pspecs(cfg, tp), mesh=mesh)
     out = serve(cfg, params, rows, slot, device, mesh, given=ref)
     out["ref"] = {k: v for k, v in ref.items() if not k.endswith("bytes")}
     out.update(round_trip(cfg, mesh, device))
     with compute_dtype(torch.float32):
-        out["modeled"] = {"prefill": modeled_tp_serve_bytes(cfg, n, S, tp),
-                          "decode": modeled_tp_serve_bytes(cfg, n, 1, tp),
+        out["modeled"] = {"prefill": modeled_tp_serve_bytes(cfg, n, S, tp, dp=dp),
+                          "decode": modeled_tp_serve_bytes(cfg, n, 1, tp, dp=dp),
                           "slot": modeled_tp_serve_bytes(cfg, 1, SLOT_LEN, tp)}
     out["dp_index"] = mesh.dp_index
     return out
@@ -298,23 +486,26 @@ def _refused(build) -> str | None:
 
 def meta_cells(mesh) -> dict:
     """``build_cell`` on ``mesh`` for every arch of :data:`CELL_ARCHS` at
-    :data:`CELL_SHAPES` on the meta device: each arg's leaf shapes and
-    the cell's specs; for a MoE arch on a mesh with ``data`` > 1, which
-    ``build_cell`` refuses, the message."""
+    :data:`CELL_SHAPES` on the meta device, and at TP = 4 the ``opt-seq``
+    cells of :data:`OPT_SEQ_ARCHS`: each arg's leaf shapes and the
+    cell's specs, or the message of a refusal."""
     from repro_torch.launch.steps import build_cell
 
     out = {}
-    for arch in CELL_ARCHS:
-        for shape in CELL_SHAPES:
-            if mesh.shape["data"] > 1 and arch in MOE_ARCHS:
-                out[f"{arch}/{shape}"] = {"refused": _refused(lambda: build_cell(arch, shape,
-                                                                                 mesh))}
-                continue
-            cell = build_cell(arch, shape, mesh)
-            assert all(x.device.type == "meta" for x in _flat(cell.args))
-            out[f"{arch}/{shape}"] = {"args": [_shapes(a) for a in cell.args],
-                                      "in_specs": [str(s) for s in _flat(cell.in_specs)],
-                                      "out_specs": [str(s) for s in _flat(cell.out_specs)]}
+    jobs = [(arch, shape, "baseline") for arch in CELL_ARCHS for shape in CELL_SHAPES]
+    if mesh.shape["model"] == 4:
+        jobs += [(arch, shape, "opt-seq") for arch in OPT_SEQ_ARCHS for shape in CELL_SHAPES]
+    for arch, shape, variant in jobs:
+        key = f"{arch}/{shape}" + ("" if variant == "baseline" else f"/{variant}")
+        try:
+            cell = build_cell(arch, shape, mesh, variant=variant)
+        except NotImplementedError as e:
+            out[key] = {"refused": str(e)}
+            continue
+        assert all(x.device.type == "meta" for x in _flat(cell.args))
+        out[key] = {"args": [_shapes(a) for a in cell.args],
+                    "in_specs": [str(s) for s in _flat(cell.in_specs)],
+                    "out_specs": [str(s) for s in _flat(cell.out_specs)]}
     return out
 
 
@@ -329,8 +520,7 @@ def smoke_cells(mesh, device) -> dict:
     :data:`SMOKE_CELL_ARCHS` at smoke size on ``mesh``, run in f32
     compute: the prefill's logits and the decode's tokens of this rank's
     rows, and each one's cache of those rows gathered over the TP
-    group; for a MoE arch on a mesh with ``data`` > 1 the message
-    ``build_cell`` refuses with."""
+    group."""
     from repro_torch.launch.steps import build_cell
     from repro_torch.parallel import sharding as shd
     from repro_torch.parallel.spec import keep_axes
@@ -340,10 +530,6 @@ def smoke_cells(mesh, device) -> dict:
     out = {}
     for arch in SMOKE_CELL_ARCHS:
         for shape in SMOKE_SHAPES:
-            if mesh.shape["data"] > 1 and arch in MOE_ARCHS:
-                out[f"{arch}/{shape}"] = {"refused": _refused(lambda: build_cell(
-                    arch, shape, mesh, smoke=True, device=device))}
-                continue
             cell = build_cell(arch, shape, mesh, smoke=True, device=device)
             kind, seq, batch = SMOKE_SHAPES[shape]
             # the rank's rows: its TP group's blocks gathered, not the DP ranks'
@@ -363,7 +549,7 @@ def cell_refusals(meshes: dict) -> dict:
     from repro_torch.launch.steps import build_cell
 
     return {name: _refused(lambda: build_cell(arch, shape, meshes[mesh]))
-            for name, (arch, shape, _, mesh) in CELL_REFUSALS.items() if mesh in meshes}
+            for name, (arch, shape, mesh, _) in CELL_REFUSALS.items() if mesh in meshes}
 
 
 # ---------------------------------------------------------------------------
@@ -371,9 +557,12 @@ def cell_refusals(meshes: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _mesh_cases(mesh, params_np: dict, device) -> dict:
-    return {"serve": {name: serve_case(mesh, name, params_np[name], device) for name in NAMES},
-            "meta_cells": meta_cells(mesh), "smoke_cells": smoke_cells(mesh, device)}
+def _mesh_cases(mesh, params_np: dict, device, fixed: bool = True) -> dict:
+    out = {"serve": {name: serve_case(mesh, name, params_np[name], device) for name in NAMES},
+           "meta_cells": meta_cells(mesh), "smoke_cells": smoke_cells(mesh, device)}
+    if fixed:
+        out["fixed"] = {name: fixed_case(mesh, name, params_np[name], device) for name in FIXED}
+    return out
 
 
 def world4_rank(rank: int, world: int, device, params_np: dict) -> dict:
@@ -390,10 +579,14 @@ def world4_rank(rank: int, world: int, device, params_np: dict) -> dict:
 
 def world2_rank(rank: int, world: int, device, params_np: dict) -> dict:
     """(data=1, model=2) on 2 ranks: every config served, the cells, and
-    the refusals."""
+    the refusals; (data=2, model=1): the MoE arch of :data:`DP_NAMES`
+    served over data, its capacity the global batch's."""
     from repro_torch.launch.mesh import make_process_mesh
 
     mesh = make_process_mesh(model=2)
-    return {"mesh": {"1x2": mesh_info(mesh)}, "cases": {"1x2": _mesh_cases(mesh, params_np,
-                                                                           device)},
+    dp2 = make_process_mesh(data=2)
+    return {"mesh": {"1x2": mesh_info(mesh)},
+            "cases": {"1x2": _mesh_cases(mesh, params_np, device, fixed=False),
+                      "2x1": {"serve": {name: serve_case(dp2, name, params_np[name], device)
+                                        for name in DP_NAMES}}},
             "refusals": cell_refusals({"1x2": mesh})}

@@ -413,6 +413,15 @@ def test_a_failing_rank_fails_the_spawn():
         tdist.spawn(dc.failing_rank, 2, device="cpu", timeout_s=60)
 
 
+def test_spawn_deadline_runs_from_the_join():
+    """A spawn's ``timeout_s`` runs from the moment every rank has joined
+    the process group: a world whose ranks take longer than it to start
+    (each imports torch and this module's cases, seconds alone and a
+    minute and more on a loaded host, 3-5 s on an idle 8-core one) still returns
+    each rank's result."""
+    assert tdist.spawn(dc.rank_of, 2, device="cpu", timeout_s=2) == [0, 1]
+
+
 def test_spawn_and_init_refuse_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

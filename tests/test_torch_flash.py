@@ -396,3 +396,28 @@ def test_tf32x3_pair_scores_are_bit_identical(D):
               for c in _halves(D))
     assert s0.dtype == torch.float32 and not torch.equal(s0, s1)
     assert torch.equal((s0 + s1).view(torch.int32), (s1 + s0).view(torch.int32))
+
+
+@pytest.mark.parametrize("impl", ["reference", "chunked"])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 5), (False, None)])
+def test_query_offset_is_a_block_of_the_full_result(impl, causal, window):
+    """``q_offset`` (the sequence-sharded attention's query block): the
+    plain attentions on query rows ``[start, stop)`` of a sequence, with
+    K/V of all of it, equal rows ``[start, stop)`` of the full result
+    within 1e-6 (f32), for uneven and empty blocks; the chunked form
+    with a chunk (5) that does not divide the 12 keys."""
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 12, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((2, 2, 12, 8)).astype(np.float32))
+            for _ in range(2))
+
+    def attend(qb, offset):
+        if impl == "chunked":
+            return t_chunked(qb, k, v, causal=causal, window=window, chunk=5, q_offset=offset)
+        return t_ref(qb, k, v, causal=causal, window=window, q_offset=offset)
+
+    full = attend(q, 0)
+    for start, stop in ((0, 4), (4, 9), (9, 12), (12, 12)):
+        part = attend(q[:, :, start:stop], start)
+        np.testing.assert_allclose(part.numpy(), full[:, :, start:stop].numpy(), atol=1e-6,
+                                   rtol=0)

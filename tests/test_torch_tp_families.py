@@ -1,8 +1,9 @@
-"""Tensor parallelism for the MoE, MLA, Mamba-2 and hybrid families in
-the process form — experts over ``model``, MLA by heads, Mamba-2 by
-``d_inner`` with a model-wide gated norm — in the Torrent train step
-and the ``Trainer``, against the port at TP = 1 and JAX's GSPMD step on
-a ``(data, model)`` mesh, on the CPU with gloo.
+"""Tensor parallelism for the MoE, MLA, Mamba-2, hybrid, vlm and audio
+families in the process form — experts over ``model``, MLA by heads,
+Mamba-2 by ``d_inner`` with a model-wide gated norm, qwen2-vl's M-RoPE
+heads, whisper's encoder, cross-attention and GeLU FFNs — in the
+Torrent train step and the ``Trainer``, against the port at TP = 1 and
+JAX's step on a ``(data, model)`` mesh, on the CPU with gloo.
 
 The smoke deepseek-moe-16b, deepseek-v2-lite-16b, mamba2-2.7b and
 jamba-v0.1-52b (its first 5 layers: ``tests/_tp_family_cases.LAYERS``)
@@ -11,11 +12,16 @@ holds one of its 4 experts, half of one of its 2 Mamba groups and half
 a KV head. Three edge configs run beside them: the rowwise MoE
 dispatch, 6 experts (whole at TP = 4, as ``param_pspecs`` leaves them)
 and a ``d_inner`` of 126 (whole at TP = 4, 9 heads a rank at TP = 2).
+The smoke qwen2-vl-7b (embeddings at M-RoPE positions), whisper-tiny
+(tokens and encoder frames) and whisper with 6 heads under JAX's
+``opt-seq`` variant (``attn_seq_shard``: 1.5 heads a rank at TP = 4)
+run on ``(1, 4)`` and ``(2, 2)`` (``_tp_family_cases.FIXED``), the
+edge against JAX's opt-seq xla step (JAX's cell's).
 
 What runs where, so that the file's wall time is that of its longest
-part: a module fixture starts JAX's Torrent step on ``(2, 2)`` and
-``(1, 4)`` meshes for the four archs in one ``run_multidevice``
-subprocess (the eight steps one after another), a 4-rank spawn (``(1, 4)``
+part: a module fixture starts JAX's steps on ``(2, 2)`` and ``(1, 4)``
+meshes in two ``run_multidevice`` subprocesses (the four archs' eight
+steps one after another, the FIXED names' five), a 4-rank spawn (``(1, 4)``
 and ``(2, 2)``) and a 2-rank spawn (``(1, 2)``, and each arch's
 ``Trainer`` at TP = 2) and two ``torchrun --tp 2`` runs, all at once;
 the port's TP = 1 references run meanwhile. The ranks run
@@ -62,7 +68,7 @@ import _tp_cases as tc  # noqa: E402
 import _tp_family_cases as fc  # noqa: E402
 from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
 from repro_torch.launch import dist as tdist  # noqa: E402
-from repro_torch.launch.steps import make_grad_fn  # noqa: E402
+from repro_torch.launch.steps import VARIANTS, make_grad_fn  # noqa: E402
 from repro_torch.launch.train import TrainConfig, Trainer  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.layers import gated_rmsnorm  # noqa: E402
@@ -90,27 +96,27 @@ from repro.models import layers as L
 L.COMPUTE_DTYPE = jnp.float32
 d = np.load({inputs!r})
 opt_cfg = adamw.OptConfig(**{adamw!r})
-layers = {layers!r}
 
 
 def run(job):
-    arch, shape = job
-    cfg = C.get_smoke_config(arch)
-    cfg = dataclasses.replace(cfg, num_layers=layers.get(arch, cfg.num_layers))
+    arch, shape, base, changes, coll = job
+    cfg = dataclasses.replace(C.get_smoke_config(base), **changes)
     like = jax.eval_shape(lambda: T.model_init(jax.random.PRNGKey(0), cfg))
     flat, treedef = jax.tree.flatten(like)
     params = jax.tree.unflatten(treedef, [d[f"{{arch}}/p{{i}}"] for i in range(len(flat))])
-    batch = {{k: d[f"{{arch}}/{{k}}"] for k in ("tokens", "labels")}}
+    batch = {{k: d[f"{{arch}}/{{k}}"] for k in ("tokens", "labels", "embeds", "positions",
+                                            "enc_frames") if f"{{arch}}/{{k}}" in d}}
     mesh = jax.make_mesh(shape, ("data", "model"),
                          axis_types=(jax.sharding.AxisType.Auto,) * 2)
     pspecs = shd.param_pspecs(like, cfg, tp=shape[1])
     psh = jax.tree.map(lambda s: NamedSharding(mesh, s), pspecs,
                        is_leaf=lambda x: isinstance(x, P))
-    bsh = NamedSharding(mesh, P("data", None))
+    bspecs = {{k: P(None, "data", None) if k == "positions" else
+               P("data", *([None] * (v.ndim - 1))) for k, v in batch.items()}}
     p = jax.tree.map(jax.device_put, params, psh)
-    b = {{k: jax.device_put(v, bsh) for k, v in batch.items()}}
-    step = make_train_step(cfg, opt_cfg, collectives="torrent", mesh=mesh,
-                           batch_specs={{k: P("data", None) for k in batch}}, loss_chunks=2)
+    b = {{k: jax.device_put(v, NamedSharding(mesh, bspecs[k])) for k, v in batch.items()}}
+    step = make_train_step(cfg, opt_cfg, collectives=coll, mesh=mesh, batch_specs=bspecs,
+                           loss_chunks=2)
     name = f"{{arch}}/{{shape[0]}}x{{shape[1]}}"
     out = {{}}
     with jax.set_mesh(mesh):
@@ -127,7 +133,7 @@ def run(job):
 # one job after another: with the eight compiles in concurrent threads this
 # subprocess once ran past its 900 s timeout during a parallel test run
 # (about a minute alone)
-jobs = [(a, s) for a in {archs!r} for s in ((2, 2), (1, 4))]
+jobs = {jobs!r}
 out = {{}}
 for o in map(run, jobs):
     out.update(o)
@@ -146,25 +152,34 @@ def _torchrun(arch: str, ckpt_dir: str) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env)
 
 
+# JAX's steps: every arch on (2, 2) and (1, 4), the opt-seq edge on (1, 4)
+JAX_MESHES = {"whisper_6_heads_opt_seq": ((1, 4),)}
+# the meshes the FIXED names run on (the 4-rank spawn's): JAX's
+FIXED_MESHES = ("1x4", "2x2")
+NAMES = list(fc.ARCHS) + list(fc.EDGES) + list(fc.FIXED)
+
+
+def _on_meshes(names) -> list[tuple[str, str]]:
+    """(mesh, name) of every name on every mesh, a FIXED name on
+    ``FIXED_MESHES``."""
+    return [(m, n) for n in names for m in MESHES if n not in fc.FIXED or m in FIXED_MESHES]
+
+
 @pytest.fixture(scope="module")
 def params_np():
     """Each arch's params, drawn by the port from seed 0, as numpy."""
-    return {arch: fc.init_params(fc.config(arch)) for arch in fc.ARCHS}
-
-
-def _rows(batch: dict, dp: int, i: int) -> dict:
-    n = fc.B // dp
-    return {k: torch.from_numpy(v[i * n:(i + 1) * n]) for k, v in batch.items()}
+    return {arch: fc.init_params(fc.config(arch)) for arch in fc.ARCHS + fc.FIXED}
 
 
 def _tp1_grads(cfg, params, dp: int) -> list:
     """The port at TP = 1 in f32 compute: each DP rank's first-step
     grads and loss."""
-    batch = fc.batch(cfg.vocab_size)
+    batch = fc.batch(cfg.vocab_size, cfg)
     out = []
     for i in range(dp):
         with tc.compute_dtype(torch.float32):
-            g, m = make_grad_fn(cfg, loss_chunks=fc.LOSS_CHUNKS)(params, _rows(batch, dp, i))
+            g, m = make_grad_fn(cfg, loss_chunks=fc.LOSS_CHUNKS)(
+                params, fc.rank_rows(batch, dp, i, "cpu"))
         out.append(([x.numpy() for x in leaves(g)], float(m["loss"])))
     return out
 
@@ -177,16 +192,27 @@ def runs(run_multidevice, params_np, tmp_path_factory):
     config at DP = 1 and 2, and the stacked ``Trainer`` of every arch).
     Returns their results."""
     root = tmp_path_factory.mktemp("tp_families")
-    inputs = {}
-    for arch in fc.ARCHS:
+    inputs, jobs = {}, []
+    for arch in fc.ARCHS + fc.FIXED:
+        cfg = fc.config(arch)
         inputs.update({f"{arch}/p{i}": x for i, x in enumerate(leaves(params_np[arch]))})
-        inputs.update({f"{arch}/{k}": v for k, v in
-                       fc.batch(fc.config(arch).vocab_size).items()})
+        inputs.update({f"{arch}/{k}": v for k, v in fc.batch(cfg.vocab_size, cfg).items()})
+        if arch in fc.FIXED_EDGES:
+            base, variant, changes = fc.FIXED_EDGES[arch]
+            changes = {**VARIANTS[variant], **changes}
+        else:
+            base, changes = arch, {"num_layers": cfg.num_layers}
+        coll = fc.JAX_COLLECTIVES.get(arch, "torrent")
+        jobs += [(arch, shape, base, changes, coll) for shape in JAX_MESHES.get(arch, ((2, 2),
+                                                                                       (1, 4)))]
     np.savez(root / "in.npz", **inputs)
-    code = _JAX_STEPS.format(inputs=str(root / "in.npz"), out=str(root / "out.npz"),
-                             archs=fc.ARCHS, adamw=tc.LINEAR_ADAMW, layers=fc.LAYERS)
-    with ThreadPoolExecutor(6) as ex:
-        jax_run = ex.submit(run_multidevice, code, devices=4, timeout=900)
+    # two subprocesses at once, each running its jobs one after another:
+    # the four families' and the FIXED names'
+    parts = [[j for j in jobs if (j[0] in fc.FIXED) == fixed] for fixed in (False, True)]
+    codes = [_JAX_STEPS.format(inputs=str(root / "in.npz"), out=str(root / f"out{i}.npz"),
+                               jobs=part, adamw=tc.LINEAR_ADAMW) for i, part in enumerate(parts)]
+    with ThreadPoolExecutor(7) as ex:
+        jax_runs = [ex.submit(run_multidevice, code, devices=4, timeout=900) for code in codes]
         world4 = ex.submit(tdist.spawn, fc.world4_rank, 4, device="cpu", timeout_s=600,
                            args=(params_np,))
         world2 = ex.submit(tdist.spawn, fc.world2_rank, 2, device="cpu", timeout_s=600,
@@ -195,10 +221,10 @@ def runs(run_multidevice, params_np, tmp_path_factory):
                      for arch in TORCHRUN_ARCHS}
 
         tp1 = {}
-        for name in list(fc.ARCHS) + list(fc.EDGES):
-            cfg = fc.config(name) if name in fc.ARCHS else fc.edge_config(name)
-            params = params_from_numpy(params_np[name] if name in fc.ARCHS
-                                       else fc.init_params(cfg), "cpu")
+        for name in NAMES:
+            cfg = fc.edge_config(name) if name in fc.EDGES else fc.config(name)
+            params = params_from_numpy(fc.init_params(cfg) if name in fc.EDGES
+                                       else params_np[name], "cpu")
             tp1[name] = {dp: _tp1_grads(cfg, params, dp) for dp in (1, 2)}
         stacked = {}
         for arch in fc.ARCHS:
@@ -210,16 +236,19 @@ def runs(run_multidevice, params_np, tmp_path_factory):
             stacked[arch] = {"losses": res["losses"],
                              "state": [x.detach().numpy().copy() for x in leaves(tr.state)]}
 
-        jax_run.result()
-        got = dict(np.load(root / "out.npz"))
+        got = {}
+        for i, run in enumerate(jax_runs):
+            run.result()
+            got.update(np.load(root / f"out{i}.npz"))
         jax_ref = {}
-        for arch in fc.ARCHS:
+        for arch, shape, *_ in jobs:
             n = len(leaves(params_np[arch]))
-            for mesh in ("2x2", "1x4"):
-                key = f"{arch}/{mesh}"
-                jax_ref[key] = {"losses": [float(got[f"{key}/loss{s}"]) for s in range(2)],
-                                "params": [got[f"{key}/param{i}"] for i in range(n)]}
-            jax_ref[f"{arch}/1x2"] = jax_ref[f"{arch}/1x4"]
+            key = f"{arch}/{shape[0]}x{shape[1]}"
+            jax_ref[key] = {"losses": [float(got[f"{key}/loss{s}"]) for s in range(2)],
+                            "params": [got[f"{key}/param{i}"] for i in range(n)]}
+        for arch in fc.ARCHS + fc.FIXED:  # (1, 2) against (1, 4): one function
+            for mesh in MESHES:
+                jax_ref.setdefault(f"{arch}/{mesh}", jax_ref[f"{arch}/1x4"])
         return types.SimpleNamespace(
             world4=world4.result(), world2=world2.result(), root=str(root), tp1=tp1,
             stacked=stacked, jax=jax_ref,
@@ -239,7 +268,10 @@ def _max_rel(a: np.ndarray, b: np.ndarray) -> float:
 def _jax_config(name: str):
     import dataclasses
 
-    if name in fc.ARCHS:
+    if name in fc.FIXED_EDGES:
+        base, variant, changes = fc.FIXED_EDGES[name]
+        return dataclasses.replace(JC.get_smoke_config(base), **VARIANTS[variant], **changes)
+    if name in fc.ARCHS or name in fc.FIXED:
         cfg = JC.get_smoke_config(name)
         return dataclasses.replace(cfg, num_layers=fc.LAYERS.get(name, cfg.num_layers))
     arch, changes = fc.EDGES[name]
@@ -251,8 +283,7 @@ def _jax_config(name: str):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(fc.ARCHS) + list(fc.EDGES))
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh,name", _on_meshes(NAMES))
 def test_rank_holds_the_shards_jax_param_pspecs_place(runs, mesh, name):
     """Each rank's params have the shapes JAX's ``param_pspecs(tp)``
     leaves on a device of the mesh: a stacked MoE leaf split along its
@@ -275,8 +306,7 @@ def test_rank_holds_the_shards_jax_param_pspecs_place(runs, mesh, name):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", list(fc.ARCHS) + list(fc.EDGES))
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh,name", _on_meshes(NAMES))
 def test_first_step_grads_match_tp1_in_f32(runs, mesh, name):
     """Each rank's grads of its DP rows in f32 compute, gathered, within
     1e-5 of each leaf's max of the port's at TP = 1 on the same rows,
@@ -291,8 +321,7 @@ def test_first_step_grads_match_tp1_in_f32(runs, mesh, name):
             assert _max_rel(a, b) < GRAD_F32_TOL
 
 
-@pytest.mark.parametrize("arch", fc.ARCHS)
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh,arch", _on_meshes(fc.ARCHS + fc.FIXED))
 def test_two_steps_match_jax(runs, mesh, arch):
     """Two Torrent train steps in f32 compute: losses within 1e-3 and
     updated params within 2e-3 of JAX's GSPMD step on its ``(data,
@@ -307,8 +336,7 @@ def test_two_steps_match_jax(runs, mesh, arch):
                 np.testing.assert_allclose(a, b, atol=PARAM_TOL, rtol=PARAM_TOL)
 
 
-@pytest.mark.parametrize("arch", fc.ARCHS)
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh,arch", _on_meshes(fc.ARCHS + fc.FIXED))
 def test_replicated_leaves_are_bit_equal_across_tp_ranks(runs, mesh, arch):
     """After two steps, every leaf of the state (params and AdamW
     moments) that no spec splits — the router, ``w_dkv``, ``in_BC``,
@@ -329,8 +357,7 @@ def test_replicated_leaves_are_bit_equal_across_tp_ranks(runs, mesh, arch):
             assert other["losses"] == first["losses"]
 
 
-@pytest.mark.parametrize("arch", fc.ARCHS)
-@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("mesh,arch", _on_meshes(fc.ARCHS + fc.FIXED))
 def test_tp_payload_bytes_match_their_model(runs, mesh, arch):
     """The payload bytes a rank hands the model group's collectives in
     one step equal ``modeled_tp_bytes``: the MoE's f32 combine and the
@@ -339,7 +366,9 @@ def test_tp_payload_bytes_match_their_model(runs, mesh, arch):
     its norm's sum of squares, the grads of its ``in_z``/``in_x`` input,
     B/C, dt, ``A_log`` and ``D``; the remat'd recompute."""
     dp, tp = MESHES[mesh]
-    want = modeled_tp_bytes(fc.config(arch), fc.B // dp * fc.S, tp)
+    cfg = fc.config(arch)
+    want = modeled_tp_bytes(cfg, fc.B // dp * fc.S, tp,
+                            enc_tokens=fc.B // dp * cfg.encoder_seq_len)
     for r in _ranks(runs, mesh):
         assert r[arch]["tp_bytes"] == want
 
