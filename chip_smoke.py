@@ -160,7 +160,7 @@ Phases (any failure exits non-zero and prints no result):
    through the process-form ``Trainer`` on 2 ranks x 4 x 512 tokens
    (rs_ag, K = 1, 25 MiB buckets): the first step's reduced grads leaf by
    leaf bit for bit the stacked reduction of the two ranks' grads
-   (all-gathered by the executor), then 3 exact, 3 int8 + EF and 3
+   (all-gathered by the executor), then 2 exact, 2 int8 + EF and 2
    ``collectives="xla"`` steps (the backend's all-reduce) whose losses
    must equal a stacked ``Trainer``'s (``dp=2``, run in this process
    before the spawn) within ``DIST_LOSS_TOL``. Each rank holds AdamW's
@@ -189,7 +189,7 @@ Phases (any failure exits non-zero and prints no result):
    go through pinned host buffers), 4 x 512 tokens a step: the first
    step's grads gathered leaf by leaf within ``TP_GRAD_TOL`` of the
    stacked ``Trainer``'s at TP = 1 (run first in this process from the
-   same seed, then freed), then 3 exact and 3 int8 + EF steps whose
+   same seed, then freed), then 2 exact and 2 int8 + EF steps whose
    losses equal across the ranks and within ``TP_LOSS_TOL`` of TP = 1;
    every leaf no spec splits equal bit for bit across the ranks after
    every step; the model group's payload bytes a step equal to
@@ -198,24 +198,24 @@ Phases (any failure exits non-zero and prints no result):
    and no allocator retry; no kernel launch (``tp_train`` in the
    kernels line). A failing rank fails the phase.
 19. tp families: the same on ``(data=1, model=2)`` for the MoE, MLA,
-   Mamba-2 and hybrid families at full width: deepseek-v2-lite-16b (4
-   of 27 layers: one dense, three MoE), mamba2-2.7b (4 of 64) and
+   Mamba-2 and hybrid families at full width: deepseek-v2-lite-16b (2
+   of 27 layers: one dense, one MoE), mamba2-2.7b (2 of 64) and
    jamba-v0.1-52b (2 of 32: Mamba with a dense FFN, Mamba with a MoE).
    Per model (``TP_FAMILIES``): a TP = 1 reference from the same seed in
    this process, then freed — the stacked ``Trainer`` (its first step's
-   grads and 3 steps' losses a run), or for jamba, whose TP = 1
+   grads and 2 steps' losses a run), or for jamba, whose TP = 1
    ``Trainer`` would pass the card, the first step's grads and loss of
    ``make_grad_fn`` alone; the MoE models' grads with the TP ranks
    routed as TP = 1 chose (``tests/_moe_routing.py``: bf16 rounding
    flips near-tie top-k choices). Then the two ranks: each rank's
    first-step grad shards within ``TP_GRAD_TOL`` of its block of the
-   reference's, 3 exact (and, but for jamba, 3 int8 + EF) steps, with
-   every check of phase 18. Then qwen2-vl-7b (4 of 28 layers: M-RoPE on
+   reference's, 2 exact (and, but for jamba, 2 int8 + EF) steps, with
+   every check of phase 18. Then qwen2-vl-7b (2 of 28 layers: M-RoPE on
    each rank's 14 heads) and whisper-tiny (full size: encoder,
    cross-attention and GeLU FFNs split) through ``make_train_step`` on
    their own batches (``TP_FAMILIES_FIXED``: embeddings at the vlm
    phase's M-RoPE positions; tokens with encoder frames), held the same
-   way against TP = 1's first-step f32 grads and 3 bf16 steps' losses.
+   way against TP = 1's first-step f32 grads and 2 bf16 steps' losses.
    ``tp_families_train`` in the kernels line.
 20. tp serve: tensor-parallel serving on ``(data=1, model=2)``, two
    gloo ranks sharing the card, full width, ``attn_impl="flash"``
@@ -262,6 +262,24 @@ Phases (any failure exits non-zero and prints no result):
    global rule must meet the whole batch's prefill, the per-rank rule
    (the data axis Manual) must miss it, and the two rules must keep a
    nonzero number of assignments differently.
+21. long: ``build_cell``'s ``long_500k`` cell on ``(data=2, model=1)``,
+   two gloo ranks sharing the card (``LONG``): h2o-danube-1.8b at full
+   width and depth (its 4096-slot window, 2048 slots a rank) and
+   mamba2-2.7b at full width, 4 of 64 layers. Each rank fills its cache
+   block from a seeded whole cache and runs the cell's step (under
+   ``hints.replicated_batch``: the sequence-parallel decode, the softmax
+   combined over ``data``) at ``LONG_POSITIONS`` (0, a slot in rank 1's
+   block, two wrapped past the window), held against ``decode_step`` on
+   the whole cache with no mesh: the ranks' logits bit-equal, within
+   ``TP_SERVE_LOGIT_TOL`` of the data = 1 decode in bf16 and within
+   ``LONG_F32_TOL`` with both in f32 (mamba2-2.7b bit for bit), the
+   tokens equal or near ties, the gathered cache within
+   ``TP_SERVE_CACHE_TOL``, the combine's bytes equal to
+   ``modeled_tp_serve_bytes(slot_split=2)``; a decode step's event ms.
+   ``long_serve`` in the kernels line (no launch: decode attends by
+   einsums). Expert parallelism under a live ``model`` axis runs on four
+   cards, not here (``scripts/dist_cards.py --parts long``): its four
+   ranks sharing this card took 75 s, past the script's time.
 
 Then ``phase walls s: {...}`` (each phase's wall seconds, against the
 script's time limit), one JSON line with every kernel's launches,
@@ -2297,7 +2315,7 @@ def cell_phase() -> dict:
 # ZeRO-1 block from its own reduced row, where the stacked form hands
 # every rank row 0; 3e-4 on the CPU after 2 steps, tests/test_torch_dist.py)
 DIST_LOSS_TOL = {"exact": 1e-5, "int8_ef": 2e-3, "xla": 1e-5}
-DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=3, global_batch=8, seq_len=512,
+DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=2, global_batch=8, seq_len=512,
                   peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
                   bucket_bytes=25 << 20, loss_chunks=8, seed=0)
 
@@ -2335,7 +2353,7 @@ def leaf_digests(tree) -> list[str]:
 
 def dist_train_rank(rank, world, device, stacked_digests):
     """One rank of the process-form training (a spawned process): the
-    first step's reduced grads checked leaf by leaf, then 3 steps of
+    first step's reduced grads checked leaf by leaf, then 2 steps of
     each of ``DIST_RUNS`` through the process-form ``Trainer``, with
     ZeRO-1 over ``data = 2``: the rank's moment bytes against the whole
     moments', the param gather's bytes against their count, and (exact
@@ -2657,7 +2675,7 @@ def dist_phase() -> dict:
 
 # tensor parallelism on the card: yi-6b at full width, 2 of 32 layers,
 # TP = 2 over two gloo ranks sharing the card, 4 x 512 tokens a step
-TP_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=3, global_batch=4, seq_len=512,
+TP_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=2, global_batch=4, seq_len=512,
                 peak_lr=5e-4, warmup_steps=2, collectives="torrent", num_chains=1,
                 loss_chunks=8, seed=0)
 # TP = 2 against the stacked TP = 1 Trainer from the same seed: a rank
@@ -2832,11 +2850,11 @@ def tp_phase() -> dict:
 # step alone (jamba: a TP = 1 Trainer, 16 B a param for 3.74 B params and
 # its activations, would pass the card)
 TP_FAMILIES = {
-    "deepseek-v2-lite-16b": dict(layers=4, runs=("exact", "int8_ef"), reference="trainer"),
-    "mamba2-2.7b": dict(layers=4, runs=("exact", "int8_ef"), reference="trainer"),
+    "deepseek-v2-lite-16b": dict(layers=2, runs=("exact", "int8_ef"), reference="trainer"),
+    "mamba2-2.7b": dict(layers=2, runs=("exact", "int8_ef"), reference="trainer"),
     "jamba-v0.1-52b": dict(layers=2, runs=("exact",), reference="grads"),
 }
-TP_FAMILY_TRAIN = dict(smoke=False, steps=3, global_batch=4, seq_len=512, peak_lr=5e-4,
+TP_FAMILY_TRAIN = dict(smoke=False, steps=2, global_batch=4, seq_len=512, peak_lr=5e-4,
                        warmup_steps=2, collectives="torrent", num_chains=1, loss_chunks=8,
                        seed=0)
 # the first step's grads, both sides in f32 compute: in bf16 a rank rounds
@@ -3037,14 +3055,14 @@ def tp_family_reference(arch: str, ref_dir: str) -> dict:
     return out
 
 
-# qwen2-vl-7b (full width, 4 of 28 layers: M-RoPE on each rank's 14
+# qwen2-vl-7b (full width, 2 of 28 layers: M-RoPE on each rank's 14
 # heads, qkv biases) and whisper-tiny (full size: its encoder,
 # cross-attention and GeLU FFNs split by heads and columns, its 51,865-row
 # table whole) through make_train_step at TP = 2, on batches the
 # Trainer's token source cannot make: qwen2-vl's embeddings at
 # image-then-text M-RoPE positions, whisper's tokens with encoder frames
-TP_FAMILIES_FIXED = {"qwen2-vl-7b": 4, "whisper-tiny": None}
-# their bf16 losses against TP = 1 over the 3 steps: qwen2-vl's loss falls
+TP_FAMILIES_FIXED = {"qwen2-vl-7b": 2, "whisper-tiny": None}
+# their bf16 losses against TP = 1 over the steps: qwen2-vl's loss falls
 # from 12.66 to 9.23 and 3.98 (the first AdamW steps, sign-like, move
 # every weight by about the learning rate), so a rank's bf16 rounding of
 # its partial sums moves the later losses more than yi-6b's (whose losses
@@ -3306,7 +3324,10 @@ def tp_families_phase(archs=None) -> dict:
 # all 64 (11.3 GB of f32 params), jamba-v0.1-52b 5 of 32 (its attention
 # layer and two MoE layers, ~27 GB); yi-6b (all 32 fit: 24.2 GB) and
 # deepseek-v2-lite-16b (8 fit) cut to 8 and 4 layers, and qwen2-vl-7b to
-# 4, so that the script stays within its time
+# 4, so that the script stays within its time. The greedy tokens of a
+# random model's depth decide which near ties the admission's first
+# token (held equal to TP = 1's) meets: at 4 layers yi-6b's differs
+# (an H100 run), so the depth stays 8
 TP_SERVE = {"yi-6b": 8, "mamba2-2.7b": None, "deepseek-v2-lite-16b": 4,
             "jamba-v0.1-52b": 5, "qwen2-vl-7b": 4, "whisper-tiny": None}
 # qwen2-vl's prompts are the vlm phase's (random embeddings at an image
@@ -4012,6 +4033,206 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
     return {"serve_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Long context: long_500k on a ProcessMesh, a sequence-parallel decode
+# ---------------------------------------------------------------------------
+
+# build_cell's long_500k cell on (data=2, model=1), two gloo ranks sharing
+# the card: h2o-danube-1.8b at full width and depth (its 4096-slot window:
+# 2048 slots a rank), mamba2-2.7b at full width, 4 of 64 layers (no slot
+# axis: every rank decodes alike)
+LONG = {"h2o-danube-1.8b": None, "mamba2-2.7b": 4}
+# the positions decoded, each from the seeded whole cache: 0 (only slot 0,
+# on rank 0, is valid), one whose slot is rank 1's, and two past the
+# window's wraps (slots in rank 0's and rank 1's blocks), the last the
+# shape's last position
+LONG_POSITIONS = (0, 3071, 410600, 524287)
+LONG_TIMED_STEPS = 8
+LONG_SEED = 7
+# the same decodes with both sides computing in f32 (``_tp_cases.
+# compute_dtype``): in bf16 the slot blocks' sums in another order round
+# the attention output to a neighbouring bf16 value now and then, which
+# 24 random layers amplify (h2o-danube-1.8b: 1.9-3.2e-2 of the row's max
+# on an H100, within TP_SERVE_LOGIT_TOL). In f32 compute the activations
+# keep f32, but the normalised weights are still rounded to the bf16
+# cache's dtype before the values' products (as on the whole cache), so
+# a weight the two sum orders put on either side of a bf16 rounding
+# boundary still moves: 1.8-4.5e-4 of the row's max on an H100 over
+# h2o-danube's 24 layers and 4096 slots (jamba's one attention layer on
+# four cards 1.8e-6-2.7e-5; 5e-7 at smoke size on the CPU,
+# tests/test_torch_tp_serve.py). A wrong slot, mask or merge moves the
+# logits by O(1e-1)
+LONG_F32_TOL = 1e-3
+
+
+@contextlib.contextmanager
+def cut_depth(arch: str, layers: int | None):
+    """``configs.get_config(arch)`` (what ``build_cell`` reads) cut to its
+    first ``layers`` layers inside the block (``None``: whole)."""
+    from repro_torch import configs as Cfg
+
+    if layers is None:
+        yield
+        return
+    get = Cfg.get_config
+
+    def cut(name):
+        cfg = get(name)
+        return dataclasses.replace(cfg, num_layers=layers) if name == arch else cfg
+
+    Cfg.get_config = cut
+    try:
+        yield
+    finally:
+        Cfg.get_config = get
+
+
+def long_rank(rank, world, device, arch, layers, shape_name="long_500k", smoke=False,
+              model=1):
+    """One rank of the long phase: ``build_cell(arch, shape_name,
+    (data=world/model, model))``, its cache block filled from a seeded
+    whole cache (the same draw in every process, ``place_cache``), its
+    step run at each of ``LONG_POSITIONS`` (those within the shape)
+    against ``decode_step`` on the whole cache with no mesh (the data = 1,
+    TP = 1 decode, in this process, on the same params: the rank's own at
+    ``model`` = 1, else the whole draw of ``build_cell`` on one rank's
+    mesh): the logits' gap over
+    the row's max, the greedy tokens, the top-2 margin of any that
+    differ, the gathered cache's gap, the softmax combine's bytes against
+    ``modeled_tp_serve_bytes(slot_split=world)``, a decode step's event
+    ms (``LONG_TIMED_STEPS`` steps) and the kernels the main path
+    launched."""
+    import numpy as np
+    import torch
+    from _tp_cases import compute_dtype
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel import tp as tpm
+    from repro_torch.tree import leaves, map_tree, unflatten
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_process_mesh(data=world // model, model=model)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with cut_depth(arch, layers):
+        cell = build_cell(arch, shape_name, mesh, smoke=smoke, device=device)
+        whole_params = (build_cell(arch, shape_name, make_host_mesh(), smoke=smoke,
+                                   device=device).args[0] if model > 1 else cell.args[0])
+    cfg, shape = cell.cfg, cell.shape
+    params, tok = cell.args[:2]
+    with hints.set_mesh(None):
+        like = Tm.init_cache(cfg, 1, shape.seq_len, device="meta")
+    specs = shd.cache_pspecs(like, cfg, shape, tp=model)
+    gen = torch.Generator(device=device).manual_seed(LONG_SEED)
+    whole = unflatten(like, [torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
+                             for x in leaves(like)])
+    placed_shapes = [tuple(x.shape) for x in leaves(cell.args[3])]
+    out = {"layers": cfg.num_layers, "placed_shapes": placed_shapes,
+           "whole_shapes": [tuple(x.shape) for x in leaves(like)], "positions": {}}
+    paid_model = tpm.modeled_tp_serve_bytes(cfg, 1, 1, model, slot_split=world // model)
+    launches = None
+    for p in (p for p in LONG_POSITIONS if p < shape.seq_len):
+        pos = torch.tensor(p, dtype=torch.int32, device=device)
+        with torch.no_grad():
+            ref, ref_cache = Tm.decode_step(whole_params, cfg, tok, pos,
+                                            map_tree(torch.clone, whole))
+            reset_launches()
+            tpm.tp_counter.reset()
+            nxt, cache = cell.step_fn(params, tok, pos, shd.place_cache(whole, specs, cfg, mesh))
+            launches = read_launches() if launches is None else {
+                k: v + launches[k] for k, v in read_launches().items()}
+            paid = dict(tpm.tp_counter.bytes)
+            with hints.set_mesh(mesh), hints.replicated_batch():
+                logits, _ = Tm.decode_step(params, cfg, tok, pos,
+                                           shd.place_cache(whole, specs, cfg, mesh))
+            with compute_dtype(torch.float32):  # the same decodes in f32 compute
+                ref32, _ = Tm.decode_step(whole_params, cfg, tok, pos,
+                                          map_tree(torch.clone, whole))
+                with hints.set_mesh(mesh), hints.replicated_batch():
+                    mine32, _ = Tm.decode_step(params, cfg, tok, pos,
+                                               shd.place_cache(whole, specs, cfg, mesh))
+            back = shd.gather_cache(cache, specs, cfg, mesh)
+        top2 = torch.topk(ref.float(), 2, dim=-1).values
+        scale = ref.float().abs().amax(-1)
+        out["positions"][str(p)] = {
+            "logits_rel": float(((logits.float() - ref.float()).abs().amax(-1) / scale).max()),
+            "f32_logits_rel": float(((mine32 - ref32).abs().amax(-1)
+                                     / ref32.abs().amax(-1)).max()),
+            "bit_equal": bool(torch.equal(logits, ref)),
+            "tokens": nxt.tolist(), "reference_tokens": ref.argmax(-1).tolist(),
+            "reference_top2_margin_rel": float(((top2[:, 0] - top2[:, 1]) / scale).min()),
+            "cache_rel_max": max(float((a.float() - b.float()).abs().max()
+                                       / b.float().abs().max().clamp_min(1e-30))
+                                 for a, b in zip(leaves(back), leaves(ref_cache))),
+            "combine_bytes": paid, "combine_bytes_equal_model": paid == paid_model,
+            "logits": logits.float().cpu()}
+    step_ms = []
+    if on_card:
+        cache = shd.place_cache(whole, specs, cfg, mesh)
+        pos = torch.tensor(LONG_POSITIONS[-1], dtype=torch.int32, device=device)
+        with torch.no_grad():
+            for _ in range(LONG_TIMED_STEPS):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                a.record()
+                cell.step_fn(params, tok, pos, cache)
+                b.record()
+                b.synchronize()
+                step_ms.append(a.elapsed_time(b))
+    out.update({"mesh": mesh.shape, "combine_bytes_model": paid_model,
+                "decode_step_ms": float(np.median(step_ms)) if step_ms else None,
+                "launches": launches,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                "alloc_retries": (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                                  if on_card else 0)})
+    return out
+
+
+def long_phase(archs=tuple(LONG)) -> dict:
+    """The long phase (phase 21 of the module docstring)."""
+    import torch
+    from repro_torch.launch.dist import spawn
+
+    t0 = time.perf_counter()
+    launches, failed = None, []
+    for arch in archs:
+        recs = spawn(long_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                     args=(arch, LONG[arch]))
+        # no combine to pay: nothing split over data, every rank decodes alike
+        exact = recs[0]["combine_bytes_model"]["fwd"] == 0
+        ok = not any(r["alloc_retries"] for r in recs)
+        for p in recs[0]["positions"]:
+            per = [r["positions"][p] for r in recs]
+            same = all(torch.equal(per[0]["logits"], q["logits"]) for q in per[1:])
+            for q in per:
+                q.pop("logits")
+                differs = q["tokens"] != q["reference_tokens"]
+                ok = ok and same and q["combine_bytes_equal_model"] and (
+                    q["f32_logits_rel"] <= LONG_F32_TOL) and (
+                    q["bit_equal"] if exact else
+                    q["logits_rel"] <= TP_SERVE_LOGIT_TOL
+                    and q["cache_rel_max"] <= TP_SERVE_CACHE_TOL
+                    and (not differs or q["reference_top2_margin_rel"] <= TP_SERVE_LOGIT_TOL))
+        for r, rec in enumerate(recs):
+            print(f"long {arch} rank {r}: {json.dumps(rec)}", flush=True)
+        arch_launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+        print(f"long {arch}: {json.dumps({'ranks': 2, 'mesh': {'data': 2, 'model': 1}, 'layers': recs[0]['layers'], 'placed_shapes': recs[0]['placed_shapes'][:2], 'logits_rel': {p: [r['positions'][p]['logits_rel'] for r in recs] for p in recs[0]['positions']}, 'f32_logits_rel': {p: recs[0]['positions'][p]['f32_logits_rel'] for p in recs[0]['positions']}, 'bit_equal_to_data_1': {p: recs[0]['positions'][p]['bit_equal'] for p in recs[0]['positions']}, 'decode_step_ms': [r['decode_step_ms'] for r in recs], 'combine_bytes_model': recs[0]['combine_bytes_model'], 'launches': arch_launches, 'ok': ok})}", flush=True)
+        if not ok:
+            failed.append(arch)
+        launches = arch_launches if launches is None else {
+            k: launches[k] + v for k, v in arch_launches.items()}
+    wall = time.perf_counter() - t0
+    print(f"long: {json.dumps({'phase_wall_s': round(wall, 2), 'launches': launches})}",
+          flush=True)
+    if failed:
+        raise AssertionError(f"long: {failed} failed their checks (the lines above)")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4091,6 +4312,7 @@ def main() -> int:
     tp = timed("tp", tp_phase)
     tp_families = timed("tp families", tp_families_phase)
     tp_serve = timed("tp serve", tp_serve_phase)
+    long = timed("long", long_phase)
     print(f"phase walls s: {json.dumps(walls)}", flush=True)
 
     def path_launches(rec):
@@ -4111,7 +4333,8 @@ def main() -> int:
                    "ep_dist_train": dist["ep_launches"][name],
                    "tp_train": tp["train_launches"][name],
                    "tp_families_train": tp_families["train_launches"][name],
-                   "tp_serve": tp_serve["serve_launches"][name]}
+                   "tp_serve": tp_serve["serve_launches"][name],
+                   "long_serve": long["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

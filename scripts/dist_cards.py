@@ -80,6 +80,21 @@ its own, so the executor hands NCCL the device tensors themselves:
    the last logits' gap,
    beside TP = 2's 0.358 of the logit scale in bf16.
 
+7. ``long`` (4 ranks, asked for by name): ``long_500k`` on a
+   ``ProcessMesh`` across the cards. jamba-v0.1-52b at full width, 5 of
+   32 layers (its one attention layer holds 524,288 slots: a rank
+   262,144 of them for 4 of the 8 KV heads, 256 MiB a leaf), on
+   ``(data=2, model=2)`` through ``chip_smoke.long_rank``: each rank's
+   decode from a seeded whole cache at ``chip_smoke.LONG_POSITIONS``
+   against the data = 1, TP = 1 decode of the same params and cache on
+   its own card, by the long phase's checks. Then the ``moe-ep`` cells
+   of ``ep_tp_rank`` over NCCL: deepseek-moe-16b at full
+   width, 2 layers, on ``(2, 2)``, held against the same cells on
+   ``(2, 1)`` (TP = 1, two cards) routed as that run chose. On the CPU
+   at smoke size (jamba's first 5 smoke layers at a 64-slot shape).
+   (The EP cells ran in ``chip_smoke.py`` on four gloo ranks sharing one
+   card for a while: 75 s there, past that script's time.)
+
 ``--parts`` picks parts by name (default: 1-5). Prints the card's name
 and power limit, one ``dist cards PART {...}`` line per part, and exits
 non-zero if a check fails.
@@ -585,6 +600,205 @@ def bf16_gap_part(device, on_card) -> bool:
     return bool(ok)
 
 
+# the long part's EP under TP: deepseek-moe-16b with the moe-ep variant at
+# full width, 2 of 28 layers (one dense, one MoE: 64 routed experts top-6),
+# its train and decode cells on (data=2, model=2), one rank a card: data
+# rank d owns experts [32d, 32d + 32) and model rank m holds [32m, 32m +
+# 32), so ranks (0, 1) and (1, 0) run no expert. Held against the same
+# cells on (data=2, model=1) (EP at TP = 1) from the same seeds, routed as
+# that run chose. Shapes: the train cell's 8 x 256 tokens, the decode
+# cell's 8 rows of a 512-position cache
+EP_TP = dict(arch="deepseek-moe-16b", layers=2, steps=3,
+             train=("train_ep", "train", 256, 8), decode=("decode_ep", "decode", 512, 8))
+
+
+def ep_tp_rank(rank, world, device, ref_dir, tp, cfg_kw=None):
+    """One rank of the long part's EP cells on ``(data=world/tp, model=tp)``:
+    ``EP_TP``'s moe-ep train cell, ``EP_TP["steps"]`` Torrent steps, and
+    its decode cell's logits (``decode_step`` on the cell's args under the
+    mesh). At ``tp`` = 1 (the reference) it records each MoE call's
+    routing to ``ref_dir``; at ``tp`` > 1 it routes as that run's rank of
+    its ``data`` coordinate chose. Per step: the loss, the wall, and the
+    bytes of the EP exchanges (the all-to-all programs this process ran,
+    priced by ``sent_wire_bytes``) against ``modeled_ep_bytes(train=True)``;
+    the decode's EP bytes against ``modeled_ep_bytes``; the kernels the
+    main path launched."""
+    import torch
+    import chip_smoke as cs
+    from _moe_routing import recorded_routing, routing_as
+    from repro_torch import configs as Cfg
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.mesh import make_process_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel import hints
+    from repro_torch.parallel.tp import modeled_ep_bytes
+
+    kw = dict(EP_TP, **(cfg_kw or {}))
+    mesh = make_process_mesh(data=world // tp, model=tp)
+    d = mesh.coords["data"]
+    on_card = torch.device(device).type == "cuda"
+
+    def ep_bytes():
+        return sum(n * cwd.sent_wire_bytes(p, size, frames, r)
+                   for (p, size, frames, r), n in cwd.wire_counter.runs.items()
+                   if p.collective == "all_to_all")
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"mesh": mesh.shape, "coords": dict(mesh.coords)}
+    recording = tp == 1
+    routing = [] if recording else torch.load(f"{ref_dir}/routing_{d}.pt", weights_only=False)
+    seen = []
+    with cs.registered(Cfg.SHAPES, kw["train"][0], Shape(*kw["train"])), \
+            cs.registered(Cfg.SHAPES, kw["decode"][0], Shape(*kw["decode"])), \
+            cs.cut_depth(kw["arch"], kw["layers"]):
+        cell = build_cell(kw["arch"], kw["train"][0], mesh, collectives="torrent",
+                          variant="moe-ep", smoke=kw.get("smoke", False), device=device)
+        cfg = cell.cfg
+        params, opt, batch = cell.args
+        rows = batch["tokens"].numel()
+        losses, walls, eps, wires = [], [], [], []
+        cs.reset_launches()
+        ctx = recorded_routing() if recording else routing_as(routing)
+        with ctx as got:
+            for _ in range(kw["steps"]):
+                cwd.wire_counter.reset()
+                if on_card:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = cell.step_fn(params, opt, batch)
+                losses.append(float(m["loss"]))
+                if on_card:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                eps.append(ep_bytes())
+                wires.append((cwd.wire_counter.bytes, cwd.wire_counter.modeled_bytes()))
+            del params, opt, batch, cell
+            dcell = build_cell(kw["arch"], kw["decode"][0], mesh, variant="moe-ep",
+                               smoke=kw.get("smoke", False), device=device)
+            cwd.wire_counter.reset()
+            with torch.no_grad(), hints.set_mesh(mesh):
+                logits, _ = Tm.decode_step(dcell.args[0], dcell.cfg, dcell.args[1],
+                                           dcell.args[2], dcell.args[3])
+            decode_ep = cwd.wire_counter.bytes
+        launches = cs.read_launches()
+        seen = got
+    if recording:
+        torch.save([x.cpu() for x in seen], f"{ref_dir}/routing_{d}.pt")
+        flips = 0
+    else:
+        flips = int(sum(int(f.sum()) for f in seen))
+    model_train = modeled_ep_bytes(cfg, rows, world // tp, d, train=True)
+    out.update({"layers": cfg.num_layers, "losses": losses, "step_wall_s": walls,
+                "ep_bytes_per_step": eps, "modeled_ep_bytes_per_step": model_train,
+                "wire_bytes_equal_executor_model": all(a == b for a, b in wires),
+                "decode_ep_bytes": decode_ep,
+                "modeled_decode_ep_bytes": modeled_ep_bytes(dcell.cfg, dcell.args[1].numel(),
+                                                            world // tp, d),
+                "decode_logits": logits.float().cpu(), "routing_flips": flips,
+                "launches": launches,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9 if on_card else None,
+                "alloc_retries": (torch.cuda.memory_stats().get("num_alloc_retries", 0)
+                                  if on_card else 0)})
+    return out
+
+
+# the long part: (label, arch, data, model, layers)
+LONG_RUNS = [("jamba_2x2_5_layers", "jamba-v0.1-52b", 2, 2, 5)]
+LONG_SMOKE_SHAPE = ("long_smoke", "decode", 64, 1)
+
+
+def long_cards_rank(rank, world, device, arch, model, layers, smoke):
+    """One rank of the long part: ``chip_smoke.long_rank`` on ``(data =
+    world/model, model)`` (on the CPU at ``LONG_SMOKE_SHAPE``)."""
+    import chip_smoke as cs
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import Shape
+
+    if not smoke:
+        return cs.long_rank(rank, world, device, arch, layers, model=model)
+    with cs.registered(C.SHAPES, LONG_SMOKE_SHAPE[0], Shape(*LONG_SMOKE_SHAPE)):
+        return cs.long_rank(rank, world, device, arch, layers, LONG_SMOKE_SHAPE[0], True,
+                            model=model)
+
+
+def long_part(device, world, on_card) -> bool:
+    """Part 7: long_500k across the cards, then EP under TP over NCCL."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.launch.dist import spawn
+
+    if world != 4:
+        print(f"dist cards long: needs 4 ranks, got {world}", file=sys.stderr)
+        return False
+    ok = True
+    for label, arch, data, model, layers in LONG_RUNS:
+        t0 = time.perf_counter()
+        recs = spawn(long_cards_rank, world, device=device, timeout_s=1800,
+                     args=(arch, model, layers, not on_card))
+        good = not any(r["alloc_retries"] for r in recs)
+        for p in recs[0]["positions"]:
+            per = [r["positions"][p] for r in recs]
+            same = all(torch.equal(per[0]["logits"], q["logits"]) for q in per[1:])
+            for q in per:
+                q.pop("logits")
+                differs = q["tokens"] != q["reference_tokens"]
+                tol = cs.TP_SERVE_DECODE_TOL.get(arch, cs.TP_SERVE_LOGIT_TOL)
+                good &= bool(same and q["combine_bytes_equal_model"]
+                             and q["f32_logits_rel"] <= cs.LONG_F32_TOL
+                             and q["logits_rel"] <= tol
+                             and q["cache_rel_max"] <= cs.TP_SERVE_CACHE_TOL
+                             and (not differs or q["reference_top2_margin_rel"] <= tol))
+        for r, rec in enumerate(recs):
+            print(f"dist cards long {label} rank {r}", json.dumps(rec), flush=True)
+        ok &= bool(good)
+        print(f"dist cards long {label}", json.dumps({
+            "ok": bool(good), "arch": arch, "mesh": {"data": data, "model": model},
+            "layers": recs[0]["layers"], "placed_shapes": recs[0]["placed_shapes"],
+            "logits_rel": {p: [r["positions"][p]["logits_rel"] for r in recs]
+                           for p in recs[0]["positions"]},
+            "f32_logits_rel": {p: recs[0]["positions"][p]["f32_logits_rel"]
+                               for p in recs[0]["positions"]},
+            "decode_step_ms": [r["decode_step_ms"] for r in recs],
+            "combine_bytes_model": recs[0]["combine_bytes_model"],
+            "peak_memory_gb": [r["peak_memory_gb"] for r in recs],
+            "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    t0 = time.perf_counter()
+    kw = None if on_card else dict(smoke=True, layers=None, train=("train_ep", "train", 16, 8),
+                                   decode=("decode_ep", "decode", 16, 8), steps=2)
+    with tempfile.TemporaryDirectory(prefix="ep_tp_") as ref_dir:
+        ref = spawn(ep_tp_rank, 2, device=device, timeout_s=1200, args=(ref_dir, 1, kw))
+        ranks = spawn(ep_tp_rank, world, device=device, timeout_s=1200, args=(ref_dir, 2, kw))
+    good = True
+    for r, rec in enumerate(ranks):
+        want = ref[rec["coords"]["data"]]
+        rec["losses_vs_tp1"] = max(abs(a - b) for a, b in zip(rec["losses"], want["losses"]))
+        lg, wl = rec.pop("decode_logits"), want["decode_logits"]
+        rec["decode_logits_rel"] = float(((lg - wl).abs().amax(-1)
+                                          / wl.abs().amax(-1)).max())
+        good &= bool(rec["losses_vs_tp1"] <= cs.TP_MOE_LOSS_TOL
+                     and rec["decode_logits_rel"] <= cs.TP_SERVE_LOGIT_TOL
+                     and all(b == rec["modeled_ep_bytes_per_step"] > 0
+                             for b in rec["ep_bytes_per_step"])
+                     and rec["decode_ep_bytes"] == rec["modeled_decode_ep_bytes"] > 0
+                     and rec["wire_bytes_equal_executor_model"] and not rec["alloc_retries"])
+        print(f"dist cards long ep_tp rank {r}", json.dumps(rec), flush=True)
+    ok &= good
+    print("dist cards long ep_tp", json.dumps({
+        "ok": good, "mesh": ranks[0]["mesh"], "losses": [r["losses"] for r in ranks],
+        "reference_losses": [r["losses"] for r in ref],
+        "losses_vs_tp1": [r["losses_vs_tp1"] for r in ranks],
+        "decode_logits_rel": [r["decode_logits_rel"] for r in ranks],
+        "step_wall_s": [r["step_wall_s"] for r in ranks],
+        "reference_step_wall_s": [r["step_wall_s"] for r in ref],
+        "ep_bytes_per_step": [r["ep_bytes_per_step"][-1] for r in ranks],
+        "peak_memory_gb": [r["peak_memory_gb"] for r in ranks],
+        "wall_s": round(time.perf_counter() - t0, 2)}), flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
@@ -592,7 +806,7 @@ def main() -> int:
                     help="ranks (default: every card; required with --device cpu)")
     ap.add_argument("--parts", default="executor,all_reduce,train,tp,serve_tp",
                     help="comma-separated parts to run (default: every multi-rank part; "
-                         "bf16_gap runs on the first card)")
+                         "bf16_gap runs on the first card; long runs only when named)")
     ap.add_argument("--tp-runs", default=None,
                     help="comma-separated labels of TP_RUNS and OPT_SEQ_RUNS for the tp part "
                          "(default: all)")
@@ -635,6 +849,8 @@ def main() -> int:
     if "serve_tp" in parts:
         ok &= serve_tp_part(args.device, world, on_card,
                             args.serve_runs.split(",") if args.serve_runs else None)
+    if "long" in parts:
+        ok &= long_part(args.device, world, on_card)
     return 0 if ok else 1
 
 

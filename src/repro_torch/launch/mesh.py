@@ -18,6 +18,9 @@ process group on a :class:`ProcessMesh`. The layers below (collectives,
 the MoE exchange, the tensor-parallel ops) branch on it and nothing
 else.
 
+:func:`make_production_mesh` is the JAX package's 16 × 16 (or
+2 × 16 × 16) mesh in the process form.
+
 A ``model`` (TP) axis larger than 1 exists only on a
 :class:`ProcessMesh`, where each rank holds its shards of the state
 (``parallel.sharding.shard_tree``) and the model code runs Megatron's
@@ -177,6 +180,21 @@ class ProcessMesh:
 
     def __repr__(self) -> str:
         return f"ProcessMesh({self.shape}, rank={self.rank})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProcessMesh:
+    """The production mesh over the initialised ``torch.distributed``
+    world, one rank per process: ``("data", "model")`` = (16, 16) (256
+    ranks), or ``("pod", "data", "model")`` = (2, 16, 16) with
+    ``multi_pod`` (512 ranks), as ``repro.launch.mesh``'s. A world of
+    any other size raises ``ValueError`` naming it."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    world = dist.get_world_size()
+    if world != math.prod(shape):
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} needs "
+                         f"{math.prod(shape)} ranks; the world has {world}")
+    return ProcessMesh(axes, shape)
 
 
 def make_process_mesh(data: int | None = None, model: int = 1,

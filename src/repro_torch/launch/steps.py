@@ -11,6 +11,7 @@ partition specs of its inputs and outputs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable
@@ -624,17 +625,25 @@ def build_cell(
     real device the rank's zero block, ``init_cache`` under the mesh);
     meta tensors of those block shapes on the meta device.
     ``in_specs``/``out_specs`` stay JAX's. Train, prefill and decode
-    cells build for all ten architectures. A flat-dispatch MoE cell over
-    a live ``data`` axis takes the global batch's capacity where JAX's
-    cell is a GSPMD function of it (prefill, decode, the xla train step;
-    the ranks exchange their per-expert counts), and each rank's own in
-    the Torrent train step, whose reduce JAX runs per ``shard_map`` rank
-    (``models.moe``). What the process form does not build raises
-    ``NotImplementedError`` (:func:`_refuse_process_cell`):
-    ``long_500k``, whose cache splits slots over ``data`` (ROADMAP item
-    9c, entry 9), and heads the TP size does not divide without
-    ``attn_seq_shard`` (the ``opt-seq`` variant sets it; whisper-tiny's
-    6 heads at TP = 4)."""
+    cells build for all ten architectures, ``long_500k`` included: its
+    one sequence is replicated on every rank (token spec ``P()``), and
+    its cache's slots are split over ``data`` as ``cache_pspecs`` splits
+    them, each rank holding the one row and ``slots / data`` slots of
+    each ``k``/``v`` (``ckv``/``krope``) leaf; its step runs under
+    ``hints.replicated_batch``, a sequence-parallel decode whose softmax
+    is combined over ``data`` (``models.attention``), and a MoE layer
+    there takes the one token's capacity with no exchange over ``data``.
+    A flat-dispatch MoE cell over a live ``data`` axis takes the global
+    batch's capacity where JAX's cell is a GSPMD function of it
+    (prefill, decode, the xla train step; the ranks exchange their
+    per-expert counts), and each rank's own in the Torrent train step,
+    whose reduce JAX runs per ``shard_map`` rank (``models.moe``). The
+    ``moe-ep*`` variants run expert parallelism over ``data`` under a
+    live ``model`` axis too (``moe._moe_apply_ep_auto``). Heads the TP
+    size does not divide without ``attn_seq_shard`` raise
+    ``NotImplementedError`` (:func:`_refuse_process_cell`; the
+    ``opt-seq`` variant sets the flag; whisper-tiny's 6 heads at
+    TP = 4)."""
     cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     overrides = dict(VARIANTS.get(variant) or {})
     knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
@@ -678,14 +687,19 @@ def build_cell(
             return whole
         return map_tree(lambda x: x.clone(), shd.shard_tree(whole, spec_tree, mesh))
 
+    # a decode cell of one sequence (long_500k): its token is replicated
+    # (spec P()) and its cache's slots are split over data
+    replicated = shape.kind == "decode" and shape.global_batch == 1
+
     def on_mesh(fn: Callable) -> Callable:
-        """``fn``, run under ``hints.set_mesh(mesh)`` on a process mesh:
-        the model code finds its TP group there."""
+        """``fn``, run under ``hints.set_mesh(mesh)`` on a process mesh
+        (and ``hints.replicated_batch`` for a replicated decode batch):
+        the model code finds its TP group and its slot group there."""
         if not process:
             return fn
 
         def step(*args):
-            with hints.set_mesh(mesh):
+            with hints.set_mesh(mesh), _replicated(replicated):
                 return fn(*args)
 
         return step
@@ -726,10 +740,10 @@ def build_cell(
     tok_spec = P() if shape.global_batch == 1 else _sanitize(P(shd.BATCH_AXES), mesh)
     if meta:
         cache = shd.place_cache(specs["cache"], cspecs, cfg, mesh) if process else specs["cache"]
-    elif process:  # the rank's zero block
-        with hints.set_mesh(mesh):
-            cache = T.init_cache(cfg, shape.global_batch // dp_size_of(mesh), shape.seq_len,
-                                 device=dev)
+    elif process:  # the rank's zero block: its rows, or every row and its block of the slots
+        rows_here = shape.global_batch if replicated else shape.global_batch // dp_size_of(mesh)
+        with hints.set_mesh(mesh), _replicated(replicated):
+            cache = T.init_cache(cfg, rows_here, shape.seq_len, device=dev)
     else:
         cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
     return Cell(
@@ -742,18 +756,26 @@ def build_cell(
     )
 
 
+def _replicated(on: bool):
+    """``hints.replicated_batch()`` where ``on``, else a no-op block."""
+    return hints.replicated_batch() if on else contextlib.nullcontext()
+
+
 def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
     """Raise for the cells :func:`build_cell` does not build on a
-    ``ProcessMesh``: ``long_500k`` (naming its ROADMAP item 9c entry),
-    and an attention that ``transformer.check_tp`` refuses at the mesh's
-    TP size (heads it does not divide without ``attn_seq_shard``)."""
+    ``ProcessMesh``: an attention that ``transformer.check_tp`` refuses
+    at the mesh's TP size (heads it does not divide without
+    ``attn_seq_shard``), a global batch the DP ranks do not divide
+    (``ValueError``), and a one-sequence decode cell (``long_500k``)
+    whose cache slots the ``data`` size does not divide (``ValueError``,
+    from ``init_cache``'s blocks); such a cell otherwise builds, each
+    rank holding the whole batch and its block of the slots."""
     dp = dp_size_of(mesh)
-    if shape.global_batch == 1:
-        raise NotImplementedError(
-            f"{shape.name} on a ProcessMesh ({cfg.name}): its cache_pspecs split the cache's "
-            "slots over data, a sequence-parallel decode that is not ported (ROADMAP item 9c, "
-            "entry 9)")
     with hints.set_mesh(mesh):
         T.check_tp(cfg)
+    if shape.kind == "decode" and shape.global_batch == 1:
+        with hints.set_mesh(mesh), hints.replicated_batch():
+            T.init_cache(cfg, 1, shape.seq_len, device="meta")  # the slot blocks split
+        return
     if shape.global_batch % dp:
         raise ValueError(f"global batch {shape.global_batch} does not split over {dp} DP ranks")

@@ -32,7 +32,11 @@ shards of the state as ``parallel.sharding.param_pspecs`` places them
 and runs the Megatron-style forward and backward (``parallel.tp``) of
 the dense, MoE, MLA, Mamba-2 and hybrid families (experts over
 ``model``, MLA by heads, Mamba-2 by ``d_inner``); the Torrent reduction
-runs over the DP group:
+runs over the DP group. A MoE config with ``moe_ep_dispatch`` (handed in
+as ``Trainer(model_cfg=)``) runs expert parallelism over the DP group
+there too, each model column exchanging its tokens and a rank running
+the experts it owns over ``data`` that lie in its ``model`` block
+(``models.moe``), in the Torrent and the xla step:
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --smoke \
         --steps 20 --collectives torrent --tp 2 --device cpu

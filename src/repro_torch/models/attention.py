@@ -56,6 +56,26 @@ gathers its new row before writing it. The compressed MLA cache
 gives it no split); it is not multicast between the ranks, whatever
 the JAX module's docstring says of a Chainwrite multicast to the
 shards.
+
+Sequence-parallel decode (a ``long_500k`` cell: its one row replicated
+on every rank, ``parallel.hints.replicated_batch``): ``cache_pspecs``
+splits a decode cache's slots over ``data``, so a rank holds block
+``r`` of ``slots / n`` slots of each ``k``/``v`` (``ckv``/``krope``)
+leaf (:func:`gqa_init_cache`, :func:`mla_init_cache` under
+``hints.seq_group``). A decode step writes the new row only on the rank
+that owns global slot ``pos % slots``, masks by the global slot ids
+(the ring buffer's wrap and the not-yet-written slots as on the whole
+cache), and combines the softmax over the group with three small
+all-reduces (:func:`_slot_softmax`, :func:`_slot_sum`): the max of the
+scores, the sum of their exponentials, and, after each rank has
+normalised its block of the weights (and rounded them to the cache's
+bf16 where the whole-cache decode does), the sum of the ranks' weighted
+values. The rounding then falls on the same normalised weights as on
+the whole cache; an unnormalised flash-decoding merge would round other
+values. A rank with no valid slot contributes zeros (its scores are
+``NEG_INF``, whose exponentials under the global max are 0). Under a
+live ``model`` axis too, each rank runs its KV heads against its slot
+block: the two splits compose.
 """
 
 from __future__ import annotations
@@ -68,7 +88,7 @@ from repro_torch.kernels.flash_attention.chunked import attention_chunked
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.parallel import hints
-from repro_torch.parallel.tp import copy_to_tp, gather_from_tp, reduce_from_tp
+from repro_torch.parallel.tp import all_reduce, copy_to_tp, gather_from_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import apply_mrope, apply_rope, cast, matmul, normal
@@ -136,7 +156,8 @@ def _project_qkv(params, x, cfg: ModelConfig, group=None):
     if (Hkv * Dh) % tp:
         raise NotImplementedError(
             f"num_kv_heads·head_dim = {Hkv * Dh} at TP={tp}: param_pspecs leaves K/V whole, "
-            "and TP over whole K/V columns is not ported (ROADMAP item 9c)")
+            "and TP over whole K/V columns is not ported (no architecture of the repo has "
+            "such a K/V width; ROADMAP §3)")
     q = heads(_proj(params, x, cfg, "q"))
     # a block of the K/V columns: gather both in one collective
     kv = torch.stack([_proj(params, x, cfg, n) for n in "kv"])
@@ -328,6 +349,7 @@ def gqa_prefill(
     :func:`_project_qkv` gives the rank (all of them, identical on
     every rank, where ``num_kv_heads`` does not divide by the TP
     size)."""
+    _refuse_slot_split("gqa_prefill")
     B, S, _ = x.shape
     seq = _seq_group(cfg)
     if seq is not None:
@@ -363,9 +385,86 @@ def _cache_kv_heads(cfg: ModelConfig) -> int:
     return Hkv // tp if hints.tp_group() is not None and Hkv % tp == 0 else Hkv
 
 
+def _cache_slots(slots: int) -> int:
+    """The slots this rank's decode cache holds of ``slots`` logical
+    ones: its block of ``slots / n`` where ``hints.seq_group`` splits
+    them (``cache_pspecs``: over ``data`` at global batch 1), else all.
+    ``cache_pspecs`` splits only a slot count divisible by 16, and a
+    count the group does not divide cannot be placed (``ValueError``)."""
+    seq = hints.seq_group()
+    if seq is None:
+        return slots
+    n = dist.get_world_size(seq)
+    if slots % 16:
+        raise NotImplementedError(
+            f"a decode cache of {slots} slots under a replicated batch: cache_pspecs splits "
+            "only slot counts divisible by 16 over data, and the port's sequence-parallel "
+            "decode takes split caches only")
+    if slots % n:
+        raise ValueError(f"{slots} cache slots do not split over {n} data ranks")
+    return slots // n
+
+
+def _refuse_slot_split(what: str) -> None:
+    """Raise where a decode cache's slots are split (``hints.seq_group``)
+    for ``what``, which writes a whole cache: the split is a decode
+    cell's (``long_500k`` has no prefill cell in either package)."""
+    if hints.seq_group() is not None:
+        raise NotImplementedError(
+            f"{what} under a replicated batch whose decode cache splits its slots over data: "
+            "only the decode step runs sequence-parallel")
+
+
+def _local_slots(local: int) -> tuple[int, int, object]:
+    """(the logical slot count, the global id of this rank's first slot,
+    the group) for a decode cache of which this rank holds ``local``
+    slots (:func:`_cache_slots`)."""
+    seq = hints.seq_group()
+    if seq is None:
+        return local, 0, None
+    return local * dist.get_world_size(seq), dist.get_rank(seq) * local, seq
+
+
+def _write_row(cache: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor, base: int,
+               val: torch.Tensor) -> None:
+    """``cache[rows, slot] = val`` in place, ``slot`` a global slot id per
+    row: on a rank holding slots ``[base, base + local)`` of them, only
+    the rows whose slot it holds are written (a read-modify-write
+    with no read back to the host)."""
+    local = slot - base
+    mine = (local >= 0) & (local < cache.shape[1])
+    at = local.clamp(0, cache.shape[1] - 1)
+    mask = mine.reshape(mine.shape + (1,) * (val.dim() - 1))
+    cache[rows, at] = torch.where(mask, val.to(cache.dtype), cache[rows, at])
+
+
+def _slot_softmax(s: torch.Tensor, seq) -> torch.Tensor:
+    """Softmax over the last dim of scores whose slots the ranks of
+    ``seq`` hold in blocks: the max and the sum of the exponentials
+    all-reduced over it, so each rank gets its block of the whole
+    softmax (``exp(s - max) / sum``, JAX's formula). ``torch.softmax``
+    without a group."""
+    if seq is None:
+        return torch.softmax(s, dim=-1)
+    m = all_reduce(s.amax(-1, keepdim=True), seq, op=dist.ReduceOp.MAX)
+    e = torch.exp(s - m)
+    return e / all_reduce(e.sum(-1, keepdim=True), seq)
+
+
+def _slot_sum(x: torch.Tensor, seq) -> torch.Tensor:
+    """The sum of the ranks' partial products with their slot blocks
+    (``x`` itself without a group)."""
+    return x if seq is None else all_reduce(x, seq)
+
+
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
+    """A zero GQA decode cache: ``batch`` rows of ``min(max_seq,
+    window)`` slots (a ring buffer under a sliding window) of the KV
+    heads the rank reads (:func:`_cache_kv_heads`); under a slot split
+    (``hints.seq_group``) this rank's block of the slots
+    (:func:`_cache_slots`)."""
     slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    shape = (batch, slots, _cache_kv_heads(cfg), cfg.resolved_head_dim)
+    shape = (batch, _cache_slots(slots), _cache_kv_heads(cfg), cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -391,7 +490,9 @@ def gqa_decode(
     holds (:func:`gqa_prefill`); where that is all of them, the new K/V
     row is gathered before it is written, so the ranks' caches stay
     equal, and each query head reads its KV head by
-    :func:`_rank_kv_index`."""
+    :func:`_rank_kv_index`. Under a slot split (``hints.seq_group``)
+    ``cache`` is this rank's block of the slots, and the softmax is
+    combined over the group (module docstring)."""
     B = x.shape[0]
     Dh = cfg.resolved_head_dim
     group = _tp_heads_group(cfg)
@@ -412,11 +513,16 @@ def gqa_decode(
         q, k = _rope_qk(q, k, pos_b, cfg)
 
     ck, cv = cache["k"], cache["v"]
-    slots = ck.shape[1]
+    # the logical slots; under a slot split this rank's block starts at base
+    slots, base, seq = _local_slots(ck.shape[1])
     rows = torch.arange(B, device=x.device)
     slot_b = (pos_b[:, 0] % slots).long()  # ring-buffer slot per row
-    ck[rows, slot_b] = k[:, 0].to(ck.dtype)
-    cv[rows, slot_b] = v[:, 0].to(cv.dtype)
+    if seq is None:
+        ck[rows, slot_b] = k[:, 0].to(ck.dtype)
+        cv[rows, slot_b] = v[:, 0].to(cv.dtype)
+    else:  # only the rank holding the slot writes it
+        _write_row(ck, rows, slot_b, base, k[:, 0])
+        _write_row(cv, rows, slot_b, base, v[:, 0])
 
     ck, cv = _select_kv(ck, cv, _rank_kv_index(cfg, group, x.device))
     H, Hkv = q.shape[2], ck.shape[2]  # this rank's query heads and the KV heads they read
@@ -428,12 +534,12 @@ def gqa_decode(
         "bhgd,bshd->bhgs", qh.to(ck.dtype).float(), ck.float()
     ) * (Dh ** -0.5)
     # Valid slots: written positions only (a ring buffer is fully valid
-    # once wrapped; before wrapping, slots > pos are empty).
-    slot_ids = torch.arange(slots, device=x.device)
-    valid = (pos_b >= slots) | (slot_ids[None, :] <= pos_b)  # (B, slots)
+    # once wrapped; before wrapping, slots > pos are empty), by global id.
+    slot_ids = base + torch.arange(ck.shape[1], device=x.device)
+    valid = (pos_b >= slots) | (slot_ids[None, :] <= pos_b)  # (B, local slots)
     scores = torch.where(valid[:, None, None, :], scores, torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgs,bshd->bhgd", p.to(cv.dtype).float(), cv.float())
+    p = _slot_softmax(scores, seq)
+    out = _slot_sum(torch.einsum("bhgs,bshd->bhgd", p.to(cv.dtype).float(), cv.float()), seq)
     out = out.reshape(B, 1, H * Dh).to(x.dtype)
     return reduce_from_tp(out @ cast(params["wo"]), group), cache
 
@@ -489,11 +595,15 @@ def _mla_out(params, out: torch.Tensor, like: torch.Tensor, cfg: ModelConfig, gr
     return reduce_from_tp(out, group)
 
 
-def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask, group=None):
+def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask, group=None, *,
+                seq=None):
     """Attention over recovered K/V. c: (B,T,r); k_rope: (B,T,dr);
     q_*: (B,S,H,*). mask: (S,T) or per-row (B,S,T) boolean, or None
     (full). With a TP ``group``, ``H`` is this rank's heads, recovered
-    by its columns of ``w_uk``/``w_uv``, and the output is reduced."""
+    by its columns of ``w_uk``/``w_uv``, and the output is reduced. With
+    a slot group ``seq`` (a decode step), ``c``/``k_rope`` are this
+    rank's block of the positions: the softmax and the weighted sum of
+    the values are combined over ``seq``."""
     if cfg.attn_impl == "chunked" and mask is not None and mask.dim() == 2:
         return _mla_attend_chunked(params, q_nope, q_rope, c, k_rope, cfg, group)
     B, T = c.shape[:2]
@@ -510,8 +620,8 @@ def _mla_attend(params, q_nope, q_rope, c, k_rope, cfg: ModelConfig, mask, group
     if mask is not None:
         m = mask[:, None] if mask.dim() == 3 else mask[None, None]
         s = torch.where(m, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhst,bthd->bshd", p, v.float())
+    p = _slot_softmax(s, seq)
+    out = _slot_sum(torch.einsum("bhst,bthd->bshd", p, v.float()), seq)
     return _mla_out(params, out, q_nope, cfg, group)
 
 
@@ -586,6 +696,7 @@ def mla_prefill(
     """Full-sequence MLA that also emits the compressed decode cache;
     on a live TP group split by heads (:func:`mla_apply`), the cache
     whole and equal on every rank."""
+    _refuse_slot_split("mla_prefill")
     B, S, _ = x.shape
     group = _tp_heads_group(cfg, mla=True)
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
@@ -597,10 +708,14 @@ def mla_prefill(
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
+    """A zero compressed decode cache of ``batch`` rows and ``max_seq``
+    positions; under a slot split this rank's block of the positions
+    (:func:`_cache_slots`)."""
     r, dr = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    T = _cache_slots(max_seq)
     return {
-        "ckv": torch.zeros((batch, max_seq, r), dtype=torch.bfloat16, device=device),
-        "krope": torch.zeros((batch, max_seq, dr), dtype=torch.bfloat16, device=device),
+        "ckv": torch.zeros((batch, T, r), dtype=torch.bfloat16, device=device),
+        "krope": torch.zeros((batch, T, dr), dtype=torch.bfloat16, device=device),
     }
 
 
@@ -614,7 +729,10 @@ def mla_decode(
     """Single-token MLA decode against the compressed cache, written in
     place and returned (as :func:`gqa_decode`); ``cfg.mla_absorb``
     takes :func:`_mla_decode_absorbed`. On a live TP group both forms
-    run this rank's heads against the whole compressed cache."""
+    run this rank's heads against the whole compressed cache; under a
+    slot split (``hints.seq_group``) against this rank's block of its
+    positions, the softmax combined over the group (module
+    docstring)."""
     B = x.shape[0]
     group = _tp_heads_group(cfg, mla=True)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -622,30 +740,36 @@ def mla_decode(
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, pos_b, cfg, group)
     ckv, krope = cache["ckv"], cache["krope"]
+    _, base, seq = _local_slots(ckv.shape[1])
     rows, at = torch.arange(B, device=x.device), pos_b[:, 0].long()
-    ckv[rows, at] = c[:, 0].to(ckv.dtype)
-    krope[rows, at] = k_rope[:, 0].to(krope.dtype)
+    if seq is None:
+        ckv[rows, at] = c[:, 0].to(ckv.dtype)
+        krope[rows, at] = k_rope[:, 0].to(krope.dtype)
+    else:  # only the rank holding the position writes it
+        _write_row(ckv, rows, at, base, c[:, 0])
+        _write_row(krope, rows, at, base, k_rope[:, 0])
     if cfg.mla_absorb:
         return _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg,
-                                    group), cache
-    T = ckv.shape[1]
-    cols = torch.arange(T, device=x.device)
+                                    group, base=base, seq=seq), cache
+    cols = base + torch.arange(ckv.shape[1], device=x.device)
     if per_slot:
         mask = cols[None, None, :] <= pos[:, None, None]  # (B, 1, T)
     else:
         mask = (cols <= pos)[None, :]  # (1, T)
-    return _mla_attend(params, q_nope, q_rope, ckv, krope, cfg, mask, group), cache
+    return _mla_attend(params, q_nope, q_rope, ckv, krope, cfg, mask, group, seq=seq), cache
 
 
 def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConfig,
-                         group=None):
+                         group=None, *, base: int = 0, seq=None):
     """Weight-absorbed MLA decode (the same math): W_uk is absorbed into
     the query and W_uv into the output, so attention runs against the
     compressed ``(r + dr)``-wide cache instead of recovering
     ``2·T·H·(dn + dv)`` K/V values. bf16 operands with f32 products and
     sums (JAX's ``preferred_element_type=f32``). With a TP ``group``,
     this rank's heads (its columns of ``w_uk``/``w_uv``), and ``wo``'s
-    partial sums reduced over it."""
+    partial sums reduced over it. With a slot group ``seq``, ``ckv`` and
+    ``krope`` are this rank's block of the positions from ``base`` on,
+    the softmax and the weighted sum of ``ckv`` combined over ``seq``."""
     B = q_nope.shape[0]
     H, r = _mla_heads(params, cfg), cfg.kv_lora_rank
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -658,10 +782,11 @@ def _mla_decode_absorbed(params, q_nope, q_rope, ckv, krope, pos, cfg: ModelConf
         + torch.einsum("bhd,btd->bht", q_rope[:, 0].to(krope.dtype).float(), krope.float())
     ) * (dn + dr) ** -0.5
     pos_b = pos.reshape(-1, 1)  # (B,1) or (1,1)
-    mask = (torch.arange(T, device=ckv.device)[None, :] <= pos_b)[:, None, :]
+    mask = (base + torch.arange(T, device=ckv.device)[None, :] <= pos_b)[:, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    o_c = torch.einsum("bht,btr->bhr", p.to(ckv.dtype).float(), ckv.float())  # (B,H,r)
+    p = _slot_softmax(s, seq)
+    o_c = _slot_sum(torch.einsum("bht,btr->bhr", p.to(ckv.dtype).float(), ckv.float()),
+                    seq)  # (B,H,r)
     out = torch.einsum("bhr,rhd->bhd", o_c, w_uv.float())
     return reduce_from_tp(out.reshape(B, 1, H * dv).to(q_nope.dtype) @ cast(params["wo"]), group)
 

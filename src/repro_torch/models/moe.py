@@ -55,7 +55,10 @@ assignments, and one f32 ``reduce_from_tp`` sums the ranks' combines
 with their shared-expert partial sums. ``copy_to_tp`` sits on the
 router weights ``top_p`` and on the split branches' input, so the
 replicated router and the layer's input get their whole grads.
-``moe_ep_dispatch`` (EP over the DP axes) is refused there.
+``moe_ep_dispatch`` (EP over the DP axes) composes with that split: the
+chain all-to-alls run over each model column's DP group, and a rank
+runs the experts it owns over ``data`` that lie in its ``model`` block
+(:func:`moe_apply_ep`).
 
 On a ``ProcessMesh`` whose DP axes are live, a rank holds its own rows.
 The flat dispatch then takes the capacity, the positions and the aux
@@ -423,6 +426,7 @@ def moe_apply_ep(
     scheduler: str = "tsp",
     wire_dtype: str | None = None,
     group=None,
+    tp_groups: tuple = (None, None),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Expert-parallel MoE on the stacked view: ``x`` is ``(n, B_loc,
     S, d)``, row ``r`` virtual device ``r``'s local tokens, and the
@@ -453,7 +457,25 @@ def moe_apply_ep(
     and ``params`` this rank's tree; the exchanges run over the group
     (their backward is the transposed exchange; no gradient crosses an
     int8 wire, as in the stacked executor) and the aux statistics are
-    averaged over it."""
+    averaged over it.
+
+    ``tp_groups`` (the process form under a live ``model`` axis:
+    :func:`_tp_groups`' expert and shared-expert groups) composes EP
+    over ``group`` (the DP axes) with the experts split over ``model``
+    as ``param_pspecs`` places them. The tokens are replicated over
+    ``model``, so every model column routes them alike and runs the
+    same exchanges over its own DP group; ownership is JAX's (DP rank
+    ``d`` owns experts ``[d·E/n, (d+1)·E/n)``, capacities per pair and
+    per local expert as above). Rank ``(d, m)`` runs the owned experts
+    that lie in its model block (``[m·E/tp, (m+1)·E/tp)``, the experts
+    it holds) and returns zeros for the rest; the combine is summed over
+    ``model`` with the shared experts' column blocks (:func:`_tp_out`),
+    so each expert's output comes from the one column that ran it.
+    ``copy_to_tp`` sits on the dispatched tokens and on the router
+    weights, whose grads are each column's share. An expert's grads come
+    from its owner row alone, and the DP reduce averages them, as at
+    TP = 1. Where ``E/n`` and ``E/tp`` blocks do not nest, some ranks run
+    no expert (E = 64 on ``(2, 2)``: ranks ``(0, 1)`` and ``(1, 0)``)."""
     from repro_torch.core import chainwrite_dist as cwd
     from repro_torch.parallel.collectives import torrent_all_to_all
 
@@ -486,6 +508,12 @@ def moe_apply_ep(
                 return torrent_all_to_all(t[0], wire_dtype=wire, group=group, **a2a)[None]
         return _GroupAllToAll.apply(t[0], group, num_chains, scheduler)[None]
 
+    eg, sg = tp_groups
+    if (eg is not None or sg is not None) and group is None:
+        raise ValueError("a model group needs the process form (group=)")
+    # the split branches' input: each model column's grad holds its share
+    xs = copy_to_tp(xf, eg if eg is not None else sg)
+
     # -- routing (f32, local tokens; global aux via row-averaged stats) -
     router = torch.stack([p["router"] for p in params]) if ranked else params["router"]
     probs, top_p, top_e = _route(xf, router, k)  # (R, T, ...)
@@ -499,7 +527,8 @@ def moe_apply_ep(
     dest = flat_e // E_loc  # owner device per assignment
     pos = _positions((rows * n + dest).reshape(-1), R * n).reshape(R, T * k)
     C_pair = _bucket_capacity(T * k, n, cfg.capacity_factor)
-    xk = xf[:, :, None].expand(R, T, k, d).reshape(R, T * k, d)
+    xe = xs if eg is not None else xf
+    xk = xe[:, :, None].expand(R, T, k, d).reshape(R, T * k, d)
     send = _put((R, n, C_pair), (rows, dest, pos), xk)
     send_e = _put((R, n, C_pair), (rows, dest, pos), flat_e.to(torch.int32), fill=-1)
 
@@ -524,35 +553,51 @@ def moe_apply_ep(
              for name in ("wg", "wu", "wd")]
     elif group is None:
         w = [params[name] for name in ("wg", "wu", "wd")]
-    else:  # this rank's experts
+    else:  # this rank's experts: its owned ones that lie in its model block
         me = cwd.group_rank(group)
-        w = [params[name][me * E_loc : (me + 1) * E_loc] for name in ("wg", "wu", "wd")]
-    out_buf = _experts(buf.reshape(R * E_loc, C_loc, d), *w)
-    out_buf = out_buf.reshape(R, E_loc, C_loc, d)
+        lo, hi, at = me * E_loc, (me + 1) * E_loc, 0
+        if eg is not None:
+            E_tp = E // dist.get_world_size(eg)
+            at = dist.get_rank(eg) * E_tp  # the first expert this rank holds
+            lo, hi = max(lo, at), min(hi, at + E_tp)
+            hi = max(hi, lo)  # no owned expert in the model block
+        w = [params[name][lo - at:hi - at] for name in ("wg", "wu", "wd")]
+    if group is not None and eg is not None:  # the other owned experts read zeros
+        j0, j1 = lo - me * E_loc, hi - me * E_loc
+        ran = _experts(buf[0, j0:j1], *w)
+        out_buf = torch.cat([ran.new_zeros((j0,) + ran.shape[1:]), ran,
+                             ran.new_zeros((E_loc - j1,) + ran.shape[1:])])[None]
+    else:
+        out_buf = _experts(buf.reshape(R * E_loc, C_loc, d), *w)
+        out_buf = out_buf.reshape(R, E_loc, C_loc, d)
 
     # -- results back to the token owners, combine at the source --------
     back = _take(out_buf, (rows2, le_s, pos2)).reshape(R, n, C_pair, d)
     ret = exchange(back, wire_dtype)
     gathered = _take(ret, (rows, dest, pos)).reshape(R, T, k, d)
-    out = _with_shared(params, cfg, xf, _combine(gathered, top_p))
+    if eg is None and sg is None:
+        out = _with_shared(params, cfg, xf, _combine(gathered, top_p))
+    else:  # summed over model with the shared experts' column blocks
+        out = _tp_out(params, cfg, xf, xs, _combine(gathered, copy_to_tp(top_p, eg)), eg, sg)
     return out.to(x.dtype).reshape(R, B, S, d), aux
 
 
 def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelConfig):
-    """Route ``cfg.moe_ep_dispatch`` (refused under a live ``model``
-    axis): with a virtual mesh named by
+    """Route ``cfg.moe_ep_dispatch``: with a virtual mesh named by
     ``parallel.hints.set_mesh`` whose DP group divides the experts and
     the batch, split the batch into that many rows, run
     :func:`moe_apply_ep` on them and merge; with a mesh whose DP axes
     have a process group (``mesh.group``) that divides the experts, run
-    this rank's tokens through its process form; anything else (no
-    mesh, no DP axis, indivisible experts or batch) takes the
-    single-device path, which per-row params (a list) cannot take."""
-
-    if hints.tp_size() > 1:
-        raise NotImplementedError(
-            f"moe_ep_dispatch at TP={hints.tp_size()}: expert parallelism over the DP axes "
-            "composed with experts over model is not ported (ROADMAP item 9c, entry 4)")
+    this rank's tokens through its process form, composed with the
+    experts' split over a live ``model`` axis (:func:`moe_apply_ep`'s
+    ``tp_groups``); anything else (no mesh, no DP axis, indivisible
+    experts or batch) takes the single-device path, which per-row params
+    (a list) cannot take. The global batch JAX's ``shard_map`` would
+    split over the DP axes is the ranks' rows together, or, inside
+    ``hints.replicated_batch`` (``long_500k``: one sequence on every
+    rank), the rank's own rows, which one token never divides: that
+    falls back as JAX's does, the flat path taking the one token's
+    capacity."""
 
     def fallback():
         if isinstance(params, list):
@@ -572,12 +617,19 @@ def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelCon
     group = mesh.group(dp)
     if cfg.num_experts % n or (group is None and x.shape[0] % n):
         return fallback()
+    if group is not None and n > 1 and hints.batch_replicated():
+        if x.shape[0] % n:
+            return fallback()
+        raise NotImplementedError(
+            f"moe_ep_dispatch on {x.shape[0]} replicated rows over {n} DP ranks: JAX's "
+            "shard_map would split them; only a batch the DP ranks do not divide (which "
+            "falls back) is ported")
     # moe_ep_chains must divide the EP group; degrade to the single ring
     K = cfg.moe_ep_chains if cfg.moe_ep_chains > 1 and n % cfg.moe_ep_chains == 0 else 1
     if group is not None:  # this rank's tokens, exchanged over the mesh's DP group
         out, aux = moe_apply_ep(params, x[None], cfg, num_chains=K,
                                 wire_dtype="int8" if cfg.moe_ep_int8_wire else None,
-                                group=group)
+                                group=group, tp_groups=_tp_groups(cfg))
         return out[0], aux
     B, S, d = x.shape
     out, aux = moe_apply_ep(

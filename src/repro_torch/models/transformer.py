@@ -59,6 +59,10 @@ output through ``copy_to_tp``) and its GeLU FFNs split by heads and
 columns, its 51,865-row table and ``pos_emb`` whole. Heads the TP size
 does not divide run with ``attn_seq_shard`` (``models.attention``: the
 query sequence sharded), and :func:`check_tp` refuses them without it.
+A one-sequence decode (``long_500k``, under ``hints.replicated_batch``)
+runs on every DP rank with the whole batch and the rank's block of the
+cache's slots, the attention's softmax combined over ``data``
+(``models.attention``'s sequence-parallel decode).
 """
 
 from __future__ import annotations
@@ -455,7 +459,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda") -> dic
     rank's block of it, as :func:`prefill` builds it there: the KV heads
     the rank's attention reads (its block, or all of them where the TP
     size does not divide them), a Mamba-2 layer's heads and conv window
-    (``models.mamba2.mamba2_init_cache``); ``batch`` is the rank's rows."""
+    (``models.mamba2.mamba2_init_cache``); ``batch`` is the rank's rows.
+    Inside ``hints.replicated_batch`` on a mesh whose ``data`` axis is
+    live (``long_500k``: ``batch`` is the whole, replicated batch), each
+    ``k``/``v`` and ``ckv``/``krope`` leaf holds the rank's block of the
+    slots, as ``cache_pspecs`` splits them (``models.attention``); the
+    Mamba-2 leaves, which have no slot axis, stay whole on every DP
+    rank."""
     device = resolve_device(device)
     cache: dict = {"layers": groups_init_cache(cfg, batch, max_seq, device)}
     if cfg.is_encdec:

@@ -24,6 +24,15 @@ positions and aux statistics), :func:`global_dp_group` names the group
 to reduce it over, and :func:`manual_axes` marks a block as a
 ``shard_map`` body, where each rank keeps its own.
 
+A long-context decode cell (``long_500k``: global batch 1, its token
+spec ``P()``) is the other case: every rank holds the whole, replicated
+batch, and ``cache_pspecs`` splits the decode cache's slots over
+``data`` instead (sequence parallelism). Inside :func:`replicated_batch`
+no statistic of the global batch is reduced over the DP axes
+(:func:`global_dp_group` is ``None``: a rank's batch is the global one),
+and :func:`seq_group` names the group over which the cache's slots are
+split, which the decode's softmax is combined over.
+
 Logical axis vocabulary:
 * ``BATCH``  -> ``("pod", "data")``  (data parallel, pods included)
 * ``TP``     -> ``"model"``          (tensor / expert parallel)
@@ -46,6 +55,8 @@ AxisLike = str | tuple[str, ...] | None
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
 _MANUAL: contextvars.ContextVar = contextvars.ContextVar("repro_torch_manual", default=())
+_REPLICATED: contextvars.ContextVar = contextvars.ContextVar("repro_torch_replicated",
+                                                            default=False)
 
 
 def dp_axes(axis_names) -> tuple[str, ...]:
@@ -127,15 +138,49 @@ def manual_axis_names() -> tuple[str, ...]:
     return _MANUAL.get()
 
 
+@contextlib.contextmanager
+def replicated_batch():
+    """Inside the block every rank holds the whole global batch,
+    replicated over the DP axes (a decode cell whose token spec is
+    ``P()``: ``long_500k``), so :func:`global_dp_group` reduces nothing
+    over them, and a decode cache's slots are split over ``data``
+    (:func:`seq_group`), as ``cache_pspecs`` splits them at global batch
+    1."""
+    token = _REPLICATED.set(True)
+    try:
+        yield
+    finally:
+        _REPLICATED.reset(token)
+
+
+def batch_replicated() -> bool:
+    """Whether the batch is replicated over the DP axes
+    (:func:`replicated_batch`)."""
+    return _REPLICATED.get()
+
+
+def seq_group():
+    """The process group over which a decode cache's slots are split on
+    the active mesh (JAX's ``SEQ`` axis, ``data``): inside
+    :func:`replicated_batch` on a mesh whose ``data`` axis is live and
+    not Manual; else ``None`` (the rank holds every slot)."""
+    mesh = concrete_mesh()
+    if (mesh is None or not _REPLICATED.get() or mesh.shape.get(SEQ, 1) == 1
+            or SEQ in _MANUAL.get()):
+        return None
+    return mesh.group(SEQ)
+
+
 def global_dp_group():
     """The process group over the active mesh's live DP axes where none
     of them is Manual: the group over which a statistic of the global
     batch is reduced, since JAX's GSPMD function sees the whole batch
     where this rank holds its rows. ``None`` without a mesh, on the
-    stacked view (which holds every row), with no live DP axis, or
-    inside :func:`manual_axes` of one."""
+    stacked view (which holds every row), with no live DP axis, inside
+    :func:`manual_axes` of one, or inside :func:`replicated_batch`
+    (the rank's batch is the global one)."""
     mesh = concrete_mesh()
-    if mesh is None:
+    if mesh is None or _REPLICATED.get():
         return None
     live = tuple(a for a in dp_axes(mesh.axis_names) if mesh.shape.get(a, 1) > 1)
     if not live or set(live) & set(_MANUAL.get()):
@@ -144,17 +189,18 @@ def global_dp_group():
 
 
 def snapshot():
-    """A context-manager factory that re-enters the active mesh and
-    Manual axes: for a remat'd recompute, which runs on the autograd
-    engine's thread for a CUDA device."""
-    mesh, manual = _MESH.get(), _MANUAL.get()
+    """A context-manager factory that re-enters the active mesh, the
+    Manual axes and :func:`replicated_batch`: for a remat'd recompute,
+    which runs on the autograd engine's thread for a CUDA device."""
+    mesh, manual, replicated = _MESH.get(), _MANUAL.get(), _REPLICATED.get()
 
     @contextlib.contextmanager
     def enter():
-        t1, t2 = _MESH.set(mesh), _MANUAL.set(manual)
+        t1, t2, t3 = _MESH.set(mesh), _MANUAL.set(manual), _REPLICATED.set(replicated)
         try:
             yield
         finally:
+            _REPLICATED.reset(t3)
             _MANUAL.reset(t2)
             _MESH.reset(t1)
 

@@ -298,7 +298,11 @@ def place_cache(cache: PyTree, specs: PyTree, cfg: ModelConfig, mesh) -> PyTree:
     ``cache`` (copies, so the whole leaves can be freed; meta tensors
     will do), by ``specs`` (:func:`cache_pspecs` of the logical cache):
     the batch over the DP axes, ``k``/``v`` by KV heads where the TP
-    size divides them, ``ssm`` by heads, ``ckv``/``krope`` whole.
+    size divides them, ``ssm`` by heads, ``ckv``/``krope`` whole; at
+    global batch 1 (``long_500k``) the batch whole and the slots of
+    ``k``/``v`` and ``ckv``/``krope`` over ``data`` instead, each rank
+    its block of ``slots / data`` (a ``data`` size that does not divide
+    them raises ``ValueError``).
 
     One leaf departs from its spec. ``conv`` (reps, B, W-1, conv_dim)
     is the window of the raw ``[x, B, C]`` projections, and

@@ -236,8 +236,27 @@ def _seq_attn_bytes(cfg, tokens: int, tp: int, act_bytes: int, *, kv_heads: int,
             sum(n for n, _ in sizes) * act_bytes + act + kv_tokens * d * act_bytes)
 
 
+def _slot_combine_bytes(spec, cfg, rows: int, tp: int) -> int:
+    """The f32 payload of one decode step's softmax combine over a slot
+    split (``models.attention``: sequence parallelism) in a layer of
+    ``spec``: the max and the sum of exponentials, ``(rows, H)`` each,
+    and the weighted values, ``(rows, H, Dh)`` (MLA: ``dv``, or the
+    compressed ``r`` when absorbed), for the query heads ``H`` the rank
+    runs (its block where the TP size divides them, else all)."""
+    if spec.mixer == "mla":
+        heads = cfg.num_heads // tp
+        width = cfg.kv_lora_rank if cfg.mla_absorb else cfg.v_head_dim
+    elif spec.mixer == "gqa":
+        heads = cfg.num_heads // tp if cfg.num_heads % tp == 0 else cfg.num_heads
+        width = cfg.resolved_head_dim
+    else:
+        return 0
+    return rows * heads * (2 + width) * 4
+
+
 def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int, *, enc_tokens: int = 0,
-                    dp: int = 1, decode: bool = False) -> tuple[int, int, int]:
+                    dp: int = 1, decode: bool = False,
+                    slot_split: int = 1) -> tuple[int, int, int]:
     """(forward, backward, tail) payload bytes of one layer of ``spec``
     on ``tokens`` at TP ``tp``; ``tail`` is the forward's last
     all-reduce where nothing after it in the layer saves a tensor for
@@ -245,9 +264,12 @@ def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int, *, enc_toke
     ``enc_tokens``: the encoder output's rows a cross-attention reads;
     ``dp``: the DP ranks whose per-expert counts a flat MoE dispatch
     exchanges (the global batch's capacity); ``decode``: a one-row
-    decode step."""
+    decode step; ``slot_split``: the ranks over which its cache's slots
+    are split (the softmax combine over them)."""
     act = tokens * cfg.d_model * act_bytes
     fwd = bwd = 0
+    if decode and slot_split > 1:
+        fwd += _slot_combine_bytes(spec, cfg, tokens, tp)
     mixer_out = 0
     seq = tp > 1 and cfg.attn_seq_shard
     if tp == 1:
@@ -371,7 +393,8 @@ def _encoder_groups(cfg):
     return encoder_config(cfg).layer_groups()
 
 
-def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1) -> dict:
+def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1,
+                           slot_split: int = 1) -> dict:
     """The payload bytes :data:`tp_counter` counts for one prefill of
     ``batch`` rows of ``seq`` tokens on this rank (``seq=1``: one decode
     step of ``batch`` rows) of ``cfg`` at TP ``tp``: the forward alone,
@@ -387,13 +410,18 @@ def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1) -
     the vocab is split, the embedding's all-reduce (not for a vlm
     prompt's precomputed embeddings) and the gather of the
     f32 last-token logits (each rank sends its ``batch × V/tp``
-    block)."""
+    block). With ``slot_split`` > 1 (a decode step whose cache's slots
+    are split over that many ``data`` ranks: ``long_500k``), each
+    attention layer's softmax combine too: two ``(batch, H)`` f32
+    reductions and one of the weighted values, ``(batch, H, Dh)`` f32
+    (:func:`_slot_combine_bytes`); its batch is replicated, so ``dp``
+    stays 1 there."""
     from repro_torch.models.layers import COMPUTE_DTYPE
 
     act_bytes = COMPUTE_DTYPE.itemsize
     tokens = batch * seq
     enc_tokens = batch * cfg.encoder_seq_len if cfg.is_encdec else 0
-    kw = dict(enc_tokens=enc_tokens, dp=dp, decode=seq == 1)
+    kw = dict(enc_tokens=enc_tokens, dp=dp, decode=seq == 1, slot_split=slot_split)
     fwd = sum(reps * sum(_layer_tp_bytes(spec, cfg, tokens, tp, act_bytes, **kw)[0]
                          for spec in pattern)
               for pattern, reps in cfg.layer_groups())
@@ -408,6 +436,50 @@ def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1) -
     return {"fwd": fwd, "bwd": 0}
 
 
+def modeled_ep_bytes(cfg, tokens: int, dp: int, rank: int, *, train: bool = False,
+                     remat: bool = True) -> int:
+    """The bytes this process puts on the wire
+    (``core.chainwrite_dist.wire_counter``) in the expert-parallel
+    exchanges of ``cfg``'s MoE layers (``moe_apply_ep``'s process form)
+    on ``tokens`` of its own, over ``dp`` DP ranks, as group rank
+    ``rank``: per layer, three chain all-to-alls of ``cfg.moe_ep_chains``
+    rings (one where they do not divide ``dp``) — the tokens
+    ``(dp, C_pair, d)`` in the compute dtype (int8 frames under
+    ``moe_ep_int8_wire``), their expert ids ``(dp, C_pair)`` int32, the
+    results back. ``train``: a train step, whose backward runs the
+    transposed exchange of each exact token exchange and whose remat'd
+    recompute (``remat``) runs the forward's again. Under a live
+    ``model`` axis every model column runs the same exchanges over its
+    own DP group, so a rank's count does not depend on the TP size."""
+    from repro_torch.core import program as prg
+    from repro_torch.core.chainwrite_dist import sent_wire_bytes
+    from repro_torch.models.layers import COMPUTE_DTYPE
+    from repro_torch.models.moe import _bucket_capacity
+    from repro_torch.parallel.collectives import _axis_orders
+
+    moe_layers = sum(reps * sum(s.ffn == "moe" for s in pattern)
+                     for pattern, reps in cfg.layer_groups())
+    if not moe_layers or dp == 1:
+        return 0
+    K = cfg.moe_ep_chains if cfg.moe_ep_chains > 1 and dp % cfg.moe_ep_chains == 0 else 1
+    orders = tuple(_axis_orders(dp, K, "tsp"))
+    wire = "int8" if cfg.moe_ep_int8_wire else None
+    C = _bucket_capacity(tokens * cfg.moe_top_k, dp, cfg.capacity_factor)
+    act = COMPUTE_DTYPE.itemsize
+
+    def a2a(elems: int, elem_bytes: int, wire_dtype=None) -> int:
+        prog = prg.plan_all_to_all(dp, orders, wire_dtype=wire_dtype)
+        return sent_wire_bytes(prog, elems * (4 if wire_dtype else elem_bytes), 1, rank)
+
+    tok = a2a(dp * C * cfg.d_model, act, wire)
+    ids = a2a(dp * C, 4)
+    fwd = 2 * tok + ids
+    if not train:
+        return moe_layers * fwd
+    bwd = 0 if wire else 2 * tok
+    return moe_layers * (fwd * (2 if remat else 1) + bwd)
+
+
 __all__ = ["TPCounter", "all_gather", "all_reduce", "copy_to_tp", "gather_from_tp",
-           "modeled_tp_bytes", "modeled_tp_serve_bytes", "reduce_from_tp", "sum_over_tp",
-           "timed", "tp_counter", "vocab_parallel_ce"]
+           "modeled_ep_bytes", "modeled_tp_bytes", "modeled_tp_serve_bytes", "reduce_from_tp",
+           "sum_over_tp", "timed", "tp_counter", "vocab_parallel_ce"]

@@ -2,8 +2,9 @@
 
 Serving side: replica loss re-forms the live multicast plan instead of
 rebuilding it (:func:`scale_down_plan`). Training side: the mesh is
-re-factorized (:func:`choose_mesh_shape`, :func:`make_elastic_mesh`, a
-virtual mesh), and :func:`reshard_state` places a restored logical state
+re-factorized (:func:`choose_mesh_shape`, :func:`make_elastic_mesh`: a
+process mesh over the ``torch.distributed`` world, or the stacked virtual
+mesh without one), and :func:`reshard_state` places a restored logical state
 on a mesh: on a ``ProcessMesh`` this rank keeps its shards, as JAX's
 ``device_put`` onto a new layout leaves them on a device; in the stacked
 view, which holds the whole state, it is a device move.
@@ -12,9 +13,10 @@ view, which holds the whole state, it is a device move.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import VirtualMesh, make_host_mesh
+from repro_torch.launch.mesh import ProcessMesh, VirtualMesh, make_host_mesh, make_process_mesh
 from repro_torch.tree import map_tree
 
 
@@ -53,8 +55,16 @@ def choose_mesh_shape(num_devices: int, preferred_tp: int) -> tuple[int, int]:
     return num_devices // tp, tp
 
 
-def make_elastic_mesh(num_devices: int, preferred_tp: int) -> VirtualMesh:
+def make_elastic_mesh(num_devices: int, preferred_tp: int) -> VirtualMesh | ProcessMesh:
+    """The ``(data, model)`` mesh :func:`choose_mesh_shape` factors
+    ``num_devices`` into: a :class:`~repro_torch.launch.mesh.ProcessMesh`
+    over the ``torch.distributed`` world when it is initialised (which
+    must hold ``num_devices`` processes), else the stacked
+    :class:`~repro_torch.launch.mesh.VirtualMesh` (which refuses a
+    ``model`` axis > 1: TP runs in the process form only)."""
     data, model = choose_mesh_shape(num_devices, preferred_tp)
+    if dist.is_available() and dist.is_initialized():
+        return make_process_mesh(data=data, model=model)
     return make_host_mesh(data=data, model=model)
 
 

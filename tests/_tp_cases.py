@@ -277,8 +277,18 @@ SMOKE_TRAIN_CELLS = {"yi-6b": ("yi-6b", "2x2", "xla"),
                      "deepseek-moe-16b": ("deepseek-moe-16b", "2x2", "torrent"),
                      "deepseek-moe-16b/xla": ("deepseek-moe-16b", "2x2", "xla"),
                      "qwen2-vl-7b": ("qwen2-vl-7b", "2x2", "xla"),
-                     "whisper-tiny": ("whisper-tiny", "2x2", "xla")}
+                     "whisper-tiny": ("whisper-tiny", "2x2", "xla"),
+                     "deepseek-moe-16b/moe-ep": ("deepseek-moe-16b", "2x2", "torrent")}
+# the cells that take a variant, and how many steps they run (default:
+# baseline, one): the moe-ep cell, EP over data under a live model axis
+CELL_VARIANTS = {"deepseek-moe-16b/moe-ep": ("moe-ep", 2)}
 SMOKE_TRAIN = ("train_smoke", "train", 32, 4)  # JAX's smoke train shape
+# the moe-ep cell's xla step, held against its Torrent step: JAX's xla
+# step never reaches EP (ROADMAP §3), so it has no JAX counterpart
+EP_XLA_CELL = ("deepseek-moe-16b/moe-ep/xla", ("deepseek-moe-16b", "2x2", "xla"))
+# EP under TP: the smoke deepseek-moe-16b (8 experts, top-2) with
+# moe_ep_dispatch on (2, 2); a MoE layer's input (B_EP rows of S_EP)
+EP_ARCH, B_EP, S_EP = "deepseek-moe-16b", 4, 8
 
 
 def meta_train_cells(mesh, archs, variant: str = "baseline", shape: str = "train_4k") -> dict:
@@ -318,21 +328,136 @@ def smoke_train_cell(name: str, mesh, device) -> dict:
     from repro_torch.parallel.tp import tp_counter
     from repro_torch.tree import leaves
 
-    arch, _, collectives = SMOKE_TRAIN_CELLS[name]
+    arch, _, collectives = dict([EP_XLA_CELL]).get(name) or SMOKE_TRAIN_CELLS[name]
+    variant, steps = CELL_VARIANTS.get(name.removesuffix("/xla"), ("baseline", 1))
     C.SHAPES[SMOKE_TRAIN[0]] = Shape(*SMOKE_TRAIN)
     cell = build_cell(arch, SMOKE_TRAIN[0], mesh, smoke=True, device=device,
-                      collectives=collectives)
+                      collectives=collectives, variant=variant)
     params, opt, batch = cell.args
     before = [p.clone() for p in leaves(params)]
-    tp_counter.reset()
-    with compute_dtype(torch.float32):
-        params, opt, m = cell.step_fn(params, opt, batch)
+    losses, norms = [], []
+    for _ in range(steps):  # the last step's payload
+        tp_counter.reset()
+        with compute_dtype(torch.float32):
+            params, opt, m = cell.step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
     pspecs = shd.logical_pspecs(cell.cfg, mesh.shape["model"])
-    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+    return {"loss": losses[0], "grad_norm": norms[0], "losses": losses, "grad_norms": norms,
             "tp_bytes": dict(tp_counter.bytes),
             "mu": _np(opt["mu"]), "step": int(opt["step"]),
             "moved": all(not torch.equal(a, b) for a, b in zip(before, leaves(params))),
             "params": _np(shd.gather_tree(params, pspecs, mesh))}
+
+
+def ep_inputs() -> tuple[dict, np.ndarray]:
+    """A MoE layer of :data:`EP_ARCH` (the port's init, seed 5) and its
+    input ``(B_EP, S_EP, d)`` (seed 6), as numpy."""
+    from repro_torch import configs as C
+    from repro_torch.models import moe as M
+    from repro_torch.tree import map_tree
+
+    cfg = C.get_smoke_config(EP_ARCH)
+    p = map_tree(lambda t: t.numpy(), M.moe_init(torch.Generator().manual_seed(5), cfg, "cpu"))
+    x = np.random.default_rng(6).standard_normal((B_EP, S_EP, cfg.d_model)).astype(np.float32)
+    return p, x
+
+
+def ep_case(mesh, device) -> dict:
+    """Expert parallelism over ``data`` under a live ``model`` axis, f32
+    compute: the ``moe_ep_dispatch`` route of one MoE layer on this
+    rank's rows of :func:`ep_inputs` (its experts' ``param_pspecs``
+    block), its output and aux loss, the EP bytes it sent; the bytes the
+    smoke model's grad function sends (the forward's exchanges, the
+    remat'd recompute's and the backward's transposes); and the
+    ``moe-ep`` decode cell on ``mesh`` (tokens, cache gathered, EP
+    bytes)."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.core import chainwrite_dist as cwd
+    from repro_torch.launch.steps import build_cell, make_grad_fn
+    from repro_torch.models import moe as M
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.spec import keep_axes
+    from repro_torch.tree import map_tree
+
+    tp, dp, i = mesh.shape["model"], mesh.shape["data"], mesh.dp_index
+    cfg = dataclasses.replace(C.get_smoke_config(EP_ARCH), moe_ep_dispatch=True)
+    p_np, x_np = ep_inputs()
+    whole = params_from_numpy(p_np, device)
+    params = shd.shard_tree(whole, shd.param_pspecs(whole, cfg, tp=tp), mesh)
+    n = B_EP // dp
+    x = torch.from_numpy(x_np[i * n:(i + 1) * n]).to(device)
+    out = {}
+    with torch.no_grad(), compute_dtype(torch.float32), hints.set_mesh(mesh):
+        cwd.wire_counter.reset()
+        y, aux = M.moe_apply(params, x, cfg)
+        out["layer"] = {"out": _np(y), "aux": float(aux), "ep_bytes": cwd.wire_counter.bytes}
+
+    # the smoke model's grads on the rank's rows, the DP axes Manual (the
+    # Torrent step's grad function): the EP exchanges alone
+    C.SHAPES[SMOKE_TRAIN[0]] = Shape(*SMOKE_TRAIN)
+    cell = build_cell(EP_ARCH, SMOKE_TRAIN[0], mesh, smoke=True, device=device, variant="moe-ep")
+    cwd.wire_counter.reset()
+    with compute_dtype(torch.float32), hints.set_mesh(mesh), hints.manual_axes(("data",)):
+        make_grad_fn(cell.cfg, remat="dots", loss_chunks=2)(cell.args[0], cell.args[2])
+    out["grad_ep_bytes"] = cwd.wire_counter.bytes
+
+    C.SHAPES["decode_smoke"] = Shape("decode_smoke", "decode", 16, B_EP)
+    cell = build_cell(EP_ARCH, "decode_smoke", mesh, smoke=True, device=device, variant="moe-ep")
+    cwd.wire_counter.reset()
+    with torch.no_grad(), compute_dtype(torch.float32):
+        tok, cache = cell.step_fn(*cell.args)
+    specs = map_tree(lambda sp: keep_axes(sp, ("model",)), shd.logical_cache_pspecs(
+        cell.cfg, cell.shape, B_EP // dp, 16, tp))
+    out["decode"] = {"tokens": tok.cpu().numpy().copy(), "ep_bytes": cwd.wire_counter.bytes,
+                     "cache": _np(shd.gather_cache(cache, specs, cell.cfg, mesh))}
+    return out
+
+
+def ep_trainers(root: str, device) -> dict:
+    """The ``Trainer`` at ``tp=2`` on the world's ``(2, 2)`` mesh with
+    :data:`EP_ARCH`'s ``moe_ep_dispatch`` config, in f32 compute, with
+    the Torrent and the xla step: the losses of its steps."""
+    from repro_torch import configs as C
+    from repro_torch.launch.train import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(C.get_smoke_config(EP_ARCH), moe_ep_dispatch=True)
+    out = {}
+    for coll in ("torrent", "xla"):
+        tr = Trainer(TrainConfig(ckpt_dir=os.path.join(root, f"ep_{coll}"), tp=2,
+                                 collectives=coll, **EP_TRAINER), device=device, model_cfg=cfg)
+        with compute_dtype(torch.float32):
+            out[coll] = tr.run()["losses"]
+    return out
+
+
+# the EP Trainer runs (the stacked TP = 1 one with dp=2 alike)
+EP_TRAINER = dict(arch=EP_ARCH, smoke=True, steps=2, global_batch=8, seq_len=16,
+                  peak_lr=2e-3, warmup_steps=1, ckpt_every=100, loss_chunks=2, log_every=100)
+
+
+def mesh_forms() -> dict:
+    """The meshes in the process form on a 4-rank world:
+    ``make_elastic_mesh`` (a ``ProcessMesh`` under ``torch.distributed``)
+    and ``make_production_mesh``'s refusal of a world that is not 256 or
+    512 ranks."""
+    from repro_torch.launch.mesh import ProcessMesh, make_production_mesh
+    from repro_torch.runtime.elastic import make_elastic_mesh
+
+    out = {}
+    for tp in (2, 4, 3):
+        m = make_elastic_mesh(4, tp)
+        out[f"elastic_{tp}"] = (type(m) is ProcessMesh, m.shape, dict(m.coords))
+    for multi in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi)
+            out[f"production_{multi}"] = None
+        except ValueError as e:
+            out[f"production_{multi}"] = str(e)
+    return out
 
 
 def zero1_trainer(mesh, params_np, root: str, device) -> dict:
@@ -378,7 +503,8 @@ def refusals(mesh, device) -> dict:
     """The message the training forward of each of :data:`LEFT_OUT`, of a
     dense config whose heads the TP size does not divide (no
     ``attn_seq_shard``) and of a MoE config with ``moe_ep_dispatch``
-    (EP over the DP axes composed with experts over ``model``), and
+    (EP over the DP axes composed with experts over ``model``: it
+    runs), and
     qwen2-vl's prefill, raise with on ``mesh`` (a live ``model`` axis);
     ``None`` where it runs; and ``attn_seq_shard`` with the flash
     kernel (``seq_flash``)."""
@@ -452,7 +578,10 @@ def world4_rank(rank: int, world: int, device, params_np, batch_np, root: str,
     there (:func:`meta_train_cells`, :func:`smoke_train_cell`), the
     ``Trainer`` on (2, 2) with its checkpoints in ``root``, restored on
     (4, 1), and the stacked ``Trainer``'s checkpoint (``stacked_ckpt``)
-    restored on both, the JAX package's (``jax_ckpt``) on (2, 2)."""
+    restored on both, the JAX package's (``jax_ckpt``) on (2, 2); EP
+    under TP on (2, 2) (:func:`ep_case`, the moe-ep cell's xla step, the
+    EP ``Trainer``s) and the meshes in the process form
+    (:func:`mesh_forms`)."""
     from repro_torch.launch.mesh import make_process_mesh
 
     meshes = {"1x4": make_process_mesh(model=4), "2x2": make_process_mesh(data=2, model=2)}
@@ -471,6 +600,10 @@ def world4_rank(rank: int, world: int, device, params_np, batch_np, root: str,
         out["meta_cells"][f"4x1/{shape}"] = meta_train_cells(dp4, CELL_ARCHS, shape=shape)
     out["smoke_cells"] = {name: smoke_train_cell(name, zmeshes[m], device)
                           for name, (_, m, _) in SMOKE_TRAIN_CELLS.items() if m in zmeshes}
+    out["smoke_cells"][EP_XLA_CELL[0]] = smoke_train_cell(EP_XLA_CELL[0], meshes["2x2"], device)
+    out["ep"] = ep_case(meshes["2x2"], device)
+    out["ep_trainers"] = ep_trainers(root, device)
+    out["mesh_forms"] = mesh_forms()
     d = os.path.join(root, "zero1_2x2")
     out["trainer"] = zero1_trainer(meshes["2x2"], params_np, d, device)
     out["restore"] = {"2x2_at_4x1": restore_placed(d, dp4, device),

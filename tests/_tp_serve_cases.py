@@ -57,12 +57,26 @@ OPT_SEQ_ARCHS = ("yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deep
                  "jamba-v0.1-52b", "qwen2-vl-7b", "whisper-tiny")
 SMOKE_CELL_ARCHS = ("yi-6b", "deepseek-moe-16b", "deepseek-v2-lite-16b", "mamba2-2.7b",
                     "jamba-v0.1-52b")
-SMOKE_SHAPES = {"prefill_smoke": ("prefill", 16, 2), "decode_smoke": ("decode", 16, 2)}
+SMOKE_SHAPES = {"prefill_smoke": ("prefill", 16, 2), "decode_smoke": ("decode", 16, 2),
+                "long_smoke": ("decode", 64, 1)}
+# long_500k at smoke size: one sequence (replicated on every rank), its
+# cache's LONG_SLOTS slots split over data (a count divisible by 16, as
+# cache_pspecs needs to split it)
+LONG_SHAPE = "long_smoke"
+LONG_SLOTS = SMOKE_SHAPES[LONG_SHAPE][1]
+# the long-context configs decoded from a seeded whole cache: jamba (its
+# GQA layer, its flat MoE under the one replicated token), h2o-danube
+# with a window of 32 (a ring buffer), deepseek-v2-lite's MLA and
+# mamba2 (nothing split over data)
+LONG_EDGES = {"h2o_window_32": ("h2o-danube-1.8b", dict(sliding_window=32))}
+LONG_NAMES = ("jamba-v0.1-52b", "h2o_window_32", "deepseek-v2-lite-16b", "mamba2-2.7b")
+LONG_MESHES = ("1x2", "2x1", "2x2")
+LONG_CELL_ARCHS = ("mamba2-2.7b", "jamba-v0.1-52b", "h2o-danube-1.8b")  # long_500k's archs
 # cells once refused on a ProcessMesh and what each does now: the arch,
 # the shape, the mesh it is asked on, and the words of its refusal
 # (None: it builds)
 CELL_REFUSALS = {"train": ("qwen2-vl-7b", "train_4k", "1x2", None),
-                 "long_500k": ("mamba2-2.7b", "long_500k", "1x2", ("9c", "entry 9", "slots")),
+                 "long_500k": ("mamba2-2.7b", "long_500k", "1x2", None),
                  "qwen2-vl-7b": ("qwen2-vl-7b", "prefill_32k", "1x2", None),
                  "whisper-tiny": ("whisper-tiny", "decode_32k", "1x4",
                                   ("num_heads=6", "attn_seq_shard")),
@@ -83,6 +97,9 @@ def config(name: str):
     from repro_torch import configs as C
     from repro_torch.launch.steps import VARIANTS
 
+    if name in LONG_EDGES:
+        arch, changes = LONG_EDGES[name]
+        return dataclasses.replace(C.get_smoke_config(arch), **changes)
     if name in FIXED_EDGES:
         arch, variant, changes = FIXED_EDGES[name]
         return dataclasses.replace(C.get_smoke_config(arch), **VARIANTS[variant], **changes)
@@ -453,6 +470,114 @@ def serve_case(mesh, name: str, params_np: dict, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Long context: the sequence-parallel decode
+# ---------------------------------------------------------------------------
+
+
+def long_positions(name: str) -> tuple[int, ...]:
+    """The decode positions of a long-context config: 0 (only slot 0, on
+    data rank 0, is valid), one in the last data rank's block of the
+    cache's slots, and, where the cache is a ring (GQA, Mamba-2's
+    positionless state), one past its wrap; an MLA cache holds one slot
+    a position and no wrap."""
+    cfg = config(name)
+    slots = min(LONG_SLOTS, cfg.sliding_window) if cfg.sliding_window else LONG_SLOTS
+    last = slots - slots // 4 - 1  # in the last block on 2 data ranks
+    if any(s.mixer == "mla" for pattern, _ in cfg.layer_groups() for s in pattern):
+        return (0, last)
+    return (0, last, slots + last - slots // 2)  # wrapped into rank 0's block
+
+
+def long_cache(name: str) -> list[np.ndarray]:
+    """The seeded whole decode cache of ``name`` (one row, LONG_SLOTS
+    positions): each leaf's values, bf16 leaves rounded to bf16 (as f32
+    arrays, exact), from seed 4."""
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel import hints
+    from repro_torch.tree import leaves
+
+    with hints.set_mesh(None):
+        like = leaves(T.init_cache(config(name), 1, LONG_SLOTS, device="meta"))
+    gen = torch.Generator().manual_seed(4)
+    return [torch.randn(x.shape, generator=gen).to(x.dtype).float().numpy() for x in like]
+
+
+def long_case(mesh, name: str, params_np: dict, cache_np: list, device) -> dict:
+    """The one-token decode of ``name`` from its seeded whole cache
+    (``cache_np``) at each of :func:`long_positions`, in f32 compute: on
+    this rank's shards and its block of the cache placed by
+    ``cache_pspecs`` of the long shape (slots over ``data``), under
+    ``hints.replicated_batch`` (as ``build_cell``'s long_500k step runs),
+    and on the whole params and cache with no mesh (``ref``). Returns
+    per position the logits, the greedy token, the new cache gathered
+    (``gather_cache``), the model group's payload and the token counts
+    the MoE capacity was taken for; the placed leaves' shapes."""
+    from repro_torch import configs as C
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.tp import modeled_tp_serve_bytes, tp_counter
+    from repro_torch.tree import leaves, unflatten
+
+    cfg = config(name)
+    tp, dp = mesh.shape["model"], mesh.shape["data"]
+    shape = Shape(LONG_SHAPE, "decode", LONG_SLOTS, 1)
+    with hints.set_mesh(None):
+        like = T.init_cache(cfg, 1, LONG_SLOTS, device="meta")
+    specs = shd.cache_pspecs(like, cfg, shape, tp=tp)
+
+    def whole():  # a fresh copy: the decode writes its cache in place
+        return unflatten(like, [torch.tensor(a, device=device).to(x.dtype)
+                                for a, x in zip(cache_np, leaves(like))])
+
+    whole_params = params_from_numpy(params_np, device)
+    params = params_from_numpy(params_np, device, specs=shd.logical_pspecs(cfg, tp), mesh=mesh)
+    tok = torch.tensor([7], dtype=torch.int32, device=device)
+    capacity, seen = M.capacity, []
+
+    def recording(cfg_, tokens):
+        seen.append(tokens)
+        return capacity(cfg_, tokens)
+
+    out = {"ref": {}}
+    with torch.no_grad(), compute_dtype(torch.float32):
+        for pos in long_positions(name):
+            p = torch.tensor(pos, dtype=torch.int32)
+            logits, cache = T.decode_step(whole_params, cfg, tok, p, whole())
+            out["ref"][pos] = {"logits": _np(logits), "cache": _leaves_np(cache)}
+            placed = shd.place_cache(whole(), specs, cfg, mesh)
+            tp_counter.reset()
+            seen.clear()
+            M.capacity = recording
+            try:
+                with hints.set_mesh(mesh), hints.replicated_batch():
+                    logits, placed = T.decode_step(params, cfg, tok, p, placed)
+            finally:
+                M.capacity = capacity
+            out[pos] = {"bytes": dict(tp_counter.bytes), "capacity_tokens": list(seen),
+                        "logits": _np(logits), "token": int(logits.argmax(-1)[0]),
+                        "cache": _leaves_np(shd.gather_cache(placed, specs, cfg, mesh))}
+        out["placed_shapes"] = [tuple(x.shape) for x in leaves(placed)]
+        out["modeled"] = modeled_tp_serve_bytes(cfg, 1, 1, tp, slot_split=dp)
+    out["cache_keys"] = [k for k in _cache_keys(like)]
+    return out
+
+
+def _cache_keys(cache) -> list[str]:
+    from repro_torch.tree import paths
+
+    return [p[-1] for p, _ in paths(cache)]
+
+
+def long_cases(mesh, params_np: dict, caches_np: dict, device) -> dict:
+    return {name: long_case(mesh, name, params_np[name], caches_np[name], device)
+            for name in LONG_NAMES}
+
+
+# ---------------------------------------------------------------------------
 # Cells
 # ---------------------------------------------------------------------------
 
@@ -486,13 +611,16 @@ def _refused(build) -> str | None:
 
 def meta_cells(mesh) -> dict:
     """``build_cell`` on ``mesh`` for every arch of :data:`CELL_ARCHS` at
-    :data:`CELL_SHAPES` on the meta device, and at TP = 4 the ``opt-seq``
+    :data:`CELL_SHAPES` on the meta device, below TP = 4 the long_500k
+    cells of :data:`LONG_CELL_ARCHS`, and at TP = 4 the ``opt-seq``
     cells of :data:`OPT_SEQ_ARCHS`: each arg's leaf shapes and the
     cell's specs, or the message of a refusal."""
     from repro_torch.launch.steps import build_cell
 
     out = {}
     jobs = [(arch, shape, "baseline") for arch in CELL_ARCHS for shape in CELL_SHAPES]
+    if mesh.shape["model"] < 4:  # the meshes of LONG_MESHES
+        jobs += [(arch, "long_500k", "baseline") for arch in LONG_CELL_ARCHS]
     if mesh.shape["model"] == 4:
         jobs += [(arch, shape, "opt-seq") for arch in OPT_SEQ_ARCHS for shape in CELL_SHAPES]
     for arch, shape, variant in jobs:
@@ -532,9 +660,12 @@ def smoke_cells(mesh, device) -> dict:
         for shape in SMOKE_SHAPES:
             cell = build_cell(arch, shape, mesh, smoke=True, device=device)
             kind, seq, batch = SMOKE_SHAPES[shape]
-            # the rank's rows: its TP group's blocks gathered, not the DP ranks'
-            specs = map_tree(lambda sp: keep_axes(sp, ("model",)), shd.logical_cache_pspecs(
-                cell.cfg, cell.shape, batch // mesh.shape["data"], seq, mesh.shape["model"]))
+            if batch == 1:  # the one replicated row: its slots gathered over data too
+                specs = shd.logical_cache_pspecs(cell.cfg, cell.shape, 1, seq,
+                                                 mesh.shape["model"])
+            else:  # the rank's rows: its TP group's blocks gathered, not the DP ranks'
+                specs = map_tree(lambda sp: keep_axes(sp, ("model",)), shd.logical_cache_pspecs(
+                    cell.cfg, cell.shape, batch // mesh.shape["data"], seq, mesh.shape["model"]))
             with torch.no_grad(), compute_dtype(torch.float32):
                 first, cache = cell.step_fn(*cell.args)
             out[f"{arch}/{shape}"] = {
@@ -565,28 +696,49 @@ def _mesh_cases(mesh, params_np: dict, device, fixed: bool = True) -> dict:
     return out
 
 
-def world4_rank(rank: int, world: int, device, params_np: dict) -> dict:
+def world4_rank(rank: int, world: int, device, params_np: dict, caches_np: dict) -> dict:
     """(data=1, model=4) and (data=2, model=2) on 4 ranks: every config
     served on both meshes, the cells, and the refusals asked on
-    ``(2, 2)``."""
+    ``(2, 2)``; the long-context decode on ``(2, 2)``."""
     from repro_torch.launch.mesh import make_process_mesh
 
     meshes = {"1x4": make_process_mesh(model=4), "2x2": make_process_mesh(data=2, model=2)}
-    return {"mesh": {k: mesh_info(m) for k, m in meshes.items()},
-            "cases": {k: _mesh_cases(m, params_np, device) for k, m in meshes.items()},
-            "refusals": cell_refusals(meshes)}
+    out = {"mesh": {k: mesh_info(m) for k, m in meshes.items()},
+           "cases": {k: _mesh_cases(m, params_np, device) for k, m in meshes.items()},
+           "refusals": cell_refusals(meshes)}
+    out["cases"]["2x2"]["long"] = long_cases(meshes["2x2"], params_np, caches_np, device)
+    return out
 
 
-def world2_rank(rank: int, world: int, device, params_np: dict) -> dict:
+def world2_rank(rank: int, world: int, device, params_np: dict, caches_np: dict) -> dict:
     """(data=1, model=2) on 2 ranks: every config served, the cells, and
     the refusals; (data=2, model=1): the MoE arch of :data:`DP_NAMES`
-    served over data, its capacity the global batch's."""
+    served over data, its capacity the global batch's, and the
+    long_500k meta cells; the long-context decode on both."""
     from repro_torch.launch.mesh import make_process_mesh
 
     mesh = make_process_mesh(model=2)
     dp2 = make_process_mesh(data=2)
-    return {"mesh": {"1x2": mesh_info(mesh)},
-            "cases": {"1x2": _mesh_cases(mesh, params_np, device, fixed=False),
-                      "2x1": {"serve": {name: serve_case(dp2, name, params_np[name], device)
-                                        for name in DP_NAMES}}},
-            "refusals": cell_refusals({"1x2": mesh})}
+    out = {"mesh": {"1x2": mesh_info(mesh)},
+           "cases": {"1x2": _mesh_cases(mesh, params_np, device, fixed=False),
+                     "2x1": {"serve": {name: serve_case(dp2, name, params_np[name], device)
+                                       for name in DP_NAMES},
+                             "meta_cells": long_meta_cells(dp2)}},
+           "refusals": cell_refusals({"1x2": mesh})}
+    out["cases"]["1x2"]["long"] = long_cases(mesh, params_np, caches_np, device)
+    out["cases"]["2x1"]["long"] = long_cases(dp2, params_np, caches_np, device)
+    return out
+
+
+def long_meta_cells(mesh) -> dict:
+    """:func:`meta_cells`' record of the long_500k cells of
+    :data:`LONG_CELL_ARCHS` alone."""
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    for arch in LONG_CELL_ARCHS:
+        cell = build_cell(arch, "long_500k", mesh)
+        out[f"{arch}/long_500k"] = {"args": [_shapes(a) for a in cell.args],
+                                    "in_specs": [str(s) for s in _flat(cell.in_specs)],
+                                    "out_specs": [str(s) for s in _flat(cell.out_specs)]}
+    return out

@@ -28,6 +28,7 @@ leaves, the clipping norm's inputs and checkpoints: bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -149,11 +150,14 @@ for shape, coll in RUNS:
 # the smoke train cells, in f32 compute, from the port's params and batch
 L.COMPUTE_DTYPE = jnp.float32
 cells = {cells!r}
+variants = {variants!r}
 C.SHAPES[{smoke_train!r}[0]] = C.Shape(*{smoke_train!r})
 for name, (arch, mesh_name, coll) in cells.items():
+    variant, steps = variants.get(name, ("baseline", 1))
     dp, tp = (int(n) for n in mesh_name.split("x"))
     mesh = mesh_of((dp, tp))
-    cell = S.build_cell(arch, {smoke_train!r}[0], mesh, smoke=True, collectives=coll)
+    cell = S.build_cell(arch, {smoke_train!r}[0], mesh, smoke=True, collectives=coll,
+                        variant=variant)
     shapes = cell.args[0]
     p = jax.tree.unflatten(jax.tree.structure(shapes),
                            [d[f"cell/{{name}}/param{{i}}"] for i in range(len(jax.tree.leaves(shapes)))])
@@ -162,14 +166,50 @@ for name, (arch, mesh_name, coll) in cells.items():
         args = (jax.tree.map(jax.device_put, p, cell.in_shardings[0]),
                 jax.jit(lambda: adamw.init(p), out_shardings=cell.in_shardings[1])(),
                 {{k: jax.device_put(v, cell.in_shardings[2][k]) for k, v in b.items()}})
-        p, o, m = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
-                          out_shardings=cell.out_shardings)(*args)
-    out[f"cell/{{name}}/loss"] = np.asarray(m["loss"])
-    out[f"cell/{{name}}/norm"] = np.asarray(m["grad_norm"])
+        f = jax.jit(cell.step_fn, in_shardings=cell.in_shardings,
+                    out_shardings=cell.out_shardings)
+        for s in range(steps):
+            p, o, m = f(*args)
+            args = (p, o, args[2])
+            out[f"cell/{{name}}/loss{{s}}"] = np.asarray(m["loss"])
+            out[f"cell/{{name}}/norm{{s}}"] = np.asarray(m["grad_norm"])
+    out[f"cell/{{name}}/loss"] = out[f"cell/{{name}}/loss0"]
+    out[f"cell/{{name}}/norm"] = out[f"cell/{{name}}/norm0"]
     for i, x in enumerate(jax.tree.leaves(p)):
         out[f"cell/{{name}}/param{{i}}"] = np.asarray(x, np.float32)
     for i, x in enumerate(jax.tree.leaves(o["mu"])):
         out[f"cell/{{name}}/mu{{i}}"] = np.asarray(x, np.float32)
+
+# EP under a live model axis (f32 compute): one MoE layer through
+# moe_apply's moe_ep_dispatch route, and the moe-ep decode cell's serve
+# step at per-slot positions (JAX's scalar GQA decode writes its bf16
+# cache only in bf16 compute), on (2, 2)
+import dataclasses
+from repro.models import moe as JM
+mesh = mesh_of((2, 2))
+ecfg = dataclasses.replace(C.get_smoke_config({ep_arch!r}), moe_ep_dispatch=True)
+elike = jax.eval_shape(lambda: JM.moe_init(jax.random.PRNGKey(0), ecfg))
+ep = jax.tree.unflatten(jax.tree.structure(elike),
+                        [d[f"ep/p{{i}}"] for i in range(len(jax.tree.leaves(elike)))])
+with jax.set_mesh(mesh):
+    y, aux = jax.jit(lambda p, x: JM.moe_apply(p, x, ecfg),
+                     in_shardings=(named(mesh, shd.param_pspecs(elike, ecfg, tp=2)),
+                                   NamedSharding(mesh, P("data", None, None))))(ep, d["ep/x"])
+out["ep/out"], out["ep/aux"] = np.asarray(y), np.asarray(aux)
+like = jax.eval_shape(lambda: T.model_init(jax.random.PRNGKey(0), ecfg))
+p = jax.tree.unflatten(jax.tree.structure(like), [d[f"ep_decode/param{{i}}"]
+                                                  for i in range(len(jax.tree.leaves(like)))])
+shape = C.Shape("decode_smoke", "decode", 16, {b_ep})
+cache_like = jax.eval_shape(lambda: T.init_cache(ecfg, {b_ep}, 16))
+csh = S._named(mesh, shd.cache_pspecs(cache_like, ecfg, shape, tp=2))  # "pod" dropped
+rows = NamedSharding(mesh, P("data"))
+with jax.set_mesh(mesh):
+    serve = jax.jit(S.make_serve_step(ecfg), in_shardings=(named(mesh, shd.param_pspecs(like, ecfg, tp=2)), rows, rows, csh))
+    tok, cache = serve(p, d["ep_decode/tokens"], np.zeros(({b_ep},), np.int32),
+                       jax.tree.map(jax.device_put, T.init_cache(ecfg, {b_ep}, 16), csh))
+out["ep_decode/tokens"] = np.asarray(tok)
+for i, x in enumerate(jax.tree.leaves(cache)):
+    out[f"ep_decode/cache{{i}}"] = np.asarray(x, np.float32)
 np.savez({out!r}, **out)
 """
 
@@ -183,6 +223,16 @@ def smoke_cell_inputs() -> dict:
 
     out = {}
     shape = Shape(*tc.SMOKE_TRAIN)
+    p, x = tc.ep_inputs()
+    out.update({f"ep/p{i}": v for i, v in enumerate(leaves(p))})
+    out["ep/x"] = x
+    # the moe-ep decode cell's draws: the params (seed 0) and the tokens (seed 1)
+    cfg = C.get_smoke_config(tc.EP_ARCH)
+    for i, v in enumerate(leaves(T.model_init(torch.Generator().manual_seed(0), cfg, "cpu"))):
+        out[f"ep_decode/param{i}"] = v.numpy()
+    out["ep_decode/tokens"] = _concrete(input_specs(cfg, Shape("decode_smoke", "decode", 16,
+                                                               tc.B_EP))["tokens"],
+                                        cfg.vocab_size, torch.device("cpu"), 1).numpy()
     for name, (arch, _, _) in tc.SMOKE_TRAIN_CELLS.items():
         cfg = C.get_smoke_config(arch)
         p = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -207,7 +257,8 @@ def _jax_tp(run_multidevice, inputs, root):
     np.savez(root / "in.npz", **inputs[1], **smoke_cell_inputs())
     run_multidevice(_JAX_TP.format(inputs=str(root / "in.npz"), out=str(root / "out.npz"),
                                    arch=tc.ARCH, adamw=tc.LINEAR_ADAMW,
-                                   cells=tc.SMOKE_TRAIN_CELLS, smoke_train=tc.SMOKE_TRAIN),
+                                   cells=tc.SMOKE_TRAIN_CELLS, smoke_train=tc.SMOKE_TRAIN,
+                                   variants=tc.CELL_VARIANTS, ep_arch=tc.EP_ARCH, b_ep=tc.B_EP),
                     devices=4)
     got = dict(np.load(root / "out.npz"))
     n = len(jax.tree.leaves(inputs[0]))
@@ -227,10 +278,15 @@ def _jax_tp(run_multidevice, inputs, root):
     ref["cells"] = {}
     for name in tc.SMOKE_TRAIN_CELLS:
         k = len([x for x in got if x.startswith(f"cell/{name}/param")])
+        steps = tc.CELL_VARIANTS.get(name, ("baseline", 1))[1]
         ref["cells"][name] = {"loss": float(got[f"cell/{name}/loss"]),
                               "grad_norm": float(got[f"cell/{name}/norm"]),
+                              "losses": [float(got[f"cell/{name}/loss{s}"]) for s in range(steps)],
                               "params": [got[f"cell/{name}/param{i}"] for i in range(k)],
                               "mu": [got[f"cell/{name}/mu{i}"] for i in range(k)]}
+    ref["ep"] = {k.split("/", 1)[1]: v for k, v in got.items() if k.startswith("ep/")}
+    ref["ep_decode"] = {k.split("/", 1)[1]: v for k, v in got.items()
+                        if k.startswith("ep_decode/") and not k.startswith("ep_decode/param")}
     return ref
 
 
@@ -293,6 +349,14 @@ def _stacked_trainers(inputs, root) -> dict:
         out[name] = {"losses": res["losses"], "restarts": res["restarts"],
                      "state": [x.detach().numpy().copy() for x in leaves(tr.state)],
                      "dir": str(root / name)}
+    # the EP Trainer at TP = 1: two virtual DP ranks in one forward
+    cfg = dataclasses.replace(C.get_smoke_config(tc.EP_ARCH), moe_ep_dispatch=True)
+    out["ep"] = {}
+    for coll in ("torrent", "xla"):
+        tr = Trainer(TrainConfig(ckpt_dir=str(root / f"ep_{coll}"), dp=2, collectives=coll,
+                                 **tc.EP_TRAINER), device="cpu", model_cfg=cfg)
+        with tc.compute_dtype(torch.float32):
+            out["ep"][coll] = tr.run()["losses"]
     return out
 
 
@@ -589,15 +653,15 @@ def test_tp_payload_bytes_match_their_model(spawned, mesh):
                                                       "seq_flash"])
 def test_left_out_families_raise_naming_their_item(spawned, name):
     """Under a live model axis (TP = 2): the families once left out
-    (qwen2-vl's M-RoPE, whisper's encoder-decoder) train and qwen2-vl
-    prefills (``None``: no refusal); a dense config whose heads the TP
-    size does not divide raises ``NotImplementedError`` naming
-    ``attn_seq_shard``, a MoE config with ``moe_ep_dispatch`` naming
-    ROADMAP item 9c, entry 4, and ``attn_seq_shard`` with the flash
-    kernel naming both (the kernel takes no query offset)."""
+    (qwen2-vl's M-RoPE, whisper's encoder-decoder) train, qwen2-vl
+    prefills and a MoE config with ``moe_ep_dispatch`` trains (EP over
+    the one-rank DP group composed with experts over ``model``)
+    (``None``: no refusal); a dense config whose heads the TP size does
+    not divide raises ``NotImplementedError`` naming ``attn_seq_shard``,
+    and ``attn_seq_shard`` with the flash kernel naming both (the kernel
+    takes no query offset)."""
     world4, (world2, _) = spawned
     words = {"heads": ("num_heads=3", "attn_seq_shard"),
-             "moe_ep": ("9c", "entry 4", "moe_ep_dispatch"),
              "seq_flash": ("attn_seq_shard", "flash", "query offset")}
     for r in world2:
         msg = r["refusals"][name]
@@ -1024,8 +1088,10 @@ def test_serve_cells_build_over_data(spawned, arch, shape):
 def test_smoke_train_cells_match_jax_cell(spawned, jax_tp, name):
     """One step of the smoke train cell on its process mesh (yi-6b,
     deepseek-moe-16b with the Torrent reduce and with xla, qwen2-vl-7b
-    and whisper-tiny, each on ``(2, 2)``) against JAX's cell jitted on
-    the same mesh from the same draws, both in f32 compute: the loss,
+    and whisper-tiny, each on ``(2, 2)``), two of deepseek-moe-16b's
+    ``moe-ep`` cell (EP over ``data`` under a live ``model`` axis),
+    against JAX's cell jitted on
+    the same mesh from the same draws, both in f32 compute: the losses,
     the grad norm, each rank's ``mu`` blocks against its slice of JAX's,
     the gathered params, every param moved, and the payload
     ``modeled_tp_bytes`` gives (with the xla step's MoE count exchange,
@@ -1048,9 +1114,11 @@ def test_smoke_train_cells_match_jax_cell(spawned, jax_tp, name):
     pspecs = jshd.param_pspecs(like, cfg, tp=tp)
     specs = jax.tree.leaves(jshd.opt_pspecs(pspecs, like, data_size=dp)["mu"],
                             is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    steps = tc.CELL_VARIANTS.get(name, ("baseline", 1))[1]
     for r, out in enumerate(world2 if mesh == "2x1" else world4):
         got, m = out["smoke_cells"][name], _coords(mesh, r)
-        assert got["step"] == 1 and got["moved"]
+        assert got["step"] == steps and got["moved"]
+        assert np.allclose(got["losses"], ref["losses"], atol=LOSS_TOL, rtol=0)
         assert got["tp_bytes"] == payload
         assert abs(got["loss"] - ref["loss"]) < LOSS_TOL
         assert abs(got["grad_norm"] / ref["grad_norm"] - 1) < CELL_GRAD_NORM_REL
@@ -1063,3 +1131,125 @@ def test_smoke_train_cells_match_jax_cell(spawned, jax_tp, name):
                 assert (g * w).sum() / np.sqrt((g * g).sum() * (w * w).sum()) >= CELL_MU_COS
         for a, b in zip(got["params"], ref["params"]):
             np.testing.assert_allclose(a, b, atol=PARAM_TOL, rtol=PARAM_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism under a live model axis
+# ---------------------------------------------------------------------------
+
+# f32 compute on both sides: a MoE layer's output against JAX's within
+# EP_TOL of its max (the expert sums in another order), the aux loss as
+# close; routing on equal inputs is exact
+EP_TOL = 1e-5
+
+
+def test_ep_layer_under_tp_matches_jax(spawned, jax_tp):
+    """One MoE layer of the smoke deepseek-moe-16b (8 experts, top-2)
+    through ``moe_ep_dispatch`` on ``(2, 2)``: EP over ``data`` (data
+    rank ``d`` owning experts ``[4d, 4d + 4)``) composed with the
+    experts' ``param_pspecs`` blocks over ``model``, so ranks ``(0, 1)``
+    and ``(1, 0)`` run no expert; each rank's rows of the output within
+    1e-5 of the max of JAX's ``_moe_apply_ep_auto`` on a ``(2, 2)``
+    mesh, its aux loss equal to 1e-6, and the ranks of a model column
+    bit-equal."""
+    world4, _ = spawned
+    ref = jax_tp["ep"]
+    n = tc.B_EP // 2
+    for r, out in enumerate(world4):
+        got = out["ep"]["layer"]
+        d = r // 2
+        assert _max_rel(got["out"], ref["out"][d * n:(d + 1) * n]) < EP_TOL
+        assert abs(got["aux"] - float(ref["aux"])) < 1e-6
+    for d in range(2):
+        assert np.array_equal(world4[2 * d]["ep"]["layer"]["out"],
+                              world4[2 * d + 1]["ep"]["layer"]["out"])
+
+
+def test_ep_payload_under_tp_matches_the_model(spawned):
+    """The bytes a rank sends in the EP exchanges equal
+    ``modeled_ep_bytes``: a MoE layer's forward (three chain
+    all-to-alls over its model column's DP group), the moe-ep decode
+    cell's, and the smoke model's grad function's (the forward's, the
+    remat'd recompute's and the two token exchanges' transposes); the
+    same on every model column."""
+    from repro_torch.parallel.tp import modeled_ep_bytes
+
+    world4, _ = spawned
+    cfg = dataclasses.replace(C.get_smoke_config(tc.EP_ARCH), moe_ep_dispatch=True)
+    one = dataclasses.replace(cfg, num_layers=2)  # a dense layer, then one MoE layer
+    rows = tc.SMOKE_TRAIN[3] // 2 * tc.SMOKE_TRAIN[2]
+    with tc.compute_dtype(torch.float32):
+        for r, out in enumerate(world4):
+            d = r // 2
+            got = out["ep"]
+            assert got["layer"]["ep_bytes"] == modeled_ep_bytes(
+                one, tc.B_EP // 2 * tc.S_EP, 2, d) > 0
+            assert got["decode"]["ep_bytes"] == modeled_ep_bytes(cfg, tc.B_EP // 2, 2, d) > 0
+            assert got["grad_ep_bytes"] == modeled_ep_bytes(cfg, rows, 2, d, train=True) > 0
+
+
+def test_ep_decode_cell_under_tp_matches_jax(spawned, jax_tp):
+    """``build_cell("deepseek-moe-16b", "decode_smoke", (2, 2),
+    variant="moe-ep")`` run in f32 compute: each rank's greedy tokens
+    equal JAX's serve step jitted with the cell's shardings on a
+    ``(2, 2)`` mesh (its EP over ``data`` under GSPMD's ``model``), and
+    the cache gathered over the model group by the decoded rule (within
+    1e-2 of each leaf's scale)."""
+    world4, _ = spawned
+    ref = jax_tp["ep_decode"]
+    n = tc.B_EP // 2
+    for r, out in enumerate(world4):
+        got = out["ep"]["decode"]
+        rows = slice((r // 2) * n, (r // 2 + 1) * n)
+        assert np.array_equal(got["tokens"], ref["tokens"][rows])
+        for i, a in enumerate(got["cache"]):
+            b = ref[f"cache{i}"][:, rows]
+            assert a.shape == b.shape and _max_rel(a, b) < 1e-2, i
+
+
+def test_ep_xla_step_under_tp_matches_its_torrent_step(spawned):
+    """Two steps of the ``moe-ep`` smoke train cell on ``(2, 2)`` with
+    ``collectives="xla"`` (the backend's all-reduce of each rank's grads)
+    against the same cell's Torrent steps (the chain all-reduce): the
+    same function of the same draws, so losses within 1e-5 and the
+    gathered params within f32 rounding of sums in another order. (JAX's
+    xla step never reaches EP, so it has no JAX counterpart.)"""
+    world4, _ = spawned
+    for out in world4:
+        xla, torrent = out["smoke_cells"][tc.EP_XLA_CELL[0]], out["smoke_cells"][
+            "deepseek-moe-16b/moe-ep"]
+        assert np.allclose(xla["losses"], torrent["losses"], atol=1e-5, rtol=0)
+        for a, b in zip(xla["params"], torrent["params"]):
+            np.testing.assert_allclose(a, b, atol=XLA_ATOL, rtol=XLA_RTOL)
+
+
+@pytest.mark.parametrize("coll", ["torrent", "xla"])
+def test_ep_trainer_tp2_matches_stacked_ep_trainer(spawned, stacked_trainers, coll):
+    """``Trainer(TrainConfig(tp=2))`` on the 4-rank world (``(2, 2)``)
+    with a ``moe_ep_dispatch`` config, Torrent and xla, against the
+    stacked ``Trainer`` at DP = 2 (TP = 1: the two ranks in one forward
+    exchanging tokens) from the same seeded params, f32 compute: the
+    losses of its 2 steps within 1e-3."""
+    world4, _ = spawned
+    want = stacked_trainers["ep"][coll]
+    for out in world4:
+        assert np.allclose(out["ep_trainers"][coll], want, atol=LOSS_TOL, rtol=0)
+
+
+def test_meshes_in_the_process_form(spawned):
+    """Under ``torch.distributed`` (4 ranks) ``make_elastic_mesh`` is a
+    ``ProcessMesh`` of ``choose_mesh_shape``'s factors (``(2, 2)``,
+    ``(1, 4)``, and ``(4, 1)`` for a TP of 3 that does not divide), each
+    rank at its row-major coordinates; ``make_production_mesh`` refuses
+    the 4-rank world, naming its size, single-pod (256) and multi-pod
+    (512)."""
+    world4, _ = spawned
+    for r, out in enumerate(world4):
+        got = out["mesh_forms"]
+        for tp, (dp_, tp_) in ((2, (2, 2)), (4, (1, 4)), (3, (4, 1))):
+            is_process, shape, coords = got[f"elastic_{tp}"]
+            assert is_process and shape == {"data": dp_, "model": tp_}
+            assert coords == {"data": r // tp_, "model": r % tp_}
+        for multi, n in ((False, 256), (True, 512)):
+            msg = got[f"production_{multi}"]
+            assert msg is not None and str(n) in msg and "world has 4" in msg

@@ -176,6 +176,24 @@ out = {{}}
 with ThreadPoolExecutor(len(jobs)) as ex:
     for o in ex.map(run, jobs):
         out.update(o)
+# the long-context decode: decode_step on the whole seeded cache, one row
+# at a per-slot position (JAX's scalar GQA decode writes its bf16 cache
+# only in bf16 compute)
+for name, base, changes, positions in {long_jobs!r}:
+    cfg = dataclasses.replace(C.get_smoke_config(base), **changes)
+    like = jax.eval_shape(lambda: T.model_init(jax.random.PRNGKey(0), cfg))
+    flat, treedef = jax.tree.flatten(like)
+    params = jax.tree.unflatten(treedef, [d[f"{{name}}/p{{i}}"] for i in range(len(flat))])
+    cflat, ctree = jax.tree.flatten(jax.eval_shape(lambda: T.init_cache(cfg, 1, {LONG_SLOTS})))
+    cache = jax.tree.unflatten(ctree, [jnp.asarray(d[f"long/{{name}}/c{{i}}"], x.dtype)
+                                       for i, x in enumerate(cflat)])
+    step = jax.jit(lambda p, pos, c, cfg=cfg: T.decode_step(p, cfg, jnp.array([7], jnp.int32),
+                                                            pos, c))
+    for pos in positions:
+        logits, new = step(params, jnp.array([pos], jnp.int32), cache)
+        out[f"long/{{name}}/{{pos}}/logits"] = np.asarray(logits)
+        for i, x in enumerate(jax.tree.leaves(new)):
+            out[f"long/{{name}}/{{pos}}/cache{{i}}"] = np.asarray(x, np.float32)
 L.COMPUTE_DTYPE = jnp.bfloat16  # traced after every thread has finished
 for key, cfg, mesh, psh, rows, csh, p, tok, cache in LATER:
     with jax.set_mesh(mesh):
@@ -203,7 +221,9 @@ def _tp1_cells() -> dict:
         for shape in sc.SMOKE_SHAPES:
             cell = build_cell(arch, shape, make_host_mesh(), smoke=True, device="cpu")
             batch = sc.SMOKE_SHAPES[shape][2]
-            for dp in (1,) if arch in sc.MOE_ARCHS else (1, 2):
+            # a MoE arch's cells over data and the one replicated sequence
+            # of long_smoke are held against the whole batch's
+            for dp in (1,) if arch in sc.MOE_ARCHS or batch == 1 else (1, 2):
                 n = batch // dp
                 for i in range(dp):
                     rows = slice(i * n, (i + 1) * n)
@@ -227,8 +247,17 @@ def runs(run_multidevice, tmp_path_factory):
     sharded prefill and decode, and the two spawns; meanwhile the TP = 1
     smoke cells. Returns their results."""
     root = tmp_path_factory.mktemp("tp_serve")
-    params = {name: sc.init_params(sc.config(name)) for name in sc.NAMES + sc.FIXED}
+    params = {name: sc.init_params(sc.config(name))
+              for name in sc.NAMES + sc.FIXED + tuple(sc.LONG_EDGES)}
+    caches = {name: sc.long_cache(name) for name in sc.LONG_NAMES}
     inputs, jobs = {}, []
+    long_jobs = []
+    for name in sc.LONG_NAMES:
+        inputs.update({f"long/{name}/c{i}": x for i, x in enumerate(caches[name])})
+        base, changes = sc.LONG_EDGES.get(name, (name, {}))
+        if name in sc.LAYERS:
+            changes = dict(changes, num_layers=sc.LAYERS[name])
+        long_jobs.append((name, base, changes, sc.long_positions(name)))
     jax_jobs = [(n, n, JAX_MESH[n]) for n in JAX_NAMES]
     jax_jobs += [(k, n, m) for k, (n, m) in {**JAX_DP, **JAX_FIXED}.items()]
     for key, name, mesh in jax_jobs:
@@ -247,18 +276,22 @@ def runs(run_multidevice, tmp_path_factory):
         if name in sc.LAYERS:
             changes = dict(changes, num_layers=sc.LAYERS[name])
         jobs.append((name, key, base, changes, SHAPES[mesh], name in sc.FIXED))
+    for name in sc.LONG_NAMES:  # the params of the long configs no job above carries
+        if f"{name}/p0" not in inputs:
+            inputs.update({f"{name}/p{i}": x for i, x in enumerate(leaves(params[name]))})
     np.savez(root / "in.npz", **inputs)
     code = _JAX_SERVE.format(inputs=str(root / "in.npz"), out=str(root / "out.npz"), jobs=jobs,
-                             B=sc.B, S=sc.S, STEPS=sc.STEPS, MAX_SEQ=sc.MAX_SEQ)
+                             B=sc.B, S=sc.S, STEPS=sc.STEPS, MAX_SEQ=sc.MAX_SEQ,
+                             long_jobs=long_jobs, LONG_SLOTS=sc.LONG_SLOTS)
     mp = pytest.MonkeyPatch()
     _smoke_shapes(mp)
     try:
         with ThreadPoolExecutor(3) as ex:
             jax_run = ex.submit(run_multidevice, code, devices=4, timeout=900)
             world4 = ex.submit(tdist.spawn, sc.world4_rank, 4, device="cpu", timeout_s=600,
-                               args=(params,))
+                               args=(params, caches))
             world2 = ex.submit(tdist.spawn, sc.world2_rank, 2, device="cpu", timeout_s=600,
-                               args=(params,))
+                               args=(params, caches))
             tp1_cells = _tp1_cells()
             jax_run.result()
             return types.SimpleNamespace(world4=world4.result(), world2=world2.result(),
@@ -680,7 +713,11 @@ def test_smoke_cells_match_tp1_cells(runs, mesh, arch):
     1e-5 of the row's max, decode tokens equal, the gathered caches by
     the rules of the module docstring. A MoE arch's cells on ``(2, 2)``
     take the global batch's capacity: its rank's rows are held against
-    the TP = 1 cell of the whole batch."""
+    the TP = 1 cell of the whole batch. The ``long_smoke`` cell (one
+    sequence on every rank, its cache's slots split over ``data``) is
+    held against the TP = 1 cell of that sequence: every rank's token
+    equal to it, the cache gathered over both axes by the decoded
+    rule."""
     dp = MESHES[mesh][0]
     cfg = C.get_smoke_config(arch)
     with hints.set_mesh(None):
@@ -688,7 +725,9 @@ def test_smoke_cells_match_tp1_cells(runs, mesh, arch):
     for r in _ranks(runs, mesh):
         for shape in sc.SMOKE_SHAPES:
             got = r["smoke_cells"][f"{arch}/{shape}"]
-            if dp > 1 and arch in sc.MOE_ARCHS:
+            if sc.SMOKE_SHAPES[shape][2] == 1:  # every rank decodes the one sequence
+                want = runs.tp1_cells[f"{arch}/{shape}/1/0"]
+            elif dp > 1 and arch in sc.MOE_ARCHS:
                 whole = runs.tp1_cells[f"{arch}/{shape}/1/0"]
                 n = sc.SMOKE_SHAPES[shape][2] // dp
                 rows = slice(_dp_index(r) * n, (_dp_index(r) + 1) * n)
@@ -699,7 +738,7 @@ def test_smoke_cells_match_tp1_cells(runs, mesh, arch):
                 assert _rows_rel(got["out"], want["out"]) < PREFILL_TOL
             else:
                 assert np.array_equal(got["out"], want["out"])
-            _caches_close(keys, got["cache"], want["cache"], decoded=shape == "decode_smoke")
+            _caches_close(keys, got["cache"], want["cache"], decoded=shape != "prefill_smoke")
 
 
 def _dp_index(r) -> int:
@@ -709,12 +748,11 @@ def _dp_index(r) -> int:
 @pytest.mark.parametrize("name", list(sc.CELL_REFUSALS))
 def test_unported_cells_raise_naming_their_entry(runs, name):
     """The cells once refused on a ``ProcessMesh`` with a live ``model``
-    axis: qwen2-vl-7b's train and prefill cells and a flat-dispatch MoE
+    axis: qwen2-vl-7b's train and prefill cells, a flat-dispatch MoE
     arch's decode cell on ``(2, 2)`` (its capacity the global batch's)
-    build now; ``long_500k`` (its slots split over ``data``) still
-    raises ``NotImplementedError`` naming ROADMAP item 9c, entry 9, and
-    whisper-tiny's 6 heads at TP = 4 without ``attn_seq_shard`` raise
-    naming the flag."""
+    and mamba2-2.7b's ``long_500k`` cell (its one sequence replicated,
+    a cache's slots split over ``data``) build now; whisper-tiny's 6
+    heads at TP = 4 without ``attn_seq_shard`` raise naming the flag."""
     mesh, words = sc.CELL_REFUSALS[name][2:]
     for r in runs.world2 if mesh == "1x2" else runs.world4:
         msg = r["refusals"][name]
@@ -722,3 +760,123 @@ def test_unported_cells_raise_naming_their_entry(runs, name):
             assert msg is None, msg
         else:
             assert msg is not None and all(w in msg for w in words), msg
+
+
+# ---------------------------------------------------------------------------
+# Long context: the sequence-parallel decode
+# ---------------------------------------------------------------------------
+
+# one decode step of the long-context configs from a seeded whole cache,
+# in f32 compute, against the port on the whole cache and JAX's
+# decode_step: the logits within LONG_TOL of the row's max (the softmax's
+# max and sum reduced over the slot blocks in another order, then each
+# normalised weight rounded to the bf16 cache's dtype as on the whole
+# cache)
+LONG_TOL = 1e-5
+
+
+def _long_ranks(runs, mesh: str) -> list[dict]:
+    return [r["cases"][mesh]["long"] for r in (runs.world4 if mesh == "2x2" else runs.world2)]
+
+
+@pytest.mark.parametrize("name", sc.LONG_NAMES)
+@pytest.mark.parametrize("mesh", sc.LONG_MESHES)
+def test_long_decode_matches_whole_cache_and_jax(runs, mesh, name):
+    """One decode step of ``name`` on every rank of the mesh, its cache's
+    slots split over ``data`` (``(2, 1)``, ``(2, 2)``; whole at
+    ``(1, 2)``) under ``hints.replicated_batch``, from the seeded whole
+    cache placed by ``cache_pspecs``, at position 0 (only slot 0, on
+    data rank 0, valid), at a position in the last data rank's block and
+    past the ring's wrap (GQA; MLA has no wrap): the logits within 1e-5
+    of the row's max of the port's decode on the whole cache and of
+    JAX's ``decode_step`` on it (both in f32 compute), the greedy token
+    equal, and the new cache gathered over the mesh (``gather_cache``)
+    equal to JAX's new cache by the prefill rule of the module docstring
+    (one bf16 rounding step a bf16 element, 1e-5 of the scale for the
+    SSM state). Each rank holds ``slots / data`` slots of each split
+    leaf."""
+    j = runs.jax
+    dp = SHAPES[mesh][0]
+    for r in _long_ranks(runs, mesh):
+        got = r[name]
+        keys = got["cache_keys"]
+        for key, shape, whole in zip(keys, got["placed_shapes"], sc.long_cache(name)):
+            if key in ("k", "v", "ckv", "krope"):
+                assert shape[2] * dp == whole.shape[2], (key, shape)
+        for pos in sc.long_positions(name):
+            mine, ref = got[pos], got["ref"][pos]
+            want = j[f"long/{name}/{pos}/logits"]
+            assert _rows_rel(mine["logits"], ref["logits"]) < LONG_TOL, pos
+            assert _rows_rel(mine["logits"], want) < LONG_TOL, pos
+            assert mine["token"] == int(want.argmax(-1)[0]) == int(ref["logits"].argmax(-1)[0])
+            _caches_close(keys, mine["cache"],
+                          [j[f"long/{name}/{pos}/cache{i}"] for i in range(len(keys))],
+                          decoded=False)
+
+
+@pytest.mark.parametrize("name", sc.LONG_NAMES)
+@pytest.mark.parametrize("mesh", sc.LONG_MESHES)
+def test_long_decode_payload_is_the_combine_and_no_moe_exchange(runs, mesh, name):
+    """The payload a rank hands the collectives of a long-context decode
+    step equals ``modeled_tp_serve_bytes(slot_split=data)``: the model
+    group's, plus each attention layer's softmax combine over the slot
+    blocks (two ``(1, H)`` f32 reductions and one of ``(1, H, Dh)``),
+    and nothing for a MoE layer (jamba's flat MoE): under the replicated
+    token every capacity is taken for that one token (``capacity(cfg,
+    1)``), with no exchange of counts over ``data``."""
+    for r in _long_ranks(runs, mesh):
+        got = r[name]
+        for pos in sc.long_positions(name):
+            assert got[pos]["bytes"] == got["modeled"], pos
+            assert all(t == 1 for t in got[pos]["capacity_tokens"]), pos
+            if name == "jamba-v0.1-52b":
+                assert got[pos]["capacity_tokens"]
+    if SHAPES[mesh][0] > 1 and name != "mamba2-2.7b":
+        assert _long_ranks(runs, mesh)[0][name]["modeled"]["fwd"] > 0
+
+
+@pytest.mark.parametrize("arch", sc.LONG_CELL_ARCHS)
+@pytest.mark.parametrize("mesh", sc.LONG_MESHES)
+def test_long_cells_hold_the_slot_blocks(runs, mesh, arch):
+    """``build_cell(arch, "long_500k", ProcessMesh)`` on the meta device
+    for the three archs that run the shape: the params the rank's
+    ``param_pspecs`` blocks, the one token whole (spec ``P()``), and
+    each cache leaf its block by ``cache_pspecs`` of the shape: the
+    batch whole, ``k``/``v`` split by slots over ``data`` (and by KV
+    heads over ``model``), Mamba-2's ``conv`` in the rank's layout."""
+    dp, tp = SHAPES[mesh]
+    mesh_shape = {"data": dp, "model": tp}
+    cfg = C.get_config(arch)
+    shape = C.SHAPES["long_500k"]
+    cache = C.input_specs(cfg, shape)["cache"]
+    cspecs = shd.cache_pspecs(cache, cfg, shape, tp=tp)
+    want = []
+    for (path, x), spec in zip(paths(cache), leaves(cspecs)):
+        block = _block_shape(x.shape, spec, mesh_shape)
+        if path[-1] == "conv" and cfg.d_inner % tp == 0:
+            block = block[:-1] + (cfg.d_inner // tp + 2 * cfg.ssm_ngroups * cfg.ssm_state,)
+        if path[-1] in ("k", "v"):
+            assert block[2] * dp == x.shape[2]
+        want.append(block)
+    for r in (runs.world4 if mesh == "2x2" else runs.world2):
+        cells = r["cases"][mesh]["meta_cells"]
+        got = cells[f"{arch}/long_500k"]
+        assert got["args"][1:3] == [[(1,)], [()]]
+        assert got["args"][3] == want
+        assert got["in_specs"][-len(want):] == [str(keep_axes(s, ("data", "model")))
+                                               for s in leaves(cspecs)]
+
+
+def test_place_cache_refuses_slots_the_data_size_does_not_divide():
+    """A long-context cache whose slots the ``data`` size does not divide
+    cannot be placed: 64 slots over 3 data ranks raise ``ValueError``
+    (as JAX's ``device_put`` of the spec would)."""
+    cfg = sc.config("jamba-v0.1-52b")
+    shape = Shape(sc.LONG_SHAPE, "decode", sc.LONG_SLOTS, 1)
+    with hints.set_mesh(None):
+        cache = T.init_cache(cfg, 1, sc.LONG_SLOTS, device="meta")
+    specs = shd.cache_pspecs(cache, cfg, shape, tp=1)
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape={"data": 3, "model": 1},
+                                 coords={"data": 1, "model": 0})
+    with pytest.raises(ValueError, match="does not split into 3"):
+        shd.place_cache(cache, specs, cfg, mesh)
