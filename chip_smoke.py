@@ -280,6 +280,19 @@ Phases (any failure exits non-zero and prints no result):
    einsums). Expert parallelism under a live ``model`` axis runs on four
    cards, not here (``scripts/dist_cards.py --parts long``): its four
    ranks sharing this card took 75 s, past the script's time.
+22. examples: each of the five ``examples/torch_*.py`` twins through
+   its ``main`` on ``cuda`` at the JAX example's defaults: the
+   quickstart's hops, orders and ChainTask ledger (its payload intact
+   on the card), the server's KV and weight multicast records, pages
+   and schedule, the chainwrite twin's broadcast means, all-reduce and
+   448 wire bytes a device, and the deepseek twin's cycle pairs, all
+   equal to ``tests/_example_pins.py`` (which the CPU tests hold to the
+   JAX examples); each deepseek relayout bit for bit the plain twin's on
+   the card and on the CPU; both training sections' losses finite and
+   falling (the last quarter's mean below the first's); the relayout's
+   launches by route equal to the pinned ones (the server's paging and
+   the two MNM16N8 pairs ``copy``, the four others ``staged``) and no
+   flash launch (``examples`` in the kernels line).
 
 Then ``phase walls s: {...}`` (each phase's wall seconds, against the
 script's time limit), one JSON line with every kernel's launches,
@@ -2566,6 +2579,24 @@ def dist_ep_rank(rank, world, device):
     return out
 
 
+def dist_train_and_ep_rank(rank, world, device, stacked_digests):
+    """One rank of the dist phase's two process-form checks, run in one
+    spawn (a spawn of two ranks takes 14–40 s to start and stop on the
+    H100 hosts): :func:`dist_train_rank`, then :func:`dist_ep_rank` from
+    a freed card, and each part's wall seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    train = dist_train_rank(rank, world, device, stacked_digests)
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ep = dist_ep_rank(rank, world, device)
+    return {"train": train, "ep": ep, "train_wall_s": t1 - t0,
+            "ep_wall_s": time.perf_counter() - t1}
+
+
 def dist_phase() -> dict:
     """The process form on the card (phase 17 of the module docstring)."""
     import numpy as np
@@ -2612,10 +2643,9 @@ def dist_phase() -> dict:
           f"{free / 1e9:.2f} of {total / 1e9:.2f} GB before the spawn", flush=True)
     if free < 0.75 * total:
         raise AssertionError(f"dist train: only {free / 1e9:.2f} GB free before the spawn")
-    t0 = time.perf_counter()
-    ranks = spawn(dist_train_rank, 2, backend="gloo", device="cuda", timeout_s=900,
-                  args=(digests,))
-    wall = time.perf_counter() - t0
+    both = spawn(dist_train_and_ep_rank, 2, backend="gloo", device="cuda", timeout_s=900,
+                 args=(digests,))
+    ranks, wall = [rk["train"] for rk in both], both[0]["train_wall_s"]
     for r, rec in enumerate(ranks):
         print(f"dist train rank {r}: {json.dumps(rec)}", flush=True)
     errors, zero1 = {}, {}
@@ -2646,12 +2676,9 @@ def dist_phase() -> dict:
     print(f"dist train: {json.dumps({'ranks': 2, 'first_step_leaves_bit_exact': checks[0]['leaves'], 'params': checks[0]['params'], 'max_loss_diff_vs_stacked': errors, 'tolerance': DIST_LOSS_TOL, 'zero1': zero1, 'phase_wall_s': round(wall, 2), 'launches': launches})}", flush=True)
 
     # 3. expert parallelism across the processes, against the stacked
-    # joint step that rank 0 runs first
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(dist_ep_rank, 2, backend="gloo", device="cuda", timeout_s=900)
-    wall = time.perf_counter() - t0
+    # joint step that rank 0 runs first (in the same spawn, after the
+    # Trainer runs)
+    ranks, wall = [rk["ep"] for rk in both], both[0]["ep_wall_s"]
     for r, rec in enumerate(ranks):
         print(f"dist ep rank {r}: {json.dumps(rec)}", flush=True)
     procs = [rk["process"] for rk in ranks]
@@ -3236,6 +3263,30 @@ def tp_fixed_family_rank(rank, world, device, arch, ref_dir, variant="baseline")
     return out
 
 
+# the tp families phase's spawns: the archs of one tuple share one spawn of
+# two ranks (a spawn takes 14–40 s to start and stop on the H100 hosts), their
+# TP = 1 references computed first, each into its own temp dir (f32 grads:
+# deepseek-v2-lite-16b 2 layers and mamba2-2.7b 2 layers ~6 GB together,
+# qwen2-vl-7b 2 layers ~6 GB, jamba 2 layers ~15 GB alone)
+TP_FAMILY_SPAWNS = (("deepseek-v2-lite-16b", "mamba2-2.7b"), ("jamba-v0.1-52b",),
+                    ("qwen2-vl-7b", "whisper-tiny"))
+
+
+def tp_families_rank(rank, world, device, jobs):
+    """One rank of a tp families spawn: :func:`tp_family_rank` (or
+    :func:`tp_fixed_family_rank`) for each ``(arch, ref_dir)`` of
+    ``jobs``, freeing the card between them."""
+    import torch
+
+    out = {}
+    for arch, ref_dir in jobs:
+        rank_fn = tp_fixed_family_rank if arch in TP_FAMILIES_FIXED else tp_family_rank
+        out[arch] = rank_fn(rank, world, device, arch, ref_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def tp_families_phase(archs=None) -> dict:
     """Tensor parallelism for the MoE, MLA, Mamba-2, hybrid, vlm and
     audio families on the card (phase 19 of the module docstring), for
@@ -3243,80 +3294,97 @@ def tp_families_phase(archs=None) -> dict:
     all)."""
     import tempfile
 
-    import numpy as np
     from repro_torch.launch.dist import spawn
 
     launches, failed = None, []
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     fixed = {arch: dict(layers=layers, runs=("exact",), reference="steps")
              for arch, layers in TP_FAMILIES_FIXED.items()}
-    for arch, spec in {**TP_FAMILIES, **fixed}.items():
-        if archs is not None and arch not in archs:
+    specs = {**TP_FAMILIES, **fixed}
+    for group in TP_FAMILY_SPAWNS:
+        group = [arch for arch in group if archs is None or arch in archs]
+        if not group:
             continue
-        ref_dir = tempfile.mkdtemp(prefix="tp_family_ref_")
+        dirs = {arch: tempfile.mkdtemp(prefix="tp_family_ref_") for arch in group}
+        refs = {}
         t0 = time.perf_counter()
-        reference, rank_fn = ((tp_fixed_family_reference, tp_fixed_family_rank)
-                              if arch in fixed else (tp_family_reference, tp_family_rank))
         try:
-            ref = reference(arch, ref_dir)
-            print(f"tp families {arch}: TP = 1 reference {json.dumps(ref)}", flush=True)
+            for arch in group:
+                reference = tp_fixed_family_reference if arch in fixed else tp_family_reference
+                refs[arch] = reference(arch, dirs[arch])
+                print(f"tp families {arch}: TP = 1 reference {json.dumps(refs[arch])}",
+                      flush=True)
             # two jamba ranks hold ~36 GB each at the optimizer's peak: the
             # ranks' allocators map memory as they grow, so that what one
             # rank has reserved and not used cannot starve the other
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-            ranks = spawn(rank_fn, 2, backend="gloo", device="cuda", timeout_s=900,
-                          args=(arch, ref_dir))
+            group_ranks = spawn(tp_families_rank, 2, backend="gloo", device="cuda",
+                                timeout_s=900, args=([(arch, dirs[arch]) for arch in group],))
         finally:
             if alloc_conf is None:
                 os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
             else:
                 os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
-            shutil.rmtree(ref_dir, ignore_errors=True)
+            for ref_dir in dirs.values():
+                shutil.rmtree(ref_dir, ignore_errors=True)
         wall = time.perf_counter() - t0
-        for r, rec in enumerate(ranks):
-            print(f"tp families {arch} rank {r}: {json.dumps(rec)}", flush=True)
-        # the grads: per leaf, the worst rank's error over the leaf's max
-        checks = [rk["exact"]["grad_check"] for rk in ranks]
-        grad_err = max(max(c["err_and_scale"][i][0] for c in checks)
-                       / max(max(c["err_and_scale"][i][1] for c in checks), 1e-30)
-                       for i in range(checks[0]["leaves"]))
-        loss0_err = abs(checks[0]["loss"] - ref["loss0"])
-        loss_tol = (TP_MOE_LOSS_TOL if "bf16_routed_as_tp1" in ranks[0]["exact"]
-                    else TP_FIXED_LOSS_TOL if arch in fixed else TP_LOSS_TOL)
-        routed = ranks[0]["exact"].get("bf16_routed_as_tp1")
-        if routed is not None:
-            routed["loss0_diff"] = abs(routed["loss0"] - ref["loss0_bf16"])
-            routed["unrouted_loss0_diff"] = abs(ranks[0]["exact"]["losses"][0] - ref["loss0_bf16"])
-        errors = {}
-        for name in spec["runs"]:
-            got = ranks[0][name]["losses"]
-            want = ref["losses"].get(name)
-            errors[name] = (max(abs(a - b) for a, b in zip(got, want)) if want is not None
-                            else abs(got[0] - ref["loss0_bf16"]))
-            if not (all(rk[name]["losses"] == got for rk in ranks) and np.isfinite(got).all()
-                    and errors[name] <= loss_tol
-                    and all(rk[name]["tp_bytes_equal_model"] for rk in ranks)
-                    and all(all(rk[name]["whole_leaves_bit_equal"]) for rk in ranks)
-                    and all({"fwd_bwd", "reduce", "optimizer", "tp_comm"}
-                            <= set(rk[name]["spans_ms"]) for rk in ranks)):
-                failed.append(f"{arch} {name}")
-                print(f"tp families {arch} {name}: FAILED losses {got} vs TP = 1 {want} "
-                      f"(loss0 {ref['loss0']})", flush=True)
-        arch_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
-        if grad_err > TP_GRAD_F32_TOL or loss0_err > TP_GRAD_F32_TOL \
-                or any(rk["alloc_retries"] for rk in ranks) or any(arch_launches.values()) \
-                or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
-            failed.append(arch)
-            print(f"tp families {arch}: FAILED f32 grad err {grad_err}, loss0 err "
-                  f"{loss0_err} (tolerance {TP_GRAD_F32_TOL}), retries "
-                  f"{[rk['alloc_retries'] for rk in ranks]}, launches {arch_launches}",
-                  flush=True)
-        launches = arch_launches if launches is None else {
-            k: launches[k] + v for k, v in arch_launches.items()}
-        print(f"tp families {arch}: {json.dumps({'ranks': 2, 'mesh': {'data': 1, 'model': 2}, 'layers': spec['layers'], 'reference': spec['reference'], 'first_step_f32_grad_max_rel_err': grad_err, 'first_step_f32_loss_diff': loss0_err, 'f32_tolerance': TP_GRAD_F32_TOL, 'routing_flips': [c['routing_flips'] for c in checks], 'routed_tokens': checks[0]['routed_tokens'], 'bf16_first_step_routed_as_tp1': routed, 'max_loss_diff_vs_tp1': errors, 'loss_tolerance': loss_tol, 'reference_peak_memory_gb': ref['peak_memory_gb'], 'state_memory_gb': [max(rk[n]['state_memory_gb'] for n in spec['runs']) for rk in ranks], 'step_peak_memory_gb': [max(rk[n]['step_peak_memory_gb'] for n in spec['runs']) for rk in ranks], 'median_step_s': {n: max(rk[n]['median_step_s'] for rk in ranks) for n in spec['runs']}, 'phase_wall_s': round(wall, 2), 'launches': arch_launches})}", flush=True)
+        for arch in group:
+            arch_launches = _tp_family_checks(arch, specs[arch], arch in fixed, refs[arch],
+                                              [rk[arch] for rk in group_ranks], wall, failed)
+            launches = arch_launches if launches is None else {
+                k: launches[k] + v for k, v in arch_launches.items()}
     if failed:
         raise AssertionError(f"tp families: {failed} failed their checks (the lines above)")
     return {"train_launches": launches}
+
+
+def _tp_family_checks(arch, spec, fixed, ref, ranks, wall, failed) -> dict:
+    """The tp families phase's checks of ``arch``'s two ranks against its
+    TP = 1 reference ``ref``; appends to ``failed`` what fails and
+    returns the ranks' kernel launches. ``wall`` is the seconds of the
+    references and the spawn ``arch`` shared."""
+    import numpy as np
+
+    for r, rec in enumerate(ranks):
+        print(f"tp families {arch} rank {r}: {json.dumps(rec)}", flush=True)
+    # the grads: per leaf, the worst rank's error over the leaf's max
+    checks = [rk["exact"]["grad_check"] for rk in ranks]
+    grad_err = max(max(c["err_and_scale"][i][0] for c in checks)
+                   / max(max(c["err_and_scale"][i][1] for c in checks), 1e-30)
+                   for i in range(checks[0]["leaves"]))
+    loss0_err = abs(checks[0]["loss"] - ref["loss0"])
+    loss_tol = (TP_MOE_LOSS_TOL if "bf16_routed_as_tp1" in ranks[0]["exact"]
+                else TP_FIXED_LOSS_TOL if fixed else TP_LOSS_TOL)
+    routed = ranks[0]["exact"].get("bf16_routed_as_tp1")
+    if routed is not None:
+        routed["loss0_diff"] = abs(routed["loss0"] - ref["loss0_bf16"])
+        routed["unrouted_loss0_diff"] = abs(ranks[0]["exact"]["losses"][0] - ref["loss0_bf16"])
+    errors = {}
+    for name in spec["runs"]:
+        got = ranks[0][name]["losses"]
+        want = ref["losses"].get(name)
+        errors[name] = (max(abs(a - b) for a, b in zip(got, want)) if want is not None
+                        else abs(got[0] - ref["loss0_bf16"]))
+        if not (all(rk[name]["losses"] == got for rk in ranks) and np.isfinite(got).all()
+                and errors[name] <= loss_tol
+                and all(rk[name]["tp_bytes_equal_model"] for rk in ranks)
+                and all(all(rk[name]["whole_leaves_bit_equal"]) for rk in ranks)
+                and all({"fwd_bwd", "reduce", "optimizer", "tp_comm"}
+                        <= set(rk[name]["spans_ms"]) for rk in ranks)):
+            failed.append(f"{arch} {name}")
+            print(f"tp families {arch} {name}: FAILED losses {got} vs TP = 1 {want} "
+                  f"(loss0 {ref['loss0']})", flush=True)
+    arch_launches = {k: sum(rk["launches"][k] for rk in ranks) for k in ranks[0]["launches"]}
+    if grad_err > TP_GRAD_F32_TOL or loss0_err > TP_GRAD_F32_TOL \
+            or any(rk["alloc_retries"] for rk in ranks) or any(arch_launches.values()) \
+            or {rk["transport"] for rk in ranks} != {"gloo via pinned host"}:
+        failed.append(arch)
+        print(f"tp families {arch}: FAILED f32 grad err {grad_err}, loss0 err "
+              f"{loss0_err} (tolerance {TP_GRAD_F32_TOL}), retries "
+              f"{[rk['alloc_retries'] for rk in ranks]}, launches {arch_launches}",
+              flush=True)
+    print(f"tp families {arch}: {json.dumps({'ranks': 2, 'mesh': {'data': 1, 'model': 2}, 'layers': spec['layers'], 'reference': spec['reference'], 'first_step_f32_grad_max_rel_err': grad_err, 'first_step_f32_loss_diff': loss0_err, 'f32_tolerance': TP_GRAD_F32_TOL, 'routing_flips': [c['routing_flips'] for c in checks], 'routed_tokens': checks[0]['routed_tokens'], 'bf16_first_step_routed_as_tp1': routed, 'max_loss_diff_vs_tp1': errors, 'loss_tolerance': loss_tol, 'reference_peak_memory_gb': ref['peak_memory_gb'], 'state_memory_gb': [max(rk[n]['state_memory_gb'] for n in spec['runs']) for rk in ranks], 'step_peak_memory_gb': [max(rk[n]['step_peak_memory_gb'] for n in spec['runs']) for rk in ranks], 'median_step_s': {n: max(rk[n]['median_step_s'] for rk in ranks) for n in spec['runs']}, 'phase_wall_s': round(wall, 2), 'launches': arch_launches})}", flush=True)
+    return arch_launches
 
 
 # tensor-parallel serving on the card: TP = 2 over two gloo ranks sharing
@@ -3902,6 +3970,24 @@ def tp_serve_dp_rank(rank, world, device, ref_dir, arch):
             "capacity_witness": witness, "launches": launches}
 
 
+def tp_serve_ranks(rank, world, device, ref_dir, archs, dp_archs):
+    """One rank of the tp serve phase: :func:`tp_serve_rank` for
+    ``archs`` on ``(data=1, model=world)``, then :func:`tp_serve_dp_rank`
+    for each of ``dp_archs`` on ``(data=world, model=1)``, in one spawn
+    (a spawn of two ranks takes 14–40 s to start and stop on the H100
+    hosts), freeing the card between them."""
+    import torch
+
+    out = {"tp": tp_serve_rank(rank, world, device, ref_dir, archs) if archs else None,
+           "dp": {}}
+    for arch in dp_archs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_accumulated_memory_stats()  # this part's allocator retries
+        out["dp"][arch] = tp_serve_dp_rank(rank, world, device, ref_dir, arch)
+    return out
+
+
 def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
     """Tensor-parallel serving on the card (phase 20 of the module
     docstring), for ``archs`` of ``TP_SERVE``, then the MoE over data
@@ -3918,18 +4004,17 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
         for arch in archs:
             refs[arch] = tp_serve_reference(arch, ref_dir)
             print(f"tp serve {arch}: TP = 1 reference {json.dumps(refs[arch])}", flush=True)
-        ranks = spawn(tp_serve_rank, 2, backend="gloo", device="cuda", timeout_s=900,
-                      args=(ref_dir, archs)) if archs else []
-        witness = {arch: tp_serve_witness(arch, ref_dir) for arch in archs
-                   if arch in TP_SERVE_F32}
-        dp_ranks = {}
         for arch in dp_archs:
             refs[arch] = tp_serve_reference(arch, ref_dir, traffic=TP_SERVE_DP_TRAFFIC,
                                             witness_cf=TP_SERVE_DP_WITNESS_CF)
             print(f"tp serve {arch} over data: TP = 1 reference {json.dumps(refs[arch])}",
                   flush=True)
-            dp_ranks[arch] = spawn(tp_serve_dp_rank, 2, backend="gloo", device="cuda",
-                                   timeout_s=900, args=(ref_dir, arch))
+        both = spawn(tp_serve_ranks, 2, backend="gloo", device="cuda", timeout_s=900,
+                     args=(ref_dir, archs, dp_archs))
+        ranks = [rk["tp"] for rk in both] if archs else []
+        dp_ranks = {arch: [rk["dp"][arch] for rk in both] for arch in dp_archs}
+        witness = {arch: tp_serve_witness(arch, ref_dir) for arch in archs
+                   if arch in TP_SERVE_F32}
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
@@ -4192,6 +4277,21 @@ def long_rank(rank, world, device, arch, layers, shape_name="long_500k", smoke=F
     return out
 
 
+def long_ranks(rank, world, device, jobs):
+    """One rank of the long phase: :func:`long_rank` for each ``(arch,
+    layers)`` of ``jobs`` in one spawn (a spawn of two ranks takes 14–40 s
+    to start and stop on the H100 hosts), freeing the card between them."""
+    import torch
+
+    out = {}
+    for arch, layers in jobs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_accumulated_memory_stats()  # this arch's allocator retries
+        out[arch] = long_rank(rank, world, device, arch, layers)
+    return out
+
+
 def long_phase(archs=tuple(LONG)) -> dict:
     """The long phase (phase 21 of the module docstring)."""
     import torch
@@ -4199,9 +4299,10 @@ def long_phase(archs=tuple(LONG)) -> dict:
 
     t0 = time.perf_counter()
     launches, failed = None, []
+    ranks = spawn(long_ranks, 2, backend="gloo", device="cuda", timeout_s=900,
+                  args=([(arch, LONG[arch]) for arch in archs],))
     for arch in archs:
-        recs = spawn(long_rank, 2, backend="gloo", device="cuda", timeout_s=900,
-                     args=(arch, LONG[arch]))
+        recs = [rk[arch] for rk in ranks]
         # no combine to pay: nothing split over data, every rank decodes alike
         exact = recs[0]["combine_bytes_model"]["fwd"] == 0
         ok = not any(r["alloc_retries"] for r in recs)
@@ -4231,6 +4332,112 @@ def long_phase(archs=tuple(LONG)) -> dict:
     if failed:
         raise AssertionError(f"long: {failed} failed their checks (the lines above)")
     return {"launches": launches}
+
+
+EXAMPLES_DIR = Path(__file__).resolve().parent / "examples"
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (the folder is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  EXAMPLES_DIR / f"torch_{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase() -> dict:
+    """The examples' torch twins on the card (phase 22 of the module
+    docstring): each twin's ``main`` at the JAX example's defaults on
+    ``cuda``, held to ``tests/_example_pins.py``."""
+    import tempfile
+
+    import torch
+    import _example_pins as PINS
+    from repro_torch.kernels.relayout import ops as R
+
+    failed, walls, summary = [], {}, {}
+
+    def check(name: str, ok: bool, got) -> None:
+        if not ok:
+            failed.append(name)
+            print(f"examples {name}: FAILED {got}", flush=True)
+
+    def falls(losses, steps) -> bool:
+        # a smoke model's loss moves ~0.03 from batch to batch: compare the
+        # first and last quarters' means rather than two single steps
+        q = steps // 4
+        return (len(losses) == steps and all(math.isfinite(x) for x in losses)
+                and sum(losses[-q:]) < sum(losses[:q]))
+
+    reset_launches()
+    t = time.perf_counter()
+    qs = load_example("quickstart")
+    try:
+        q = qs.main(["--device", "cuda"])
+    finally:
+        shutil.rmtree(qs.CKPT_DIR, ignore_errors=True)
+    walls["quickstart"] = time.perf_counter() - t
+    check("quickstart scheduling", q["scheduling"] == PINS.QUICKSTART_SCHEDULING, q["scheduling"])
+    check("quickstart chaintask", q["chaintask"] == PINS.QUICKSTART_CHAINTASK, q["chaintask"])
+    check("quickstart training", falls(q["training"]["losses"], 20)
+          and q["training"]["final_step"] == 20, q["training"]["losses"])
+    summary["quickstart_losses"] = [q["training"]["first_loss"], q["training"]["last_loss"]]
+
+    t = time.perf_counter()
+    sv = load_example("serve_batch").main(["--device", "cuda"])
+    walls["serve_batch"] = time.perf_counter() - t
+    run = {k: sv["run"][k] for k in PINS.SERVE_RUN}
+    check("serve_batch records", sv["kv"] == PINS.SERVE_KV and sv["pages"] == PINS.SERVE_PAGES
+          and run == PINS.SERVE_RUN, (sv["kv"], sv["pages"], run))
+    summary["serve_tokens_per_s"] = sv["run"]["tokens_per_s"]
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="train_lm_") as ckpt:
+        tl = load_example("train_lm").main(["--device", "cuda", "--ckpt-dir", ckpt])
+    walls["train_lm"] = time.perf_counter() - t
+    check("train_lm", falls(tl["losses"], 60) and tl["final_step"] == 60
+          and tl["restarts"] == 0, tl["losses"])
+    summary["train_lm_losses"] = [tl["first_loss"], tl["last_loss"]]
+    summary["train_lm_tokens_per_s"] = tl["tokens_per_s"]
+
+    t = time.perf_counter()
+    cw = load_example("chainwrite_collectives")
+    c = cw.main(["--device", "cuda"])
+    walls["chainwrite_collectives"] = time.perf_counter() - t
+    check("chainwrite_collectives", c["programs"] == cw.show_programs()
+          and c["broadcast"]["order"] == PINS.CHAINWRITE_ORDER
+          and c["broadcast"]["means"] == PINS.CHAINWRITE_MEANS
+          and c["all_reduce"]["mean"] == c["all_reduce"]["expected"] == PINS.CHAINWRITE_SUM_MEAN
+          and c["wire"]["bytes_per_device"] == PINS.CHAINWRITE_WIRE_BYTES,
+          {k: c[k] for k in ("broadcast", "all_reduce", "wire")})
+
+    t = time.perf_counter()
+    ds = load_example("deepseek_attention_demo")
+    results = ds.main(["--device", "cuda"])
+    walls["deepseek_attention_demo"] = time.perf_counter() - t
+    for w, r, (name, xdma, chain, _) in zip(ds.WORKLOADS, results, PINS.DEEPSEEK):
+        # the card's relayout against the plain twin on the card (in the
+        # twin) and on the CPU
+        src, dst = R.parse_layout(w.src_layout), R.parse_layout(w.dst_layout)
+        cpu = R.relayout_ref(R.dense_to_blocked(ds.dense_int8(w.rows, w.cols, "cpu"), src),
+                             (w.rows, w.cols), src, dst)
+        check(f"deepseek {w.name}", w.name == name and r["relayout_ok"]
+              and r["relayout"].is_cuda and torch.equal(r["relayout"].cpu(), cpu)
+              and (r["xdma_cc"], r["chainwrite_cc"]) == (xdma, chain),
+              {k: v for k, v in r.items() if k != "relayout"})
+
+    launches = read_launches()
+    by_route = dict(R.relayout.launches_by_route)
+    check("launches", by_route == PINS.RELAYOUT_LAUNCHES
+          and not any(v for k, v in launches.items() if k.startswith("flash")),
+          {"relayout_by_route": by_route, **launches})
+    print(f"examples: {json.dumps({'walls_s': {k: round(v, 2) for k, v in walls.items()}, **summary, 'relayout_by_route': by_route, 'launches': launches, 'ok': not failed})}", flush=True)
+    if failed:
+        raise AssertionError(f"examples: {failed} failed their checks (the lines above)")
+    return {"launches": launches, "relayout_by_route": by_route}
 
 
 def main() -> int:
@@ -4313,6 +4520,7 @@ def main() -> int:
     tp_families = timed("tp families", tp_families_phase)
     tp_serve = timed("tp serve", tp_serve_phase)
     long = timed("long", long_phase)
+    examples = timed("examples", examples_phase)
     print(f"phase walls s: {json.dumps(walls)}", flush=True)
 
     def path_launches(rec):
@@ -4334,7 +4542,8 @@ def main() -> int:
                    "tp_train": tp["train_launches"][name],
                    "tp_families_train": tp_families["train_launches"][name],
                    "tp_serve": tp_serve["serve_launches"][name],
-                   "long_serve": long["launches"][name]}
+                   "long_serve": long["launches"][name],
+                   "examples": examples["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),
@@ -4360,6 +4569,7 @@ def main() -> int:
             launches_by_route=launches["relayout_by_route"],
             launches_by_route_moe_serve=moe["relayout_by_route"],
             launches_by_route_mla_serve=mla["relayout_by_route"],
+            launches_by_route_examples=examples["relayout_by_route"],
             device_ms_cold=relayout_rec["device_ms_cold"],
             library_device_ms_cold=relayout_rec["library_device_ms_cold"]),
         row("flash_attention_wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu",

@@ -5,8 +5,8 @@ identical weight-multicast bytes, KV-multicast records and scale-down
 chains, and the same greedy tokens.
 
 Tokens: the two frameworks round bf16 at different places (see
-``tests/test_torch_model.py``), so logits agree within ``LOGIT_REL`` of
-their scale, not bit for bit. Where a greedy token differs, the test
+``tests/test_torch_model.py``), so logits agree within
+``_serve_cases.LOGIT_REL`` of their scale, not bit for bit. Where a greedy token differs, the test
 shows that JAX's own top-2 logit margin at that step is within twice
 that tolerance — i.e. the two candidates were tied at bf16 precision.
 """
@@ -31,10 +31,11 @@ from repro_torch.launch.serve import ServeConfig, Server  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
+from _serve_cases import check_tokens  # noqa: E402
+
 from repro import configs as JC  # noqa: E402
 
 MAX_SEQ = 48
-LOGIT_REL = 5e-2
 
 
 def _bits(x) -> np.ndarray:
@@ -100,38 +101,6 @@ def _requests(rng, prefix, vocab):
     return out
 
 
-def _jax_logits_along_serve_path(jserver, jr, k, prefix_len):
-    """JAX's logits for request ``jr``'s ``k``-th output token, computed
-    one row at a time along the path its server took: a miss prefills
-    the prompt; a prefix hit prefills the seeded prefix and feeds the
-    rest of the prompt through decode steps; then ``jr.out[:k]`` are fed
-    through decode steps. (A full prefill of prompt and outputs is not
-    that path for a MoE arch: its capacity is computed over the whole
-    sequence, so it can drop assignments the decode steps keep.)"""
-    cfg, params = jserver.cfg, jserver.params
-    prompt = np.asarray(jr.prompt, np.int32)
-    seed = (min(prefix_len, prompt.size - 1) if jr.prefix_hit else prompt.size)
-    logits, cache = JT.prefill(params, cfg, {"tokens": jnp.asarray(prompt[:seed])[None]},
-                               MAX_SEQ)
-    fed = list(prompt[seed:]) + list(jr.out[:k])
-    for i, t in enumerate(fed):
-        logits, cache = JT.decode_step(params, cfg, jnp.asarray([t], jnp.int32),
-                                       jnp.asarray([seed + i], jnp.int32), cache)
-    return np.asarray(logits[0])
-
-
-def _check_tokens(jserver, jreqs, treqs, prefix_len):
-    """Same greedy tokens, or a divergence where JAX itself had a tie."""
-    for jr, tr in zip(jreqs, treqs):
-        assert len(tr.out) == len(jr.out) and tr.prefix_hit == jr.prefix_hit
-        diff = [k for k, (a, b) in enumerate(zip(jr.out, tr.out)) if a != b]
-        if not diff:
-            continue
-        k = diff[0]
-        top = np.sort(_jax_logits_along_serve_path(jserver, jr, k, prefix_len))[::-1]
-        assert top[0] - top[1] <= 2 * LOGIT_REL * np.abs(top).max(), (jr.rid, k, top[:2])
-
-
 # a mamba layer's cache has no per-position axis: KV-prefix multicast is
 # not defined for it, and both packages' register_prefix refuse it
 NO_KV_MULTICAST = ("mamba2-2.7b", "jamba-v0.1-52b")
@@ -181,7 +150,7 @@ def test_server_matches_jax_server(arch):
         assert tout[key] == jout[key], key
     assert [r.prefix_hit for r in treqs] == (
         [True, False, True, False, True, True] if kv else [False] * 6)
-    _check_tokens(js, jreqs, treqs, prefix.size)
+    check_tokens(js, jreqs, treqs, prefix.size)
 
     # elastic scale-down: the same lost ids and re-formed chains, and the
     # next refresh reaches exactly the survivors
