@@ -148,7 +148,25 @@ Phases (any failure exits non-zero and prints no result):
    by ``build_cell``, every arch's smoke cells and yi-6b's variants run
    from it, mamba2-2.7b and qwen2-vl-7b trained at full width through
    their train cells;
-17. dist: the process form, one rank per process sharing the card over
+17. dryrun: ``python -m repro_torch.launch.dryrun`` in two subprocesses
+   at once on the CPU (meta tensors on a fake ``torch.distributed``
+   world, rank 0's step counted op by op by ``launch.op_cost.OpCost``):
+   llama3-8b ``train_4k`` on ``--mesh single`` (256 ranks) with the
+   Torrent reduce, ``--variant bucketed`` and ``--overlap``, and
+   deepseek-v2-lite-16b ``decode_32k`` on ``--mesh multi`` (512). Each
+   record's roofline and memory dicts on a line of their own; each must
+   say ``status`` ok, that CUDA was never initialised, and that rank 0
+   moved collective bytes. Meanwhile the op counter is held against the
+   card (``model_against_card``): h2o-danube-1.8b at full width, 2 of 24
+   layers, a train cell (4 x 512 tokens) and a decode cell (8 rows, a
+   2048-slot cache), each counted on meta tensors and then run concrete:
+   the card's temp bytes over the step within ``DRYRUN_MEM_TOL`` of the
+   tracker's, and the step's median event time at least the roofline's
+   ``max(compute_s, memory_lb_s)`` on ``H100_SXM`` (the ratio printed).
+   The phase must end within ``DRYRUN_WALL_S``; it launches no kernel
+   (``dryrun`` in the kernels line: the cells attend by the reference
+   attention).
+18. dist: the process form, one rank per process sharing the card over
    gloo (NCCL refuses two ranks on one device), whose frames go through
    pinned host buffers. First 4 ranks run the executor's matrix on CUDA
    tensors (broadcasts with K = 1, 2 and F = 1, 3; rs_ag and rotation
@@ -182,7 +200,7 @@ Phases (any failure exits non-zero and prints no result):
    equal bit for bit, the EP bytes nonzero and the wire bytes equal to
    the model, no allocator retry, no kernel launch. A failing rank
    fails the phase;
-18. tp: tensor parallelism in the process form. yi-6b at full width, 2
+19. tp: tensor parallelism in the process form. yi-6b at full width, 2
    of 32 layers, through the process-form ``Trainer`` at ``tp=2`` on a
    ``(data=1, model=2)`` mesh of two gloo ranks sharing the card (each
    rank holds its shards; Megatron's all-reduces over the model group
@@ -197,7 +215,7 @@ Phases (any failure exits non-zero and prints no result):
    ``reduce`` and ``optimizer``; per rank the init and step peak memory
    and no allocator retry; no kernel launch (``tp_train`` in the
    kernels line). A failing rank fails the phase.
-19. tp families: the same on ``(data=1, model=2)`` for the MoE, MLA,
+20. tp families: the same on ``(data=1, model=2)`` for the MoE, MLA,
    Mamba-2 and hybrid families at full width: deepseek-v2-lite-16b (2
    of 27 layers: one dense, one MoE), mamba2-2.7b (2 of 64) and
    jamba-v0.1-52b (2 of 32: Mamba with a dense FFN, Mamba with a MoE).
@@ -210,14 +228,14 @@ Phases (any failure exits non-zero and prints no result):
    flips near-tie top-k choices). Then the two ranks: each rank's
    first-step grad shards within ``TP_GRAD_TOL`` of its block of the
    reference's, 2 exact (and, but for jamba, 2 int8 + EF) steps, with
-   every check of phase 18. Then qwen2-vl-7b (2 of 28 layers: M-RoPE on
+   every check of phase 19. Then qwen2-vl-7b (2 of 28 layers: M-RoPE on
    each rank's 14 heads) and whisper-tiny (full size: encoder,
    cross-attention and GeLU FFNs split) through ``make_train_step`` on
    their own batches (``TP_FAMILIES_FIXED``: embeddings at the vlm
    phase's M-RoPE positions; tokens with encoder frames), held the same
    way against TP = 1's first-step f32 grads and 2 bf16 steps' losses.
    ``tp_families_train`` in the kernels line.
-20. tp serve: tensor-parallel serving on ``(data=1, model=2)``, two
+21. tp serve: tensor-parallel serving on ``(data=1, model=2)``, two
    gloo ranks sharing the card, full width, ``attn_impl="flash"``
    (``TP_SERVE``): yi-6b (8 of 32 layers), mamba2-2.7b (all 64),
    deepseek-v2-lite-16b (4 of 27), jamba-v0.1-52b (5 of 32), qwen2-vl-7b
@@ -262,7 +280,7 @@ Phases (any failure exits non-zero and prints no result):
    global rule must meet the whole batch's prefill, the per-rank rule
    (the data axis Manual) must miss it, and the two rules must keep a
    nonzero number of assignments differently.
-21. long: ``build_cell``'s ``long_500k`` cell on ``(data=2, model=1)``,
+22. long: ``build_cell``'s ``long_500k`` cell on ``(data=2, model=1)``,
    two gloo ranks sharing the card (``LONG``): h2o-danube-1.8b at full
    width and depth (its 4096-slot window, 2048 slots a rank) and
    mamba2-2.7b at full width, 4 of 64 layers. Each rank fills its cache
@@ -280,7 +298,7 @@ Phases (any failure exits non-zero and prints no result):
    einsums). Expert parallelism under a live ``model`` axis runs on four
    cards, not here (``scripts/dist_cards.py --parts long``): its four
    ranks sharing this card took 75 s, past the script's time.
-22. examples: each of the five ``examples/torch_*.py`` twins through
+23. examples: each of the five ``examples/torch_*.py`` twins through
    its ``main`` on ``cuda`` at the JAX example's defaults: the
    quickstart's hops, orders and ChainTask ledger (its payload intact
    on the card), the server's KV and weight multicast records, pages
@@ -2049,17 +2067,6 @@ def registered(table: dict, key, value):
         del table[key]
 
 
-def active_params(cfg, total: int) -> int:
-    """Parameters a token uses: all of them, less the routed experts it
-    is not sent to (top-k of them, and the shared ones, are), as the
-    JAX package's dry run counts them."""
-    if not cfg.num_experts:
-        return total
-    moe_layers = sum(1 for i in range(cfg.num_layers) if cfg.layer_spec(i).ffn == "moe")
-    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
-    return total - moe_layers * per_expert * (cfg.num_experts - cfg.moe_top_k)
-
-
 def abstract_cells() -> int:
     """Every applicable (arch × assigned shape) cell at full width, built
     by ``build_cell`` on a 4-rank data mesh with meta tensors: no device
@@ -2067,6 +2074,7 @@ def abstract_cells() -> int:
     args' bytes and the model FLOPs of one step."""
     import torch
     from repro_torch import configs as C
+    from repro_torch.launch.dryrun import _active_params
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.roofline import model_flops
     from repro_torch.launch.steps import build_cell
@@ -2084,7 +2092,7 @@ def abstract_cells() -> int:
             if any(t.device.type != "meta" for t in args):
                 raise AssertionError(f"cell {arch} {name}: an arg is not a meta tensor")
             total = sum(p.numel() for p in leaves(cell.args[0]))
-            active = active_params(cell.cfg, total)
+            active = _active_params(arch, cell.cfg, total)
             sh = cell.shape
             tokens = sh.global_batch * (sh.seq_len if sh.kind != "decode" else 1)
             print(f"cell {arch} {name}: " + json.dumps({
@@ -2299,6 +2307,155 @@ def family_train(arch: str, layers: int, B: int, S: int, steps: int = 4) -> dict
     gc.collect()
     torch.cuda.empty_cache()
     return {**check, **rec}
+
+
+# the dry run's two cells on the production meshes, each one process of
+# ``python -m repro_torch.launch.dryrun`` (both at once, on the CPU)
+DRYRUNS = (("llama3-8b", "train_4k", "single",
+            ("--collectives", "torrent", "--variant", "bucketed", "--overlap")),
+           ("deepseek-v2-lite-16b", "decode_32k", "multi", ()))
+# the op counter against the card: a dense arch at full width, its depth
+# cut, at the registered shapes of a train and a decode cell
+DRYRUN_MODEL = ("h2o-danube-1.8b", 2)
+DRYRUN_SHAPES = {"train": ("dryrun_train", 512, 4), "decode": ("dryrun_decode", 2048, 8)}
+# the step's temp bytes on the card (``max_memory_allocated`` over the
+# step less what was allocated before it) against the tracker's
+# ``temp_size_in_bytes``: within 10% of the tracker's and 64 MiB (the
+# allocator rounds each block to 512 B; cuBLAS's workspace and the
+# buffers a kernel allocates inside an op dispatch no op of their own)
+DRYRUN_MEM_TOL = (0.10, 64 << 20)
+DRYRUN_WALL_S = 40
+
+
+def model_against_card(kind: str) -> dict:
+    """One cell of :data:`DRYRUN_MODEL` at :data:`DRYRUN_SHAPES`'s
+    ``kind``: counted on meta tensors (``launch.op_cost.OpCost``, its
+    roofline on ``H100_SXM``), then run concrete on the card. The card's
+    temp bytes over the step must agree with the tracker's within
+    :data:`DRYRUN_MEM_TOL`, and the median CUDA-event time of the step
+    must be at least the roofline's ``max(compute_s, memory_lb_s)``."""
+    import statistics
+
+    import torch
+    from repro_torch import configs as C
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.op_cost import OpCost
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.tree import leaves
+
+    arch, layers = DRYRUN_MODEL
+    name, seq, batch = DRYRUN_SHAPES[kind]
+    mesh = make_host_mesh()
+    with registered(C.SHAPES, name, C.Shape(name, kind, seq, batch)), cut_depth(arch, layers):
+        meta = build_cell(arch, name, mesh)
+        counter = OpCost()
+        counter.run(meta.step_fn, *meta.args)
+        del meta
+        cell = build_cell(arch, name, mesh, device="cuda")
+    roof = R.extract(counter)
+    mem = counter.memory_analysis()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = cell.step_fn(*cell.args)
+    torch.cuda.synchronize()
+    card_temp = torch.cuda.max_memory_allocated() - before
+    if not all(bool(torch.isfinite(t).all()) for t in leaves(res) if t.dtype.is_floating_point):
+        raise AssertionError(f"dryrun card {kind}: a non-finite output")
+    del res
+    times = []
+    for _ in range(6):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = cell.step_fn(*cell.args)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        del res
+    ms = statistics.median(times)
+    bound_ms = 1e3 * max(roof.compute_s, roof.memory_lb_s)
+    rel, slack = DRYRUN_MEM_TOL
+    rec = {"arch": arch, "layers": layers, "shape": [kind, seq, batch], "ms": ms,
+           "bound_ms": bound_ms, "ratio": ms / bound_ms, "ops": len(counter.records),
+           "card_temp_bytes": card_temp, "tracker_temp_bytes": mem["temp_size_in_bytes"],
+           "temp_diff_bytes": card_temp - mem["temp_size_in_bytes"],
+           "tracker_peak_bytes": mem["peak_memory_in_bytes"],
+           "card_args_bytes_before": before, "roofline": roof.as_dict()}
+    print(f"dryrun card {kind}: {json.dumps(rec)}", flush=True)
+    del cell
+    if abs(card_temp - mem["temp_size_in_bytes"]) > rel * mem["temp_size_in_bytes"] + slack:
+        raise AssertionError(f"dryrun card {kind}: the card's temp bytes {card_temp} against "
+                             f"the tracker's {mem['temp_size_in_bytes']}")
+    if ms < bound_ms:
+        raise AssertionError(f"dryrun card {kind}: {ms:.3f} ms is under the roofline's "
+                             f"{bound_ms:.3f} ms")
+    return rec
+
+
+def dryrun_phase() -> dict:
+    """The dry run: :data:`DRYRUNS` through ``python -m
+    repro_torch.launch.dryrun`` in subprocesses (meta tensors on a fake
+    world of 256 or 512 ranks, rank 0 counted op by op), each record's
+    roofline and memory dicts printed on a line of their own; each must
+    say ``status`` ok, that CUDA was never initialised, and that rank 0
+    moved collective bytes. While they run, :func:`model_against_card`
+    holds the op counter against the card for a train and a decode
+    cell. The phase must end within :data:`DRYRUN_WALL_S` seconds."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    reset_launches()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+    out_dir = tempfile.mkdtemp(prefix="dryrun_")
+    procs = []
+    try:
+        for arch, shape, mesh, extra in DRYRUNS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                   "--shape", shape, "--mesh", mesh, "--out", out_dir, *extra]
+            procs.append(subprocess.Popen(cmd, env=env, cwd=root, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        card = {kind: model_against_card(kind) for kind in DRYRUN_SHAPES}
+        launches = read_launches()
+        records = {}
+        for (arch, shape, mesh, _), p in zip(DRYRUNS, procs):
+            log, _ = p.communicate(timeout=300)
+            if p.returncode:
+                raise AssertionError(f"dryrun {arch} {shape} {mesh}: exit {p.returncode}\n"
+                                     f"{log[-3000:]}")
+            (path,) = Path(out_dir, mesh).glob(f"{arch}__{shape}*.json")
+            rec = json.loads(path.read_text())
+            label = f"dryrun {arch} {shape} {mesh}"
+            print(f"{label} roofline: {json.dumps(rec['roofline'])}", flush=True)
+            print(f"{label} memory: {json.dumps(rec['memory_analysis'])}", flush=True)
+            print(f"{label}: " + json.dumps({k: rec.get(k) for k in (
+                "status", "build_s", "run_s", "ops", "chips", "cuda_initialized",
+                "model_flops_global", "counted_flops_global", "useful_flops_ratio",
+                "constant_bytes", "op_overlap")}), flush=True)
+            if "overlap_model" in rec:
+                om = rec["overlap_model"]
+                print(f"{label} overlap model: " + json.dumps({k: om[k] for k in (
+                    "total_wire_bytes", "serial_cc", "overlap_cc", "efficiency")}), flush=True)
+            if (rec["status"] != "ok" or rec["cuda_initialized"]
+                    or rec["roofline"]["collective_bytes_per_device"] <= 0):
+                raise AssertionError(f"{label}: status {rec['status']}, CUDA initialised "
+                                     f"{rec.get('cuda_initialized')}, collective bytes "
+                                     f"{rec['roofline']['collective_bytes_per_device']}")
+            records[label] = rec
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"dryrun wall: {wall:.2f}s", flush=True)
+    if wall > DRYRUN_WALL_S:
+        raise AssertionError(f"dryrun phase took {wall:.1f}s (limit {DRYRUN_WALL_S}s)")
+    return {"records": records, "card": card, "wall_s": wall, "launches": launches}
 
 
 def cell_phase() -> dict:
@@ -2598,7 +2755,7 @@ def dist_train_and_ep_rank(rank, world, device, stacked_digests):
 
 
 def dist_phase() -> dict:
-    """The process form on the card (phase 17 of the module docstring)."""
+    """The process form on the card (phase 18 of the module docstring)."""
     import numpy as np
     import torch
     import _dist_cases as dc
@@ -2808,7 +2965,7 @@ def tp_train_rank(rank, world, device, ref_dir):
 
 
 def tp_phase() -> dict:
-    """Tensor parallelism on the card (phase 18 of the module
+    """Tensor parallelism on the card (phase 19 of the module
     docstring)."""
     import tempfile
 
@@ -3289,7 +3446,7 @@ def tp_families_rank(rank, world, device, jobs):
 
 def tp_families_phase(archs=None) -> dict:
     """Tensor parallelism for the MoE, MLA, Mamba-2, hybrid, vlm and
-    audio families on the card (phase 19 of the module docstring), for
+    audio families on the card (phase 20 of the module docstring), for
     ``archs`` of ``TP_FAMILIES`` and ``TP_FAMILIES_FIXED`` (default:
     all)."""
     import tempfile
@@ -3989,7 +4146,7 @@ def tp_serve_ranks(rank, world, device, ref_dir, archs, dp_archs):
 
 
 def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
-    """Tensor-parallel serving on the card (phase 20 of the module
+    """Tensor-parallel serving on the card (phase 21 of the module
     docstring), for ``archs`` of ``TP_SERVE``, then the MoE over data
     for ``dp_archs`` of ``TP_SERVE_DP``."""
     import tempfile
@@ -4293,7 +4450,7 @@ def long_ranks(rank, world, device, jobs):
 
 
 def long_phase(archs=tuple(LONG)) -> dict:
-    """The long phase (phase 21 of the module docstring)."""
+    """The long phase (phase 22 of the module docstring)."""
     import torch
     from repro_torch.launch.dist import spawn
 
@@ -4349,7 +4506,7 @@ def load_example(name: str):
 
 
 def examples_phase() -> dict:
-    """The examples' torch twins on the card (phase 22 of the module
+    """The examples' torch twins on the card (phase 23 of the module
     docstring): each twin's ``main`` at the JAX example's defaults on
     ``cuda``, held to ``tests/_example_pins.py``."""
     import tempfile
@@ -4515,6 +4672,7 @@ def main() -> int:
     train = timed("train", train_phase)
     ep_train = timed("ep train", ep_train_phase)
     timed("cells", cell_phase)
+    dryrun = timed("dryrun", dryrun_phase)
     dist = timed("dist", dist_phase)
     tp = timed("tp", tp_phase)
     tp_families = timed("tp families", tp_families_phase)
@@ -4543,7 +4701,8 @@ def main() -> int:
                    "tp_families_train": tp_families["train_launches"][name],
                    "tp_serve": tp_serve["serve_launches"][name],
                    "long_serve": long["launches"][name],
-                   "examples": examples["launches"][name]}
+                   "examples": examples["launches"][name],
+                   "dryrun": dryrun["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()),

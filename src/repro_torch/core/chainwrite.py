@@ -397,7 +397,7 @@ def execute_program(
     if x.dim() < 1 or x.shape[0] != L:
         raise ValueError(f"global view has {x.shape[0] if x.dim() else 0} rows, "
                          f"program planned for {L} devices")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"execute_program: unsupported device {x.device}")
     c = prog.collective
     # per-device payload bytes; an int8 wire computes in f32, as the

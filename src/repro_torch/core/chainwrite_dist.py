@@ -91,8 +91,10 @@ def group_rank(group) -> int:
 
 def transport(group, device: torch.device) -> str:
     """How a frame on ``device`` travels over ``group``: ``"nccl"``,
-    ``"gloo"`` (host tensors) or ``"gloo via pinned host"`` (CUDA
-    tensors staged through pinned host buffers)."""
+    ``"gloo"`` (host tensors), ``"gloo via pinned host"`` (CUDA
+    tensors staged through pinned host buffers) or ``"fake"`` (the
+    testing backend of a dry run, which moves nothing: meta tensors on
+    a world of one process)."""
     backend = str(dist.get_backend(group))
     if backend == "gloo" and torch.device(device).type == "cuda":
         return "gloo via pinned host"
@@ -164,10 +166,21 @@ def _exchange(group, sends, recvs) -> None:
     ``(buffer, group peer, tag)`` of one step in one
     ``batch_isend_irecv`` and wait for all of them. On a gloo group a
     CUDA tensor travels through a pinned host copy; received frames are
-    copied into their buffers."""
+    copied into their buffers. On a ``fake`` group (a dry run's meta
+    tensors) each send and receive is posted on its own, ``isend`` and
+    ``irecv``, since a coalesced batch refuses the meta device."""
     if not sends and not recvs:
         return
-    stage = str(dist.get_backend(group)) == "gloo"
+    backend = str(dist.get_backend(group))
+    if backend == "fake":
+        works = [dist.isend(t.contiguous(), dist.get_global_rank(group, peer), group, tag)
+                 for t, peer, tag in sends]
+        works += [dist.irecv(buf, dist.get_global_rank(group, peer), group, tag)
+                  for buf, peer, tag in recvs]
+        for work in works:
+            work.wait()
+        return
+    stage = backend == "gloo"
 
     def wire(t):
         t = t.contiguous()
@@ -433,7 +446,7 @@ def execute_program(
     L = prog.num_devices
     if group_size(group) != L:
         raise ValueError(f"program planned for {L} devices, group has {group_size(group)}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"execute_program: unsupported device {x.device}")
     rank = group_rank(group)
     c = prog.collective

@@ -123,6 +123,14 @@ class ProcessMesh:
                 if self.rank in ranks:
                     mine = g
             self._groups[(axis,)] = mine
+        dp_live = tuple(a for a in self.dp_axes if self.shape[a] > 1)
+        if len(dp_live) > 1 and len(dp_live) < len(live):
+            mine = None
+            for ranks in self._slices(dp_live):
+                g = dist.new_group(ranks)
+                if self.rank in ranks:
+                    mine = g
+            self._groups[dp_live] = mine
         self._solo = None
         if world > 1 and math.prod(self.shape[a] for a in self.dp_axes) == 1:
             for r in range(world):
@@ -153,20 +161,27 @@ class ProcessMesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
-    def _slices(self, axis: str) -> list[list[int]]:
-        """Every slice along ``axis``: the ranks that share all other
-        coordinates, in ``axis`` order."""
-        i = self.axis_names.index(axis)
-        stride = math.prod(self.axis_sizes[i + 1:])
-        size = self.axis_sizes[i]
-        starts = [r for r in range(math.prod(self.axis_sizes)) if (r // stride) % size == 0]
-        return [[s + k * stride for k in range(size)] for s in starts]
+    def _slices(self, axes) -> list[list[int]]:
+        """Every slice along ``axes`` (one name or a tuple): the ranks
+        that share all other coordinates, in the order of their linear
+        index over ``axes``."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        groups: dict[tuple, list[int]] = {}
+        for r in range(math.prod(self.axis_sizes)):
+            coords, q = {}, r
+            for name, size in zip(reversed(self.axis_names), reversed(self.axis_sizes)):
+                coords[name] = q % size
+                q //= size
+            rest = tuple(coords[a] for a in self.axis_names if a not in axes)
+            groups.setdefault(rest, []).append(r)
+        return list(groups.values())
 
     def group(self, axes) -> object:
         """The process group over ``axes`` (one name or a tuple) that holds
         this rank. Axes of size 1 drop out; axes that all have size 1
         name this rank alone (a group of one, where the world has more);
-        every live axis names the whole world."""
+        every live axis names the whole world; the live DP axes together
+        (``("pod", "data")`` beside a live ``model``) name their group."""
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         live = tuple(a for a in axes if self.shape[a] > 1)
         every = tuple(a for a in self.axis_names if self.shape[a] > 1)
@@ -176,6 +191,8 @@ class ProcessMesh:
             return self._groups[live]
         if set(live) == set(every):
             return self._groups[every if len(every) == 1 else tuple(self.axis_names)]
+        if live in self._groups:
+            return self._groups[live]
         raise ValueError(f"no process group over {axes} in mesh {self.shape}")
 
     def __repr__(self) -> str:

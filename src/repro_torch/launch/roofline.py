@@ -1,16 +1,20 @@
-"""The pure cost model of ``repro.launch.roofline``: model FLOPs, the
-backward-segment compute that gates each gradient bucket, and the
-modeled step timeline of the bucketed, backward-overlapped DP gradient
-reduction.
+"""Roofline terms and the pure cost model of ``repro.launch.roofline``:
+the per-device roofline of a counted step (:class:`Roofline`,
+:func:`extract`), model FLOPs, the backward-segment compute that gates
+each gradient bucket, and the modeled step timeline of the bucketed,
+backward-overlapped DP gradient reduction.
 
-The JAX module fixes its machine in module constants; here a
+The JAX module fixes its machine (TPU v5e) in module constants; here a
 :class:`Machine` (peak FLOP/s, HBM bytes/s, link bytes/s) is passed in
-and threaded through :func:`noc_cycles`, :func:`bucket_ready_cc` and
-:func:`modeled_train_overlap`. :data:`H100_SXM` is the card the port
-runs on. The HLO parsing half of the JAX module (``collective_bytes``,
-``Roofline``, ``extract``) reads XLA's compiled text and has no
-counterpart here; the executor's ``core.chainwrite.wire_counter`` counts
-the bytes a step really moved.
+and threaded through :func:`extract`, :func:`noc_cycles`,
+:func:`bucket_ready_cc` and :func:`modeled_train_overlap`.
+:data:`H100_SXM` is the card the port runs on. Where the JAX module
+reads XLA's compiled text (``hlo_cost.analyze`` for the counts,
+``collective_bytes`` for the wire bytes, ``cost_analysis()`` for the
+raw count), :func:`extract` reads a :class:`~.op_cost.Cost` booked op by
+op (``launch.op_cost``): ``Cost.coll`` holds the per-kind wire bytes,
+and ``torch.utils.flop_counter``'s count of the same pass stands where
+XLA's raw count stood.
 """
 
 from __future__ import annotations
@@ -44,6 +48,86 @@ class Machine:
 H100_SXM = Machine(name="NVIDIA H100 80GB HBM3 (SXM5), 700 W", peak_flops=989e12,
                    hbm_bw=3.35e12, link_bw=450e9, peak_flops_f32=67e12,
                    peak_flops_tf32=495e12)
+
+
+@dataclasses.dataclass
+class Roofline:
+    """Per-device roofline of one step on ``machine``: JAX's
+    ``Roofline`` with its terms on a :class:`Machine`. ``xla_raw_flops``
+    becomes ``flop_counter_flops`` (``FlopCounterMode``'s count of the
+    same pass: dots, convolutions and attention only); ``xla_raw_bytes``
+    has no counterpart (PyTorch counts no bytes of its own)."""
+
+    flops: float  # per-device, every op booked
+    hbm_bytes: float  # per-device, upper bound (operand + result of every op)
+    coll_bytes: float  # per-device (wire)
+    coll_breakdown: dict[str, int]
+    flop_counter_flops: float = 0.0
+    # lower bound: each result written once, dots/convs/collectives read
+    hbm_bytes_lb: float = 0.0
+    machine: Machine = dataclasses.field(default_factory=lambda: H100_SXM)
+
+    @property
+    def compute_s(self) -> float:
+        return self.flops / self.machine.peak_flops
+
+    @property
+    def memory_s(self) -> float:
+        return self.hbm_bytes / self.machine.hbm_bw
+
+    @property
+    def memory_lb_s(self) -> float:
+        return self.hbm_bytes_lb / self.machine.hbm_bw
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes / self.machine.link_bw
+
+    @property
+    def dominant(self) -> str:
+        terms = {
+            "compute": self.compute_s,
+            "memory": self.memory_s,
+            "collective": self.collective_s,
+        }
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    def as_dict(self) -> dict:
+        return {
+            "flops_per_device": self.flops,
+            "hbm_bytes_per_device": self.hbm_bytes,
+            "collective_bytes_per_device": self.coll_bytes,
+            "collective_breakdown": self.coll_breakdown,
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "memory_lb_s": self.memory_lb_s,
+            "collective_s": self.collective_s,
+            "dominant": self.dominant,
+            "flop_counter_flops": self.flop_counter_flops,
+            "machine": self.machine.name,
+        }
+
+
+def extract(cost, machine: Machine = H100_SXM) -> Roofline:
+    """Roofline terms of a counted step: ``cost`` is a
+    :class:`~repro_torch.launch.op_cost.OpCost` after its run (its
+    ``FlopCounterMode`` count comes along) or a bare
+    :class:`~repro_torch.launch.op_cost.Cost`."""
+    raw = getattr(cost, "flop_counter_flops", 0.0)
+    cost = getattr(cost, "cost", cost)
+    return Roofline(
+        flops=cost.flops,
+        hbm_bytes=cost.bytes,
+        coll_bytes=cost.coll_bytes,
+        coll_breakdown={k: int(v) for k, v in cost.coll.items()},
+        flop_counter_flops=float(raw),
+        hbm_bytes_lb=cost.bytes_lb,
+        machine=machine,
+    )
 
 
 def model_flops(n_params_active: int, tokens: int, kind: str) -> float:
@@ -178,5 +262,5 @@ def modeled_train_overlap(
     }
 
 
-__all__ = ["H100_SXM", "Machine", "backward_flops", "bucket_ready_cc", "model_flops",
-           "modeled_train_overlap", "noc_cycles"]
+__all__ = ["H100_SXM", "Machine", "Roofline", "backward_flops", "bucket_ready_cc", "extract",
+           "model_flops", "modeled_train_overlap", "noc_cycles"]

@@ -594,6 +594,7 @@ def build_cell(
     smoke: bool = False,
     variant: str = "baseline",
     device="meta",
+    cfg_overrides: dict | None = None,
 ) -> Cell:
     """The cell of ``arch`` at ``C.SHAPES[shape_name]`` on ``mesh`` (a
     :class:`~repro_torch.launch.mesh.VirtualMesh` or a
@@ -643,7 +644,9 @@ def build_cell(
     size does not divide without ``attn_seq_shard`` raise
     ``NotImplementedError`` (:func:`_refuse_process_cell`; the
     ``opt-seq`` variant sets the flag; whisper-tiny's 6 heads at
-    TP = 4)."""
+    TP = 4). ``cfg_overrides`` are ``ModelConfig`` fields set on top of the
+    variant's (the dry run's ``attn_seq_shard`` where the TP size does
+    not divide the heads)."""
     cfg = C.get_smoke_config(arch) if smoke else C.get_config(arch)
     overrides = dict(VARIANTS.get(variant) or {})
     knobs = dict(num_chains=num_chains, ar_algo=ar_algo, compress_grads=compress_grads,
@@ -659,6 +662,7 @@ def build_cell(
                 f"{name}={fmt(knobs[name])} was passed explicitly"
             )
         knobs[name] = pinned
+    overrides.update(cfg_overrides or {})
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     shape = C.SHAPES[shape_name]

@@ -283,9 +283,26 @@ def test_torrent_ring_collectives_match_oracles(num_chains, wire):
     assert np.array_equal(got.numpy(), ref.multi_all_gather_ref(xs[:, 0], orders, True))
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that claims a device the executor does not run on (an
+    ``xpu`` wrapper with no storage; any op on it fails)."""
+
+    @staticmethod
+    def __new__(cls, shape):
+        return torch.Tensor._make_wrapper_subclass(cls, shape, dtype=torch.float32,
+                                                   device=torch.device("xpu"))
+
+    @classmethod
+    def __torch_dispatch__(cls, func, types, args=(), kwargs=None):
+        raise AssertionError(f"{func} reached a tensor on an unknown device")
+
+
 def test_reduce_and_executor_refuse_mixed_or_unknown_devices():
     """Leaves on several devices raise instead of being reduced on one of
-    them (``meta`` stands in for a second device on the CPU)."""
+    them (``meta`` stands in for a second device on the CPU). The
+    executor refuses a device it does not run on (an ``xpu`` wrapper
+    tensor stands in for one); ``meta`` it runs on, for the dry run,
+    recording the CPU run's bytes."""
     mesh = make_host_mesh(data=2)
     red = TC.make_stacked_reduce(mesh)
     with pytest.raises(ValueError, match="several devices"):
@@ -298,4 +315,10 @@ def test_reduce_and_executor_refuse_mixed_or_unknown_devices():
     from repro_torch.core import chainwrite as cw
 
     with pytest.raises(ValueError, match="device"):
-        cw.chain_all_reduce(torch.zeros((2, 4), device="meta"))
+        cw.chain_all_reduce(_Elsewhere((2, 4)))
+    cw.wire_counter.reset()
+    assert cw.chain_all_reduce(torch.zeros((2, 4), device="meta")).shape == (2, 4)
+    meta_bytes = cw.wire_counter.bytes
+    cw.wire_counter.reset()
+    cw.chain_all_reduce(torch.zeros((2, 4)))
+    assert meta_bytes == cw.wire_counter.bytes > 0
