@@ -29,7 +29,11 @@ Phases (any failure exits non-zero and prints no result):
    f32, the moe and hybrid serve phases' and the vlm decode phase's
    prefill shapes, f32 windowed cases, ragged, GQA and head-dim cases, and 4096-token
    prefills at head dims 40 (bf16, padded to 64), 192 and 256 (f32, on a
-   cluster of two blocks). f32 cases print two bounds: the CUDA cores'
+   cluster of two blocks); then a sequence-sharded rank's blocks of the
+   query rows at their offsets (``FLASH_OFFSET_CASES``: whisper-tiny at
+   TP = 4, starcoder2-3b at TP = 16), each route's block against the
+   plain twin and against the same rows of the whole-sequence call, SDPA
+   with an explicit mask of the block's rows beside it. f32 cases print two bounds: the CUDA cores'
    f32 rate and the 3xTF32 rate (the TF32 tensor-core rate over the
    three products), held as ``bound_ms`` on the tf32x3 route;
 4. f32 attention: ``flash_attention`` called on f32 inputs at yi-6b's
@@ -121,7 +125,10 @@ Phases (any failure exits non-zero and prints no result):
    bit, and the two smallest leaves' reduced rows equal to the executor
    on the CPU and to ``chainwrite_ref.multi_all_reduce_ref``; then 8
    steps of bucketed exact-wire training and 8 of int8 + error-feedback
-   training from the same init, each run a ``Trainer``'s state and step:
+   training from the same init, each run a ``Trainer``'s state and step;
+   between them, one rank's grad step at JAX's ``remat="full"`` and
+   ``"dots"`` at 2 and 8 rows a rank (``remat_policies``: time, peak and
+   the device's busy time side by side, the grads equal):
    finite losses, the first in [10.5, 12.5], the last below the first;
    every step's executor wire bytes equal to ``program_wire_bytes`` of
    the programs it ran; no retry of the caching allocator; no kernel
@@ -240,7 +247,9 @@ Phases (any failure exits non-zero and prints no result):
    (``TP_SERVE``): yi-6b (8 of 32 layers), mamba2-2.7b (all 64),
    deepseek-v2-lite-16b (4 of 27), jamba-v0.1-52b (5 of 32), qwen2-vl-7b
    (4 of 28: the vlm phase's embeddings and positions, flash on each
-   rank's 14 heads) and whisper-tiny (tokens with encoder frames, the
+   rank's 14 heads; again with ``attn_seq_shard``, each rank's 256 of the
+   512 query rows through the flash kernel at their offset, held against
+   the same reference) and whisper-tiny (tokens with encoder frames, the
    plain attention); these two decode at one position for every row,
    with no admission. Per
    model a TP = 1 reference from the same seed in this process, with
@@ -473,6 +482,7 @@ def reset_launches() -> None:
 
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    FA.flash_attention.offset_launches = 0
     R.relayout.launches = 0
     R.relayout.launches_by_route = dict.fromkeys(R.ROUTES, 0)
 
@@ -710,6 +720,123 @@ def flash_phase() -> dict:
         rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
         print("flash", json.dumps(rec), flush=True)
         recs[name] = rec
+    recs.update(flash_offset_cases(gen))
+    return recs
+
+
+# a sequence-sharded rank's flash call (attn_seq_shard: a block of Sq
+# query rows at offset q_off against all Sk keys): (name, B, H, Hkv, Sk,
+# Sq, D, causal, window, blocks, offsets). whisper-tiny at TP = 4 (6
+# heads, D = 64): the decoder's causal 112 of 448 rows, the encoder's
+# non-causal 375 of 1500 frames (blocks of 500: the JAX entry's 512 does
+# not divide 1500); starcoder2-3b at TP = 16 (24 heads on 2 KV heads,
+# D = 128, window 4096): 256 of 4096 rows. Each in bf16 (wgmma) and f32
+# (tf32x3); qwen2-vl-7b under attn_seq_shard at TP = 2, the block the
+# tp serve phase's qwen2-vl-7b+seq prefill gives each rank (4 prompts,
+# 28 heads on 4 KV heads, D = 128, 256 of 512 rows, the entry's 512 blocks)
+FLASH_OFFSET_CASES = [
+    ("whisper_dec_tp4", 1, 6, 6, 448, 112, 64, True, None, (448, 448), (0, 336)),
+    ("whisper_enc_tp4", 1, 6, 6, 1500, 375, 64, False, None, (500, 500), (0, 1125)),
+    ("starcoder2_tp16", 1, 24, 2, 4096, 256, 128, True, 4096, (512, 512), (0, 2048, 3840)),
+    ("qwen2vl_seq_tp2", 4, 28, 4, 512, 256, 128, True, None, (512, 512), (0, 256)),
+]
+# an offset block against the plain twin: |err| <= tol · the largest
+# |output| of its row, since a row averaging thousands of keys has
+# outputs near 0.02 and a fixed atol of that size would pass a diagonal
+# one tile off. bf16: 2.5 ulps of the row's largest output (the kernel
+# rounds P to bf16 for PV and the output once: one ulp, measured); f32:
+# 1e-3 of it. Against the whole call's rows the block must agree exactly
+FLASH_OFFSET_ROW_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+
+
+def flash_offset_cases(gen) -> dict:
+    """Both routes at the offset shapes: each block against the plain
+    twin (``FLASH_OFFSET_ROW_TOL``) and against the matching rows of the
+    whole-sequence kernel call (exactly), timed beside the twin and SDPA
+    with an explicit mask of the block's rows (SDPA's ``is_causal``
+    places the diagonal at row 0 of a block when Sq != Sk). The bound
+    counts the band this block's masks keep: its (row, col) pairs'
+    FLOPs, and q, o and the K/V columns from the first kept to the last
+    kept one."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    hbm_bytes_per_s, peak_ops_per_s = card_rates()
+    recs = {}
+    for base, B, H, Hkv, Sk, Sq, D, causal, window, blocks, offsets in FLASH_OFFSET_CASES:
+        for dtype, route in ((torch.bfloat16, "wgmma"), (torch.float32, "tf32x3")):
+            q = torch.randn((B, H, Sk, D), device="cuda", generator=gen).to(dtype)
+            k = torch.randn((B, Hkv, Sk, D), device="cuda", generator=gen).to(dtype)
+            v = torch.randn((B, Hkv, Sk, D), device="cuda", generator=gen).to(dtype)
+            kw = dict(causal=causal, window=window, block_q=blocks[0], block_k=blocks[1])
+            whole = FA.flash_attention(q, k, v, **kw)
+            dt = str(dtype).split(".")[-1]
+            tol = FLASH_OFFSET_ROW_TOL[dt]
+            for off in offsets:
+                name = f"{base}_{route}_at_{off}"
+                qb = q[:, :, off:off + Sq].contiguous()
+                before = (dict(FA.flash_attention.launches_by_route),
+                          FA.flash_attention.offset_launches)
+                got = FA.flash_attention(qb, k, v, q_offset=off, **kw)
+                want = FA.flash_attention_plain(qb, k, v, q_offset=off, **kw)
+                torch.cuda.synchronize()
+                moved = {r: n - before[0][r]
+                         for r, n in FA.flash_attention.launches_by_route.items()}
+                if (moved != {r: int(r == route) for r in moved}
+                        or FA.flash_attention.offset_launches != before[1] + 1):
+                    raise AssertionError(f"flash {name}: launches moved {moved}")
+                if got.shape != qb.shape or not torch.isfinite(got).all():
+                    raise AssertionError(f"flash {name}: output {tuple(got.shape)}")
+                err = (got.float() - want.float()).abs()
+                rows_err = (got.float() - whole[:, :, off:off + Sq].float()).abs()
+                bad = err > tol * want.float().abs().amax(-1, keepdim=True)
+                if bad.any():
+                    raise AssertionError(
+                        f"flash {name}: {int(bad.sum())} elements beyond {tol} of their "
+                        f"row's largest output against the plain twin; max abs err "
+                        f"{float(err.max())}")
+                if rows_err.max() != 0:
+                    raise AssertionError(
+                        f"flash {name}: {int((rows_err != 0).sum())} elements differ from "
+                        f"the whole call's rows; max abs err {float(rows_err.max())}")
+                rows = off + torch.arange(Sq, device="cuda")[:, None]
+                cols = torch.arange(Sk, device="cuda")[None, :]
+                mask = torch.ones((Sq, Sk), dtype=torch.bool, device="cuda")
+                if causal:
+                    mask &= cols <= rows
+                if window is not None:
+                    mask &= cols > rows - window
+
+                def library(qb=qb, mask=mask):
+                    return F.scaled_dot_product_attention(qb, k, v, attn_mask=mask,
+                                                          enable_gqa=True)
+
+                kernel = lambda qb=qb, off=off: FA.flash_attention(  # noqa: E731
+                    qb, k, v, q_offset=off, **kw)
+                kernel_ms, library_ms = paired_ms(kernel, library)
+                flops = 4 * D * B * H * int(mask.sum())
+                kept = mask.any(0).nonzero()  # the K/V columns the band reaches
+                span = int(kept[-1] - kept[0] + 1) if len(kept) else 0
+                io_bytes = (2 * qb.numel() + 2 * B * Hkv * span * D) * q.element_size()
+                t_ops = flops / peak_ops_per_s["tf32x3" if route == "tf32x3" else dt]
+                t_bytes = io_bytes / hbm_bytes_per_s
+                rec = {
+                    "name": name, "route": route, "shape": [B, H, Hkv, Sq, Sk, D],
+                    "q_offset": off, "dtype": dt, "causal": causal, "window": window,
+                    "row_tol": tol, "kv_columns": span, "ms": kernel_ms,
+                    "device_ms": device_ms(kernel, FLASH_KERNEL_NAMES[route]),
+                    "plain_ms": time_ms(lambda qb=qb, off=off: FA.flash_attention_plain(
+                        qb, k, v, q_offset=off, **kw)),
+                    "library_ms": library_ms, "library_device_ms": device_ms(library, None),
+                    "bound_ms": max(t_ops, t_bytes) * 1e3,
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "max_abs_err": float(err.max()),
+                    "whole_rows_max_abs_err": float(rows_err.max()),
+                }
+                rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+                print("flash offset", json.dumps(rec), flush=True)
+                recs[name] = rec
     return recs
 
 
@@ -1489,7 +1616,11 @@ def train_phase() -> dict:
           f"({len(per_leaf)} leaves); leaves {smallest} == CPU executor == numpy oracle; "
           f"wire bytes per-leaf {leaf_bytes[0]} bucketed {bucket_bytes_[0]} (model equal); "
           f"loss {float(metrics0['loss']):.4f}", flush=True)
-    del stacked, per_leaf, bucketed, params, batch
+    del stacked, per_leaf, bucketed, batch
+    torch.cuda.empty_cache()
+    remat = {f"{rows}_rows": remat_policies(cfg, params, place(source.batch(0)), rows)
+             for rows in REMAT_ROWS}
+    del params
     torch.cuda.empty_cache()
 
     # 2. and 3. training from one init through the Trainer: exact wire,
@@ -1578,7 +1709,104 @@ def train_phase() -> dict:
           f"int8 {runs['int8_ef']['wire_bytes_per_step']} (ratio "
           f"{runs['exact']['wire_bytes_per_step'] / runs['int8_ef']['wire_bytes_per_step']:.3f}); "
           f"kernel launches {launches}", flush=True)
-    return {"train_launches": launches, "runs": runs}
+    return {"train_launches": launches, "runs": runs, "remat": remat}
+
+
+# JAX's remat policies on the train phase's step: one rank's grads
+# (its rows of the batch) at each policy, alternated REMAT_ROUNDS times
+# after one warm-up call of each, at REMAT_ROWS rows a rank (the train
+# phase's 2, and 8: 1,024 and 4,096 tokens a rank)
+REMAT_ROUNDS = 3
+REMAT_ROWS = (2, 8)
+
+
+def remat_profile(fn, params, batch) -> dict:
+    """One call of ``fn`` timed on the host (the ms it takes to enqueue
+    the step, the device left to run), then one under the profiler: the
+    device's busy ms (the sum of its CUDA kernels' times), the kernels
+    launched, and the matrix products among them (the kernels whose name
+    holds ``gemm``, ``xmma``, ``cutlass`` or ``nvjet``, cuBLAS's names on
+    Hopper: a save shows as fewer). The
+    busy time beside the step's event time splits the step into device
+    work and the device waiting on the host."""
+    import time
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(params, batch)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(params, batch)
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    dots = [e for e in cuda if any(w in e.key.lower() for w in ("gemm", "xmma", "cutlass", "nvjet"))]
+    return {"host_enqueue_ms": host_ms, "device_busy_ms": sum(map(us, cuda)) / 1e3,
+            "kernels": sum(e.count for e in cuda), "dot_kernels": sum(e.count for e in dots),
+            "dot_ms": sum(map(us, dots)) / 1e3}
+
+
+def remat_policies(cfg, params, batch, rows: int) -> dict:
+    """One DP rank's grad step (``rows`` of ``batch``) at JAX's
+    ``remat="full"`` (each layer recomputed whole) and ``"dots"`` (the
+    unbatched matrix products saved, the rest recomputed): the step's
+    event time (median of ``REMAT_ROUNDS`` alternated calls), its peak
+    memory over what was allocated before it, and one profiled call of
+    each (:func:`remat_profile`): the device's busy time, and the rest of
+    the step, the device waiting on the host. The policies change what
+    is saved, not the numbers: the grads must agree within 1e-3 of each
+    leaf's scale."""
+    import statistics
+
+    import torch
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.tree import leaves
+
+    batch = {key: val[:rows] for key, val in batch.items()}
+    fns = {p: make_grad_fn(cfg, remat=p, loss_chunks=8) for p in ("full", "dots")}
+    ms, peak, grads = {p: [] for p in fns}, {}, {}
+    for fn in fns.values():  # warm-up: cuBLAS handles, the allocator's pools
+        fn(params, batch)
+    for r in range(REMAT_ROUNDS):
+        for policy in (("full", "dots") if r % 2 == 0 else ("dots", "full")):
+            grads.pop(policy, None)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out, _ = fns[policy](params, batch)
+            end.record()
+            torch.cuda.synchronize()
+            ms[policy].append(start.elapsed_time(end))
+            peak[policy] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            grads[policy] = leaves(out)
+    worst = max(float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+                for a, b in zip(grads["dots"], grads["full"]))
+    grads.clear()
+    prof = {p: remat_profile(fn, params, batch) for p, fn in fns.items()}
+    rec = {"rows": rows, "seq": int(batch["tokens"].shape[1]), "layers": cfg.num_layers,
+           "step_ms": {p: statistics.median(v) for p, v in ms.items()},
+           "step_ms_all": ms, "peak_gb_over_state": peak, "profile": prof,
+           "grads_rel_diff_dots_vs_full": worst}
+    rec["tokens"] = rec["rows"] * rec["seq"]
+    rec["device_wait_ms"] = {p: rec["step_ms"][p] - prof[p]["device_busy_ms"] for p in fns}
+    rec["dots_over_full_time"] = rec["step_ms"]["dots"] / rec["step_ms"]["full"]
+    rec["dots_minus_full_peak_gb"] = peak["dots"] - peak["full"]
+    rec["full_minus_dots"] = {k: prof["full"][k] - prof["dots"][k]
+                              for k in ("device_busy_ms", "dot_ms", "dot_kernels", "kernels")}
+    print(f"train remat full vs dots: {json.dumps(rec)}", flush=True)
+    if worst > 1e-3:
+        raise AssertionError(f"train remat: dots and full grads differ by {worst}")
+    return rec
 
 
 def ep_train_phase() -> dict:
@@ -2491,13 +2719,133 @@ DIST_TRAIN = dict(arch="yi-6b", smoke=False, layers=2, steps=2, global_batch=8, 
 
 
 def dist_executor_rank(rank, world, device, case_list):
-    """One rank of the dist phase's executor check (a spawned process)."""
+    """One rank of the dist phase's executor check (a spawned process),
+    then :func:`reference_faults_rank`."""
     import torch.distributed as dist
     import _dist_cases as dc
     from repro_torch.core import chainwrite_dist as cwd
 
     return {"transport": cwd.transport(dist.group.WORLD, device),
-            "cases": dc.executor_rank(rank, world, device, case_list)}
+            "cases": dc.executor_rank(rank, world, device, case_list),
+            "faults": reference_faults_rank(rank, world, device)}
+
+
+# configurations the port once refused and JAX runs, at smoke size on the
+# dist phase's 4 ranks, f32 compute, each against the same model unsplit
+# in the rank's own process: on (data=1, model=4) one KV head of 6 (wk/wv
+# whole: 4 does not divide 6), Mamba-2 heads of 64 (each rank half a
+# head) and attn_seq_shard with the flash kernel (each rank's 4 of 16
+# query rows at their offset; prefill and decode only, the kernel has no
+# backward); on (data=2, model=2) under a replicated batch, a window of
+# 24 slots (left whole) and of 32 (split over data) prefilled and
+# decoded, and a moe_ep_dispatch layer on the replicated rows against the
+# stacked view's expert-parallel layer over the same rows
+FAULT_TP4 = {"kv_cols_6": ("yi-6b", dict(num_kv_heads=1, head_dim=6)),
+             "ssm_head_64": ("mamba2-2.7b", dict(ssm_headdim=64)),
+             "seq_flash": ("yi-6b", dict(attn_seq_shard=True, attn_impl="flash"))}
+FAULT_WINDOWS = (24, 32)
+FAULT_TOL = 1e-4  # of each compared tensor's max
+# a decode from a prefilled cache under both splits: the query and the
+# softmax weights are rounded to the bf16 cache's dtype, and on (2, 2) a
+# weight summed in another order can round to the neighbouring bf16
+# value (the window of 32: 1.07e-3 of the logit max on the CPU, 5.8e-7
+# with the cache in f32)
+FAULT_DECODE_TOL = 1e-2
+
+
+def reference_faults_rank(rank, world, device) -> dict:
+    """:data:`FAULT_TP4` and the replicated-batch cases on this rank; rank
+    0 also runs each unsplit (the ranks' gathered grads and replicated
+    outputs are alike) and returns the worst relative difference of each
+    output from it."""
+    import numpy as np
+    import torch
+    from _tp_cases import compute_dtype
+    from repro_torch import configs as Cfg
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.launch.mesh import make_host_mesh, make_process_mesh
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as Tm
+    from repro_torch.parallel import hints
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.tree import leaves, map_tree
+
+    def drawn(init, cfg, seed):  # drawn on the CPU from the seed, then moved
+        return map_tree(lambda t: t.to(device), init(torch.Generator().manual_seed(seed), cfg,
+                                                     "cpu"))
+
+    def rel(a, b):
+        return max(float((x.float() - y.float()).abs().max() / y.float().abs().max().clamp_min(
+            1e-30)) for x, y in zip(leaves(a), leaves(b)))
+
+    def tokens(cfg, n):
+        return torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (2, n)).astype(np.int32)).to(device)
+
+    out, ref = {}, rank == 0
+    tp4, dp2 = make_process_mesh(model=4), make_process_mesh(data=2, model=2)
+    with compute_dtype(torch.float32):
+        for name, (arch, kw) in FAULT_TP4.items():
+            cfg = dataclasses.replace(Cfg.get_smoke_config(arch), **kw)
+            full = drawn(Tm.model_init, cfg, 0)
+            specs = shd.logical_pspecs(cfg, world)
+            params = shd.shard_tree(full, specs, tp4)
+            toks = tokens(cfg, 16)
+            rec = {}
+            if cfg.attn_impl != "flash":
+                batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+                with hints.set_mesh(tp4):
+                    g, _ = make_grad_fn(cfg, loss_chunks=1)(params, batch)
+                g = shd.gather_tree(g, specs, tp4)
+                if ref:
+                    rec["grads"] = rel(g, make_grad_fn(cfg, loss_chunks=1)(full, batch)[0])
+            with torch.no_grad():
+                with hints.set_mesh(tp4):
+                    got, cache = Tm.prefill(params, cfg, {"tokens": toks}, 24)
+                nxt, pos = got.argmax(-1).to(torch.int32), torch.tensor(16, dtype=torch.int32)
+                with hints.set_mesh(tp4):
+                    step = Tm.decode_step(params, cfg, nxt, pos, cache)[0]
+                if ref:
+                    want, wc = Tm.prefill(full, cfg, {"tokens": toks}, 24)
+                    rec["prefill"] = rel(got, want)
+                    rec["decode"] = rel(step, Tm.decode_step(full, cfg, nxt, pos, wc)[0])
+            out[name] = rec
+        for window in FAULT_WINDOWS:  # one sequence, replicated; 64 positions
+            cfg = dataclasses.replace(Cfg.get_smoke_config("h2o-danube-1.8b"),
+                                      sliding_window=window)
+            full = drawn(Tm.model_init, cfg, 0)
+            params = shd.shard_tree(full, shd.logical_pspecs(cfg, 2), dp2)
+            with hints.set_mesh(None):
+                like = Tm.init_cache(cfg, 1, 64, device="meta")
+            cspecs = shd.cache_pspecs(like, cfg, Shape("long", "decode", 64, 1), tp=2)
+            prompt = {"tokens": tokens(cfg, 40)[:1]}
+            pos = torch.tensor(40, dtype=torch.int32)
+            with torch.no_grad():
+                with hints.set_mesh(dp2), hints.replicated_batch(64):
+                    got, cache = Tm.prefill(params, cfg, prompt, 64)
+                gathered = shd.gather_cache(cache, cspecs, cfg, dp2)
+                nxt = got.argmax(-1).to(torch.int32)
+                with hints.set_mesh(dp2), hints.replicated_batch(64):
+                    step = Tm.decode_step(params, cfg, nxt, pos, cache)[0]
+                if ref:
+                    want, wc = Tm.prefill(full, cfg, prompt, 64)
+                    out[f"window_{window}"] = {
+                        "prefill": rel(got, want), "cache": rel(gathered, wc),
+                        "decode": rel(step, Tm.decode_step(full, cfg, nxt, pos, wc)[0])}
+        cfg = dataclasses.replace(Cfg.get_smoke_config("deepseek-moe-16b"), moe_ep_dispatch=True)
+        layer = drawn(M.moe_init, cfg, 5)
+        x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+            (4, 8, cfg.d_model)).astype(np.float32)).to(device)
+        with torch.no_grad():
+            mine = shd.shard_tree(layer, shd.param_pspecs({"ffn": layer}, cfg, tp=2)["ffn"], dp2)
+            with hints.set_mesh(dp2), hints.replicated_batch(x.shape[1]):
+                got, aux = M.moe_apply(mine, x, cfg)
+            if ref:
+                with hints.set_mesh(make_host_mesh(data=2)):
+                    want, waux = M.moe_apply(layer, x, cfg)
+                out["ep_replicated"] = {"out": rel(got, want), "aux": rel([aux], [waux])}
+    return out
 
 
 # the dist phase's Trainer runs: (name, compress_grads, collectives);
@@ -2780,6 +3128,12 @@ def dist_phase() -> dict:
     print(f"dist executor: {json.dumps({'ranks': L, 'cases': len(cases), 'bit_exact': not bad, 'transport': sorted(transport), 'spawn_and_run_s': round(spawn_s, 2)})}", flush=True)
     if bad or transport != {"gloo via pinned host"}:
         raise AssertionError(f"dist executor: {bad[:10]} transport {transport}")
+    worst = ranks[0]["faults"]
+    print(f"dist reference faults (of each tensor's max; tolerance {FAULT_TOL}, "
+          f"windows' decode {FAULT_DECODE_TOL}): {json.dumps(worst)}", flush=True)
+    if any(v > (FAULT_DECODE_TOL if name.startswith("window") and k == "decode" else FAULT_TOL)
+           for name, rec in worst.items() for k, v in rec.items()):
+        raise AssertionError(f"dist reference faults: {worst}")
 
     # 2. the stacked reference in this process first, then freed: its
     # ~40 GB and two ranks' ~30 GB each do not fit one card together
@@ -3554,7 +3908,19 @@ def _tp_family_checks(arch, spec, fixed, ref, ranks, wall, failed) -> dict:
 # token (held equal to TP = 1's) meets: at 4 layers yi-6b's differs
 # (an H100 run), so the depth stays 8
 TP_SERVE = {"yi-6b": 8, "mamba2-2.7b": None, "deepseek-v2-lite-16b": 4,
-            "jamba-v0.1-52b": 5, "qwen2-vl-7b": 4, "whisper-tiny": None}
+            "jamba-v0.1-52b": 5, "qwen2-vl-7b": 4, "qwen2-vl-7b+seq": 4,
+            "whisper-tiny": None}
+# "ARCH+seq": ARCH served with attn_seq_shard (each rank prefills its
+# block of the query rows with every head, against all keys, through the
+# flash kernel at the block's offset; a decode row runs every head on
+# every rank), held against ARCH's TP = 1 reference: the layout changes,
+# the function does not
+
+
+def serve_base(arch: str) -> str:
+    """The architecture of a ``TP_SERVE`` entry (``ARCH`` of ``ARCH+seq``)."""
+    return arch.split("+")[0]
+
 # qwen2-vl's prompts are the vlm phase's (random embeddings at an image
 # grid's M-RoPE positions, then text), whisper's the audio phase's
 # (tokens with encoder frames); both decode at one position for every row
@@ -3611,9 +3977,11 @@ def tp_serve_config(arch: str, layers: int | None = -1, smoke: bool = False,
     default its ``TP_SERVE`` depth)."""
     from repro_torch import configs as Cfg
 
-    cfg = Cfg.get_smoke_config(arch) if smoke else Cfg.get_config(arch)
+    base = serve_base(arch)
+    cfg = Cfg.get_smoke_config(base) if smoke else Cfg.get_config(base)
     layers = {**TP_SERVE, **TP_SERVE_DP}[arch] if layers == -1 else layers
-    return dataclasses.replace(cfg, attn_impl=TP_SERVE_ATTN.get(arch, attn_impl),
+    return dataclasses.replace(cfg, attn_impl=TP_SERVE_ATTN.get(base, attn_impl),
+                               attn_seq_shard=cfg.attn_seq_shard or arch.endswith("+seq"),
                                num_layers=cfg.num_layers if layers is None else layers)
 
 
@@ -3846,6 +4214,7 @@ def tp_serve_rank(rank, world, device, ref_dir, archs):
     import torch
     from _moe_routing import routing_as
     from repro_torch import configs as Cfg
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.launch.mesh import make_process_mesh
     from repro_torch.models import transformer as Tm
     from repro_torch.parallel import hints
@@ -3860,7 +4229,7 @@ def tp_serve_rank(rank, world, device, ref_dir, archs):
     retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
     for arch in archs:
         cfg = tp_serve_config(arch)
-        ref = torch.load(f"{ref_dir}/{arch}.pt", weights_only=False)
+        ref = torch.load(f"{ref_dir}/{serve_base(arch)}.pt", weights_only=False)
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -3893,7 +4262,7 @@ def tp_serve_rank(rank, world, device, ref_dir, archs):
                 torch.save([x.cpu() for x in leaves(kept)], f"{ref_dir}/{arch}_tp_prefill_cache.pt")
             del kept
         cache = shd.gather_cache(got["cache"], cspecs, cfg, mesh)
-        want_cache = torch.load(f"{ref_dir}/{arch}_cache.pt", weights_only=False)
+        want_cache = torch.load(f"{ref_dir}/{serve_base(arch)}_cache.pt", weights_only=False)
         cache_err = [float((a.float() - b.to(device).float()).abs().max()
                            / b.float().abs().max().clamp_min(1e-30))
                      for a, b in zip(leaves(cache), want_cache)]
@@ -3922,6 +4291,7 @@ def tp_serve_rank(rank, world, device, ref_dir, archs):
             "routed_tokens": int(sum(f.numel() for f in flips)),
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "launches": read_launches(),
+            "offset_launches": FA.flash_attention.offset_launches,
             "logits": {"prefill": got["prefill_logits"].cpu(),
                        **{f"final_{k}": v.cpu() for k, v in got["final_logits"].items()}}})
         out[arch] = rec
@@ -4159,8 +4529,12 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
     try:
         refs = {}
         for arch in archs:
+            if serve_base(arch) != arch:  # a variant: its arch's reference
+                continue
             refs[arch] = tp_serve_reference(arch, ref_dir)
             print(f"tp serve {arch}: TP = 1 reference {json.dumps(refs[arch])}", flush=True)
+        for arch in archs:
+            refs[arch] = refs[serve_base(arch)]
         for arch in dp_archs:
             refs[arch] = tp_serve_reference(arch, ref_dir, traffic=TP_SERVE_DP_TRAFFIC,
                                             witness_cf=TP_SERVE_DP_WITNESS_CF)
@@ -4175,7 +4549,7 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
     finally:
         shutil.rmtree(ref_dir, ignore_errors=True)
     wall = time.perf_counter() - t0
-    launches, failed = None, []
+    launches, failed, offset_launches = None, [], 0
     for arch in archs:
         recs = [rk[arch] for rk in ranks]
         logits = [r.pop("logits") for r in recs]
@@ -4189,16 +4563,20 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
                        for d in r["differences"])
         arch_launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
         flash = [r["launches"]["flash_attention_wgmma"] for r in recs]
+        offset = [r["offset_launches"] for r in recs]
         cfg = tp_serve_config(arch)
         prefills = 1 + ("slot" in rec["tp_bytes"])  # the prompts', the admission's
         want_flash = (cfg.attn_impl == "flash") * prefills * sum(
             s.mixer == "gqa" for p, reps in cfg.layer_groups() for s in p for _ in range(reps))
+        # under attn_seq_shard every prefill launch is a block of the rows
+        want_offset = want_flash if cfg.attn_seq_shard else 0
         ok = (same and near_tie and all(r["slot_token_equal"] for r in recs)
               and all(r["prefill_logits_rel"] <= prefill_tol for r in recs)
               and all(v <= decode_tol for r in recs for v in r["final_logits_rel"].values())
               and all(r["cache_rel_max"] <= TP_SERVE_CACHE_TOL for r in recs)
               and all(r["tp_bytes_equal_model"] for r in recs)
               and all(f == want_flash for f in flash)
+              and all(o == want_offset for o in offset)
               and not any(rk["alloc_retries"] for rk in ranks))
         if arch in witness:  # the decode gap is the prefill cache's rounding
             w = witness[arch]
@@ -4227,12 +4605,15 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
                    "peak_memory_gb": [r["peak_memory_gb"] for r in recs],
                    "routing_flips": [r["routing_flips"] for r in recs],
                    "flash_launches_per_rank": flash, "flash_launches_expected": want_flash,
+                   "attn_seq_shard": cfg.attn_seq_shard,
+                   "offset_launches_per_rank": offset, "offset_launches_expected": want_offset,
                    "alloc_retries": [rk["alloc_retries"] for rk in ranks]}
         print(f"tp serve {arch}: {json.dumps(summary)}", flush=True)
         if not ok:
             failed.append(arch)
         launches = arch_launches if launches is None else {
             k: launches[k] + v for k, v in arch_launches.items()}
+        offset_launches += sum(offset)
     for arch, recs in dp_ranks.items():
         for r, rec in enumerate(recs):
             print(f"tp serve {arch} over data rank {r}: {json.dumps(rec)}", flush=True)
@@ -4268,11 +4649,11 @@ def tp_serve_phase(archs=tuple(TP_SERVE), dp_archs=tuple(TP_SERVE_DP)) -> dict:
             failed.append(f"{arch} over data")
         launches = {k: (launches or {}).get(k, 0) + sum(r["launches"][k] for r in recs)
                     for k in recs[0]["launches"]}
-    print(f"tp serve: {json.dumps({'phase_wall_s': round(wall, 2), 'launches': launches})}",
+    print(f"tp serve: {json.dumps({'phase_wall_s': round(wall, 2), 'launches': launches, 'offset_launches': offset_launches})}",
           flush=True)
     if failed:
         raise AssertionError(f"tp serve: {failed} failed their checks (the lines above)")
-    return {"serve_launches": launches}
+    return {"serve_launches": launches, "offset_launches": offset_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4389,13 +4770,13 @@ def long_rank(rank, world, device, arch, layers, shape_name="long_500k", smoke=F
             launches = read_launches() if launches is None else {
                 k: v + launches[k] for k, v in read_launches().items()}
             paid = dict(tpm.tp_counter.bytes)
-            with hints.set_mesh(mesh), hints.replicated_batch():
+            with hints.set_mesh(mesh), hints.replicated_batch(shape.seq_len):
                 logits, _ = Tm.decode_step(params, cfg, tok, pos,
                                            shd.place_cache(whole, specs, cfg, mesh))
             with compute_dtype(torch.float32):  # the same decodes in f32 compute
                 ref32, _ = Tm.decode_step(whole_params, cfg, tok, pos,
                                           map_tree(torch.clone, whole))
-                with hints.set_mesh(mesh), hints.replicated_batch():
+                with hints.set_mesh(mesh), hints.replicated_batch(shape.seq_len):
                     mine32, _ = Tm.decode_step(params, cfg, tok, pos,
                                                shd.place_cache(whole, specs, cfg, mesh))
             back = shd.gather_cache(cache, specs, cfg, mesh)
@@ -4722,6 +5103,12 @@ def main() -> int:
             "shape", "dtype", "ms", "device_ms", "plain_ms", "library_ms",
             "library_device_ms", "bound_ms", "bound_by", "max_abs_err")}
 
+    def offset_subs(route):
+        """The route's offset blocks (attn_seq_shard's rank calls)."""
+        return {name: {**sub(name), "q_offset": rec["q_offset"],
+                       "whole_rows_max_abs_err": rec["whole_rows_max_abs_err"]}
+                for name, rec in flash_recs.items() if "q_offset" in rec and rec["route"] == route}
+
     kernels = [
         row("relayout", "src/repro_torch/csrc/relayout.cu",
             "src/repro/kernels/relayout/kernel.py:55", relayout_rec, "bytes",
@@ -4741,12 +5128,15 @@ def main() -> int:
             yi6b_tp4_slot=sub("yi6b_tp4_slot"), jamba_tp4_slot=sub("jamba_tp4_slot"),
             qwen2vl_tp2_rank=sub("qwen2vl_tp2_rank"), qwen2vl_tp4_rank=sub("qwen2vl_tp4_rank"),
             bf16_d40=sub("bf16_d40"),
-            d80_gqa=sub("d80_gqa")),
+            d80_gqa=sub("d80_gqa"),
+            offset_launches_by_path={"tp_serve": tp_serve["offset_launches"]},
+            offset_blocks=offset_subs("wgmma")),
         row("flash_attention_tf32x3", "src/repro_torch/csrc/flash_attention_f32_sm90.cu",
             flash_replaces, tf32x3_rec, tf32x3_rec["bound_by"],
             bound_ms_cuda_cores=tf32x3_rec["bound_ms_cuda_cores"],
             split_device_ms=tf32x3_rec["split_device_ms"],
-            f32_d192_4k=sub("f32_d192_4k")),
+            f32_d192_4k=sub("f32_d192_4k"),
+            offset_blocks=offset_subs("tf32x3")),
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

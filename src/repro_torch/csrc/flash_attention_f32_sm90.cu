@@ -7,9 +7,11 @@
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel) for float32 inputs whose head dim D is a multiple
 // of 8 in [8, 256].
-// Same semantics as the Pallas kernel: q (B, H, S, D), k and v
-// (B, Hkv, S, D); query head h reads kv head h / (H / Hkv); masks
-// col <= row (causal) and col > row - window; f32 running max, running
+// Same semantics as the Pallas kernel: q (B, H, Sq, D), k and v
+// (B, Hkv, Sk, D); query head h reads kv head h / (H / Hkv); masks
+// col <= row (causal) and col > row - window, where q's row i is row
+// q_off + i of the sequence (Sq = Sk and q_off = 0 is the Pallas
+// kernel's square call); f32 running max, running
 // sum and accumulator; the finite sentinel -1e30 (never -inf) for masked
 // scores, with the Pallas order m_new = max(m, rowmax), alpha =
 // exp(m - m_new), p = exp(s - m_new), l = alpha l + sum p, acc = alpha acc
@@ -381,8 +383,8 @@ __global__ void __launch_bounds__(THREADS, DPH <= 64 ? 2 : 1)
 flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv, float* __restrict__ o,
-                        int H, int Hkv, int S, int D, int causal, int has_window,
-                        int window, float scale_log2) {
+                        int H, int Hkv, int Sq, int Sk, int q_off, int D, int causal,
+                        int has_window, int window, float scale_log2) {
   using L = Smem<DPH, PAIR>;
   constexpr int NB = DPH / 64;          // 64-column blocks of P V
   constexpr bool TAIL = DPH % 64 != 0;  // and a last 32-column one (DPH = 96)
@@ -411,13 +413,15 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = b * Hkv + (bh - b * H) / (H / Hkv);
 
   // The kv tiles this q tile needs, [t0, t1): the same walk for the
-  // producer and the consumers (and for both blocks of a pair).
-  const int q_last = min(q0 + BM, S) - 1;
-  int t1 = (S + BN - 1) / BN;
-  if (causal) t1 = min(t1, q_last / BN + 1);
+  // producer and the consumers (and for both blocks of a pair). g0 and
+  // g_last are the tile's first and last rows in the sequence.
+  const int g0 = q_off + q0;
+  const int g_last = q_off + min(q0 + BM, Sq) - 1;
+  int t1 = (Sk + BN - 1) / BN;
+  if (causal) t1 = min(t1, g_last / BN + 1);
   int t0 = 0;
   if (has_window) {
-    while (t0 < t1 && min(t0 * BN + BN, S) - 1 <= q0 - window) ++t0;
+    while (t0 < t1 && min(t0 * BN + BN, Sk) - 1 <= g0 - window) ++t0;
   }
 
   if (threadIdx.x == 0) {
@@ -583,11 +587,11 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
 
     // Scores of the tile at kv row k0 -> P in place, alpha, m and l: scale
     // into the log2 domain, mask only where the tile straddles the
-    // diagonal, the window edge or S, then the online softmax in the
+    // diagonal, the window edge or Sk, then the online softmax in the
     // Pallas order for rows row0 and row0 + 8.
     auto softmax = [&](int k0) {
-      const bool edge = (causal && k0 + BN - 1 > q0) || k0 + BN > S ||
-                        (has_window && k0 <= q0 + BM - 1 - window);
+      const bool edge = (causal && k0 + BN - 1 > g0) || k0 + BN > Sk ||
+                        (has_window && k0 <= g0 + BM - 1 - window);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -595,8 +599,8 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
           float x = sc[4 * i + e] * scale_log2;
           if (edge) {
             const int col = k0 + 8 * i + c2 + (e & 1);
-            const int row = row0 + 8 * (e >> 1);
-            bool keep = col < S;
+            const int row = q_off + row0 + 8 * (e >> 1);
+            bool keep = col < Sk;
             if (causal) keep = keep && col <= row;
             if (has_window) keep = keep && col > row - window;
             x = keep ? x : NEG_INF;
@@ -694,7 +698,7 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty_v(sl));
     }
 
-    // O / l, with a zero row where the sum is 0; rows past S and the
+    // O / l, with a zero row where the sum is 0; rows past Sq and the
     // padded columns past D are not stored; a pair's block stores its
     // own DPH columns.
     float den[2];
@@ -705,11 +709,11 @@ flash_fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tq,
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       den[hh] = sum == 0.f ? 1.f : sum;
     }
-    float* op = o + (size_t)bh * S * D;
+    float* op = o + (size_t)bh * Sq * D;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row0 + 8 * hh;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
 #pragma unroll
       for (int j = 0; j < NB; ++j)
 #pragma unroll
@@ -782,20 +786,20 @@ bool make_map(CUtensorMap* map, const void* ptr, int inner, int rows, int planes
 // scheduled (or too much shared memory) fails the launch with its error.
 template <int DPH, bool PAIR>
 cudaError_t launch(const void* q, const void* ks, const void* vt, float* o, int B, int H,
-                   int Hkv, int S, int D, int Sp, int causal, int has_window, int window,
-                   float scale_log2, cudaStream_t st) {
+                   int Hkv, int Sq, int Sk, int q_off, int D, int Sp, int causal,
+                   int has_window, int window, float scale_log2, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, S, B * H, BM) || !make_map(&tk, ks, D, S, 2 * B * Hkv, BN) ||
+  if (!make_map(&tq, q, D, Sq, B * H, BM) || !make_map(&tk, ks, D, Sk, 2 * B * Hkv, BN) ||
       !make_map(&tv, vt, Sp, D, 2 * B * Hkv, DPH))
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_tf32x3_kernel<DPH, PAIR>;
   const int smem = Smem<DPH, PAIR>::ALLOC;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * H * (PAIR ? 2 : 1)), (unsigned)((S + BM - 1) / BM));
+  const dim3 grid((unsigned)(B * H * (PAIR ? 2 : 1)), (unsigned)((Sq + BM - 1) / BM));
   if constexpr (!PAIR) {
-    kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, o, H, Hkv, S, D, causal, has_window, window,
-                                      scale_log2);
+    kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, o, H, Hkv, Sq, Sk, q_off, D, causal,
+                                      has_window, window, scale_log2);
     return cudaGetLastError();
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -810,8 +814,8 @@ cudaError_t launch(const void* q, const void* ks, const void* vt, float* o, int 
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    void* args[] = {&tq, &tk, &tv, &o, &H, &Hkv, &S, &D, &causal, &has_window, &window,
-                    &scale_log2};
+    void* args[] = {&tq, &tk, &tv, &o, &H, &Hkv, &Sq, &Sk, &q_off, &D, &causal, &has_window,
+                    &window, &scale_log2};
     e = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kern), args);
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
@@ -820,37 +824,40 @@ cudaError_t launch(const void* q, const void* ks, const void* vt, float* o, int 
 
 }  // namespace
 
-// q, k, v and o are contiguous f32 and 16-byte aligned; o has q's shape;
-// ks is scratch of (B * Hkv, 2, S, D) f32 and vt of (B * Hkv, 2, D, Sp)
-// f32 with Sp = S rounded up to a multiple of 32; D is a multiple of 8 in
-// [8, 256]. Launches the split pre-pass, then the attention kernel, on
-// `stream`. Returns the CUDA error of the launches (0 on success).
+// q (B, H, Sq, D), k and v (B, Hkv, Sk, D) and o are contiguous f32 and
+// 16-byte aligned; o has q's shape; q's rows are rows q_off .. q_off +
+// Sq - 1 of the sequence the masks read; ks is scratch of (B * Hkv, 2,
+// Sk, D) f32 and vt of (B * Hkv, 2, D, Sp) f32 with Sp = Sk rounded up to
+// a multiple of 32; D is a multiple of 8 in [8, 256]. Launches the split
+// pre-pass, then the attention kernel, on `stream`. Returns the CUDA
+// error of the launches (0 on success).
 extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k, const void* v,
                                                void* o, void* ks, void* vt, int B, int H,
-                                               int Hkv, int S, int D, int causal,
-                                               int has_window, int window, float scale,
-                                               void* stream) {
-  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 || D < 8 || D > MAX_D || D % 8)
+                                               int Hkv, int Sq, int Sk, int q_off, int D,
+                                               int causal, int has_window, int window,
+                                               float scale, void* stream) {
+  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq < 0 || Sk < 0 || q_off < 0 || D < 8 ||
+      D > MAX_D || D % 8)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)ks |
        (uintptr_t)vt) & 15)
     return (int)cudaErrorMisalignedAddress;
-  if ((S + BM - 1) / BM > 65535 || B * Hkv > 65535 || (long long)B * H * 2 > 0x7fffffff)
+  if ((Sq + BM - 1) / BM > 65535 || B * Hkv > 65535 || (long long)B * H * 2 > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return (int)cudaSuccess;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int Sp = (S + 31) / 32 * 32;
+  const int Sp = (Sk + 31) / 32 * 32;
   const dim3 grid_split((unsigned)(Sp / 32), (unsigned)((D + 31) / 32), (unsigned)(B * Hkv));
   tf32x3_split_kernel<<<grid_split, 256, 0, st>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(ks),
-      static_cast<float*>(vt), S, D, Sp);
+      static_cast<float*>(vt), Sk, D, Sp);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const float scale_log2 = scale * LOG2E;
   float* out = static_cast<float*>(o);
 #define LAUNCH(DPH, PAIR)                                                                  \
-  return (int)launch<DPH, PAIR>(q, ks, vt, out, B, H, Hkv, S, D, Sp, causal, has_window, \
-                                window, scale_log2, st)
+  return (int)launch<DPH, PAIR>(q, ks, vt, out, B, H, Hkv, Sq, Sk, q_off, D, Sp, causal, \
+                                has_window, window, scale_log2, st)
   if (D <= 64) LAUNCH(64, false);
   if (D <= 128) LAUNCH(128, false);
   if (D <= 192) LAUNCH(96, true);

@@ -4,9 +4,12 @@
 // Replaces: src/repro/kernels/flash_attention/kernel.py:flash_attention_pallas
 // (body _flash_kernel) for bf16/f16 inputs whose head dim D is a multiple
 // of 8 in [8, 256]; f32 takes csrc/flash_attention_f32_sm90.cu.
-// Same semantics as the Pallas kernel: q (B, H, S, D), k and v
-// (B, Hkv, S, D); query head h reads kv head h / (H / Hkv); masks
-// col <= row (causal) and col > row - window; f32 running max, running
+// Same semantics as the Pallas kernel: q (B, H, Sq, D), k and v
+// (B, Hkv, Sk, D); query head h reads kv head h / (H / Hkv); masks
+// col <= row (causal) and col > row - window, where q's row i is row
+// q_off + i of the sequence (Sq = Sk and q_off = 0 is the Pallas
+// kernel's square call; a sequence-sharded rank's block of query rows
+// passes its offset and the whole K/V); f32 running max, running
 // sum and accumulator; the finite sentinel -1e30 (never -inf) for masked
 // scores, with the Pallas order m_new = max(m, rowmax), alpha =
 // exp(m - m_new), p = exp(s - m_new), l = alpha l + sum p, acc = alpha acc
@@ -273,8 +276,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, T* __restrict__ o, int H,
-                      int Hkv, int S, int D, int causal, int has_window, int window,
-                      float scale_log2) {
+                      int Hkv, int Sq, int Sk, int q_off, int D, int causal, int has_window,
+                      int window, float scale_log2) {
   using L = Smem<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -290,13 +293,15 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int kvh = b * Hkv + (bh - b * H) / (H / Hkv);
 
   // The kv tiles this q tile needs, [t0, t1): the same walk for the
-  // producer and the consumers.
-  const int q_last = min(q0 + BM, S) - 1;
-  int t1 = (S + BN - 1) / BN;
-  if (causal) t1 = min(t1, q_last / BN + 1);
+  // producer and the consumers. g0 and g_last are the tile's first and
+  // last rows in the sequence.
+  const int g0 = q_off + q0;
+  const int g_last = q_off + min(q0 + BM, Sq) - 1;
+  int t1 = (Sk + BN - 1) / BN;
+  if (causal) t1 = min(t1, g_last / BN + 1);
   int t0 = 0;
   if (has_window) {
-    while (t0 < t1 && min(t0 * BN + BN, S) - 1 <= q0 - window) ++t0;
+    while (t0 < t1 && min(t0 * BN + BN, Sk) - 1 <= g0 - window) ++t0;
   }
 
   if (threadIdx.x == 0) {
@@ -370,10 +375,10 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(sc);
 
       // Scale into the log2 domain; mask only where the tile straddles
-      // the diagonal, the window edge or S.
+      // the diagonal, the window edge or Sk.
       const int k0 = t * BN;
-      const bool edge = (causal && k0 + BN - 1 > q0) || k0 + BN > S ||
-                        (has_window && k0 <= q0 + BM - 1 - window);
+      const bool edge = (causal && k0 + BN - 1 > g0) || k0 + BN > Sk ||
+                        (has_window && k0 <= g0 + BM - 1 - window);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -381,8 +386,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
           float x = sc[4 * i + e] * scale_log2;
           if (edge) {
             const int col = k0 + 8 * i + c2 + (e & 1);
-            const int row = row0 + 8 * (e >> 1);
-            bool keep = col < S;
+            const int row = q_off + row0 + 8 * (e >> 1);
+            bool keep = col < Sk;
             if (causal) keep = keep && col <= row;
             if (has_window) keep = keep && col > row - window;
             x = keep ? x : NEG_INF;
@@ -445,7 +450,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_arrive(empty(s));
     }
 
-    // O / l, with a zero row where the sum is 0; rows past S and the
+    // O / l, with a zero row where the sum is 0; rows past Sq and the
     // padded columns past D are not stored.
     float den[2];
 #pragma unroll
@@ -455,11 +460,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
       den[hh] = sum == 0.f ? 1.f : sum;
     }
-    T* op = o + (size_t)bh * S * D;
+    T* op = o + (size_t)bh * Sq * D;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = row0 + 8 * hh;
-      if (row >= S) continue;
+      if (row >= Sq) continue;
 #pragma unroll
       for (int j = 0; j < L::BLOCKS; ++j)
 #pragma unroll
@@ -518,8 +523,9 @@ bool make_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType ty, int D, 
 
 template <typename T, int DP>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                   void* o, int B, int H, int Hkv, int S, int D, int causal,
-                   int has_window, int window, float scale_log2, cudaStream_t st) {
+                   void* o, int B, int H, int Hkv, int Sq, int Sk, int q_off, int D,
+                   int causal, int has_window, int window, float scale_log2,
+                   cudaStream_t st) {
   auto kern = flash_fwd_sm90_kernel<T, DP>;
   // setmaxnreg moves registers inside the block: the consumers' gain must
   // fit in what the producer warpgroup gives back, or setmaxnreg.inc would
@@ -537,21 +543,22 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
   const int smem = Smem<DP>::ALLOC;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + BM - 1) / BM));
-  kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, static_cast<T*>(o), H, Hkv, S, D, causal,
-                                    has_window, window, scale_log2);
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BM - 1) / BM));
+  kern<<<grid, THREADS, smem, st>>>(tq, tk, tv, static_cast<T*>(o), H, Hkv, Sq, Sk, q_off, D,
+                                    causal, has_window, window, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_t(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-                     void* o, int B, int H, int Hkv, int S, int D, int causal,
-                     int has_window, int window, float scale_log2, cudaStream_t st) {
+                     void* o, int B, int H, int Hkv, int Sq, int Sk, int q_off, int D,
+                     int causal, int has_window, int window, float scale_log2,
+                     cudaStream_t st) {
   switch ((D + 63) / 64) {
-#define CASE(N)                                                                           \
-  case N:                                                                                 \
-    return launch<T, 64 * N>(tq, tk, tv, o, B, H, Hkv, S, D, causal, has_window, window, \
-                             scale_log2, st);
+#define CASE(N)                                                                     \
+  case N:                                                                           \
+    return launch<T, 64 * N>(tq, tk, tv, o, B, H, Hkv, Sq, Sk, q_off, D, causal,   \
+                             has_window, window, scale_log2, st);
     CASE(1) CASE(2) CASE(3) CASE(4)
 #undef CASE
     default:
@@ -561,31 +568,35 @@ cudaError_t launch_t(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float16. q, k, v and o are contiguous and
-// 16-byte aligned; o has q's shape and dtype; D is a multiple of 8 in
-// [8, 256]. Returns the CUDA error of the launch (0 on success).
+// dtype: 1 = bfloat16, 2 = float16. q (B, H, Sq, D), k and v (B, Hkv, Sk,
+// D) and o are contiguous and 16-byte aligned; o has q's shape and dtype;
+// D is a multiple of 8 in [8, 256]; q's rows are rows q_off .. q_off +
+// Sq - 1 of the sequence the masks read. Returns the CUDA error of the
+// launch (0 on success).
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k, const void* v,
-                                           void* o, int B, int H, int Hkv, int S, int D,
-                                           int causal, int has_window, int window,
-                                           float scale, int dtype, void* stream) {
-  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || S < 0 || D < 8 || D > 256 || D % 8)
+                                           void* o, int B, int H, int Hkv, int Sq, int Sk,
+                                           int q_off, int D, int causal, int has_window,
+                                           int window, float scale, int dtype,
+                                           void* stream) {
+  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq < 0 || Sk < 0 || q_off < 0 || D < 8 ||
+      D > 256 || D % 8)
     return (int)cudaErrorInvalidValue;
   if (dtype != 1 && dtype != 2) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) & 15)
     return (int)cudaErrorMisalignedAddress;
-  if ((S + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
-  if (B == 0 || S == 0) return (int)cudaSuccess;
+  if ((Sq + BM - 1) / BM > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return (int)cudaSuccess;
   const CUtensorMapDataType ty =
       dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, ty, D, S, B * H) || !make_map(&tk, k, ty, D, S, B * Hkv) ||
-      !make_map(&tv, v, ty, D, S, B * Hkv))
+  if (!make_map(&tq, q, ty, D, Sq, B * H) || !make_map(&tk, k, ty, D, Sk, B * Hkv) ||
+      !make_map(&tv, v, ty, D, Sk, B * Hkv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale_log2 = scale * LOG2E;
   if (dtype == 1)
-    return (int)launch_t<__nv_bfloat16>(tq, tk, tv, o, B, H, Hkv, S, D, causal, has_window,
-                                        window, scale_log2, st);
-  return (int)launch_t<__half>(tq, tk, tv, o, B, H, Hkv, S, D, causal, has_window, window,
-                               scale_log2, st);
+    return (int)launch_t<__nv_bfloat16>(tq, tk, tv, o, B, H, Hkv, Sq, Sk, q_off, D, causal,
+                                        has_window, window, scale_log2, st);
+  return (int)launch_t<__half>(tq, tk, tv, o, B, H, Hkv, Sq, Sk, q_off, D, causal, has_window,
+                               window, scale_log2, st);
 }

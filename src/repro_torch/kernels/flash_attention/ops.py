@@ -23,6 +23,14 @@ Every route keeps the JAX entry's contract: ``block_q``/``block_k``
 default to 512, are capped at S, and must divide S (``ValueError``
 otherwise), so callers behave alike on every backend. The kernels' own
 64-row tiles mask the ragged edge and need not divide S.
+
+``q_offset`` takes a block of the query rows: q holds ``Sq`` rows that
+are rows ``q_offset .. q_offset + Sq - 1`` of k and v's ``Sk``-row
+sequence, and the causal diagonal and the window edge fall where they
+fall in the whole call (a rank of ``attn_seq_shard``, which holds a
+block of the query sequence against all of its keys). The contract is
+then the whole sequence's (the blocks divide ``Sk``); the rank's rows
+need not fill whole blocks.
 """
 
 from __future__ import annotations
@@ -71,32 +79,37 @@ def _fn(route: str):
     fn = getattr(_build.load(source), entry)
     if fn.argtypes is None:
         if route == "tf32x3":  # + the two scratch pointers, no dtype
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
                 ctypes.c_float, ctypes.c_void_p,
             ]
         else:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
             ]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check(q, k, v, block_q, block_k):
+def _check(q, k, v, block_q, block_k, q_offset=0):
+    """The blocks, capped at the sequence, after the JAX entry's checks:
+    ``block_q`` the rank's (at most its ``Sq`` rows), ``block_k`` the
+    keys'."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, S, D) / (B, Hkv, S, D)")
-    B, H, S, D = q.shape
-    Hkv = k.shape[1]
-    if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != tuple(k.shape):
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, Hkv, Sk, D) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(
             f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match q {tuple(q.shape)}"
         )
     if H % Hkv:
         raise ValueError(f"heads {H} not a multiple of kv heads {Hkv}")
-    block_q, block_k = min(block_q, S), min(block_k, S)
-    if S % block_q or S % block_k:
-        raise ValueError(f"seq {S} must be divisible by blocks {block_q}/{block_k}")
-    return block_q, block_k
+    if q_offset < 0 or q_offset + Sq > Sk:
+        raise ValueError(f"q rows {q_offset}..{q_offset + Sq} are not rows of the {Sk} keys")
+    block_q, block_k = min(block_q, Sk), min(block_k, Sk)
+    if Sk % block_q or Sk % block_k:
+        raise ValueError(f"seq {Sk} must be divisible by blocks {block_q}/{block_k}")
+    return min(block_q, max(Sq, 1)), block_k
 
 
 def flash_attention_plain(
@@ -109,35 +122,39 @@ def flash_attention_plain(
     scale: float | None = None,
     block_q: int = 512,
     block_k: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The kernel's plain twin: the Pallas schedule written out — per q
     block an online softmax over the kv blocks, f32 running max / sum /
     accumulator, the finite ``-1e30`` sentinel, kv blocks fully masked
-    for the q block skipped, and a zero row where the sum stays 0."""
-    block_q, block_k = _check(q, k, v, block_q, block_k)
-    B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    for the q block skipped, and a zero row where the sum stays 0. With
+    ``q_offset`` the masks and the skips read each row's place in the
+    sequence; the rank's last q block may be short."""
+    block_q, block_k = _check(q, k, v, block_q, block_k, q_offset)
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     group = H // Hkv
     scale = float(D ** -0.5) if scale is None else float(scale)
-    qg = q.float().reshape(B, Hkv, group, S, D)
+    qg = q.float().reshape(B, Hkv, group, Sq, D)
     kf, vf = k.float(), v.float()
-    out = torch.empty((B, Hkv, group, S, D), dtype=torch.float32, device=q.device)
-    for q_start in range(0, S, block_q):
+    out = torch.empty((B, Hkv, group, Sq, D), dtype=torch.float32, device=q.device)
+    for q_start in range(0, Sq, block_q):
         qb = qg[:, :, :, q_start : q_start + block_q]
-        rows = torch.arange(q_start, q_start + block_q, device=q.device)[:, None]
-        m = torch.full((B, Hkv, group, block_q, 1), NEG_INF, device=q.device)
-        l = torch.zeros((B, Hkv, group, block_q, 1), device=q.device)
-        acc = torch.zeros((B, Hkv, group, block_q, D), device=q.device)
-        for k_start in range(0, S, block_k):
-            if causal and k_start > q_start + block_q - 1:
+        bq, g0 = qb.shape[3], q_offset + q_start  # its rows and its first row's place
+        rows = torch.arange(g0, g0 + bq, device=q.device)[:, None]
+        m = torch.full((B, Hkv, group, bq, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, group, bq, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, group, bq, D), device=q.device)
+        for k_start in range(0, Sk, block_k):
+            if causal and k_start > g0 + bq - 1:
                 continue
-            if window is not None and not k_start + block_k - 1 > q_start - window:
+            if window is not None and not k_start + block_k - 1 > g0 - window:
                 continue
             s = torch.einsum(
                 "bhgqd,bhkd->bhgqk", qb, kf[:, :, k_start : k_start + block_k]
             ) * scale
             cols = torch.arange(k_start, k_start + block_k, device=q.device)[None, :]
-            mask = torch.ones((block_q, block_k), dtype=torch.bool, device=q.device)
+            mask = torch.ones((bq, block_k), dtype=torch.bool, device=q.device)
             if causal:
                 mask &= cols <= rows
             if window is not None:
@@ -153,25 +170,26 @@ def flash_attention_plain(
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully-masked rows -> 0
         out[:, :, :, q_start : q_start + block_q] = acc / l
-    return out.reshape(B, H, S, D).to(q.dtype)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
+def _launch(route: str, q, k, v, *, causal, window, scale, q_offset=0) -> torch.Tensor:
     """Launch the kernel of ``route`` on checked CUDA tensors; counts the
-    launch in ``flash_attention.launches`` and ``launches_by_route``."""
-    B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    launch in ``flash_attention.launches`` and ``launches_by_route``, and
+    an offset call (a block of the query rows) in ``offset_launches``."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"flash_attention: the {route} route needs 16-byte aligned q, k, v")
     o = torch.empty_like(q)
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, o)]
-    tail = [B, H, Hkv, S, D, int(causal), int(window is not None),
+    tail = [B, H, Hkv, Sq, Sk, q_offset, D, int(causal), int(window is not None),
             int(window) if window is not None else 0, scale]
     if route == "tf32x3":
         # scratch of the split pre-pass: K's TF32 hi/lo parts, and V^T's
         # with the kv axis padded to a multiple of 32
-        ks = torch.empty((B * Hkv, 2, S, D), dtype=torch.float32, device=q.device)
-        vt = torch.empty((B * Hkv, 2, D, -(-S // 32) * 32), dtype=torch.float32,
+        ks = torch.empty((B * Hkv, 2, Sk, D), dtype=torch.float32, device=q.device)
+        vt = torch.empty((B * Hkv, 2, D, -(-Sk // 32) * 32), dtype=torch.float32,
                          device=q.device)
         ptrs += [ctypes.c_void_p(ks.data_ptr()), ctypes.c_void_p(vt.data_ptr())]
     else:
@@ -182,6 +200,8 @@ def _launch(route: str, q, k, v, *, causal, window, scale) -> torch.Tensor:
         raise RuntimeError(f"flash_attention {route} kernel launch failed: CUDA error {err}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
+    if Sq != Sk or q_offset:
+        flash_attention.offset_launches += 1
     return o
 
 
@@ -195,8 +215,11 @@ def flash_attention(
     scale: float | None = None,
     block_q: int = 512,
     block_k: int = 512,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Blockwise attention, (B, H, S, D) x (B, Hkv, S, D)^2 -> (B, H, S, D).
+    """Blockwise attention, (B, H, Sq, D) x (B, Hkv, Sk, D)^2 -> (B, H,
+    Sq, D); q's rows are rows ``q_offset ..`` of the keys' sequence
+    (``Sq = Sk``, offset 0: the JAX entry's square call).
 
     CUDA tensors: the hand-written kernel that :func:`_route` names
     (f32 / bf16 / f16, D a multiple of 8 up to 256, contiguous and
@@ -209,9 +232,9 @@ def flash_attention(
     if q.device.type == "cpu":
         return flash_attention_plain(
             q, k, v, causal=causal, window=window, scale=scale,
-            block_q=block_q, block_k=block_k,
+            block_q=block_q, block_k=block_k, q_offset=q_offset,
         )
-    _check(q, k, v, block_q, block_k)
+    _check(q, k, v, block_q, block_k, q_offset)
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"flash_attention: q, k, v must share one CUDA device "
@@ -227,8 +250,10 @@ def flash_attention(
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     scale = float(D ** -0.5) if scale is None else float(scale)
-    return _launch(route, q, k, v, causal=causal, window=window, scale=scale)
+    return _launch(route, q, k, v, causal=causal, window=window, scale=scale,
+                   q_offset=q_offset)
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0
 flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

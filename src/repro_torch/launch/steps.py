@@ -221,15 +221,13 @@ def make_train_step(
     TP form covers every family (``transformer.check_tp`` refuses heads
     the TP size does not divide without ``attn_seq_shard``).
 
-    A flat-dispatch MoE layer on a ``ProcessMesh`` with live DP axes
-    takes its capacity, positions and aux loss from the global batch in
-    the ``collectives="xla"`` step (JAX's GSPMD step), and from the
-    rank's own tokens in the Torrent step, whose grad function runs
-    with the DP axes Manual (``hints.manual_axes``), as JAX's
-    ``shard_map`` rank does. The stacked view's xla step (a
-    ``VirtualMesh``) runs each DP rank's rows alone, so a flat MoE there
-    keeps each rank's own capacity and aux loss: a deviation from JAX's
-    xla step (ROADMAP §3).
+    A flat-dispatch MoE layer takes its capacity, positions and aux loss
+    from the global batch in the ``collectives="xla"`` step (JAX's GSPMD
+    step), and from the rank's own tokens in the Torrent step, as JAX's
+    ``shard_map`` rank does: on a ``ProcessMesh`` the Torrent step's
+    grad function runs with the DP axes Manual (``hints.manual_axes``);
+    the stacked view's xla step (a ``VirtualMesh``) takes a flat MoE
+    model's grads as one function of the whole batch.
     """
     if compress_grads and collectives != "torrent":
         raise ValueError(
@@ -307,10 +305,18 @@ def make_train_step(
         return grads, _rank_mean(metrics, dp_group, dp_size)
 
     def grad_fn_xla(params, batch):
-        """Plain mean of the ranks' grads (the fabric's all-reduce)."""
-        if joint:
+        """Plain mean of the ranks' grads (the fabric's all-reduce). A
+        dense model's ranks run one at a time: each rank's partial grads
+        summed is what the GSPMD step and the process form's xla step
+        (:func:`grad_fn_xla_process`) compute, which the stacked step
+        meets bit for bit on two ranks (``tests/test_torch_tp.py``
+        ``test_xla_process_step_matches_the_stacked_xla_step``), and one
+        rank's activations are live at a time. A flat MoE's capacity and
+        aux loss couple the ranks' tokens, so its model's grads are one
+        call on the whole batch, as JAX's xla step takes them."""
+        if joint or cfg.num_experts:
             with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
-                return grad_fn_mean(params, batch)
+                return (grad_fn_mean if joint else grad_fn_local)(params, batch)
         acc, msum = None, None
         for r in range(dp_size):
             with maybe_span(spans, "fwd_bwd", leaves(params)[0].device):
@@ -703,7 +709,7 @@ def build_cell(
             return fn
 
         def step(*args):
-            with hints.set_mesh(mesh), _replicated(replicated):
+            with hints.set_mesh(mesh), _replicated(replicated, shape.seq_len):
                 return fn(*args)
 
         return step
@@ -746,7 +752,7 @@ def build_cell(
         cache = shd.place_cache(specs["cache"], cspecs, cfg, mesh) if process else specs["cache"]
     elif process:  # the rank's zero block: its rows, or every row and its block of the slots
         rows_here = shape.global_batch if replicated else shape.global_batch // dp_size_of(mesh)
-        with hints.set_mesh(mesh), _replicated(replicated):
+        with hints.set_mesh(mesh), _replicated(replicated, shape.seq_len):
             cache = T.init_cache(cfg, rows_here, shape.seq_len, device=dev)
     else:
         cache = T.init_cache(cfg, shape.global_batch, shape.seq_len, device=dev)
@@ -760,9 +766,10 @@ def build_cell(
     )
 
 
-def _replicated(on: bool):
-    """``hints.replicated_batch()`` where ``on``, else a no-op block."""
-    return hints.replicated_batch() if on else contextlib.nullcontext()
+def _replicated(on: bool, max_seq: int):
+    """``hints.replicated_batch(max_seq)`` where ``on``, else a no-op
+    block."""
+    return hints.replicated_batch(max_seq) if on else contextlib.nullcontext()
 
 
 def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
@@ -778,7 +785,7 @@ def _refuse_process_cell(cfg: ModelConfig, shape: Shape, mesh) -> None:
     with hints.set_mesh(mesh):
         T.check_tp(cfg)
     if shape.kind == "decode" and shape.global_batch == 1:
-        with hints.set_mesh(mesh), hints.replicated_batch():
+        with hints.set_mesh(mesh), hints.replicated_batch(shape.seq_len):
             T.init_cache(cfg, 1, shape.seq_len, device="meta")  # the slot blocks split
         return
     if shape.global_batch % dp:

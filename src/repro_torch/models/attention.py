@@ -28,7 +28,11 @@ heads, and ``wo`` is row-parallel, its partial sums reduced over the
 group. Where ``num_kv_heads`` does not divide by the TP size but
 ``num_kv_heads·head_dim`` does, ``param_pspecs`` still splits the K/V
 columns, so a rank may hold part of a head: K and V are gathered over
-the group and each rank takes the KV heads its query heads read. With
+the group and each rank takes the KV heads its query heads read. Where
+``num_kv_heads·head_dim`` does not divide either, ``param_pspecs``
+leaves ``wk``/``wv`` whole, as GSPMD runs them: each rank projects every
+KV head from them (their grads summed over the group) and takes the
+ones its query heads read. With
 ``attn_seq_shard`` (JAX's ``opt-seq`` variant; the layout for a
 ``num_heads`` the TP size does not divide, which runs only so) the
 query sequence is split instead: each rank attends for its block of
@@ -36,9 +40,8 @@ the query rows with every head against K/V of the whole sequence, the
 causal mask offset by the block's start, on weights gathered whole
 (their grads reduce-scattered back to the blocks ``param_pspecs``
 gives), and the rows' output projections are summed over the group; a
-one-row decode runs every head on every rank. The flash kernel takes
-no query offset, so that form runs the chunked or the reference
-attention.
+one-row decode runs every head on every rank. Every ``attn_impl`` runs
+there: the flash kernel takes the block's rows at their offset.
 ``mla_apply`` is split by heads too: ``wq``, ``w_uk`` and ``w_uv`` are
 column-parallel (their flattened ``(H, ·)`` columns give whole heads)
 and ``wo`` row-parallel; the compression ``w_dkv`` stays replicated,
@@ -59,10 +62,14 @@ shards.
 
 Sequence-parallel decode (a ``long_500k`` cell: its one row replicated
 on every rank, ``parallel.hints.replicated_batch``): ``cache_pspecs``
-splits a decode cache's slots over ``data``, so a rank holds block
-``r`` of ``slots / n`` slots of each ``k``/``v`` (``ckv``/``krope``)
-leaf (:func:`gqa_init_cache`, :func:`mla_init_cache` under
-``hints.seq_group``). A decode step writes the new row only on the rank
+splits a decode cache's slots over ``data`` where their count divides
+by 16, so a rank holds block ``r`` of ``slots / n`` slots of each
+``k``/``v`` (``ckv``/``krope``) leaf (:func:`gqa_init_cache`,
+:func:`mla_init_cache` under ``hints.seq_group``); any other count stays
+whole on every rank, which then decodes the whole cache, as JAX's GSPMD
+decodes a replicated leaf (:func:`_slot_group`). A prefill under the
+replicated batch writes the whole cache and keeps the rank's block of
+it (:func:`_slot_block`). A decode step writes the new row only on the rank
 that owns global slot ``pos % slots``, masks by the global slot ids
 (the ring buffer's wrap and the not-yet-written slots as on the whole
 cache), and combines the softmax over the group with three small
@@ -101,13 +108,11 @@ def _full_attention(qt, kt, vt, cfg: ModelConfig, *, causal: bool, q_offset: int
     'chunked' (online-softmax loop over KV chunks), or 'flash' (the CUDA
     kernel; its plain twin on CPU tensors). ``q_offset``: the queries
     are rows ``q_offset ..`` of the keys' sequence (a block of the query
-    sequence under ``attn_seq_shard``); the kernel takes none."""
+    sequence under ``attn_seq_shard``)."""
     if cfg.attn_impl == "flash":
-        if q_offset:
-            raise NotImplementedError("the flash kernel takes no query offset")
         return flash_attention(
             qt.contiguous(), kt.contiguous(), vt.contiguous(),
-            causal=causal, window=cfg.sliding_window,
+            causal=causal, window=cfg.sliding_window, q_offset=q_offset,
         )
     if cfg.attn_impl == "chunked":
         return attention_chunked(
@@ -142,8 +147,9 @@ def _project_qkv(params, x, cfg: ModelConfig, group=None):
     through ``copy_to_tp``), this rank's query heads, and the KV heads
     its cache holds: its own block of them when ``num_kv_heads``
     divides by the group size, else all of them, gathered over the
-    group (:func:`_rank_kv_index` then picks the one each query head
-    reads)."""
+    group — or, where ``param_pspecs`` leaves ``wk``/``wv`` whole,
+    projected from them (:func:`_rank_kv_index` then picks the one each
+    query head reads)."""
     B, S, _ = x.shape
     Hkv, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
 
@@ -153,11 +159,11 @@ def _project_qkv(params, x, cfg: ModelConfig, group=None):
     if group is None or Hkv % dist.get_world_size(group) == 0:
         return tuple(heads(_proj(params, x, cfg, n)) for n in "qkv")
     tp = dist.get_world_size(group)
-    if (Hkv * Dh) % tp:
-        raise NotImplementedError(
-            f"num_kv_heads·head_dim = {Hkv * Dh} at TP={tp}: param_pspecs leaves K/V whole, "
-            "and TP over whole K/V columns is not ported (no architecture of the repo has "
-            "such a K/V width; ROADMAP §3)")
+    if (Hkv * Dh) % tp:  # whole K/V weights: each rank's grad is its heads' share
+        w = {n: copy_to_tp(cast(params[n]), group) for n in
+             ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())}
+        return (heads(_proj(params, x, cfg, "q")),
+                *(heads(_proj({**params, **w}, x, cfg, n)) for n in "kv"))
     q = heads(_proj(params, x, cfg, "q"))
     # a block of the K/V columns: gather both in one collective
     kv = torch.stack([_proj(params, x, cfg, n) for n in "kv"])
@@ -206,15 +212,9 @@ def _rope_qk(q, k, positions, cfg: ModelConfig):
 def heads_refusal(cfg: ModelConfig, tp: int, mla: bool = False) -> str | None:
     """Why attention of ``cfg`` does not run at TP ``tp`` (``None``
     where it runs): heads the TP size does not divide, without
-    ``attn_seq_shard`` (or in MLA, which has no sequence-sharded form);
-    ``attn_seq_shard`` with the flash kernel, which takes no query
-    offset."""
+    ``attn_seq_shard`` (or in MLA, which has no sequence-sharded form)."""
     if tp == 1:
         return None
-    if cfg.attn_seq_shard and cfg.attn_impl == "flash" and not mla:
-        return (f"attn_seq_shard with attn_impl='flash' at TP={tp}: the flash kernel takes no "
-                "query offset; the sequence-sharded form runs the chunked or the reference "
-                "attention (JAX's opt-seq variant sets 'chunked')")
     if cfg.num_heads % tp and (mla or not cfg.attn_seq_shard):
         where = "in GQA, " if mla else ""
         return (f"num_heads={cfg.num_heads} at TP={tp}: heads that the TP size does not "
@@ -348,8 +348,8 @@ def gqa_prefill(
     heads as :func:`gqa_apply` is, the cache holding the KV heads
     :func:`_project_qkv` gives the rank (all of them, identical on
     every rank, where ``num_kv_heads`` does not divide by the TP
-    size)."""
-    _refuse_slot_split("gqa_prefill")
+    size). Under a replicated batch whose decode cache splits its slots
+    (:func:`_slot_group`), the rank keeps its block of the whole cache."""
     B, S, _ = x.shape
     seq = _seq_group(cfg)
     if seq is not None:
@@ -368,13 +368,14 @@ def gqa_prefill(
         out = reduce_from_tp(out.transpose(1, 2).reshape(B, S, -1) @ cast(params["wo"]),
                              group)
 
-    slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    cache = gqa_init_cache(cfg, B, max_seq, device=x.device)
+    slots = _gqa_slots(cfg, max_seq)
+    shape = (B, slots, _cache_kv_heads(cfg), cfg.resolved_head_dim)
+    cache = {n: torch.zeros(shape, dtype=torch.bfloat16, device=x.device) for n in "kv"}
     keep = torch.arange(max(0, S - slots), S, device=x.device)  # last `slots` tokens
     slot_ids = keep % slots
     cache["k"][:, slot_ids] = k[:, keep].to(torch.bfloat16)
     cache["v"][:, slot_ids] = v[:, keep].to(torch.bfloat16)
-    return out, cache
+    return out, {n: _slot_block(t) for n, t in cache.items()}
 
 
 def _cache_kv_heads(cfg: ModelConfig) -> int:
@@ -385,44 +386,56 @@ def _cache_kv_heads(cfg: ModelConfig) -> int:
     return Hkv // tp if hints.tp_group() is not None and Hkv % tp == 0 else Hkv
 
 
+def _gqa_slots(cfg: ModelConfig, max_seq: int) -> int:
+    """A GQA decode cache's slots: a ring of ``window`` under a sliding
+    window, else one a position."""
+    return min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
+
+
+def _slot_group(slots: int):
+    """The group over which a decode cache of ``slots`` logical slots is
+    split: ``hints.seq_group`` where ``cache_pspecs`` splits them (a
+    count divisible by 16), else ``None`` — every rank holds every slot
+    and decodes the whole cache, as JAX's GSPMD does with a replicated
+    leaf."""
+    seq = hints.seq_group()
+    return None if seq is None or slots % 16 else seq
+
+
 def _cache_slots(slots: int) -> int:
     """The slots this rank's decode cache holds of ``slots`` logical
-    ones: its block of ``slots / n`` where ``hints.seq_group`` splits
-    them (``cache_pspecs``: over ``data`` at global batch 1), else all.
-    ``cache_pspecs`` splits only a slot count divisible by 16, and a
-    count the group does not divide cannot be placed (``ValueError``)."""
-    seq = hints.seq_group()
+    ones: its block of ``slots / n`` where :func:`_slot_group` splits
+    them, else all. A count the group does not divide cannot be placed
+    (``ValueError``)."""
+    seq = _slot_group(slots)
     if seq is None:
         return slots
     n = dist.get_world_size(seq)
-    if slots % 16:
-        raise NotImplementedError(
-            f"a decode cache of {slots} slots under a replicated batch: cache_pspecs splits "
-            "only slot counts divisible by 16 over data, and the port's sequence-parallel "
-            "decode takes split caches only")
     if slots % n:
         raise ValueError(f"{slots} cache slots do not split over {n} data ranks")
     return slots // n
 
 
-def _refuse_slot_split(what: str) -> None:
-    """Raise where a decode cache's slots are split (``hints.seq_group``)
-    for ``what``, which writes a whole cache: the split is a decode
-    cell's (``long_500k`` has no prefill cell in either package)."""
-    if hints.seq_group() is not None:
-        raise NotImplementedError(
-            f"{what} under a replicated batch whose decode cache splits its slots over data: "
-            "only the decode step runs sequence-parallel")
+def _slot_block(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a whole cache leaf ``t`` (B, slots, ...) that
+    a prefill wrote: its :func:`_cache_slots` slots from ``rank · block``
+    (a copy, so the whole leaf can be freed), or ``t`` itself where the
+    slots stay whole."""
+    local = _cache_slots(t.shape[1])
+    if local == t.shape[1]:
+        return t
+    r = dist.get_rank(hints.seq_group())
+    return t[:, r * local:(r + 1) * local].clone()
 
 
-def _local_slots(local: int) -> tuple[int, int, object]:
+def _local_slots(local: int, slots: int) -> tuple[int, int, object]:
     """(the logical slot count, the global id of this rank's first slot,
     the group) for a decode cache of which this rank holds ``local``
-    slots (:func:`_cache_slots`)."""
-    seq = hints.seq_group()
+    slots of ``slots`` (:func:`_slot_group`)."""
+    seq = _slot_group(slots)
     if seq is None:
         return local, 0, None
-    return local * dist.get_world_size(seq), dist.get_rank(seq) * local, seq
+    return slots, dist.get_rank(seq) * local, seq
 
 
 def _write_row(cache: torch.Tensor, rows: torch.Tensor, slot: torch.Tensor, base: int,
@@ -463,8 +476,8 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dic
     heads the rank reads (:func:`_cache_kv_heads`); under a slot split
     (``hints.seq_group``) this rank's block of the slots
     (:func:`_cache_slots`)."""
-    slots = min(max_seq, cfg.sliding_window) if cfg.sliding_window else max_seq
-    shape = (batch, _cache_slots(slots), _cache_kv_heads(cfg), cfg.resolved_head_dim)
+    shape = (batch, _cache_slots(_gqa_slots(cfg, max_seq)), _cache_kv_heads(cfg),
+             cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -514,7 +527,9 @@ def gqa_decode(
 
     ck, cv = cache["k"], cache["v"]
     # the logical slots; under a slot split this rank's block starts at base
-    slots, base, seq = _local_slots(ck.shape[1])
+    max_seq = hints.replicated_max_seq()  # None: the rank holds every slot
+    slots, base, seq = _local_slots(
+        ck.shape[1], ck.shape[1] if max_seq is None else _gqa_slots(cfg, max_seq))
     rows = torch.arange(B, device=x.device)
     slot_b = (pos_b[:, 0] % slots).long()  # ring-buffer slot per row
     if seq is None:
@@ -695,16 +710,19 @@ def mla_prefill(
 ) -> tuple[torch.Tensor, dict]:
     """Full-sequence MLA that also emits the compressed decode cache;
     on a live TP group split by heads (:func:`mla_apply`), the cache
-    whole and equal on every rank."""
-    _refuse_slot_split("mla_prefill")
+    whole and equal on every rank; under a replicated batch whose decode
+    cache splits its slots, the rank's block of it (:func:`_slot_block`)."""
     B, S, _ = x.shape
     group = _tp_heads_group(cfg, mla=True)
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, positions, cfg, group)
     out = _mla_attend(params, q_nope, q_rope, c, k_rope, cfg, _causal_mask(S, x.device), group)
-    cache = mla_init_cache(cfg, B, max_seq, device=x.device)
+    cache = {"ckv": torch.zeros((B, max_seq, cfg.kv_lora_rank), dtype=torch.bfloat16,
+                                device=x.device),
+             "krope": torch.zeros((B, max_seq, cfg.qk_rope_head_dim), dtype=torch.bfloat16,
+                                  device=x.device)}
     cache["ckv"][:, :S] = c.to(torch.bfloat16)
     cache["krope"][:, :S] = k_rope.to(torch.bfloat16)
-    return out, cache
+    return out, {n: _slot_block(t) for n, t in cache.items()}
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, device) -> dict:
@@ -740,7 +758,7 @@ def mla_decode(
     pos_b = pos[:, None] if per_slot else pos.reshape(1, 1).expand(B, 1)
     q_nope, q_rope, c, k_rope = _mla_qkv(params, x, pos_b, cfg, group)
     ckv, krope = cache["ckv"], cache["krope"]
-    _, base, seq = _local_slots(ckv.shape[1])
+    _, base, seq = _local_slots(ckv.shape[1], hints.replicated_max_seq() or ckv.shape[1])
     rows, at = torch.arange(B, device=x.device), pos_b[:, 0].long()
     if seq is None:
         ckv[rows, at] = c[:, 0].to(ckv.dtype)

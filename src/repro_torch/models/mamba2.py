@@ -36,11 +36,19 @@ over the group), and the whole ``in_BC``, ``in_dt``, ``conv_BC_*``,
 and go through ``copy_to_tp`` where the rank's heads take their part
 (``A_log``/``D`` as well), so each replicated leaf gets its whole grad.
 The gated norm is over the whole ``d_inner``: its sum of squares is
-summed over the group. A split that would cut a head raises. Prefill
-and decode run the same form; a rank's cache holds its heads' state
-and a conv window of its ``x`` columns beside the whole B/C
+summed over the group. ``param_pspecs`` splits ``d_inner`` wherever the
+TP size divides it, whole heads or not; within a head the SSD's
+channels are independent given the head's ``dt``, ``A``, ``D`` and its
+group's B/C, so a rank whose block cuts a head runs the heads its
+block touches with its channels in place and zeros in the others'
+(:func:`_head_span`), and keeps its own channels' outputs. Prefill and
+decode run the same form; a rank's cache holds its heads' state and a
+conv window of its ``x`` columns beside the whole B/C
 (``parallel.sharding.place_cache`` says how that differs from
-``cache_pspecs``' even split of the window).
+``cache_pspecs``' even split of the window). Where the block cuts a
+head, ``cache_pspecs`` leaves the state whole (the TP size does not
+divide the heads): each rank updates its channels of it and the ranks'
+channels are all-gathered, so every rank holds the whole state.
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.parallel import hints
-from repro_torch.parallel.tp import copy_to_tp, reduce_from_tp
+from repro_torch.parallel.tp import all_gather, copy_to_tp, reduce_from_tp
 
 from .config import ModelConfig
 from .layers import cast, gated_rmsnorm, matmul, normal, rmsnorm_init
@@ -71,17 +79,40 @@ def _dims(cfg: ModelConfig, tp: int = 1):
 
 def _tp(cfg: ModelConfig):
     """(group, size, rank) of the active TP group where it splits
-    ``d_inner`` (``(None, 1, 0)`` elsewhere); a split that would cut a
-    head raises."""
+    ``d_inner`` (``(None, 1, 0)`` elsewhere)."""
     group = hints.tp_split_group(cfg.d_inner)
     if group is None:
         return None, 1, 0
-    tp = dist.get_world_size(group)
-    if (cfg.d_inner // tp) % cfg.ssm_headdim:
-        raise NotImplementedError(
-            f"d_inner={cfg.d_inner} at TP={tp} cuts a head of {cfg.ssm_headdim}: "
-            "param_pspecs splits d_inner there, and part of a head is not run")
-    return group, tp, dist.get_rank(group)
+    return group, dist.get_world_size(group), dist.get_rank(group)
+
+
+def _head_span(cfg: ModelConfig, tp: int, rank: int) -> tuple[slice, int, bool]:
+    """(the heads this rank's block of ``d_inner`` touches, the offset of
+    its first channel in the first of them, whether the block cuts a
+    head). The rank's ``d_inner / tp`` channels sit at that offset in
+    the heads' ``len · P`` channels; a block of whole heads has offset 0
+    and fills them."""
+    P, d_in = cfg.ssm_headdim, cfg.d_inner // tp
+    c0 = rank * d_in
+    h0, h1 = c0 // P, -(-(c0 + d_in) // P)
+    return slice(h0, h1), c0 - h0 * P, d_in % P != 0
+
+
+def _spread(t: torch.Tensor, off: int, width: int) -> torch.Tensor:
+    """``t``'s channels (last dim) at ``off`` in ``width`` channels, zeros
+    around them."""
+    return F.pad(t, (off, width - off - t.shape[-1]))
+
+
+def _whole_state(h: torch.Tensor, off: int, d_in: int, cfg: ModelConfig, group) -> torch.Tensor:
+    """The whole (B, H, N, P) state from each rank's (B, heads, N, P)
+    state of the heads its block touches: its channels cut out and
+    all-gathered over ``group`` (the ranks hold every channel once, in
+    rank order)."""
+    B, _, N, P = h.shape
+    mine = h.permute(0, 2, 1, 3).reshape(B, N, -1)[..., off:off + d_in]
+    whole = all_gather(mine, group, -1)  # (B, N, d_inner)
+    return whole.reshape(B, N, cfg.ssm_nheads, P).permute(0, 2, 1, 3).contiguous()
 
 
 def mamba2_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -138,14 +169,23 @@ def mamba2_prefill(params: dict, xin: torch.Tensor,
     """Full-sequence forward that also returns the decode cache (final
     SSM state + conv window tail); under TP, this rank's cache, in the
     layout of :func:`mamba2_init_cache`."""
-    return _ssd_forward(params, xin, cfg)
+    out, cache = _ssd_forward(params, xin, cfg)
+    group, tp, rank = _tp(cfg)
+    _, off, cut = _head_span(cfg, tp, rank)
+    if cut:
+        cache["ssm"] = _whole_state(cache["ssm"], off, cfg.d_inner // tp, cfg, group)
+    return out, cache
 
 
 def _ssd_forward(params: dict, xin: torch.Tensor,
                  cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """Output and (conv window, final state of the heads the rank's block
+    touches)."""
     B, S, _ = xin.shape
     group, tp, rank = _tp(cfg)
-    d_in, H, P, G, N, conv_dim = _dims(cfg, tp)
+    d_in, _, P, G, N, conv_dim = _dims(cfg, tp)
+    heads, off, _ = _head_span(cfg, tp, rank)
+    H = heads.stop - heads.start
     Q = min(cfg.ssm_chunk, S)
     pad = (-S) % Q
     Sp = S + pad
@@ -165,11 +205,10 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
     # (decode does not): JAX's two roundings, kept
     x = _causal_conv(x_raw, params["conv_x_w"], params["conv_x_b"])
     BC = _causal_conv(BC_raw, params["conv_BC_w"], params["conv_BC_b"])
-    x = F.silu(x.float())
+    x = _spread(F.silu(x.float()), off, H * P)  # its channels in the heads it touches
     BC = copy_to_tp(F.silu(BC.float()), group)
     Bm, Cm = BC.split([G * N, G * N], -1)
     dt = F.softplus(dt.float() + params["dt_bias"])  # (B,S,H), every head
-    heads = slice(rank * H, (rank + 1) * H)  # this rank's heads
     A_log, D = params["A_log"], params["D"]
     if group is not None:
         dt = copy_to_tp(dt, group)[..., heads]
@@ -184,7 +223,7 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
     # then this rank's heads taken (under TP a rank may hold part of a
     # group, or several)
     x = x.reshape(B, nc, Q, H, P)
-    rep = H * tp // G
+    rep = cfg.ssm_nheads // G
     Bh = Bm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)[:, :, :, heads]  # (B,nc,Q,H,N)
     Ch = Cm.reshape(B, nc, Q, G, N).repeat_interleave(rep, dim=3)[:, :, :, heads]
     dt = dt.reshape(B, nc, Q, H)
@@ -218,7 +257,7 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
     y_inter = torch.einsum("bcqhn,bchnp->bcqhp", Ch * torch.exp(lam)[..., None], h_before)
 
     y = y_intra + y_inter + x * D[:, None]  # (B,nc,Q,H,P)
-    y = y.reshape(B, Sp, d_in)[:, :S]
+    y = y.reshape(B, Sp, H * P)[:, :S, off:off + d_in]
     y = gated_rmsnorm(params["norm"], y, z.float(), cfg.norm_eps, group)
     out = reduce_from_tp(cast(y) @ cast(params["out_proj"]), group)
 
@@ -234,12 +273,15 @@ def _ssd_forward(params: dict, xin: torch.Tensor,
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, *, device) -> dict:
     """A zero decode cache of ``batch`` rows; under a live TP group that
-    splits ``d_inner``, this rank's: its heads of ``ssm``, and a ``conv``
-    window of its ``x`` block beside the whole B/C (``conv_dim`` =
-    ``d_inner / tp + 2·G·N``, the layout :func:`mamba2_prefill` writes
-    and :func:`mamba2_decode` reads)."""
-    _, tp, _ = _tp(cfg)
+    splits ``d_inner``, this rank's: its heads of ``ssm`` (all of them
+    where its block cuts a head), and a ``conv`` window of its ``x``
+    block beside the whole B/C (``conv_dim`` = ``d_inner / tp + 2·G·N``,
+    the layout :func:`mamba2_prefill` writes and :func:`mamba2_decode`
+    reads)."""
+    _, tp, rank = _tp(cfg)
     d_in, H, P, G, N, _ = _dims(cfg, tp)
+    if _head_span(cfg, tp, rank)[2]:
+        H = cfg.ssm_nheads
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_in + 2 * G * N), dtype=torch.bfloat16,
                             device=device),
@@ -259,10 +301,13 @@ def mamba2_decode(
     splits ``d_inner`` (the module docstring's form), a rank runs its
     heads: its z/x columns, B/C/dt whole (the heads' part taken), the
     gated norm's sum of squares over the group and ``out_proj``'s
-    partial sums reduced over it."""
+    partial sums reduced over it; where its block cuts a head, the
+    heads it touches (:func:`_head_span`), the whole state gathered."""
     B = xin.shape[0]
     group, tp, rank = _tp(cfg)
-    d_in, H, P, G, N, _ = _dims(cfg, tp)
+    d_in, _, P, G, N, _ = _dims(cfg, tp)
+    heads, off, cut = _head_span(cfg, tp, rank)
+    H = heads.stop - heads.start
     z, x_raw, BC_raw, dt = _project(params, xin[:, 0])
 
     xBC_t = torch.cat([x_raw, BC_raw], -1)  # (B, conv_dim): this rank's x, all of B/C
@@ -272,22 +317,22 @@ def mamba2_decode(
     conv_out = torch.einsum("bwc,wc->bc", window.float(), conv_w) + conv_b
     xBC = F.silu(conv_out)  # no rounding to bf16 before silu here
     x, Bm, Cm = xBC.split([d_in, G * N, G * N], -1)
-    x = x.reshape(B, H, P)
+    x = _spread(x, off, H * P).reshape(B, H, P)
     # every head's groups, then this rank's heads (as _ssd_forward)
-    heads = slice(rank * H, (rank + 1) * H)
-    rep = H * tp // G
+    rep = cfg.ssm_nheads // G
     Bh = Bm.reshape(B, G, N).repeat_interleave(rep, dim=1)[:, heads]  # (B,H,N)
     Ch = Cm.reshape(B, G, N).repeat_interleave(rep, dim=1)[:, heads]
 
     dtv = F.softplus(dt.float() + params["dt_bias"])[:, heads]  # (B,H)
     decay = torch.exp(dtv * -torch.exp(params["A_log"][heads]))  # (B,H)
-    h = cache["ssm"] * decay[..., None, None] + torch.einsum("bh,bhn,bhp->bhnp", dtv, Bh, x)
+    state = cache["ssm"][:, heads] if cut else cache["ssm"]
+    h = state * decay[..., None, None] + torch.einsum("bh,bhn,bhp->bhnp", dtv, Bh, x)
     y = torch.einsum("bhn,bhnp->bhp", Ch, h) + x * params["D"][heads][:, None]
-    y = y.reshape(B, 1, d_in)
+    y = y.reshape(B, 1, H * P)[..., off:off + d_in]
     y = gated_rmsnorm(params["norm"], y, z[:, None, :].float(), cfg.norm_eps, group)
     out = reduce_from_tp(cast(y) @ cast(params["out_proj"]), group)
     cache["conv"].copy_(window[:, 1:])
-    cache["ssm"].copy_(h)
+    cache["ssm"].copy_(_whole_state(h, off, d_in, cfg, group) if cut else h)
     return out, cache
 
 

@@ -595,9 +595,11 @@ def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelCon
     (a list) cannot take. The global batch JAX's ``shard_map`` would
     split over the DP axes is the ranks' rows together, or, inside
     ``hints.replicated_batch`` (``long_500k``: one sequence on every
-    rank), the rank's own rows, which one token never divides: that
-    falls back as JAX's does, the flat path taking the one token's
-    capacity."""
+    rank), the rank's own rows: where the DP ranks divide them, each
+    rank runs its block of them over the group and the blocks are
+    all-gathered back (the aux loss is the group's already), as JAX's
+    ``shard_map`` splits them; one token never divides, and falls back
+    as JAX's does, the flat path taking the one token's capacity."""
 
     def fallback():
         if isinstance(params, list):
@@ -617,20 +619,18 @@ def _moe_apply_ep_auto(params: dict | list[dict], x: torch.Tensor, cfg: ModelCon
     group = mesh.group(dp)
     if cfg.num_experts % n or (group is None and x.shape[0] % n):
         return fallback()
-    if group is not None and n > 1 and hints.batch_replicated():
-        if x.shape[0] % n:
-            return fallback()
-        raise NotImplementedError(
-            f"moe_ep_dispatch on {x.shape[0]} replicated rows over {n} DP ranks: JAX's "
-            "shard_map would split them; only a batch the DP ranks do not divide (which "
-            "falls back) is ported")
+    replicated = group is not None and n > 1 and hints.batch_replicated()
+    if replicated and x.shape[0] % n:
+        return fallback()
     # moe_ep_chains must divide the EP group; degrade to the single ring
     K = cfg.moe_ep_chains if cfg.moe_ep_chains > 1 and n % cfg.moe_ep_chains == 0 else 1
     if group is not None:  # this rank's tokens, exchanged over the mesh's DP group
-        out, aux = moe_apply_ep(params, x[None], cfg, num_chains=K,
+        b = x.shape[0] // n if replicated else x.shape[0]
+        r = dist.get_rank(group) if replicated else 0
+        out, aux = moe_apply_ep(params, x[None, r * b:(r + 1) * b], cfg, num_chains=K,
                                 wire_dtype="int8" if cfg.moe_ep_int8_wire else None,
                                 group=group, tp_groups=_tp_groups(cfg))
-        return out[0], aux
+        return (gather_from_tp(out[0], group, 0) if replicated else out[0]), aux
     B, S, d = x.shape
     out, aux = moe_apply_ep(
         params, x.reshape(n, B // n, S, d), cfg, num_chains=K,

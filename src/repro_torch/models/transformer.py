@@ -11,8 +11,10 @@ the port runs a Python loop over ``reps``. KV caches mirror the same
 
 The training forward (:func:`forward_hidden`, :func:`loss_fn`) is
 cache-free and autograd-clean; where JAX remats a layer (``remat`` not
-``"none"``), the port wraps it in ``torch.utils.checkpoint``, which
-changes memory, not numbers. The flash kernel has no backward (neither
+``"none"``), the port wraps it in ``torch.utils.checkpoint`` with JAX's
+policy (``"dots"`` a selective checkpoint that saves the unbatched
+matrix products, ``"full"`` nothing), which changes memory, not
+numbers. The flash kernel has no backward (neither
 has the Pallas kernel): ``attn_impl="flash"`` under autograd raises.
 
 A MoE layer (``models.moe``) returns its load-balance aux loss, which
@@ -71,7 +73,11 @@ import contextlib
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.parallel import hints
@@ -98,9 +104,41 @@ from .layers import (
 
 Params = dict
 
-# JAX's remat policies by name; the port checkpoints whole layers for
-# every policy but "none" (the saved set differs, the numbers do not).
+# JAX's remat policies by name: "none" saves everything, "full"
+# (``nothing_saveable``) recomputes the whole layer, "dots"
+# (``checkpoint_dots_with_no_batch_dims``) saves the output of every
+# matrix product without batch dims — ``mm``/``addmm``, which a 3-D x
+# 2-D ``matmul`` folds into — and recomputes the rest, ``bmm`` included.
 REMAT_POLICIES = ("none", "dots", "full")
+_UNBATCHED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_unbatched_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _UNBATCHED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_contexts(remat: str, restore):
+    """``checkpoint``'s ``context_fn`` for policy ``remat``: the
+    recompute runs on the autograd engine's thread for a CUDA device, so
+    its context re-enters the forward's mesh and Manual axes
+    (``restore``, a ProcessMesh's layers run collectives) around the
+    policy's own."""
+    def contexts():
+        if remat == "dots":
+            fwd, rec = create_selective_checkpoint_contexts(_save_unbatched_dots)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _entered(restore(), rec)
+    return contexts
+
+
+@contextlib.contextmanager
+def _entered(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
 
 
 # ---------------------------------------------------------------------------
@@ -319,8 +357,8 @@ def groups_apply(
     groups=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer of every group in order; returns (x, summed aux).
-    ``remat != "none"`` checkpoints each pattern application (JAX's
-    remat'd scan body)."""
+    ``remat != "none"`` checkpoints each pattern application with that
+    policy (JAX's remat'd scan body)."""
     if remat not in REMAT_POLICIES:
         raise ValueError(f"unknown remat {remat!r}; expected {tuple(REMAT_POLICIES)}")
     groups = cfg.layer_groups() if groups is None else groups
@@ -338,11 +376,8 @@ def groups_apply(
                 return h, aux
 
             if remat != "none" and torch.is_grad_enabled():
-                # the recompute runs on the autograd engine's thread for a
-                # CUDA device: give it the mesh and Manual axes of the
-                # forward (a ProcessMesh's layers run collectives)
-                x, aux = checkpoint(body, x, use_reentrant=False, context_fn=lambda: (
-                    contextlib.nullcontext(), restore()))
+                x, aux = checkpoint(body, x, use_reentrant=False,
+                                    context_fn=_remat_contexts(remat, restore))
             else:
                 x, aux = body(x)
             aux_total = aux_total + aux
@@ -478,8 +513,8 @@ def check_tp(cfg: ModelConfig) -> None:
     """Refuse, when the active mesh's ``model`` axis is live, an
     attention that does not run at its TP size
     (``attention.heads_refusal``): heads the TP size does not divide
-    without ``attn_seq_shard``, and ``attn_seq_shard`` with the flash
-    kernel. Every family runs under TP, each of the ten architectures at
+    without ``attn_seq_shard`` (or in MLA). Every family runs under TP,
+    each of the ten architectures at
     TP = 2 (``NotImplementedError`` otherwise, before any collective)."""
     tp = hints.tp_size()
     mixers = {s.mixer for pattern, _ in cfg.layer_groups() for s in pattern}
@@ -629,11 +664,8 @@ def loss_fn_ranks(
                 return (*hs, a)
 
             if remat != "none" and torch.is_grad_enabled():
-                # the recompute runs in the backward, on the autograd
-                # engine's thread for a CUDA device: give it the mesh
-                # that names the expert-parallel group here
-                *xs, a = checkpoint(body, *xs, use_reentrant=False, context_fn=lambda: (
-                    contextlib.nullcontext(), restore()))
+                *xs, a = checkpoint(body, *xs, use_reentrant=False,
+                                    context_fn=_remat_contexts(remat, restore))
             else:
                 *xs, a = body(*xs)
             aux = aux + a

@@ -30,8 +30,11 @@ batch, and ``cache_pspecs`` splits the decode cache's slots over
 ``data`` instead (sequence parallelism). Inside :func:`replicated_batch`
 no statistic of the global batch is reduced over the DP axes
 (:func:`global_dp_group` is ``None``: a rank's batch is the global one),
-and :func:`seq_group` names the group over which the cache's slots are
-split, which the decode's softmax is combined over.
+and :func:`seq_group` names the group over which the cache's slots may
+be split, which the decode's softmax is combined over: ``cache_pspecs``
+splits a slot count divisible by 16 and leaves any other whole on every
+rank (``models.attention``). A decode reads which from the cache's
+positions that :func:`replicated_batch` names (:func:`replicated_max_seq`).
 
 Logical axis vocabulary:
 * ``BATCH``  -> ``("pod", "data")``  (data parallel, pods included)
@@ -55,8 +58,9 @@ AxisLike = str | tuple[str, ...] | None
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh", default=None)
 _MANUAL: contextvars.ContextVar = contextvars.ContextVar("repro_torch_manual", default=())
+# the decode cache's positions inside replicated_batch, else None
 _REPLICATED: contextvars.ContextVar = contextvars.ContextVar("repro_torch_replicated",
-                                                            default=False)
+                                                            default=None)
 
 
 def dp_axes(axis_names) -> tuple[str, ...]:
@@ -139,14 +143,17 @@ def manual_axis_names() -> tuple[str, ...]:
 
 
 @contextlib.contextmanager
-def replicated_batch():
+def replicated_batch(max_seq: int):
     """Inside the block every rank holds the whole global batch,
     replicated over the DP axes (a decode cell whose token spec is
     ``P()``: ``long_500k``), so :func:`global_dp_group` reduces nothing
     over them, and a decode cache's slots are split over ``data``
-    (:func:`seq_group`), as ``cache_pspecs`` splits them at global batch
-    1."""
-    token = _REPLICATED.set(True)
+    (:func:`seq_group`) where ``cache_pspecs`` splits them at global
+    batch 1. ``max_seq``: the decode cache's positions (``init_cache``'s
+    ``max_seq``; a block that decodes no cache names its sequence
+    length), from which each layer takes its slot count and so whether
+    its cache is split (:func:`replicated_max_seq`)."""
+    token = _REPLICATED.set(int(max_seq))
     try:
         yield
     finally:
@@ -156,16 +163,23 @@ def replicated_batch():
 def batch_replicated() -> bool:
     """Whether the batch is replicated over the DP axes
     (:func:`replicated_batch`)."""
+    return _REPLICATED.get() is not None
+
+
+def replicated_max_seq() -> int | None:
+    """The decode cache's positions that :func:`replicated_batch` was
+    given, else ``None``."""
     return _REPLICATED.get()
 
 
 def seq_group():
     """The process group over which a decode cache's slots are split on
-    the active mesh (JAX's ``SEQ`` axis, ``data``): inside
-    :func:`replicated_batch` on a mesh whose ``data`` axis is live and
-    not Manual; else ``None`` (the rank holds every slot)."""
+    the active mesh (JAX's ``SEQ`` axis, ``data``) where ``cache_pspecs``
+    splits them: inside :func:`replicated_batch` on a mesh whose ``data``
+    axis is live and not Manual; else ``None`` (the rank holds every
+    slot)."""
     mesh = concrete_mesh()
-    if (mesh is None or not _REPLICATED.get() or mesh.shape.get(SEQ, 1) == 1
+    if (mesh is None or _REPLICATED.get() is None or mesh.shape.get(SEQ, 1) == 1
             or SEQ in _MANUAL.get()):
         return None
     return mesh.group(SEQ)
@@ -180,7 +194,7 @@ def global_dp_group():
     :func:`manual_axes` of one, or inside :func:`replicated_batch`
     (the rank's batch is the global one)."""
     mesh = concrete_mesh()
-    if mesh is None or _REPLICATED.get():
+    if mesh is None or _REPLICATED.get() is not None:
         return None
     live = tuple(a for a in dp_axes(mesh.axis_names) if mesh.shape.get(a, 1) > 1)
     if not live or set(live) & set(_MANUAL.get()):

@@ -280,10 +280,13 @@ def _layer_tp_bytes(spec, cfg, tokens: int, tp: int, act_bytes: int, *, enc_toke
         fwd, bwd, mixer_out = fwd + f, bwd + b, 0 if decode else act
     elif spec.mixer == "gqa":
         kv_cols = cfg.num_kv_heads * cfg.resolved_head_dim
-        gather = cfg.num_kv_heads % tp != 0
-        # wo's all-reduce, the K/V gather; the input's grad, the gathered K/V's
+        whole = kv_cols % tp != 0  # param_pspecs leaves wk/wv whole
+        gather = cfg.num_kv_heads % tp != 0 and not whole
+        # wo's all-reduce, the K/V gather; the input's grad, the gathered
+        # K/V's, whole K/V weights' (and biases') grads
         fwd += act + gather * 2 * tokens * (kv_cols // tp) * act_bytes
         bwd += act + gather * 2 * tokens * kv_cols * act_bytes
+        bwd += whole * 2 * (cfg.d_model + cfg.qkv_bias) * kv_cols * act_bytes
         mixer_out = act
     elif spec.mixer == "mla":
         # wo's all-reduce; the grads of wq's input and of c/k_rope
@@ -410,7 +413,9 @@ def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1,
     the vocab is split, the embedding's all-reduce (not for a vlm
     prompt's precomputed embeddings) and the gather of the
     f32 last-token logits (each rank sends its ``batch × V/tp``
-    block). With ``slot_split`` > 1 (a decode step whose cache's slots
+    block). Where a rank's block of ``d_inner`` cuts a head, each
+    Mamba-2 layer's gather of its channels of the new state. With
+    ``slot_split`` > 1 (a decode step whose cache's slots
     are split over that many ``data`` ranks: ``long_500k``), each
     attention layer's softmax combine too: two ``(batch, H)`` f32
     reductions and one of the weighted values, ``(batch, H, Dh)`` f32
@@ -429,6 +434,13 @@ def modeled_tp_serve_bytes(cfg, batch: int, seq: int, tp: int, *, dp: int = 1,
         fwd += sum(reps * sum(_layer_tp_bytes(spec, cfg, enc_tokens, tp, act_bytes)[0]
                               for spec in pattern)
                    for pattern, reps in _encoder_groups(cfg))
+    d_in = cfg.d_inner // tp
+    if tp > 1 and cfg.d_inner % tp == 0 and d_in % cfg.ssm_headdim:
+        # a block that cuts a head: each Mamba-2 layer's new state, the
+        # rank's channels of it, all-gathered (f32)
+        layers = sum(reps * sum(s.mixer == "mamba" for s in pattern)
+                     for pattern, reps in cfg.layer_groups())
+        fwd += layers * batch * cfg.ssm_state * d_in * 4
     if tp > 1 and cfg.vocab_size % tp == 0:
         embeds = cfg.family == "vlm" and seq > 1  # a vlm prompt comes as embeddings
         fwd += (not embeds) * tokens * cfg.d_model * act_bytes

@@ -367,7 +367,10 @@ def ep_case(mesh, device) -> dict:
     """Expert parallelism over ``data`` under a live ``model`` axis, f32
     compute: the ``moe_ep_dispatch`` route of one MoE layer on this
     rank's rows of :func:`ep_inputs` (its experts' ``param_pspecs``
-    block), its output and aux loss, the EP bytes it sent; the bytes the
+    block), its output and aux loss, the EP bytes it sent; the same
+    layer on all of the rows, replicated on every rank
+    (``hints.replicated_batch``: each data rank runs its block of them
+    and the blocks are gathered); the bytes the
     smoke model's grad function sends (the forward's exchanges, the
     remat'd recompute's and the backward's transposes); and the
     ``moe-ep`` decode cell on ``mesh`` (tokens, cache gathered, EP
@@ -395,6 +398,11 @@ def ep_case(mesh, device) -> dict:
         cwd.wire_counter.reset()
         y, aux = M.moe_apply(params, x, cfg)
         out["layer"] = {"out": _np(y), "aux": float(aux), "ep_bytes": cwd.wire_counter.bytes}
+        cwd.wire_counter.reset()
+        with hints.replicated_batch(x_np.shape[1]):
+            y, aux = M.moe_apply(params, torch.from_numpy(x_np).to(device), cfg)
+        out["replicated"] = {"out": _np(y), "aux": float(aux),
+                             "ep_bytes": cwd.wire_counter.bytes}
 
     # the smoke model's grads on the rank's rows, the DP axes Manual (the
     # Torrent step's grad function): the EP exchanges alone
@@ -507,7 +515,8 @@ def refusals(mesh, device) -> dict:
     runs), and
     qwen2-vl's prefill, raise with on ``mesh`` (a live ``model`` axis);
     ``None`` where it runs; and ``attn_seq_shard`` with the flash
-    kernel (``seq_flash``)."""
+    kernel (``seq_flash``), whose f32 loss on a seeded batch is kept
+    beside TP = 1's (``seq_flash_loss``, ``seq_flash_loss_tp1``)."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
     from repro_torch.parallel import hints
@@ -541,6 +550,17 @@ def refusals(mesh, device) -> dict:
             out[name] = None
         except NotImplementedError as e:
             out[name] = str(e)
+    # the flash kernel under attn_seq_shard on a seeded batch, and at TP = 1
+    cfg = cases["seq_flash"]
+    full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
+    params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)).to(device)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    with compute_dtype(torch.float32), torch.no_grad():
+        with hints.set_mesh(mesh):
+            out["seq_flash_loss"] = float(T.loss_fn(params, cfg, batch, loss_chunks=1)[0])
+        out["seq_flash_loss_tp1"] = float(T.loss_fn(full, cfg, batch, loss_chunks=1)[0])
     # qwen2-vl's prefill on the rank's shards
     cfg = C.get_smoke_config("qwen2-vl-7b")
     full = T.model_init(torch.Generator().manual_seed(0), cfg, device)

@@ -30,11 +30,17 @@ LOSS_CHUNKS = 2
 # the edge configs, each from an arch's smoke config, with port-drawn
 # params: the rowwise MoE dispatch; 6 experts (whole at TP = 4, 3 a rank
 # at TP = 2; the shared experts' 64 columns split at both); d_inner = 126
-# in heads of 7 (whole at TP = 4, 9 heads a rank at TP = 2)
+# in heads of 7 (whole at TP = 4, 9 heads a rank at TP = 2); Mamba-2
+# heads of 64 (2 in d_inner = 128: one a rank at TP = 2, half of one at
+# TP = 4, where param_pspecs' split cuts a head); one KV head of 6
+# (K/V columns split at TP = 2, whole at TP = 4, where param_pspecs
+# leaves wk/wv whole: 4 does not divide 6)
 EDGES = {
     "moe_rowwise": ("deepseek-moe-16b", dict(moe_row_dispatch=True)),
     "experts_6": ("deepseek-moe-16b", dict(num_experts=6)),
     "d_inner_126": ("mamba2-2.7b", dict(d_model=63, ssm_headdim=7)),
+    "ssm_head_64": ("mamba2-2.7b", dict(ssm_headdim=64)),
+    "kv_cols_6": ("yi-6b", dict(num_kv_heads=1, head_dim=6)),
 }
 # qwen2-vl (embeddings at M-RoPE positions, qkv biases) and whisper (its
 # encoder, cross-attention and GeLU FFNs; the smoke vocab of 256 splits,
@@ -249,27 +255,6 @@ def card_world(rank: int, world: int, device) -> dict:
             "coord": mesh.coords["model"], "moe": moe_case(mesh, device)}
 
 
-def refusals(mesh, device) -> dict:
-    """The message a head-cutting ``d_inner`` split raises with on
-    ``mesh``, or ``None`` where the forward runs."""
-    from repro_torch import configs as C
-    from repro_torch.models import transformer as T
-    from repro_torch.parallel import hints
-    from repro_torch.parallel import sharding as shd
-
-    tp = mesh.shape["model"]
-    cfg = dataclasses.replace(C.get_smoke_config("mamba2-2.7b"), ssm_headdim=64)
-    full = T.model_init(torch.Generator().manual_seed(0), cfg, device)
-    params = shd.shard_tree(full, shd.param_pspecs(full, cfg, tp=tp), mesh)
-    toks = torch.zeros((2, 8), dtype=torch.int32, device=device)
-    try:
-        with hints.set_mesh(mesh):
-            T.loss_fn(params, cfg, {"tokens": toks, "labels": toks}, loss_chunks=1)
-        return {"cut_head": None}
-    except NotImplementedError as e:
-        return {"cut_head": str(e)}
-
-
 def _cases(mesh, params_np: dict, device, fixed: bool = True) -> dict:
     """Every arch's and every edge config's :func:`family_case` on
     ``mesh`` (the edges' first-step grads only), with ``fixed`` those of
@@ -284,14 +269,12 @@ def _cases(mesh, params_np: dict, device, fixed: bool = True) -> dict:
 
 def world4_rank(rank: int, world: int, device, params_np: dict) -> dict:
     """(data=1, model=4) and (data=2, model=2) on 4 ranks: the family
-    cases on both meshes, the gated norm over both model groups, and the
-    head-cutting split at TP = 4."""
+    cases on both meshes and the gated norm over both model groups."""
     from repro_torch.launch.mesh import make_process_mesh
 
     meshes = {"1x4": make_process_mesh(model=4), "2x2": make_process_mesh(data=2, model=2)}
     out = {"mesh": {k: mesh_info(m) for k, m in meshes.items()},
-           "norm": {k: norm_case(m.group("model")) for k, m in meshes.items()},
-           "refusals": refusals(meshes["1x4"], device)}
+           "norm": {k: norm_case(m.group("model")) for k, m in meshes.items()}}
     out["cases"] = {k: _cases(m, params_np, device) for k, m in meshes.items()}
     return out
 
@@ -306,7 +289,6 @@ def world2_rank(rank: int, world: int, device, params_np: dict, root: str) -> di
 
     mesh = make_process_mesh(model=2)
     out = {"mesh": mesh_info(mesh), "norm": {"1x2": norm_case(mesh.group("model"))},
-           "refusals": refusals(mesh, device),
            "cases": {"1x2": _cases(mesh, params_np, device, fixed=False)}}
     out["trainer"] = {}
     for arch in ARCHS:

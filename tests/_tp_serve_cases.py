@@ -23,10 +23,14 @@ ARCHS = ("yi-6b", "llama3-8b", "h2o-danube-1.8b", "starcoder2-3b", "deepseek-moe
          "deepseek-v2-lite-16b", "mamba2-2.7b", "jamba-v0.1-52b")
 LAYERS = {"jamba-v0.1-52b": 5}
 # edge configs: a window of 18 below MAX_SEQ, whose ring buffer wraps
-# during decode (the smoke window of 8 wraps at prefill already), and
-# the absorbed MLA decode
+# during decode (the smoke window of 8 wraps at prefill already), the
+# absorbed MLA decode, Mamba-2 heads of 64 (TP = 4 cuts each of the 2
+# heads: the rank's channels of the state, gathered into the whole
+# state every rank holds) and one KV head of 6 (wk/wv whole at TP = 4)
 EDGES = {"h2o_window_18": ("h2o-danube-1.8b", dict(sliding_window=18)),
-         "mla_absorb": ("deepseek-v2-lite-16b", dict(mla_absorb=True))}
+         "mla_absorb": ("deepseek-v2-lite-16b", dict(mla_absorb=True)),
+         "ssm_head_64": ("mamba2-2.7b", dict(ssm_headdim=64)),
+         "kv_cols_6": ("yi-6b", dict(num_kv_heads=1, head_dim=6))}
 NAMES = ARCHS + tuple(EDGES)
 # the archs with flat-dispatch MoE layers: over a live data axis their
 # capacity is the global batch's, so a DP rank's TP = 1 reference is the
@@ -61,15 +65,21 @@ SMOKE_SHAPES = {"prefill_smoke": ("prefill", 16, 2), "decode_smoke": ("decode", 
                 "long_smoke": ("decode", 64, 1)}
 # long_500k at smoke size: one sequence (replicated on every rank), its
 # cache's LONG_SLOTS slots split over data (a count divisible by 16, as
-# cache_pspecs needs to split it)
+# cache_pspecs needs to split it; a window of 24 slots stays whole on
+# every rank)
 LONG_SHAPE = "long_smoke"
 LONG_SLOTS = SMOKE_SHAPES[LONG_SHAPE][1]
 # the long-context configs decoded from a seeded whole cache: jamba (its
 # GQA layer, its flat MoE under the one replicated token), h2o-danube
-# with a window of 32 (a ring buffer), deepseek-v2-lite's MLA and
-# mamba2 (nothing split over data)
-LONG_EDGES = {"h2o_window_32": ("h2o-danube-1.8b", dict(sliding_window=32))}
-LONG_NAMES = ("jamba-v0.1-52b", "h2o_window_32", "deepseek-v2-lite-16b", "mamba2-2.7b")
+# with a window of 32 (a ring buffer) and of 24 (a slot count that
+# cache_pspecs leaves whole: every rank decodes the whole cache),
+# deepseek-v2-lite's MLA and mamba2 (nothing split over data); each also
+# prefills LONG_PROMPT tokens into its cache's blocks
+LONG_EDGES = {"h2o_window_32": ("h2o-danube-1.8b", dict(sliding_window=32)),
+              "h2o_window_24": ("h2o-danube-1.8b", dict(sliding_window=24))}
+LONG_NAMES = ("jamba-v0.1-52b", "h2o_window_32", "h2o_window_24", "deepseek-v2-lite-16b",
+              "mamba2-2.7b")
+LONG_PROMPT = 40  # past both windows: the prefill's ring wraps
 LONG_MESHES = ("1x2", "2x1", "2x2")
 LONG_CELL_ARCHS = ("mamba2-2.7b", "jamba-v0.1-52b", "h2o-danube-1.8b")  # long_500k's archs
 # cells once refused on a ProcessMesh and what each does now: the arch,
@@ -488,6 +498,18 @@ def long_positions(name: str) -> tuple[int, ...]:
     return (0, last, slots + last - slots // 2)  # wrapped into rank 0's block
 
 
+def long_slots(name: str) -> int:
+    """The slots of ``name``'s GQA or MLA decode cache at LONG_SLOTS
+    positions."""
+    cfg = config(name)
+    return min(LONG_SLOTS, cfg.sliding_window) if cfg.sliding_window else LONG_SLOTS
+
+
+def long_prompt(vocab: int) -> np.ndarray:
+    """The (1, LONG_PROMPT) prompt a long-context config prefills."""
+    return np.random.default_rng(6).integers(0, vocab, (1, LONG_PROMPT)).astype(np.int32)
+
+
 def long_cache(name: str) -> list[np.ndarray]:
     """The seeded whole decode cache of ``name`` (one row, LONG_SLOTS
     positions): each leaf's values, bf16 leaves rounded to bf16 (as f32
@@ -506,12 +528,16 @@ def long_case(mesh, name: str, params_np: dict, cache_np: list, device) -> dict:
     """The one-token decode of ``name`` from its seeded whole cache
     (``cache_np``) at each of :func:`long_positions`, in f32 compute: on
     this rank's shards and its block of the cache placed by
-    ``cache_pspecs`` of the long shape (slots over ``data``), under
-    ``hints.replicated_batch`` (as ``build_cell``'s long_500k step runs),
-    and on the whole params and cache with no mesh (``ref``). Returns
-    per position the logits, the greedy token, the new cache gathered
-    (``gather_cache``), the model group's payload and the token counts
-    the MoE capacity was taken for; the placed leaves' shapes."""
+    ``cache_pspecs`` of the long shape (slots over ``data`` where their
+    count divides by 16, else whole), under ``hints.replicated_batch``
+    (as ``build_cell``'s long_500k step runs), and on the whole params
+    and cache with no mesh (``ref``). Returns per position the logits,
+    the greedy token, the new cache gathered (``gather_cache``), the
+    model group's payload and the token counts the MoE capacity was
+    taken for; the placed leaves' shapes; and the prefill of
+    :func:`long_prompt` under the replicated batch (``prefill``: its
+    logits, its cache's leaves' shapes and the cache gathered) and with
+    no mesh (``ref_prefill``)."""
     from repro_torch import configs as C
     from repro_torch.configs.shapes import Shape
     from repro_torch.models import moe as M
@@ -544,6 +570,13 @@ def long_case(mesh, name: str, params_np: dict, cache_np: list, device) -> dict:
 
     out = {"ref": {}}
     with torch.no_grad(), compute_dtype(torch.float32):
+        prompt = {"tokens": torch.from_numpy(long_prompt(cfg.vocab_size)).to(device)}
+        logits, cache = T.prefill(whole_params, cfg, prompt, LONG_SLOTS)
+        out["ref_prefill"] = {"logits": _np(logits), "cache": _leaves_np(cache)}
+        with hints.set_mesh(mesh), hints.replicated_batch(LONG_SLOTS):
+            logits, cache = T.prefill(params, cfg, prompt, LONG_SLOTS)
+        out["prefill"] = {"logits": _np(logits), "shapes": [tuple(x.shape) for x in leaves(cache)],
+                          "cache": _leaves_np(shd.gather_cache(cache, specs, cfg, mesh))}
         for pos in long_positions(name):
             p = torch.tensor(pos, dtype=torch.int32)
             logits, cache = T.decode_step(whole_params, cfg, tok, p, whole())
@@ -553,7 +586,7 @@ def long_case(mesh, name: str, params_np: dict, cache_np: list, device) -> dict:
             seen.clear()
             M.capacity = recording
             try:
-                with hints.set_mesh(mesh), hints.replicated_batch():
+                with hints.set_mesh(mesh), hints.replicated_batch(LONG_SLOTS):
                     logits, placed = T.decode_step(params, cfg, tok, p, placed)
             finally:
                 M.capacity = capacity
@@ -561,7 +594,8 @@ def long_case(mesh, name: str, params_np: dict, cache_np: list, device) -> dict:
                         "logits": _np(logits), "token": int(logits.argmax(-1)[0]),
                         "cache": _leaves_np(shd.gather_cache(placed, specs, cfg, mesh))}
         out["placed_shapes"] = [tuple(x.shape) for x in leaves(placed)]
-        out["modeled"] = modeled_tp_serve_bytes(cfg, 1, 1, tp, slot_split=dp)
+        split = dp if long_slots(name) % 16 == 0 else 1  # cache_pspecs' rule
+        out["modeled"] = modeled_tp_serve_bytes(cfg, 1, 1, tp, slot_split=split)
     out["cache_keys"] = [k for k in _cache_keys(like)]
     return out
 

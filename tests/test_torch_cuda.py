@@ -268,6 +268,53 @@ def test_flash_wgmma_at_tp_rank_shapes(cuda, B, H, Hkv, S, D):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# a sequence-sharded rank's flash call (attn_seq_shard): (B, H, Hkv,
+# Sk, Sq, D, causal, window, blocks, offsets) — whisper-tiny at TP = 4
+# (6 heads, D = 64): the decoder's causal 112 of 448 rows and the
+# encoder's non-causal 375 of 1500 frames, at offsets 0 and 3·Sk/4;
+# starcoder2-3b's windowed GQA at TP = 16 (24 heads on 2 KV heads,
+# D = 128, window 4096): 256 of 4096 rows at offsets 0, 2048 and 3840;
+# qwen2-vl-7b under attn_seq_shard at TP = 2 (4 prompts, 28 heads on 4
+# KV heads, D = 128): 256 of 512 rows at offsets 0 and 256
+OFFSET_SHAPES = {
+    "whisper_dec_tp4": (1, 6, 6, 448, 112, 64, True, None, (448, 448), (0, 336)),
+    "whisper_enc_tp4": (1, 6, 6, 1500, 375, 64, False, None, (500, 500), (0, 1125)),
+    "starcoder2_tp16": (1, 24, 2, 4096, 256, 128, True, 4096, (512, 512), (0, 2048, 3840)),
+    "qwen2vl_seq_tp2": (4, 28, 4, 512, 256, 128, True, None, (512, 512), (0, 256)),
+}
+# an offset block against the plain twin: |err| <= tol · the largest
+# |output| of its row (bf16: 2.5 ulps of it; a row averaging thousands
+# of keys has outputs near 0.02, where a fixed atol would pass a
+# diagonal one tile off)
+OFFSET_ROW_TOL = {_BF16: 2e-2, torch.float32: 1e-3}
+
+
+@pytest.mark.parametrize("name", list(OFFSET_SHAPES))
+@pytest.mark.parametrize("dtype", [_BF16, torch.float32])
+def test_flash_query_offset_matches_plain_and_whole_rows(cuda, name, dtype):
+    """Both routes with ``Sq != Sk`` and ``q_offset`` at the shapes a
+    sequence-sharded rank gives them: each block against the plain twin
+    within ``OFFSET_ROW_TOL`` of its rows' scale, and equal to the
+    matching rows of the whole-sequence kernel call; the offset counter
+    moves once a block."""
+    B, H, Hkv, Sk, Sq, D, causal, window, blocks, offsets = OFFSET_SHAPES[name]
+    q, k, v = (torch.randn((B, h, Sk, D), device=cuda).to(dtype) for h in (H, Hkv, Hkv))
+    kw = dict(causal=causal, window=window, block_q=blocks[0], block_k=blocks[1])
+    whole = FA.flash_attention(q, k, v, **kw)
+    tol = OFFSET_ROW_TOL[dtype]
+    for off in offsets:
+        qb = q[:, :, off:off + Sq].contiguous()
+        before = FA.flash_attention.offset_launches
+        got = FA.flash_attention(qb, k, v, q_offset=off, **kw)
+        want = FA.flash_attention_plain(qb, k, v, q_offset=off, **kw)
+        torch.cuda.synchronize()
+        assert FA.flash_attention.offset_launches == before + 1
+        assert got.shape == qb.shape and got.dtype == dtype and torch.isfinite(got).all()
+        err = (got.float() - want.float()).abs()
+        assert (err <= tol * want.float().abs().amax(-1, keepdim=True)).all(), float(err.max())
+        assert torch.equal(got, whole[:, :, off:off + Sq])
+
+
 @pytest.mark.parametrize("S,causal,window", [(160, True, None), (333, True, 48),
                                              (449, False, None)])
 @pytest.mark.parametrize("dtype", [_BF16, torch.float16])

@@ -398,20 +398,23 @@ def test_tf32x3_pair_scores_are_bit_identical(D):
     assert torch.equal((s0 + s1).view(torch.int32), (s1 + s0).view(torch.int32))
 
 
-@pytest.mark.parametrize("impl", ["reference", "chunked"])
+@pytest.mark.parametrize("impl", ["reference", "chunked", "flash"])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 5), (False, None)])
 def test_query_offset_is_a_block_of_the_full_result(impl, causal, window):
     """``q_offset`` (the sequence-sharded attention's query block): the
-    plain attentions on query rows ``[start, stop)`` of a sequence, with
-    K/V of all of it, equal rows ``[start, stop)`` of the full result
-    within 1e-6 (f32), for uneven and empty blocks; the chunked form
-    with a chunk (5) that does not divide the 12 keys."""
+    plain attentions and the flash wrapper (its plain twin here) on
+    query rows ``[start, stop)`` of a sequence, with K/V of all of it,
+    equal rows ``[start, stop)`` of the full result within 1e-6 (f32),
+    for uneven and empty blocks; the chunked form with a chunk (5) that
+    does not divide the 12 keys."""
     rng = np.random.default_rng(11)
     q = torch.from_numpy(rng.standard_normal((2, 4, 12, 8)).astype(np.float32))
     k, v = (torch.from_numpy(rng.standard_normal((2, 2, 12, 8)).astype(np.float32))
             for _ in range(2))
 
     def attend(qb, offset):
+        if impl == "flash":
+            return TF.flash_attention(qb, k, v, causal=causal, window=window, q_offset=offset)
         if impl == "chunked":
             return t_chunked(qb, k, v, causal=causal, window=window, chunk=5, q_offset=offset)
         return t_ref(qb, k, v, causal=causal, window=window, q_offset=offset)
@@ -421,3 +424,46 @@ def test_query_offset_is_a_block_of_the_full_result(impl, causal, window):
         part = attend(q[:, :, start:stop], start)
         np.testing.assert_allclose(part.numpy(), full[:, :, start:stop].numpy(), atol=1e-6,
                                    rtol=0)
+
+
+# (Sk, Sq, offsets, causal, window, blocks): a sequence-sharded rank's
+# query block against the whole sequence's keys — whisper's decoder
+# (causal) and encoder (non-causal, blocks that divide 60 frames but not
+# the rank's 15), a window that cuts inside a block, GQA; the offsets
+# include blocks that do not start on a 64-row tile or a block boundary
+OFFSET_CASES = [
+    (64, 16, (0, 16, 48), True, None, (512, 512)),
+    (60, 15, (0, 45), False, None, (20, 20)),
+    (96, 24, (0, 40, 72), True, 20, (32, 32)),
+    (96, 24, (8, 72), False, 30, (48, 48)),
+]
+
+
+@pytest.mark.parametrize("Sk,Sq,offsets,causal,window,blocks", OFFSET_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_query_offset_matches_jax_rows(Sk, Sq, offsets, causal, window, blocks,
+                                                   dtype):
+    """The plain twin with ``Sq != Sk`` and ``q_offset`` against the
+    matching rows of the JAX package's ``attention_ref`` on the whole
+    sequence (6 query heads on 2 KV heads, D = 16, seeded numpy inputs):
+    f32 within 1e-5, bf16 within 3e-2 (the module's tolerances)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 6, 2, Sk, 16, seed=5, dtype=dtype)
+    whole = np.asarray(j_ref(jq, jk, jv, causal=causal, window=window).astype(jnp.float32))
+    for off in offsets:
+        got = TF.flash_attention_plain(tq[:, :, off:off + Sq].contiguous(), tk, tv,
+                                       causal=causal, window=window, block_q=blocks[0],
+                                       block_k=blocks[1], q_offset=off)
+        assert got.shape == (2, 6, Sq, 16) and got.dtype == tq.dtype
+        _close(got, whole[:, :, off:off + Sq], BF16_TOL if dtype == "bfloat16" else F32_TOL)
+
+
+def test_flash_query_offset_keeps_the_whole_sequences_contract():
+    """The offset call's blocks divide the whole sequence (the JAX
+    entry's call on it), not the rank's rows; rows past the keys
+    raise."""
+    _, (q, k, v) = _qkv(1, 2, 2, 60, 16)
+    TF.flash_attention(q[:, :, 45:], k, v, block_q=20, block_k=20, q_offset=45)
+    with pytest.raises(ValueError, match="divisible"):
+        TF.flash_attention(q[:, :, 45:], k, v, block_q=16, block_k=20, q_offset=45)
+    with pytest.raises(ValueError, match="rows"):
+        TF.flash_attention(q[:, :, 45:], k, v, block_q=20, block_k=20, q_offset=50)

@@ -454,6 +454,72 @@ def test_model_loss_aux_and_grads_match_jax(model, bf16_norm, monkeypatch):
         assert (a * g).sum() / np.sqrt((a * a).sum() * (g * g).sum()) >= 0.999
 
 
+def test_stacked_xla_step_takes_the_global_capacity_like_jax(model, monkeypatch):
+    """The stacked view's ``collectives="xla"`` step at DP = 2 on a
+    capacity that drops assignments (``capacity_factor=0.5``: 16 slots an
+    expert for the batch's 256 assignments) against JAX's xla step: the
+    loss, the aux loss, the grad norm and every grad. JAX's xla step is
+    GSPMD's function of the whole batch — ``value_and_grad(loss_fn)``
+    (``repro.launch.steps:178-193``), whatever the mesh's size — so its
+    capacity, positions and aux loss are the global batch's, and so are
+    the port's. Routing is pinned to JAX's; the tolerances are
+    :func:`test_model_loss_aux_and_grads_match_jax`'s. Each rank's own
+    capacity would give another aux loss (asserted, so the case tells
+    the two apart)."""
+    from repro.launch import steps as JS
+    from repro.launch.mesh import make_host_mesh as jax_host_mesh
+    from repro.optim import adamw as JA
+    from repro_torch.launch import steps as TS
+
+    jp, _ = model
+    jcfg, tcfg = _cfgs(capacity_factor=0.5)
+    b = JD.MarkovSource(jcfg.vocab_size, 32, 4, seed=1).batch(0)
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    seen = record_jax_routing(monkeypatch)
+    (jl, jm), jg = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, jb, remat="none", loss_chunks=4), has_aux=True)(jp)
+    jax.effects_barrier()
+    assert len(seen) == 2
+    experts = [torch.from_numpy(np.array(e, np.int64)) for _, e in seen]
+    load = torch.bincount(experts[0].reshape(-1), minlength=jcfg.num_experts)
+    assert int(load.max()) > TM.capacity(tcfg, 4 * 32)  # assignments are dropped
+    opt = dict(peak_lr=1e-2, warmup_steps=1)
+    with jax.set_mesh(jax_host_mesh(model=1)):
+        step = JS.make_train_step(jcfg, JA.OptConfig(**opt), remat="none", collectives="xla",
+                                  loss_chunks=4)
+        _, _, jsm = jax.jit(step)(jp, JA.init(jp), jb)
+    jax.effects_barrier()
+    seen = seen[:2]  # the step's own routing calls follow
+    assert abs(float(jsm["loss"]) - float(jl)) < 1e-3  # jit and eager round apart
+    got = []
+    update = TS.adamw.update
+    monkeypatch.setattr(TS.adamw, "update", lambda c, g, *a, **k: got.append(g) or update(
+        c, g, *a, **k))
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    p = params_from_numpy(jax.device_get(jp), "cpu")
+    with routing_as(experts) as flips:
+        _, _, tm = TS.make_train_step(tcfg, TA.OptConfig(**opt), remat="none", collectives="xla",
+                                      mesh=make_host_mesh(data=2), loss_chunks=4)(
+            p, TA.init(p), tb)
+    margins = flip_margins(seen, flips)
+    assert all(m <= NEAR_TIE for m in margins), margins
+    assert abs(float(jsm["aux"]) - float(tm["aux"])) <= 1e-3 * float(jsm["aux"])
+    assert abs(float(jsm["loss"]) - float(tm["loss"])) < 1e-3
+    assert abs(float(jsm["grad_norm"]) - float(tm["grad_norm"])) <= 1e-2 * float(
+        jsm["grad_norm"])
+    (tg,) = got
+    for a, g in zip(jax.tree.leaves(jg), leaves(tg)):
+        a, g = np.asarray(a, np.float64), g.double().numpy()
+        assert a.shape == g.shape and np.isfinite(g).all()
+        assert np.abs(a - g).max() <= 5e-2 * np.abs(a).max()
+        assert (a * g).sum() / np.sqrt((a * a).sum() * (g * g).sum()) >= 0.999
+    # each rank's own capacity and aux loss: what the step no longer takes
+    halves = [{k: v[r * 2:(r + 1) * 2] for k, v in tb.items()} for r in range(2)]
+    with routing_as([e.reshape(2, -1, e.shape[-1])[r] for r in range(2) for e in experts]):
+        own = [make_grad_fn(tcfg, remat="none", loss_chunks=4)(p, h)[1]["aux"] for h in halves]
+    assert abs(float(sum(own)) / 2 - float(jm["aux"])) > 1e-2 * float(jm["aux"])
+
+
 def test_ep_training_with_dp_raises(model, monkeypatch, tmp_path):
     """EP inside the train step: with DP 4, ``make_train_step`` (torrent
     and xla) and the ``Trainer`` run the ranks in one forward whose MoE

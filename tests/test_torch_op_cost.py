@@ -394,27 +394,25 @@ def _jax_phases(items) -> dict[str, float]:
 TRAIN_PHASES = {
     "yi-6b": ({"forward": 25165824, "recompute": 2097152, "backward": 50331648,
                "convolution": 0},
-              {"forward": 25165824, "recompute": 16777216, "backward": 50331648}),
+              {"forward": 25165824, "recompute": 2097152, "backward": 50331648}),
     "mamba2-2.7b": ({"forward": 19922944, "recompute": 2097152, "backward": 39911424,
                      "convolution": 34991104},
-                    {"forward": 19922944, "recompute": 11534336, "backward": 39845888}),
+                    {"forward": 19922944, "recompute": 2097152, "backward": 39845888}),
 }
 
 
 @pytest.mark.parametrize("arch", sorted(TRAIN_PHASES))
 def test_train_cell_dot_flops_against_jax(arch, smoke_shapes):
-    """The train cells' dot FLOPs differ from JAX's (yi-6b: 92,274,688
-    against 77,594,624, 1.19x; mamba2-2.7b: 71,303,168 against
-    61,931,520 plus 34,991,104 in ``convolution``), and the difference is
-    the remat, op by op:
+    """The train cells' dot FLOPs equal JAX's phase by phase, the remat's
+    recompute included (yi-6b: 77,594,624 in both; mamba2-2.7b:
+    61,865,984 against JAX's 61,931,520 plus 34,991,104 in
+    ``convolution``):
 
     * the forward's dots are equal;
-    * ``remat="dots"`` in JAX saves every dot without batch dims and
-      recomputes only the batched ones (attention's einsums, the SSD
-      chunk einsums: 2,097,152 in both); the port checkpoints whole
-      layers (``torch.utils.checkpoint``: the saved set differs, the
-      numbers do not), so its backward recomputes the layer's
-      projections too (16,777,216 and 11,534,336);
+    * ``remat="dots"`` saves every dot without batch dims and recomputes
+      only the batched ones (attention's einsums, the SSD chunk einsums:
+      2,097,152 in both) — JAX's ``checkpoint_dots_with_no_batch_dims``,
+      the port's selective checkpoint that saves ``mm``/``addmm``;
     * the backward proper is equal for yi-6b; for mamba2-2.7b JAX's has
       one more dot of 65,536 FLOPs (the grad of the three-operand
       chunk-state einsum ``bcqh,bcqhn,bcqhp->bchnp`` with respect to its

@@ -654,21 +654,26 @@ def test_tp_payload_bytes_match_their_model(spawned, mesh):
 def test_left_out_families_raise_naming_their_item(spawned, name):
     """Under a live model axis (TP = 2): the families once left out
     (qwen2-vl's M-RoPE, whisper's encoder-decoder) train, qwen2-vl
-    prefills and a MoE config with ``moe_ep_dispatch`` trains (EP over
-    the one-rank DP group composed with experts over ``model``)
-    (``None``: no refusal); a dense config whose heads the TP size does
-    not divide raises ``NotImplementedError`` naming ``attn_seq_shard``,
-    and ``attn_seq_shard`` with the flash kernel naming both (the kernel
-    takes no query offset)."""
+    prefills, a MoE config with ``moe_ep_dispatch`` trains (EP over the
+    one-rank DP group composed with experts over ``model``) and
+    ``attn_seq_shard`` with the flash kernel trains (each rank's block of
+    the query rows through the kernel's twin at the block's offset; it
+    once raised), its loss within 1e-5 of TP = 1's (``None``: no
+    refusal); a dense config whose heads the TP size does not divide
+    raises ``NotImplementedError`` naming ``attn_seq_shard``."""
     world4, (world2, _) = spawned
-    words = {"heads": ("num_heads=3", "attn_seq_shard"),
-             "seq_flash": ("attn_seq_shard", "flash", "query offset")}
+    words = {"heads": ("num_heads=3", "attn_seq_shard")}
     for r in world2:
         msg = r["refusals"][name]
         if name in words:
             assert msg is not None and all(w in msg for w in words[name]), msg
         else:
             assert msg is None, msg
+    if name == "seq_flash":
+        losses = {r["refusals"]["seq_flash_loss"] for r in world2}
+        assert len(losses) == 1  # every rank's loss is the whole batch's
+        want = world2[0]["refusals"]["seq_flash_loss_tp1"]
+        assert abs(losses.pop() - want) < 1e-5 * abs(want)
 
 
 # ---------------------------------------------------------------------------
@@ -1163,6 +1168,25 @@ def test_ep_layer_under_tp_matches_jax(spawned, jax_tp):
     for d in range(2):
         assert np.array_equal(world4[2 * d]["ep"]["layer"]["out"],
                               world4[2 * d + 1]["ep"]["layer"]["out"])
+
+
+def test_ep_on_replicated_rows_matches_jax(spawned, jax_tp):
+    """The same layer on all of its rows, replicated on every rank of
+    ``(2, 2)`` (``hints.replicated_batch``): JAX's ``shard_map`` splits
+    them over ``data``, and so does the port — each data rank runs its
+    block through the expert-parallel exchange and the blocks are
+    all-gathered — so every rank's output is within 1e-5 of the max of
+    JAX's on the whole batch, its aux loss equal to 1e-6, and the EP
+    bytes those of the rank's own rows (``layer``)."""
+    world4, _ = spawned
+    ref = jax_tp["ep"]
+    for out in world4:
+        got = out["ep"]["replicated"]
+        (y,) = got["out"]
+        assert y.shape == ref["out"].shape
+        assert _max_rel(y, ref["out"]) < EP_TOL
+        assert abs(got["aux"] - float(ref["aux"])) < 1e-6
+        assert got["ep_bytes"] == out["ep"]["layer"]["ep_bytes"] > 0
 
 
 def test_ep_payload_under_tp_matches_the_model(spawned):

@@ -409,15 +409,50 @@ def test_gated_norm_statistic_is_model_wide(runs, mesh):
 
 @pytest.mark.parametrize("tp", [2, 4])
 def test_split_that_cuts_a_head_raises(runs, tp):
-    """mamba2 with heads of 64 (2 of them in a d_inner of 128): at TP = 2
-    a rank holds one whole head and trains; at TP = 4 ``param_pspecs``
-    would split a head, and the forward raises ``NotImplementedError``
-    instead of running part of it."""
-    msg = (runs.world4[0] if tp == 4 else runs.world2[0])["refusals"]["cut_head"]
-    if tp == 2:
-        assert msg is None
-    else:
-        assert msg is not None and "cuts a head" in msg
+    """mamba2 with heads of 64 (2 of them in a d_inner of 128,
+    ``_tp_family_cases.EDGES["ssm_head_64"]``): at TP = 2 a rank holds
+    one whole head; at TP = 4 ``param_pspecs`` splits a head, each rank
+    holding 32 of its 64 channels — and the forward runs there too (it
+    once raised ``NotImplementedError``): each rank computes its
+    channels with the ``dt``/``A_log``/``D`` of the head they lie in,
+    and the first-step grads, gathered, are within 1e-5 of TP = 1's."""
+    name, mesh = "ssm_head_64", f"1x{tp}"
+    cfg = fc.edge_config(name)
+    for r in _ranks(runs, mesh):
+        got = r[name]
+        assert any(s[-1] == cfg.d_inner // tp for s in got["shard_shapes"])  # in_x/in_z columns
+        want, loss = runs.tp1[name][1][got["dp_index"]]
+        assert abs(got["loss0_f32"] - loss) < GRAD_F32_TOL * abs(loss)
+        for a, b in zip(got["grads_f32"], want):
+            assert _max_rel(a, b) < GRAD_F32_TOL
+
+
+@pytest.mark.parametrize("name", ["ssm_head_64", "kv_cols_6"])
+def test_edge_tp1_grads_match_jax(runs, name):
+    """The edges that once raised under TP: the port's TP = 1 loss and
+    grads (which the TP ranks are held to) against JAX's
+    ``value_and_grad(loss_fn)`` on the same params and batch, both
+    packages computing in f32: the loss within 1e-5, the grads within
+    1e-4 of each leaf's max (``tests/test_torch_mamba2.py``'s f32 bound
+    for the two packages; the sums run in other orders)."""
+    from repro.models import layers as JL
+
+    cfg = _jax_config(name)
+    params = fc.init_params(fc.edge_config(name))
+    batch = fc.batch(cfg.vocab_size)
+    like = jax.eval_shape(lambda: JT.model_init(jax.random.PRNGKey(0), cfg))
+    jp = jax.tree.unflatten(jax.tree.structure(like), leaves(params))
+    dtype = JL.COMPUTE_DTYPE
+    JL.COMPUTE_DTYPE = jax.numpy.float32
+    try:
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: JT.loss_fn(p, cfg, batch, loss_chunks=fc.LOSS_CHUNKS), has_aux=True)(jp)
+    finally:
+        JL.COMPUTE_DTYPE = dtype
+    want, tloss = runs.tp1[name][1][0]
+    assert abs(float(loss) - tloss) < GRAD_F32_TOL * abs(tloss)
+    for a, b in zip(want, jax.tree.leaves(grads)):
+        assert _max_rel(a, np.asarray(b)) < 1e-4
 
 
 # ---------------------------------------------------------------------------

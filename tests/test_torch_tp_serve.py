@@ -194,6 +194,11 @@ for name, base, changes, positions in {long_jobs!r}:
         out[f"long/{{name}}/{{pos}}/logits"] = np.asarray(logits)
         for i, x in enumerate(jax.tree.leaves(new)):
             out[f"long/{{name}}/{{pos}}/cache{{i}}"] = np.asarray(x, np.float32)
+    logits, new = jax.jit(lambda p, b, cfg=cfg: T.prefill(p, cfg, b, {LONG_SLOTS}))(
+        params, {{"tokens": jnp.asarray(d[f"long/{{name}}/prompt"])}})
+    out[f"long/{{name}}/prefill/logits"] = np.asarray(logits)
+    for i, x in enumerate(jax.tree.leaves(new)):
+        out[f"long/{{name}}/prefill/cache{{i}}"] = np.asarray(x, np.float32)
 L.COMPUTE_DTYPE = jnp.bfloat16  # traced after every thread has finished
 for key, cfg, mesh, psh, rows, csh, p, tok, cache in LATER:
     with jax.set_mesh(mesh):
@@ -254,6 +259,7 @@ def runs(run_multidevice, tmp_path_factory):
     long_jobs = []
     for name in sc.LONG_NAMES:
         inputs.update({f"long/{name}/c{i}": x for i, x in enumerate(caches[name])})
+        inputs[f"long/{name}/prompt"] = sc.long_prompt(sc.config(name).vocab_size)
         base, changes = sc.LONG_EDGES.get(name, (name, {}))
         if name in sc.LAYERS:
             changes = dict(changes, num_layers=sc.LAYERS[name])
@@ -779,30 +785,38 @@ def _long_ranks(runs, mesh: str) -> list[dict]:
     return [r["cases"][mesh]["long"] for r in (runs.world4 if mesh == "2x2" else runs.world2)]
 
 
+def _long_split(name: str, mesh: str) -> int:
+    """The data ranks over which ``cache_pspecs`` splits ``name``'s
+    slots on ``mesh``: its data size where the count divides by 16,
+    else 1 (the cache whole on every rank)."""
+    return SHAPES[mesh][0] if sc.long_slots(name) % 16 == 0 else 1
+
+
 @pytest.mark.parametrize("name", sc.LONG_NAMES)
 @pytest.mark.parametrize("mesh", sc.LONG_MESHES)
 def test_long_decode_matches_whole_cache_and_jax(runs, mesh, name):
     """One decode step of ``name`` on every rank of the mesh, its cache's
     slots split over ``data`` (``(2, 1)``, ``(2, 2)``; whole at
-    ``(1, 2)``) under ``hints.replicated_batch``, from the seeded whole
-    cache placed by ``cache_pspecs``, at position 0 (only slot 0, on
-    data rank 0, valid), at a position in the last data rank's block and
-    past the ring's wrap (GQA; MLA has no wrap): the logits within 1e-5
-    of the row's max of the port's decode on the whole cache and of
-    JAX's ``decode_step`` on it (both in f32 compute), the greedy token
-    equal, and the new cache gathered over the mesh (``gather_cache``)
-    equal to JAX's new cache by the prefill rule of the module docstring
-    (one bf16 rounding step a bf16 element, 1e-5 of the scale for the
-    SSM state). Each rank holds ``slots / data`` slots of each split
-    leaf."""
+    ``(1, 2)``, and whole everywhere for the window of 24 slots, which
+    ``cache_pspecs`` does not split) under ``hints.replicated_batch``,
+    from the seeded whole cache placed by ``cache_pspecs``, at position
+    0 (only slot 0, on data rank 0, valid), at a position in the last
+    data rank's block and past the ring's wrap (GQA; MLA has no wrap):
+    the logits within 1e-5 of the row's max of the port's decode on the
+    whole cache and of JAX's ``decode_step`` on it (both in f32
+    compute), the greedy token equal, and the new cache gathered over
+    the mesh (``gather_cache``) equal to JAX's new cache by the prefill
+    rule of the module docstring (one bf16 rounding step a bf16 element,
+    1e-5 of the scale for the SSM state). Each rank holds ``slots /
+    data`` slots of each split leaf."""
     j = runs.jax
-    dp = SHAPES[mesh][0]
+    split = _long_split(name, mesh)
     for r in _long_ranks(runs, mesh):
         got = r[name]
         keys = got["cache_keys"]
         for key, shape, whole in zip(keys, got["placed_shapes"], sc.long_cache(name)):
             if key in ("k", "v", "ckv", "krope"):
-                assert shape[2] * dp == whole.shape[2], (key, shape)
+                assert shape[2] * split == whole.shape[2], (key, shape)
         for pos in sc.long_positions(name):
             mine, ref = got[pos], got["ref"][pos]
             want = j[f"long/{name}/{pos}/logits"]
@@ -816,12 +830,39 @@ def test_long_decode_matches_whole_cache_and_jax(runs, mesh, name):
 
 @pytest.mark.parametrize("name", sc.LONG_NAMES)
 @pytest.mark.parametrize("mesh", sc.LONG_MESHES)
+def test_long_prefill_keeps_the_slot_blocks(runs, mesh, name):
+    """A prefill of ``sc.LONG_PROMPT`` tokens under
+    ``hints.replicated_batch`` on every rank of the mesh, where the
+    decode cache's slots are split over ``data``: the rank prefills the
+    whole replicated row and keeps its block of the cache's slots
+    (``cache_pspecs``' split), so the cache gathered over the mesh equals
+    the port's prefill with no mesh and JAX's ``prefill`` by the prefill
+    rule of the module docstring, and the logits are within 1e-5 of the
+    row's max of both (f32 compute)."""
+    j = runs.jax
+    split = _long_split(name, mesh)
+    for r in _long_ranks(runs, mesh):
+        got, ref = r[name]["prefill"], r[name]["ref_prefill"]
+        keys = r[name]["cache_keys"]
+        assert _rows_rel(got["logits"], ref["logits"]) < LONG_TOL
+        assert _rows_rel(got["logits"], j[f"long/{name}/prefill/logits"]) < LONG_TOL
+        for key, shape, whole in zip(keys, got["shapes"], ref["cache"]):
+            if key in ("k", "v", "ckv", "krope"):
+                assert shape[2] * split == whole.shape[2], (key, shape)
+        _caches_close(keys, got["cache"], ref["cache"], decoded=False)
+        _caches_close(keys, got["cache"],
+                      [j[f"long/{name}/prefill/cache{i}"] for i in range(len(keys))],
+                      decoded=False)
+
+
+@pytest.mark.parametrize("name", sc.LONG_NAMES)
+@pytest.mark.parametrize("mesh", sc.LONG_MESHES)
 def test_long_decode_payload_is_the_combine_and_no_moe_exchange(runs, mesh, name):
     """The payload a rank hands the collectives of a long-context decode
     step equals ``modeled_tp_serve_bytes(slot_split=data)``: the model
     group's, plus each attention layer's softmax combine over the slot
-    blocks (two ``(1, H)`` f32 reductions and one of ``(1, H, Dh)``),
-    and nothing for a MoE layer (jamba's flat MoE): under the replicated
+    blocks (two ``(1, H)`` f32 reductions and one of ``(1, H, Dh)``;
+    none where the slots stay whole), and nothing for a MoE layer (jamba's flat MoE): under the replicated
     token every capacity is taken for that one token (``capacity(cfg,
     1)``), with no exchange of counts over ``data``."""
     for r in _long_ranks(runs, mesh):
@@ -831,7 +872,7 @@ def test_long_decode_payload_is_the_combine_and_no_moe_exchange(runs, mesh, name
             assert all(t == 1 for t in got[pos]["capacity_tokens"]), pos
             if name == "jamba-v0.1-52b":
                 assert got[pos]["capacity_tokens"]
-    if SHAPES[mesh][0] > 1 and name != "mamba2-2.7b":
+    if _long_split(name, mesh) > 1 and name != "mamba2-2.7b":
         assert _long_ranks(runs, mesh)[0][name]["modeled"]["fwd"] > 0
 
 
